@@ -1,0 +1,63 @@
+"""Elementwise / norm / position-embedding primitives
+(torch twin of llava_align_tpu/ops/layers.py).
+
+Norms accumulate in float32 whatever the activation dtype, and return the
+input's dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """LLaMA RMSNorm: x * rsqrt(mean(x^2) + eps) * scale, fp32 accumulation."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
+) -> torch.Tensor:
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    normed = (x32 - mean) * torch.rsqrt(var + eps)
+    return (normed * scale.float() + bias.float()).to(x.dtype)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's activation: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """erf-based GELU (torch.nn.GELU default; the projector's activation)."""
+    return torch.nn.functional.gelu(x, approximate="none")
+
+
+def rope_cos_sin(
+    positions: torch.Tensor, head_dim: int, theta: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [..., S] int → cos, sin each [..., S, head_dim] float32
+    (HF LLaMA rotate_half convention)."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device)
+    inv_freq = 1.0 / (theta ** (exponent / head_dim))
+    freqs = positions.float()[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos(), emb.sin()
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, Dh]; cos/sin [B, S, Dh] → same shape/dtype as x."""
+    x32 = x.float()
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x32[..., half:], x32[..., :half]], dim=-1)
+    return (x32 * cos[..., None, :] + rotated * sin[..., None, :]).to(x.dtype)

@@ -30,5 +30,12 @@ except Exception:
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); skips elsewhere",
+    )
+
+
 def pytest_report_header(config):
     return f"jax devices: {jax.devices()}"
