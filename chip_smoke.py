@@ -5,21 +5,38 @@
 
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: the card's name and power limit (nvidia-smi), CUDA must exist;
-  2. build: compile the package's CUDA kernels from csrc/ with nvcc;
+  2. build: compile the package's CUDA kernels from csrc/ with nvcc (one
+     process per source, in parallel);
   3. kernels: each kernel against its plain PyTorch version on the card, in
-     bf16, at the LLaVA-v1.5-7B main path's shapes, with the tolerance
-     stated, and both times;
-  4. main path: LLaVA-v1.5-7B at full width with random int8 weights,
-     several POPE-style requests through DecodeEngine.generate with
+     bf16, at its main paths' shapes (K2 at the 7B and the 13B lm_head, each
+     regime; K4 in both of its regimes), with the tolerance stated; by CUDA
+     events the kernel's, the plain version's and a library call's times
+     (torch.matmul on a weight dequantized beforehand, or
+     scaled_dot_product_attention: a yardstick only, the port never calls
+     it);
+  4. 7B path: LLaVA-v1.5-7B at full width and depth with random int8
+     weights, several POPE-style requests through DecodeEngine.generate with
      dual-branch VDD (use_dd + use_dd_unk, cd_alpha=1, cd_beta=0.1, greedy,
-     8 new tokens, EOS out of range); every kernel's launch counter must
-     rise during this phase;
-  5. reference: the same model cut to 2 decoder / 2 vision layers at full
+     8 new tokens, EOS out of range); K1, K2 and K3 must launch;
+  5. 7B reference: the same model cut to 2 decoder / 2 vision layers at full
      width, its prefill and decode logits on the card against the same
-     params run in fp32 on the CPU (the kernels' plain versions).
+     params run in fp32 on the CPU (the kernels' plain versions);
+  6. 13B grouped path: LLaVA-v1.5-13B at full width and depth with random
+     int4 (group 128) weights, the same decoding, POPE's 6 questions per
+     image: one generate_batch_prefix call, one generate_batch_groups call
+     at G = 4 groups (the POPE runner's cap), then a submit_batch_groups /
+     collect_batch_groups loop at G = 4, sequential (the port's submit runs
+     the whole call); K4, K2 and K3 must launch in the G = 1 call and in the
+     G = 4 calls on their own;
+  7. 13B grouped reference: that model cut to 2 decoder / 2 vision layers at
+     full width; the grouped path's first-step fused scores on the card
+     against the same params in fp32 on the CPU, and against `generate` on
+     the card for the same question.
 
-Prints a JSON line with each kernel's record, then as the last line
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+Prints a JSON line with each kernel's record (launches: both main paths'
+counts, per path under launches_by_path; K2's times per path under
+by_path), the card's name and power limit,
+then as the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,9 +49,11 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-# bf16 results of two fp32 reductions in different orders may round one bf16
-# ulp apart (<= 2^-7 of the largest output); allow twice that.
+# bf16 results of two fp32 reductions in different orders (and K4's tiled
+# regime rounding each dequantized weight to bf16, as the TPU kernel does)
+# may land one bf16 ulp apart (<= 2^-7 of the largest output); allow twice.
 KERNEL_TOL = 2.0**-6
 # bf16 model on the card against the fp32 CPU model, 2 decoder layers:
 # bf16 rounding of activations and weights compounds to ~1e-2 of the
@@ -48,8 +67,16 @@ QUESTIONS = (
     "Is there a dining table in the image?",
     "Is there a car in the image?",
 )
+GROUPS = 4          # image groups per grouped call: the POPE runner's cap
+GROUP_CALLS = 3     # G = 4 calls: one generate_batch_groups (warm-up), then submit/collect
 STACKS_7B = {"qkv": (12288, 4096), "o": (4096, 4096), "gateup": (22016, 4096), "down": (4096, 11008)}
 LM_HEAD_7B = (32000, 4096)
+LM_HEAD_13B = (32000, 5120)
+STACKS_13B = {"qkv": (15360, 5120), "o": (5120, 5120), "gateup": (27648, 5120), "down": (5120, 13824)}
+L_13B = 40
+# the card's published peaks (H100 SXM data sheet), for the bounds
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
 
 
 def log(msg: str) -> None:
@@ -81,26 +108,39 @@ def compare(kernel_out: torch.Tensor, plain_out: torch.Tensor, what: str) -> flo
     return err
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the bf16 tensor-core rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def matmul_work(B: int, O: int, D: int, weight_bytes: float, scale_bytes: float, act_bytes: int = 2):
+    """(bytes, flops) of y[B,O] = h[B,D] W: weights and scales read once, h
+    read once, y written once."""
+    return weight_bytes + scale_bytes + act_bytes * B * (D + O), 2.0 * B * O * D
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
 
-def phase_device() -> str:
+def phase_device() -> tuple:
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch.cuda.is_available() is False — this script needs a GPU")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    log(smi.splitlines()[0])
+    ).stdout.strip().splitlines()[0]
+    log(smi)
     name = torch.cuda.get_device_name(0)
     log(f"device: {name}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     # fp32 references in full fp32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return name
+    return name, smi
 
 
 def phase_build() -> None:
@@ -116,8 +156,10 @@ def phase_build() -> None:
             log("  ptxas: " + line.strip())
 
 
-def phase_kernels(main_lens) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+def phase_kernels_int8_flash(attn_shapes, grouped_decode_rows) -> dict:
+    """K1, K2 and K3 against their plain versions at the 7B path's shapes
+    (K2 also at the 13B lm_head's grouped rows, K3 at the 13B grouped
+    path's prefills)."""
     from llava_align_tpu_torch.ops import attention, quant
 
     dev = torch.device("cuda:0")
@@ -125,15 +167,17 @@ def phase_kernels(main_lens) -> dict:
     rec = {}
 
     log("kernels: K1 int8_matmul_stacked (decoder linears) vs plain, bf16")
-    k1_err, k1_ms, k1_plain_ms = 0.0, 0.0, 0.0
+    k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    k1_bytes = k1_flops = 0.0
     for name, (O, D) in STACKS_7B.items():
         L = 32
         q = torch.randint(-127, 128, (L, O, D), dtype=torch.int8, device=dev, generator=g)
         s = (torch.rand((L, O), device=dev, generator=g) + 0.5) / (127.0 * D**0.5)
+        w_bf16 = [quant.dequantize({"q": q[i], "s": s[i]}, torch.bfloat16) for i in range(2)]
         for B in (3, 16, 64):
             h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
             for li in (0, L - 1):
-                k1_err = max(k1_err, compare(
+                k1["max_abs_err"] = max(k1["max_abs_err"], compare(
                     quant.int8_matmul_stacked(h, q, s, li),
                     quant.int8_matmul_stacked_plain(h, q, s, li),
                     f"{name} [{L},{O},{D}] B={B} li={li}",
@@ -141,40 +185,59 @@ def phase_kernels(main_lens) -> dict:
             # rotate layers so each call streams weights L2 does not hold
             ms = cuda_ms(lambda i: quant.int8_matmul_stacked(h, q, s, i % L), 64)
             plain_ms = cuda_ms(lambda i: quant.int8_matmul_stacked_plain(h, q, s, i % L), 16)
+            lib_ms = cuda_ms(lambda i: torch.matmul(h, w_bf16[i % 2].t()), 32)
             gbs = O * D / (ms * 1e-3) / 1e9
             log(f"  {name} B={B}: kernel {ms:.4f} ms ({gbs:.0f} GB/s of int8 weights), "
-                f"plain {plain_ms:.4f} ms")
+                f"plain {plain_ms:.4f} ms, library (torch.matmul, bf16 weight) {lib_ms:.4f} ms")
             if B == 3:  # the decode row count of dual-branch VDD
-                k1_ms += ms
-                k1_plain_ms += plain_ms
-        del q, s
-    rec["K1"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms)
-    log(f"  one decode layer's four linears at B=3: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
+                k1["ms"] += ms
+                k1["plain_ms"] += plain_ms
+                k1["library_ms"] += lib_ms
+                nb, fl = matmul_work(B, O, D, O * D, 4 * O)
+                k1_bytes += nb
+                k1_flops += fl
+        del q, s, w_bf16
+    rec["K1"] = dict(k1, **bound(k1_bytes, k1_flops))
+    log(f"  one 7B decode layer's four linears at B=3: kernel {k1['ms']:.4f} ms, plain "
+        f"{k1['plain_ms']:.4f} ms, library {k1['library_ms']:.4f} ms, bound {rec['K1']['bound_ms']:.4f} ms")
 
-    log("kernels: K2 int8_matmul_cuda (lm_head) vs plain, bf16")
-    O, D = LM_HEAD_7B
-    q = torch.randint(-127, 128, (O, D), dtype=torch.int8, device=dev, generator=g)
-    s = (torch.rand((O,), device=dev, generator=g) + 0.5) / (127.0 * D**0.5)
-    k2_err = 0.0
-    for B in (1, 2, 3):
-        h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
-        k2_err = max(k2_err, compare(
-            quant.int8_matmul_cuda(h, q, s), quant.int8_matmul_plain(h, q, s),
-            f"lm_head [{O},{D}] B={B}",
-        ))
-        ms = cuda_ms(lambda i: quant.int8_matmul_cuda(h, q, s), 32)
-        plain_ms = cuda_ms(lambda i: quant.int8_matmul_plain(h, q, s), 16)
-        log(f"  lm_head B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if B == 3:
-            rec["K2"] = dict(max_abs_err=k2_err, ms=ms, plain_ms=plain_ms)
-    rec["K2"]["max_abs_err"] = k2_err
-    del q, s
+    log("kernels: K2 int8_matmul_cuda (lm_head) vs plain, bf16; streaming up to "
+        f"{quant.DECODE_MAX_ROWS} rows, tiled above")
+    # per path: (lm_head shape, the path's decode rows, the rows its record times)
+    k2_paths = {
+        "7b_int8_generate": (LM_HEAD_7B, (1, 2, 3, 18), 3),
+        "13b_int4_grouped": (LM_HEAD_13B, tuple(grouped_decode_rows) + (65, quant.STREAM_MAX_ROWS),
+                             grouped_decode_rows[-1]),
+    }
+    k2_err, k2_by_path = 0.0, {}
+    for path, ((O, D), rows_list, head_rows) in k2_paths.items():
+        q = torch.randint(-127, 128, (O, D), dtype=torch.int8, device=dev, generator=g)
+        s = (torch.rand((O,), device=dev, generator=g) + 0.5) / (127.0 * D**0.5)
+        w_bf16 = quant.dequantize({"q": q, "s": s}, torch.bfloat16)
+        for B in rows_list:
+            h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
+            k2_err = max(k2_err, compare(
+                quant.int8_matmul_cuda(h, q, s), quant.int8_matmul_plain(h, q, s),
+                f"lm_head [{O},{D}] B={B}",
+            ))
+            ms = cuda_ms(lambda i: quant.int8_matmul_cuda(h, q, s), 32)
+            plain_ms = cuda_ms(lambda i: quant.int8_matmul_plain(h, q, s), 16)
+            lib_ms = cuda_ms(lambda i: torch.matmul(h, w_bf16.t()), 32)
+            b = bound(*matmul_work(B, O, D, O * D, 4 * O))
+            log(f"  lm_head [{O},{D}] B={B}: kernel {ms:.4f} ms ({O * D / (ms * 1e-3) / 1e9:.0f} GB/s of "
+                f"int8 weights), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            if B == head_rows:
+                k2_by_path[path] = dict(shape=[O, D], rows=B, ms=ms, plain_ms=plain_ms,
+                                        library_ms=lib_ms, **b)
+        del q, s, w_bf16
+    # top-level numbers: the 7B path's decode step, as in the K1 record
+    top = {k: v for k, v in k2_by_path["7b_int8_generate"].items() if k not in ("shape", "rows")}
+    rec["K2"] = dict(top, max_abs_err=k2_err, by_path=k2_by_path)
 
     log("kernels: K3 flash_attention (causal prefill) vs plain, bf16")
-    shapes = [(1, 640, 32, 128), (2, 128, 32, 128)]
-    shapes += [(1, main_lens[0], 32, 128), (2, main_lens[1], 32, 128)]
     k3_err = 0.0
-    for i, (B, S, H, Dh) in enumerate(shapes):
+    for i, (B, S, H, Dh) in enumerate(attn_shapes):
         qkv = [torch.randn((B, S, H, Dh), device=dev, generator=g).to(torch.bfloat16)
                for _ in range(3)]
         k3_err = max(k3_err, compare(
@@ -182,13 +245,90 @@ def phase_kernels(main_lens) -> dict:
             f"[{B},{S},{H},{Dh}]",
         ))
         ms = cuda_ms(lambda _: attention.flash_attention(*qkv), 20)
-        plain_ms = cuda_ms(lambda _: attention.flash_attention_plain(*qkv), 10)
-        log(f"  [{B},{S},{H},{Dh}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        plain_ms = cuda_ms(lambda _: attention.flash_attention_plain(*qkv), 5)
+        qt, kt, vt = (x.transpose(1, 2) for x in qkv)  # [B, H, S, Dh], as SDPA takes it
+        lib_ms = cuda_ms(lambda _: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
+        nbytes = 4 * B * S * H * Dh * 2
+        flops = 4.0 * Dh * H * B * S * (S + 1) / 2  # QK and PV over the causal pairs
+        log(f"  [{B},{S},{H},{Dh}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) "
+            f"{lib_ms:.4f} ms, bound {bound(nbytes, flops)['bound_ms']:.4f} ms")
         if i == 0:
-            rec["K3"] = dict(ms=ms, plain_ms=plain_ms)
+            rec["K3"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound(nbytes, flops))
     rec["K3"]["max_abs_err"] = k3_err
     torch.cuda.synchronize()
     return rec
+
+
+def random_int4_stack(L: int, O: int, D: int, g) -> tuple:
+    dev = torch.device("cuda:0")
+    q4 = torch.randint(-128, 128, (L, D // 2, O), dtype=torch.int8, device=dev, generator=g)
+    gs = (torch.rand((L, D // 128, O), device=dev, generator=g) + 0.5) / (7.0 * D**0.5)
+    return q4, gs
+
+
+def phase_kernels_int4(decode_rows, suffix_rows: int, prefix_rows: int) -> dict:
+    """K4 at each 13B stack, layers 0 and 39, at the grouped path's row
+    counts, timed; and at the rows on both sides of INT4_SKINNY_MAX_ROWS
+    (the skinny regime's 1 and 2 rows, the tiled regime's 3), checked."""
+    from llava_align_tpu_torch.ops import quant
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(4)
+    thr = quant.INT4_SKINNY_MAX_ROWS
+    log(f"kernels: K4 int4_matmul_stacked (13B int4 decoder linears) vs plain, bf16; "
+        f"skinny regime up to {thr} rows")
+    stacks = {name: random_int4_stack(L_13B, O, D, g) for name, (O, D) in STACKS_13B.items()}
+    rows_all = list(decode_rows) + [suffix_rows, prefix_rows]
+    per_rows = {B: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0) for B in rows_all}
+    err = 0.0
+    for name, (q4, gs) in stacks.items():
+        Dp, O = q4.shape[1], q4.shape[2]
+        D = 2 * Dp
+        w_bf16 = [quant.dequantize_int4({"q4": q4[i], "gs": gs[i]}, torch.bfloat16) for i in range(2)]
+        for B in rows_all:
+            h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
+            for li in (0, L_13B - 1):
+                err = max(err, compare(
+                    quant.int4_matmul_stacked(h, q4, gs, li),
+                    quant.int4_matmul_stacked_plain(h, q4, gs, li),
+                    f"{name} [{L_13B},{Dp},{O}] B={B} li={li}",
+                ))
+            if B == decode_rows[0]:
+                # both sides of the regime threshold
+                for Bs in range(1, thr + 2):
+                    hs = h[:Bs].contiguous()
+                    for li in (0, L_13B - 1):
+                        err = max(err, compare(
+                            quant.int4_matmul_stacked(hs, q4, gs, li),
+                            quant.int4_matmul_stacked_plain(hs, q4, gs, li),
+                            f"{name} [{L_13B},{Dp},{O}] B={Bs} li={li} "
+                            f"{'skinny' if Bs <= thr else 'tiled'} regime",
+                        ))
+            big = B > 512
+            ms = cuda_ms(lambda i: quant.int4_matmul_stacked(h, q4, gs, i % L_13B), 10 if big else 40)
+            plain_ms = cuda_ms(lambda i: quant.int4_matmul_stacked_plain(h, q4, gs, i % L_13B), 2, warmup=1)
+            lib_ms = cuda_ms(lambda i: torch.matmul(h, w_bf16[i % 2].t()), 10 if big else 40)
+            nb, fl = matmul_work(B, O, D, Dp * O, 4.0 * (D // 128) * O)
+            r = per_rows[B]
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            r["library_ms"] += lib_ms
+            r["bytes"] += nb
+            r["flops"] += fl
+            log(f"  {name} B={B}: kernel {ms:.4f} ms ({Dp * O / (ms * 1e-3) / 1e9:.0f} GB/s of packed "
+                f"weights, {fl / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
+                f"(torch.matmul, bf16 weight) {lib_ms:.4f} ms, bound {bound(nb, fl)['bound_ms']:.4f} ms")
+        del w_bf16
+    for B, r in per_rows.items():
+        b = bound(r["bytes"], r["flops"])
+        log(f"  one 13B layer's four linears at B={B}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
+    del stacks
+    torch.cuda.empty_cache()
+    head = per_rows[decode_rows[-1]]  # the G = 4 decode step, the grouped path's headline
+    return dict(max_abs_err=err, ms=head["ms"], plain_ms=head["plain_ms"],
+                library_ms=head["library_ms"], **bound(head["bytes"], head["flops"]))
 
 
 def pope_requests(tokenizer, image_size: int):
@@ -204,69 +344,127 @@ def pope_requests(tokenizer, image_size: int):
     ]
 
 
+def grouped_shapes(num_image_tokens: int, bucket: int = 128) -> dict:
+    """The 13B grouped path's row counts, from the MockTokenizer prompts."""
+    from llava_align_tpu_torch.runners.common import MockTokenizer, pope_groups
+
+    prefix, suffixes, _ = pope_groups(MockTokenizer(), 336, 1)[0]
+    pad = lambda n, m: -(-max(n, m) // m) * m  # noqa: E731
+    pad_prefix = pad(len(prefix) - 1 + num_image_tokens, bucket)
+    pad_txt = pad(len(prefix), bucket)  # 'unk' keeps the sentinel's slot; 'none' is 1 shorter
+    pad_suf = pad(max(len(s) for s in suffixes), 32)
+    rows_q = 6 * 3  # questions x VDD branches
+    return dict(pad_prefix=pad_prefix, pad_txt=pad_txt, pad_suf=pad_suf,
+                decode_rows=(rows_q, GROUPS * rows_q), suffix_rows=GROUPS * rows_q * pad_suf,
+                prefix_rows=GROUPS * pad_prefix)
+
+
+def dual_vdd_config():
+    from llava_align_tpu_torch.config import GenerationConfig
+
+    return GenerationConfig(
+        max_new_tokens=NEW_TOKENS, do_sample=False, use_dd=True, use_dd_unk=True,
+        cd_alpha=1.0, cd_beta=0.1, eos_token_id=10**9,  # EOS out of range: full length
+    )
+
+
+def check_output(out, V: int, what: str) -> None:
+    probs = out.first_scores_top_probs
+    if out.num_generated != NEW_TOKENS or len(out.token_ids) != NEW_TOKENS:
+        raise AssertionError(f"{what}: {out.num_generated} tokens, expected {NEW_TOKENS}")
+    if not all(0 <= t < V for t in out.token_ids):
+        raise AssertionError(f"{what}: token ids out of the vocab: {out.token_ids}")
+    if not (np.all(np.isfinite(probs)) and np.all(np.diff(probs) <= 0) and probs.sum() <= 1 + 1e-5):
+        raise AssertionError(f"{what}: bad first-step scores {probs[:8]}")
+
+
+def wrappers():
+    from llava_align_tpu_torch.ops import attention, quant
+
+    return {
+        "int8_matmul_stacked": quant.int8_matmul_stacked,
+        "int8_matmul_cuda": quant.int8_matmul_cuda,
+        "flash_attention": attention.flash_attention,
+        "int4_matmul_stacked": quant.int4_matmul_stacked,
+    }
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
 def phase_main_path(dev) -> dict:
     """LLaVA-v1.5-7B int8, dual-branch VDD, through DecodeEngine.generate."""
-    from llava_align_tpu_torch.config import GenerationConfig
     from llava_align_tpu_torch.decoding.engine import DecodeEngine
-    from llava_align_tpu_torch.ops import attention, quant
     from llava_align_tpu_torch.runners.common import load_model
 
     t0 = time.perf_counter()
     lm = load_model("random:7b", quant="int8", device=dev, seed=0)
     torch.cuda.synchronize()
-    log(f"main path: built random LLaVA-v1.5-7B int8 on {dev} in {time.perf_counter() - t0:.2f} s, "
+    log(f"7B path: built random LLaVA-v1.5-7B int8 on {dev} in {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    gen = GenerationConfig(
-        max_new_tokens=NEW_TOKENS, do_sample=False, use_dd=True, use_dd_unk=True,
-        cd_alpha=1.0, cd_beta=0.1, eos_token_id=10**9,  # EOS out of range: full length
-    )
-    engine = DecodeEngine(lm.params, lm.cfg, gen)
+    engine = DecodeEngine(lm.params, lm.cfg, dual_vdd_config())
     requests = pope_requests(lm.tokenizer, lm.cfg.vision.image_size)
     V = lm.cfg.text.vocab_size
 
-    wrappers = {
-        "int8_matmul_stacked": quant.int8_matmul_stacked,
-        "int8_matmul_cuda": quant.int8_matmul_cuda,
-        "flash_attention": attention.flash_attention,
-    }
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     stats = []
     for i, (ids, image) in enumerate(requests):
         out = engine.generate(ids, image)
         torch.cuda.synchronize()
-        probs = out.first_scores_top_probs
-        if out.num_generated != NEW_TOKENS or len(out.token_ids) != NEW_TOKENS:
-            raise AssertionError(f"request {i}: {out.num_generated} tokens, expected {NEW_TOKENS}")
-        if not all(0 <= t < V for t in out.token_ids):
-            raise AssertionError(f"request {i}: token ids out of the vocab: {out.token_ids}")
-        if not (np.all(np.isfinite(probs)) and np.all(np.diff(probs) <= 0) and probs.sum() <= 1 + 1e-5):
-            raise AssertionError(f"request {i}: bad first-step scores {probs[:8]}")
+        check_output(out, V, f"request {i}")
         decode_s = out.seconds_total - out.seconds_to_first_token
         tps = (out.num_generated - 1) / decode_s
         stats.append((out.seconds_total, out.seconds_to_first_token, tps))
         log(f"  request {i}{' (warm-up)' if i == 0 else ''}: prompt {len(ids)} ids -> spliced "
             f"{out.prompt_length}, tokens {out.token_ids}, total {out.seconds_total:.4f} s, "
             f"prefill+first token {out.seconds_to_first_token:.4f} s, decode {tps:.2f} tok/s")
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     steady = stats[1:]
-    log(f"  launches during the main path: {launches}")
+    log(f"  launches during the 7B path: {launches}")
     log(f"  steady requests (1..{len(stats) - 1}): mean total {np.mean([s[0] for s in steady]):.4f} s, "
         f"mean prefill+first token {np.mean([s[1] for s in steady]):.4f} s, "
         f"mean decode {np.mean([s[2] for s in steady]):.2f} tok/s; "
         f"peak memory {peak / 2**30:.2f} GiB")
-    dead = [name for name, n in launches.items() if n <= 0]
+    dead = [n for n in ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention") if launches[n] <= 0]
     if dead:
-        raise AssertionError(f"kernels not launched on the main path: {dead}")
+        raise AssertionError(f"kernels not launched on the 7B path: {dead}")
     del engine, lm
     torch.cuda.empty_cache()
     return launches
 
 
+def to_cpu32(node):
+    if isinstance(node, dict):
+        return {k: to_cpu32(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [to_cpu32(v) for v in node]
+    return node.cpu().float() if node.is_floating_point() else node.cpu()
+
+
+def cut_config(full, dtype=None):
+    """full width, 2 decoder layers, 3 vision layers (select_layer -2 runs 2)."""
+    cfg = dataclasses.replace(
+        full, text=dataclasses.replace(full.text, num_layers=2),
+        vision=dataclasses.replace(full.vision, num_layers=3),
+    )
+    if dtype is not None:
+        cfg = dataclasses.replace(
+            cfg, text=dataclasses.replace(cfg.text, dtype=dtype),
+            vision=dataclasses.replace(cfg.vision, dtype=dtype),
+        )
+    return cfg
+
+
 def phase_reference(dev) -> None:
-    """Full-width model cut to 2 decoder / 2 vision layers: prefill and
+    """Full-width 7B model cut to 2 decoder / 2 vision layers: prefill and
     decode logits on the card (kernels) against fp32 on the CPU (plain)."""
     from llava_align_tpu_torch.config import LlavaConfig
     from llava_align_tpu_torch.models import llama, llava
@@ -274,24 +472,9 @@ def phase_reference(dev) -> None:
     from llava_align_tpu_torch.runners.common import MockTokenizer
     from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
 
-    full = LlavaConfig.llava_v15_7b()
-    cfg = dataclasses.replace(
-        full, text=dataclasses.replace(full.text, num_layers=2),
-        vision=dataclasses.replace(full.vision, num_layers=3),  # select_layer -2 runs 2
-    )
-    cfg32 = dataclasses.replace(
-        cfg, text=dataclasses.replace(cfg.text, dtype=torch.float32),
-        vision=dataclasses.replace(cfg.vision, dtype=torch.float32),
-    )
+    cfg = cut_config(LlavaConfig.llava_v15_7b())
+    cfg32 = cut_config(LlavaConfig.llava_v15_7b(), torch.float32)
     params = build_random_llava_params(cfg, quant="int8", device=dev, seed=1)
-
-    def to_cpu32(node):
-        if isinstance(node, dict):
-            return {k: to_cpu32(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [to_cpu32(v) for v in node]
-        return node.cpu().float() if node.is_floating_point() else node.cpu()
-
     params_cpu = to_cpu32(params)
     ids, image = pope_requests(MockTokenizer(), cfg.vision.image_size)[0]
     plan = llava.plan_splice(ids, cfg.num_image_tokens, -(-(len(ids) - 1 + cfg.num_image_tokens) // 128) * 128)
@@ -318,40 +501,177 @@ def phase_reference(dev) -> None:
 
     got, ref = run(params, cfg, dev), run(params_cpu, cfg32, torch.device("cpu"))
     for name, g, r in zip(("prefill", "decode 1", "decode 2"), got, ref):
-        err = (g - r).abs().max().item() / r.abs().max().item()
-        ok = np.isfinite(err) and err <= REFERENCE_TOL
-        log(f"reference {name}: max|card - cpu fp32| / max|cpu| = {err:.4g} "
-            f"(tol {REFERENCE_TOL}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"reference {name}: card disagrees with the fp32 CPU model")
+        rel_check(g, r, f"7B reference {name}: max|card - cpu fp32| / max|cpu|")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+
+
+def rel_check(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    ok = np.isfinite(err) and err <= REFERENCE_TOL
+    log(f"{what} = {err:.4g} (tol {REFERENCE_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: out of tolerance")
+    return err
+
+
+def phase_grouped(dev, shapes) -> dict:
+    """LLaVA-v1.5-13B int4, dual-branch VDD, through the grouped entry points."""
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.runners.common import load_model
+    from llava_align_tpu_torch.runners.common import pope_groups
+
+    t0 = time.perf_counter()
+    lm = load_model("random:13b", quant="int4", device=dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"13B grouped path: built random LLaVA-v1.5-13B int4 (group 128) on {dev} in "
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    engine = DecodeEngine(lm.params, lm.cfg, dual_vdd_config())
+    V = lm.cfg.text.vocab_size
+    calls = [pope_groups(lm.tokenizer, lm.cfg.vision.image_size, GROUPS, seed=1 + c)
+             for c in range(GROUP_CALLS)]
+    prefix, suffixes, _ = calls[0][0]
+    log(f"  POPE split: prefix {len(prefix)} ids (bucket {shapes['pad_prefix']} with the image), "
+        f"suffixes {[len(s) for s in suffixes]} ids (bucket {shapes['pad_suf']}), text prefixes "
+        f"bucket {shapes['pad_txt']}")
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    outs = engine.generate_batch_prefix(*calls[0][0])
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t1
+    for q, out in enumerate(outs):
+        check_output(out, V, f"generate_batch_prefix question {q}")
+    at_g1 = read_launches()
+    log(f"  generate_batch_prefix (1 image x 6 questions, includes warm-up): {one:.4f} s, "
+        f"{6 / one:.2f} questions/s, first tokens {[o.token_ids[:3] for o in outs[:2]]}; "
+        f"launches {at_g1}")
+
+    # the first G = 4 call through generate_batch_groups (it warms up), the
+    # rest through submit_batch_groups / collect_batch_groups in the POPE
+    # runner's order (submit g+1 before collecting g); the port's submit
+    # runs the whole call, so the loop is sequential
+    t1 = time.perf_counter()
+    outs = engine.generate_batch_groups(calls[0])
+    per_call, n_q = [outs[0].seconds_total], len(outs)
+    for q, out in enumerate(outs):
+        check_output(out, V, f"generate_batch_groups question {q}")
+    log(f"  grouped call 0, generate_batch_groups (warm-up, G={GROUPS} x 6 questions): "
+        f"prefill+first token {outs[0].seconds_to_first_token:.4f} s, call {outs[0].seconds_total:.4f} s")
+    handle = engine.submit_batch_groups(calls[1])
+    for c in range(2, GROUP_CALLS + 1):
+        nxt = engine.submit_batch_groups(calls[c]) if c < GROUP_CALLS else None
+        outs = engine.collect_batch_groups(handle)
+        for q, out in enumerate(outs):
+            check_output(out, V, f"grouped call {c - 1} question {q}")
+        n_q += len(outs)
+        per_call.append(outs[0].seconds_total)
+        log(f"  grouped call {c - 1}, submit/collect (G={GROUPS} x 6 questions): "
+            f"prefill+first token {outs[0].seconds_to_first_token:.4f} s, call {outs[0].seconds_total:.4f} s")
+        handle = nxt
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - t1
+    launches = read_launches()
+    at_g4 = {n: launches[n] - at_g1[n] for n in launches}
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.mean(per_call[1:]))
+    log(f"  launches during the 13B grouped path: {launches} (the G = 4 calls alone: {at_g4})")
+    log(f"  G={GROUPS} calls: {GROUP_CALLS}, {n_q} questions in {loop:.4f} s "
+        f"({n_q / loop:.2f} questions/s with the warm-up call); steady calls (1..{GROUP_CALLS - 1}) "
+        f"{steady:.4f} s per call, {GROUPS * 6 / steady:.2f} questions/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    for what, counts in (("G = 1 call", at_g1), ("G = 4 calls", at_g4)):
+        dead = [n for n in ("int4_matmul_stacked", "int8_matmul_cuda", "flash_attention") if counts[n] <= 0]
+        if dead:
+            raise AssertionError(f"kernels not launched in the 13B grouped path's {what}: {dead}")
+    del engine, lm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_grouped_reference(dev) -> None:
+    """13B int4 at full width cut to 2 decoder / 2 vision layers: the
+    grouped path's first-step fused scores on the card against the fp32 CPU
+    run of the same params (plain versions), and against `generate` on the
+    card for the same question. Scores are compared where both are finite
+    (the plausibility cutoff may differ for tokens right at it)."""
+    from llava_align_tpu_torch.config import LlavaConfig
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.runners.common import MockTokenizer, pope_groups
+    from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
+
+    cfg = cut_config(LlavaConfig.llava_v15_13b())
+    cfg32 = cut_config(LlavaConfig.llava_v15_13b(), torch.float32)
+    params = build_random_llava_params(cfg, quant="int4", device=dev, seed=2)
+    params_cpu = to_cpu32(params)
+    prefix, suffixes, image = pope_groups(MockTokenizer(), cfg.vision.image_size, 1, seed=7)[0]
+    group = [(prefix, suffixes[:2], image)]
+    gen = dataclasses.replace(dual_vdd_config(), max_new_tokens=1)
+
+    with torch.inference_mode():
+        card = DecodeEngine(params, cfg, gen)
+        got = card.submit_batch_groups(group)["first_scores"].float().cpu()
+        single = card.submit_generate(prefix + suffixes[0], image)["first_scores"].float().cpu()
+        want = DecodeEngine(params_cpu, cfg32, gen).submit_batch_groups(group)["first_scores"]
+
+    def finite_check(a, b, what):
+        both = torch.isfinite(a) & torch.isfinite(b)
+        differ = (torch.isfinite(a) != torch.isfinite(b)).float().mean().item()
+        log(f"  {what}: {int(both.sum())} scores finite in both, cutoff disagrees on {differ:.4%}")
+        if differ > 0.01:
+            raise AssertionError(f"{what}: the plausibility cutoffs disagree on {differ:.2%} of the vocab")
+        return rel_check(a[both], b[both], f"13B grouped reference {what}: max|diff| / max|ref|")
+
+    finite_check(got, want, "grouped card vs cpu fp32, first-step fused scores")
+    finite_check(got[0], single, "grouped vs generate on the card, question 0")
+    del params, params_cpu
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
-    name = phase_device()
+    name, smi = phase_device()
     dev = torch.device("cuda:0")
     phase_build()
     from llava_align_tpu_torch.runners.common import MockTokenizer
 
-    # the main path's prefill lengths: image row and text rows at 128-buckets
+    # the 7B path's prefill lengths: image row and text rows at 128-buckets
     ids = pope_requests(MockTokenizer(), 336)[0][0]
     main_lens = (-(-(len(ids) - 1 + 576) // 128) * 128, -(-len(ids) // 128) * 128)
-    rec = phase_kernels(main_lens)
+    shapes = grouped_shapes(576)
+    log(f"13B grouped path shapes: {shapes}")
+    attn_shapes = [(1, 640, 32, 128), (2, 128, 32, 128), (1, main_lens[0], 32, 128),
+                   (2, main_lens[1], 32, 128), (GROUPS, shapes["pad_prefix"], 40, 128),
+                   (2 * GROUPS, shapes["pad_txt"], 40, 128)]
+    rec = phase_kernels_int8_flash(attn_shapes, shapes["decode_rows"])
+    rec["K4"] = phase_kernels_int4(shapes["decode_rows"], shapes["suffix_rows"], shapes["prefix_rows"])
     torch.cuda.synchronize()
-    launches = phase_main_path(dev)
+    by_path = {"7b_int8_generate": phase_main_path(dev)}
     torch.cuda.synchronize()
     phase_reference(dev)
+    torch.cuda.synchronize()
+    by_path["13b_int4_grouped"] = phase_grouped(dev, shapes)
+    torch.cuda.synchronize()
+    phase_grouped_reference(dev)
     torch.cuda.synchronize()
 
     sources = {
         "int8_matmul_stacked": ("K1", "llava_align_tpu_torch/csrc/int8_mm.cu", "llava_align_tpu/ops/quant.py:242"),
         "int8_matmul_cuda": ("K2", "llava_align_tpu_torch/csrc/int8_mm.cu", "llava_align_tpu/ops/quant.py:177"),
         "flash_attention": ("K3", "llava_align_tpu_torch/csrc/flash_attn.cu", "llava_align_tpu/ops/attention.py:611"),
+        "int4_matmul_stacked": ("K4", "llava_align_tpu_torch/csrc/int4_mm.cu", "llava_align_tpu/ops/quant.py:541"),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
-        dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n], **rec[k])
-        for n, (k, src, rep) in sources.items()
+        dict(name=n, route="cuda", source=src, replaces=rep,
+             launches=sum(p[n] for p in by_path.values()),
+             launches_by_path={path: p[n] for path, p in by_path.items()},
+             **{k: rec[kid][k] for k in keys},
+             **({"by_path": rec[kid]["by_path"]} if "by_path" in rec[kid] else {}))
+        for n, (kid, src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

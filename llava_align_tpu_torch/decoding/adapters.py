@@ -34,6 +34,10 @@ class LlavaAdapter:
     def vision_dtype(self) -> torch.dtype:
         return self.cfg.vision.dtype
 
+    @property
+    def image_size(self) -> int:
+        return self.cfg.vision.image_size
+
     def branch_token_ids(self, input_ids: Sequence[int], kind: str) -> List[int]:
         ids = [int(t) for t in input_ids]
         if kind in ("main", "cd"):
@@ -56,11 +60,19 @@ class LlavaAdapter:
     def init_cache(self, batch: int, max_len: int, device=None):
         return llama.init_cache(self.cfg.text, batch, max_len, device=device)
 
-    def forward(self, params, embeds, positions, cache, offsets, *, cache_row_offset=0):
+    def forward(self, params, embeds, positions, cache, offsets, *, cache_row_offset=0,
+                shared_kv=None, shared_len=None, shared_rows_per_prefix=None,
+                shared_rows_per_prefix2=0):
         return llama.forward(
             params["llama"], self.cfg.text, embeds, positions, cache, offsets,
-            cache_row_offset=cache_row_offset,
+            cache_row_offset=cache_row_offset, shared_kv=shared_kv, shared_len=shared_len,
+            shared_rows_per_prefix=shared_rows_per_prefix,
+            shared_rows_per_prefix2=shared_rows_per_prefix2,
         )
+
+    # Shared-prefix decoding (engine.generate_batch_groups) needs the model
+    # forward to accept a read-only prefix KV segment; the llama forward does.
+    supports_shared_prefix = True
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         return llama.logits_from_hidden(params["llama"], hidden)

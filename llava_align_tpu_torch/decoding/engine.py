@@ -1,30 +1,33 @@
 """Debiased decode engine (torch twin of llava_align_tpu/decoding/engine.py:
-`generate`, `submit_generate`, `collect_generate`).
+`generate`, `submit_generate`, `collect_generate`, and the grouped
+shared-prefix entry points `generate_batch_prefix`, `generate_batch_groups`,
+`submit_batch_groups`, `collect_batch_groups`).
 
 All branches of one request live on the batch axis of one forward and one
 packed KV cache (row 0 = main):
     main            full visual input
     'unk'           degraded-token branch (llava: sentinel→0)
-    'none'          visual positions physically removed (a genuinely shorter
-                    row, right-padded, masked by length)
+    'none'          visual positions physically removed (a genuinely
+                    shorter row, right-padded, masked by length)
 Contrast logits = the primary branch, or the mean of (primary, 'none') when
 both use_dd and use_dd_unk are set. Prefill is split-bucket: the image rows
 at their 128-bucket, the text-only rows at theirs, into disjoint rows of the
 cache. As in the JAX engine, the contrastive correction applies under greedy
 decoding too.
 
-The decode loop is an eager Python loop with one host read per step (the
-sampled token, which decides `done`); the JAX engine runs it on device in
-lax.while_loop. Unlike it, this loop skips the forward after the last token.
-Not ported yet: generate_batch*, VCD (use_cd), mesh/act_quant/kv_quant,
-explicit per-branch ids and precomputed image features.
+The decode loops are eager Python loops with one host read per step (the
+sampled tokens, which decide `done`); the JAX engine runs them on device in
+lax.while_loop. Unlike it, the loops skip the forward after the last token.
+Not ported yet: generate_batch (lockstep, unshared), beam search, VCD
+(use_cd), mesh/act_quant/kv_quant, and in `generate` explicit per-branch ids
+and precomputed image features.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,7 +37,7 @@ from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from llava_align_tpu_torch.decoding import sampler as S
 from llava_align_tpu_torch.decoding.adapters import LlavaAdapter
 from llava_align_tpu_torch.models import llava as llava_model
-from llava_align_tpu_torch.ops.image import normalize_device
+from llava_align_tpu_torch.ops.image import normalize_device, normalize_host
 
 Params = Dict[str, Any]
 
@@ -125,11 +128,21 @@ class DecodeEngine:
     # host-side packing (identical to the JAX engine's _pack)
     # ------------------------------------------------------------------
 
-    def _pack(self, input_ids: Sequence[int], has_image: bool, kinds: Sequence[str]):
+    def _pack(
+        self,
+        input_ids: Sequence[int],
+        has_image: bool,
+        branch_ids: Optional[Mapping[str, Sequence[int]]] = None,
+        kinds: Optional[Sequence[str]] = None,
+    ):
         n_img = self.adapter.num_image_tokens if has_image else 0
+        branch_ids = branch_ids or {}
         per_branch = []
-        for kind in kinds:
-            ids = self.adapter.branch_token_ids(input_ids, kind)
+        for kind in (kinds if kinds is not None else self.kinds):
+            if kind in branch_ids:
+                ids = [int(t) for t in branch_ids[kind]]
+            else:
+                ids = self.adapter.branch_token_ids(input_ids, kind)
             n = n_img if kind in ("main", "cd") else 0
             per_branch.append((kind, ids, n))
         max_len = max(
@@ -159,6 +172,25 @@ class DecodeEngine:
             elif kind == "cd":
                 feats_src[b] = 1
         return pad_to, tokens, tok_g, img_g, is_img, lengths, feats_src
+
+    def _assemble_images(self, imgs_np, count: int) -> np.ndarray:
+        """Per-slot [3,H,W] images (or None) → one [count, 3, H, H] array.
+        Raw uint8 ships only when every present slot is uint8; otherwise
+        uint8 slots are normalized on the host. (The JAX engine's extra rule
+        for VCD's zero placeholders does not arise: VCD is not ported.)"""
+        H = self.adapter.image_size
+        use_u8 = any(i is not None for i in imgs_np) and all(
+            i is None or i.dtype == np.uint8 for i in imgs_np
+        )
+        dtype = np.uint8 if use_u8 else np.float32
+        images = np.zeros((count, 3, H, H), dtype)
+        for qi, im in enumerate(imgs_np):
+            if im is None:
+                continue
+            if im.dtype == np.uint8 and not use_u8:
+                im = normalize_host(im)
+            images[qi] = im.astype(dtype)
+        return images
 
     @property
     def img_kinds(self) -> List[str]:
@@ -214,7 +246,8 @@ class DecodeEngine:
     ):
         """Pack on the host, encode, prefill and run the decode loop. The
         tokens end up on the host (the loop reads each one); the first-step
-        score summary stays on the device until collect_generate.
+        scores (the warped fused logits, 'first_scores') and their summary
+        stay on the device until collect_generate.
 
         image: pixels [3, H, W] (uint8 raw, or float already normalized) or
         None. generator: the sampling stream (default: seeded from gen.seed)."""
@@ -227,10 +260,10 @@ class DecodeEngine:
             # (torch faults where JAX clamps)
             raise ValueError(f"one image per request, but the prompt holds {n_sentinels} <image>")
 
-        pad_img, *pi = self._pack(input_ids, has_image, self.img_kinds)
+        pad_img, *pi = self._pack(input_ids, has_image, kinds=self.img_kinds)
         pad_txt, pt = 0, None
         if self.txt_kinds:
-            pad_txt, *pt = self._pack(input_ids, has_image, self.txt_kinds)
+            pad_txt, *pt = self._pack(input_ids, has_image, kinds=self.txt_kinds)
         nb = len(self.kinds)
         T = gen.max_new_tokens
         cache_len = max(pad_img, pad_txt) + T
@@ -272,7 +305,7 @@ class DecodeEngine:
         probs = torch.softmax(first_scores, dim=-1)
         top = torch.topk(probs, min(self.top_scores_k, probs.shape[-1]))
         return dict(
-            tokens=out, top_probs=top.values, top_ids=top.indices,
+            tokens=out, top_probs=top.values, top_ids=top.indices, first_scores=first_scores,
             prompt_length=int(pi[4][0]),
             seconds_to_first_token=t_first - t0, seconds_total=time.perf_counter() - t0,
         )
@@ -298,3 +331,386 @@ class DecodeEngine:
     ) -> GenerationOutput:
         """One request, end to end: submit_generate then collect_generate."""
         return self.collect_generate(self.submit_generate(input_ids, image, generator=generator))
+
+    # ------------------------------------------------------------------
+    # shared-prefix grouped generation (the POPE throughput path)
+    #
+    # POPE ships 6 questions per image, and within one question the VDD
+    # branches differ only in their visual degradation. The shared
+    # [system + image] prefix of each image group prefills ONCE into a
+    # read-only KV segment; each question's main row prefills only its
+    # suffix against [shared | local] joint-softmax attention and decodes
+    # the same way. Text-only degraded kinds whose transformed prompt prefix
+    # is shared by every question of a group (llava unk/none) get per-group
+    # segments of their own (the second table); kinds with explicit
+    # per-question ids keep full-prompt rows. No KV copies: every row reads
+    # its segment in place.
+    # ------------------------------------------------------------------
+
+    def generate_batch_prefix(
+        self,
+        prefix_ids: Sequence[int],
+        suffixes: Sequence[Sequence[int]],
+        image: Optional[np.ndarray],
+        *,
+        generator: Optional[torch.Generator] = None,
+        branch_ids_list: Optional[Sequence[Mapping[str, Sequence[int]]]] = None,
+    ) -> List[GenerationOutput]:
+        """Lockstep-decode the questions that share one image and one token
+        prefix (one group of generate_batch_groups). prefix_ids holds the
+        IMAGE_TOKEN_INDEX sentinel; each question's full prompt is
+        prefix_ids + suffixes[q] (common_token_prefix gives the split).
+        branch_ids_list: optional per-question explicit token ids for the
+        text-only degraded branches."""
+        return self.generate_batch_groups(
+            [(prefix_ids, suffixes, image, branch_ids_list)], generator=generator
+        )
+
+    def generate_batch_groups(
+        self,
+        groups: Sequence[tuple],
+        *,
+        generator: Optional[torch.Generator] = None,
+    ) -> List[GenerationOutput]:
+        """Lockstep-decode G image groups in one call. Each group is
+        (prefix_ids, suffixes, image[, branch_ids_list]); every group carries
+        the same number of questions (pad the tail group by repeating a
+        question and drop the duplicates). Returns the outputs question-major
+        (group 0's questions first)."""
+        return self.collect_batch_groups(self.submit_batch_groups(groups, generator=generator))
+
+    @torch.inference_mode()
+    def submit_batch_groups(
+        self,
+        groups: Sequence[tuple],
+        *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Host packing, the prefills and the decode loop of
+        generate_batch_groups; the first-step scores (the warped fused
+        logits [M, V], 'first_scores') and their summaries stay on the device
+        until collect_batch_groups. The loop reads each step's tokens,
+        so this returns when the decode is done (the JAX engine returns at
+        dispatch): submitting call g+1 before collecting call g keeps the
+        runner's call order but overlaps nothing here."""
+        t0 = time.perf_counter()
+        if not getattr(self.adapter, "supports_shared_prefix", False):
+            raise ValueError(f"adapter {self.adapter.name!r} has no shared-prefix forward")
+        G = len(groups)
+        if G == 0:
+            return []
+        groups = [tuple(g) + (None,) * (4 - len(g)) for g in groups]
+        Qg = len(groups[0][1])
+        if Qg == 0 or any(len(g[1]) != Qg for g in groups):
+            raise ValueError(
+                "every group must carry the same (nonzero) question count; "
+                "pad the tail group by repeating a question"
+            )
+        for prefix_ids, suffixes, image, _ in groups:
+            if any(len(s) == 0 for s in suffixes):
+                raise ValueError("each suffix needs >= 1 token")
+            if any(IMAGE_TOKEN_INDEX in [int(t) for t in s] for s in suffixes):
+                raise ValueError(
+                    "image sentinel must be inside the shared prefix, not a "
+                    "suffix — group questions by image before splitting"
+                )
+            if image is not None and list(prefix_ids).count(IMAGE_TOKEN_INDEX) > 1:
+                raise ValueError("one image per group, but the prefix holds several <image>")
+        imgs_np = [np.asarray(g[2]) if g[2] is not None else None for g in groups]
+        if any(i is not None and i.ndim == 4 for i in imgs_np):
+            raise ValueError(
+                "anyres grid stacks ([K,3,H,W]) are per-question inputs; "
+                "shared-prefix grouping needs single images — decode anyres "
+                "prompts through engine.generate"
+            )
+        M = G * Qg
+        # text kinds whose transformed prompt prefix is shared by every
+        # question (branch(prefix) + suffix == branch(full), checked exactly)
+        # get per-group prefix segments; the rest keep full-prompt rows
+        tp_bases = {}
+        for k in self.txt_kinds:
+            bases = self._txt_kind_prefix_bases(k, groups)
+            if bases is not None:
+                tp_bases[k] = bases
+        sh_kinds = tuple(tp_bases)
+        pl_kinds = tuple(k for k in self.txt_kinds if k not in tp_bases)
+
+        # ---- prefix rows: one per group, at the shared bucket
+        prefix_packs, has_images = [], []
+        for prefix_ids, _, image, _ in groups:
+            has_image = image is not None and IMAGE_TOKEN_INDEX in list(prefix_ids)
+            has_images.append(has_image)
+            prefix_packs.append(self._pack(list(prefix_ids), has_image, kinds=["main"]))
+        pack_prefix = _stack_packs(prefix_packs)
+
+        # ---- suffix rows [M], at a 32-bucket
+        max_suf = max(len(s) for _, sfx, _, _ in groups for s in sfx)
+        pad_suf = _round_up(max(max_suf, 32), 32)
+        suf_tokens = np.zeros((M, pad_suf), np.int32)
+        suf_lens = np.zeros((M,), np.int32)
+        for gi, (_, sfx, _, _) in enumerate(groups):
+            for qi, s in enumerate(sfx):
+                suf_tokens[gi * Qg + qi, : len(s)] = [int(t) for t in s]
+                suf_lens[gi * Qg + qi] = len(s)
+
+        # ---- shared text-branch prefix rows [G * n_sh], one per (group,
+        # kind): the kind's transformed prefix, passed as explicit ids
+        pack_tp = None
+        if sh_kinds:
+            pack_tp = _stack_packs([
+                self._pack(list(prefix_ids), False, {kind: tp_bases[kind][gi]}, kinds=[kind])
+                for gi, (prefix_ids, _, _, _) in enumerate(groups)
+                for kind in sh_kinds
+            ])
+
+        # ---- plain text-only rows [M * n_pl] (full short prompts)
+        pack_txt = None
+        if pl_kinds:
+            pack_txt = _stack_packs([
+                self._pack(list(prefix_ids) + [int(t) for t in s], has_images[gi],
+                           bids_list[qi] if bids_list else None, kinds=list(pl_kinds))
+                for gi, (prefix_ids, sfx, _, bids_list) in enumerate(groups)
+                for qi, s in enumerate(sfx)
+            ])
+
+        images = self._assemble_images(imgs_np, G)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(self.gen.seed)
+        out = self._run_groups(G, Qg, sh_kinds, pl_kinds, pack_prefix, suf_tokens, suf_lens,
+                               pack_tp, pack_txt, images, generator)
+        out.update(p_lens=pack_prefix[4], suf_lens=suf_lens, Qg=Qg, M=M,
+                   seconds_to_first_token=out["t_first"] - t0,
+                   seconds_total=time.perf_counter() - t0)
+        return out
+
+    def _run_groups(self, G, Qg, sh_kinds, pl_kinds, pack_prefix, suf_tokens, suf_lens,
+                    pack_tp, pack_txt, images, generator):
+        """The device side of submit_batch_groups: encode, the three
+        prefills, and the decode loop over the row layout
+        [G segment blocks of Qg image rows | G*n_sh blocks of Qg shared-text
+        rows | M*n_pl plain text rows (question-major)]."""
+        gen, adapter, params, dev = self.gen, self.adapter, self.params, self.device
+        nb = len(self.kinds)
+        n_sh, n_pl = len(sh_kinds), len(pl_kinds)
+        n_img = len(self.img_kinds)  # 1: VCD's noised segment is not ported
+        M = G * Qg
+        M2, Msh = M * n_img, M * n_sh
+        T = gen.max_new_tokens
+        pad_suf = suf_tokens.shape[1]
+        cache_len = max(pad_suf, pack_txt[0].shape[1] if n_pl else 0) + T
+
+        # branch b of question qq sits at cache row perm[qq * nb + b]
+        perm = np.zeros((M * nb,), np.int64)
+        for qq in range(M):
+            g, q = divmod(qq, Qg)
+            jp = 0
+            for b, kind in enumerate(self.kinds):
+                if kind in ("main", "cd"):
+                    perm[qq * nb + b] = (g * n_img + self.img_kinds.index(kind)) * Qg + q
+                elif kind in sh_kinds:
+                    perm[qq * nb + b] = M2 + (g * n_sh + sh_kinds.index(kind)) * Qg + q
+                else:
+                    perm[qq * nb + b] = M2 + Msh + qq * n_pl + jp
+                    jp += 1
+        # cache row → question, to broadcast each sampled token to its rows
+        row_to_q = np.concatenate([
+            _span_tile(np.arange(M).reshape(G, Qg), n_img),
+            _span_tile(np.arange(M).reshape(G, Qg), n_sh),
+            np.repeat(np.arange(M), n_pl),
+        ])
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        def prefill(pack, feats, cache, row_offset=0, **shared):
+            tokens, tok_g, img_g, is_img, lengths, _ = (put(a) for a in pack)
+            rows, pad = tokens.shape[0], tok_g.shape[1]
+            embeds = adapter.splice_embeds(params, tokens, tok_g, img_g, is_img, feats)
+            positions = torch.arange(pad, device=dev).expand(rows, pad)
+            hidden, _ = adapter.forward(
+                params, embeds, positions, cache, torch.zeros((rows,), dtype=torch.long, device=dev),
+                cache_row_offset=row_offset, **shared,
+            )
+            return hidden, lengths
+
+        # ---- vision, then the shared prefix segments: G image rows
+        feats = adapter.encode_images(params, normalize_device(put(images), adapter.vision_dtype))
+        D = feats.shape[2]
+        p_cache = adapter.init_cache(G * n_img, pack_prefix[1].shape[1], device=dev)
+        prefill(pack_prefix, feats, p_cache)
+        shared = {"k": p_cache["k"], "v": p_cache["v"]}  # [L, G, P, K, Dh]
+        sh_len_suf = np.repeat(np.repeat(pack_prefix[4], n_img), Qg)  # [M2]
+        # ...and the shared text-branch segments: G * n_sh rows, own bucket
+        if n_sh:
+            t_cache = adapter.init_cache(G * n_sh, pack_tp[1].shape[1], device=dev)
+            zero = torch.zeros((G * n_sh, 1, D), dtype=feats.dtype, device=dev)
+            prefill(pack_tp, zero, t_cache)
+            shared["k2"], shared["v2"] = t_cache["k"], t_cache["v"]
+            sh_len_suf = np.concatenate([sh_len_suf, np.repeat(pack_tp[4], Qg)])
+
+        # ---- per-question suffixes of the image rows and the shared-text
+        # rows in one forward, each row span against its own segment table;
+        # rows span-blocked [g, i, q] then [g, j, q]
+        R = M2 + Msh + M * n_pl
+        cache = adapter.init_cache(R, cache_len, device=dev)
+        suf_t = suf_tokens.reshape(G, Qg, pad_suf)
+        suf_l = suf_lens.reshape(G, Qg)
+        tokens2 = np.concatenate([_span_tile(suf_t, n_img), _span_tile(suf_t, n_sh)])
+        lens2 = np.concatenate([_span_tile(suf_l, n_img), _span_tile(suf_l, n_sh)])
+        sh_len = put(sh_len_suf).long()
+        positions = sh_len[:, None] + torch.arange(pad_suf, device=dev)
+        hidden, _ = adapter.forward(
+            params, adapter.embed_tokens(params, put(tokens2)), positions, cache,
+            torch.zeros((M2 + Msh,), dtype=torch.long, device=dev),
+            shared_kv=shared, shared_len=sh_len, shared_rows_per_prefix=Qg,
+            shared_rows_per_prefix2=Qg,
+        )
+        rows = torch.arange(M2 + Msh, device=dev)
+        logits = adapter.logits(params, hidden[rows, put(lens2).long() - 1])
+        lengths_host = lens2.astype(np.int64)
+
+        # ---- plain text rows (explicit branch ids): full short prompts
+        if n_pl:
+            zero = torch.zeros((M * n_pl, 1, D), dtype=feats.dtype, device=dev)
+            t_hidden, t_len = prefill(pack_txt, zero, cache, row_offset=M2 + Msh)
+            t_rows = torch.arange(M * n_pl, device=dev)
+            logits = torch.cat([logits, adapter.logits(params, t_hidden[t_rows, t_len.long() - 1])])
+            lengths_host = np.concatenate([lengths_host, pack_txt[4].astype(np.int64)])
+        # segmented rows carry their segment length, plain rows 0
+        sh_len_all = put(np.concatenate([sh_len_suf, np.zeros((M * n_pl,), np.int64)])).long()
+
+        # ---- decode loop: one host read (the step's tokens) per step
+        V = logits.shape[-1]
+        fuse_and_warp = _make_fuse_and_warp(gen, nb - 1)
+        kws = [k for k in self.stop_keyword_ids if 0 < len(k) <= T]
+        perm_t = put(perm)
+        lengths = put(lengths_host)
+        out_buf = np.zeros((M, T), np.int64)
+        done = np.zeros((M,), bool)
+        n_done = np.full((M,), T, np.int64)
+        first_scores, t_first, n = None, None, 0
+        while True:
+            warped = fuse_and_warp(logits[perm_t].reshape(M, nb, V))
+            if first_scores is None:
+                first_scores = warped
+            toks = S.sample_token(generator, warped, gen.do_sample).cpu().numpy()
+            if t_first is None:
+                t_first = time.perf_counter()
+            toks = np.where(done, gen.pad_token_id, toks)
+            out_buf[:, n] = toks
+            n += 1
+            done_now = (toks == gen.eos_token_id) | _stop_hits(out_buf, n, kws)
+            n_done = np.where(done_now & ~done, n, n_done)
+            done = done | done_now | (n >= T)
+            if done.all():
+                break
+            emb = adapter.embed_tokens(params, put(toks[row_to_q])[:, None])
+            hidden, cache = adapter.forward(
+                params, emb, (sh_len_all + lengths)[:, None], cache, lengths,
+                shared_kv=shared, shared_len=sh_len_all, shared_rows_per_prefix=Qg,
+                shared_rows_per_prefix2=Qg,
+            )
+            logits = adapter.logits(params, hidden[:, 0])
+            lengths = lengths + 1
+
+        probs = torch.softmax(first_scores, dim=-1)
+        top = torch.topk(probs, min(self.top_scores_k, V))
+        return dict(out_buf=out_buf, n_done=n_done, top_probs=top.values, top_ids=top.indices,
+                    first_scores=first_scores, t_first=t_first)
+
+    def collect_batch_groups(self, handle) -> List[GenerationOutput]:
+        """Fetch a submit_batch_groups handle's outputs to the host, one
+        GenerationOutput per question (timings are the whole call's)."""
+        if not handle:  # submit of an empty groups list returns []
+            return []
+        top_probs = handle["top_probs"].cpu().numpy()
+        top_ids = handle["top_ids"].cpu().numpy()
+        Qg, p_lens, suf_lens = handle["Qg"], handle["p_lens"], handle["suf_lens"]
+        outs = []
+        for row in range(handle["M"]):
+            n = int(handle["n_done"][row])
+            outs.append(GenerationOutput(
+                token_ids=[int(t) for t in handle["out_buf"][row, :n]],
+                num_generated=n,
+                first_scores_top_probs=top_probs[row],
+                first_scores_top_ids=top_ids[row],
+                prompt_length=int(p_lens[row // Qg]) + int(suf_lens[row]),
+                seconds_to_first_token=handle["seconds_to_first_token"],
+                seconds_total=handle["seconds_total"],
+            ))
+        return outs
+
+    def _txt_kind_prefix_bases(self, kind: str, groups):
+        """Per-group transformed prefixes when this text kind's branch
+        transform is prefix-local for EVERY question — branch(prefix) +
+        suffix == branch(prefix + suffix) — so one per-group prefix segment
+        reproduces the per-question rows exactly; None otherwise. Explicit
+        branch_ids are never split."""
+        adapter = self.adapter
+        bases = []
+        for prefix_ids, sfx, _, bids_list in groups:
+            if bids_list and any(b and kind in b for b in bids_list):
+                return None
+            pref = [int(t) for t in prefix_ids]
+            try:
+                base = list(adapter.branch_token_ids(pref, kind))
+            except ValueError:
+                return None
+            if not base:
+                return None  # empty transformed prefix: nothing to share
+            for s in sfx:
+                suf = [int(t) for t in s]
+                if adapter.branch_token_ids(pref + suf, kind) != base + suf:
+                    return None
+            bases.append(base)
+        return bases
+
+    @staticmethod
+    def common_token_prefix(token_lists: Sequence[Sequence[int]]) -> int:
+        """Longest common prefix length over token lists, capped so every
+        list keeps >= 1 suffix token (the exact prefix/suffix split for
+        generate_batch_prefix)."""
+        if not token_lists:
+            return 0
+        lo = min(len(t) for t in token_lists)
+        p = 0
+        first = token_lists[0]
+        while p < lo - 1 and all(t[p] == first[p] for t in token_lists):
+            p += 1
+        return p
+
+
+def _stack_packs(packs) -> tuple:
+    """_pack results → one (tokens, tok_g, img_g, is_img, lengths, feats_src)
+    set, rows concatenated, zero-padded to the widest pack."""
+    rows = sum(p[1].shape[0] for p in packs)
+    width = max(p[0] for p in packs)
+    tokens, tok_g, img_g = (np.zeros((rows, width), np.int32) for _ in range(3))
+    is_img = np.zeros((rows, width), bool)
+    lengths = np.zeros((rows,), np.int32)
+    r = 0
+    for _, t, tg, ig, ii, ln, _ in packs:
+        sl = slice(r, r + t.shape[0])
+        tokens[sl, : t.shape[1]] = t
+        tok_g[sl, : tg.shape[1]] = tg
+        img_g[sl, : ig.shape[1]] = ig
+        is_img[sl, : ii.shape[1]] = ii
+        lengths[sl] = ln
+        r += t.shape[0]
+    return tokens, tok_g, img_g, is_img, lengths, np.full((rows,), -1, np.int32)
+
+
+def _span_tile(x: np.ndarray, n: int) -> np.ndarray:
+    """[G, Qg, ...] per-question arrays → [G * n * Qg, ...] rows blocked
+    [g, i, q] (the attention tables cover contiguous row spans)."""
+    return np.repeat(x[:, None], n, axis=1).reshape((-1,) + x.shape[2:])
+
+
+def _stop_hits(out_buf: np.ndarray, n: int, kws) -> np.ndarray:
+    """Per-question stop-keyword suffix match over the first n tokens."""
+    hit = np.zeros((out_buf.shape[0],), bool)
+    for kw in kws:
+        m = len(kw)
+        if n >= m:
+            hit |= np.all(out_buf[:, n - m : n] == np.asarray(kw), axis=1)
+    return hit

@@ -11,7 +11,8 @@ layer axis:
     layers/down       [L, D, F]
     final_norm: [D]
     lm_head:    [V, D]
-An int8-quantized linear is a {'q': int8 [L, O, D], 's': fp32 [L, O]} dict
+An int8-quantized linear is a {'q': int8 [L, O, D], 's': fp32 [L, O]} dict,
+an int4 one a {'q4': int8 [L, D/2, O], 'gs': fp32 [L, D/128, O]} dict
 (ops/quant.quantize_llama_params); the stack stays whole and the kernel
 takes the layer index.
 
@@ -28,12 +29,21 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from llava_align_tpu_torch.config import LlamaConfig
-from llava_align_tpu_torch.ops.attention import causal_attention, decode_attention
+from llava_align_tpu_torch.ops.attention import (
+    causal_attention,
+    chunk_attention_shared,
+    chunk_attention_shared_grouped,
+    decode_attention,
+    decode_attention_shared,
+    decode_attention_shared_grouped,
+)
 from llava_align_tpu_torch.ops.layers import apply_rope, rms_norm, rope_cos_sin, silu
 from llava_align_tpu_torch.ops.quant import (
+    int4_matmul_stacked_dispatch,
     int8_matmul,
     int8_matmul_stacked_dispatch,
     is_quantized,
+    is_quantized_int4,
 )
 
 Params = Dict[str, Any]
@@ -89,6 +99,9 @@ def forward(
     cache_row_offset: int = 0,
     tp_mesh=None,
     shared_kv: Optional[KVCache] = None,
+    shared_len: Optional[torch.Tensor] = None,
+    shared_rows_per_prefix: Optional[int] = None,
+    shared_rows_per_prefix2: int = 0,
     act_quant: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack.
@@ -101,13 +114,23 @@ def forward(
                  decode uses S == 1 at the per-row current length.
     cache_row_offset: first cache row of this batch (split-bucket prefill
                  writes the text rows after the image rows).
+    shared_kv    optional read-only prefix KV segment {'k', 'v': [L, P, K,
+                 Dh]} shared by all rows, or grouped [L, G, P, K, Dh] with
+                 rows blocked by shared_rows_per_prefix; a grouped segment
+                 may carry a second table {'k2', 'v2': [L, G2, P2, K, Dh]}
+                 (rows blocked by shared_rows_per_prefix2) for the rows right
+                 after the first table's span. shared_len [B]: each row's
+                 valid prefix length (0 = none). With a segment, `positions`
+                 are absolute (shared_len[b] + local index) while
+                 `cache_offset` stays LOCAL; prefill blocks are the first
+                 local content.
 
     Returns (hidden [B, S, D] after the final norm, cache).
-    Not ported yet: shared_kv, tp_mesh, act_quant and the int8 KV cache.
+    Not ported yet: tp_mesh, act_quant, the int8 KV cache and int8 segments.
     """
-    if shared_kv is not None or tp_mesh is not None or act_quant:
-        raise NotImplementedError("shared_kv / tp_mesh / act_quant are not ported yet")
-    if cache is not None and "ks" in cache:
+    if tp_mesh is not None or act_quant:
+        raise NotImplementedError("tp_mesh / act_quant are not ported yet")
+    if (cache is not None and "ks" in cache) or (shared_kv is not None and "ks" in shared_kv):
         raise NotImplementedError("int8 KV cache (kv_quant) is not ported yet")
     B, S, _ = embeds.shape
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -122,9 +145,32 @@ def forward(
 
     def lin(h, name, li):  # h [B, S, in] → [B, S, out]
         w = layers[name]
+        if is_quantized_int4(w):
+            return int4_matmul_stacked_dispatch(h, w, li)
         if is_quantized(w):
             return int8_matmul_stacked_dispatch(h, w, li)
         return h @ w[li].t()
+
+    def shared_attention(q, k, v, li):
+        k_sh, v_sh = shared_kv["k"][li], shared_kv["v"][li]
+        grouped = k_sh.dim() == 4  # [G, P, K, Dh]: one prefix per row group
+        two = {}
+        if "k2" in shared_kv:  # second (text-branch) segment table
+            two = dict(k_sh2=shared_kv["k2"][li], v_sh2=shared_kv["v2"][li],
+                       rows_per_prefix2=shared_rows_per_prefix2)
+        if is_decode:
+            rows = slice(cache_row_offset, cache_row_offset + B)
+            kc, vc = cache["k"][li, rows], cache["v"][li, rows]
+            if grouped:
+                return decode_attention_shared_grouped(
+                    q, kc, vc, cache_offset, k_sh, v_sh, shared_len, shared_rows_per_prefix, **two
+                )
+            return decode_attention_shared(q, kc, vc, cache_offset, k_sh, v_sh, shared_len)
+        if grouped:
+            return chunk_attention_shared_grouped(
+                q, k, v, k_sh, v_sh, shared_len, shared_rows_per_prefix, **two
+            )
+        return chunk_attention_shared(q, k, v, k_sh, v_sh, shared_len)
 
     x = embeds
     for li in range(cfg.num_layers):
@@ -146,7 +192,9 @@ def forward(
             _write_cache(cache["k"], k, li, cache_offset, is_decode, cache_row_offset)
             _write_cache(cache["v"], v, li, cache_offset, is_decode, cache_row_offset)
 
-        if is_decode:
+        if shared_kv is not None:
+            attn = shared_attention(q, k, v, li)
+        elif is_decode:
             rows = slice(cache_row_offset, cache_row_offset + B)
             attn = decode_attention(q, cache["k"][li, rows], cache["v"][li, rows], cache_offset)
         else:

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-The sources compile at first use with nvcc for Hopper (sm_90a) into one
-shared library with a plain C interface, loaded with ctypes. The library
+The sources compile at first use with nvcc for Hopper (sm_90a), one nvcc
+process per source, all started together, and link into one shared library
+with a plain C interface, loaded with ctypes. The library
 lands in `build/kernels/<hash>/` at the repository root (listed in
 .gitignore), keyed by a hash of the sources and flags, so an edit rebuilds
 and an unchanged tree reuses the last build; `rm -rf build/kernels` forces a
@@ -27,11 +28,10 @@ from typing import Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("int8_mm.cu", "flash_attn.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCES = ("int8_mm.cu", "flash_attn.cu", "int4_mm.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 # the kernels' `dtype` argument
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,6 +45,10 @@ SIGNATURES = {
     "int8_mm": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp),
     # q, k, v, o, B, S, H, K, Dh, dtype, stream
     "flash_attn_causal": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp),
+    # h, q4, gs, y, work, B, O, D, layer, dtype, stream
+    "int4_mm_stacked": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
+    # B, O, D -> fp32 elements of split-K workspace
+    "int4_mm_workspace": (_int, _int, _int),
 }
 
 _lib: Optional[ctypes.CDLL] = None  # the process's one loaded library
@@ -66,7 +70,7 @@ def nvcc() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for name in sorted(os.listdir(CSRC)):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -78,24 +82,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/ into the hashed build directory unless already there."""
+    """Compile csrc/ into the hashed build directory unless already there:
+    one nvcc per source in parallel, then one link."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(CSRC / s) for s in SOURCES]]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in SOURCES:
+        obj = out.parent / f"{Path(src).stem}.{tag}.o"
+        cmd = [nvcc(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    log, failed = [], []
+    for cmd, obj, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{text}")
+    tmp = out.with_suffix(f".{tag}")
+    if not failed:
+        cmd = [nvcc(), *LINK_FLAGS, "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     build_seconds = time.perf_counter() - t0
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    (out.parent / "build.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

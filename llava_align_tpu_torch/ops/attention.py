@@ -5,13 +5,15 @@ Layouts:
     k, v     [B, S, K, Dh]          (K = num kv heads; GQA via H % K == 0)
     cache    [B, Smax, K, Dh]
 
-All softmax math is float32; inputs may be bf16. `mha` and
-`decode_attention` are plain torch, as their JAX counterparts are XLA
-einsums; causal prefill goes through the flash kernel K3
-(csrc/flash_attn.cu) on the card.
+All softmax math is float32; inputs may be bf16. `mha`, `decode_attention`
+and the shared-prefix (grouped) variants are plain torch, as their JAX
+counterparts are XLA einsums; causal prefill goes through the flash kernel
+K3 (csrc/flash_attn.cu) on the card.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -72,6 +74,205 @@ def decode_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(v_cache.dtype).float(), v_cache.float())
     return out.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Shared-prefix (two-segment) attention, plain torch as the JAX package's
+# XLA einsums. One [system + image] prefix is prefilled once into a
+# read-only KV segment; per-row caches hold only the suffix and the
+# generated tokens. Queries attend [shared | local] with one joint softmax,
+# prefix keys first, so the math is that of an unshared prefill.
+#
+# k_sh/v_sh: [P, K, Dh] (one prefix, broadcast over rows) or, grouped,
+# [G, P, K, Dh] with rows statically blocked by rows_per_prefix; sh_len [B]:
+# valid prefix keys per row (0 = no shared segment). An optional second
+# table (k_sh2/v_sh2, its own bucket) covers the rows right after the first
+# table's span: rows are [table-1 span | table-2 span | plain rows].
+# int8 (values, scales) segments are not ported yet.
+# ---------------------------------------------------------------------------
+
+
+def _refuse_int8_segments(*xs) -> None:
+    if any(isinstance(x, tuple) for x in xs):
+        raise NotImplementedError("int8 KV segments (kv_quant) are not ported yet")
+
+
+def _shared_logits(q4: torch.Tensor, k_sh: torch.Tensor, sh_len: torch.Tensor, scale: float):
+    """q4 [B,K,g,S,Dh] x k_sh [P,K,Dh] → masked fp32 logits [B,K,g,S,P]."""
+    _refuse_int8_segments(k_sh)
+    P = k_sh.shape[0]
+    logits = torch.einsum("bkgsd,pkd->bkgsp", q4.float(), k_sh.to(q4.dtype).float()) * scale
+    col = torch.arange(P, device=q4.device)
+    valid = col < sh_len.to(q4.device)[:, None, None, None, None]
+    return logits.masked_fill(~valid, NEG_INF)
+
+
+def _seg_value_einsum(subs: str, probs: torch.Tensor, v_sh: torch.Tensor, compute_dtype):
+    """probs x segment values, both rounded to compute_dtype, summed in fp32."""
+    _refuse_int8_segments(v_sh)
+    return torch.einsum(subs, probs.to(compute_dtype).float(), v_sh.to(compute_dtype).float())
+
+
+def chunk_attention_shared(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    k_sh: torch.Tensor, v_sh: torch.Tensor, sh_len: torch.Tensor,
+) -> torch.Tensor:
+    """Suffix prefill: causal within the local block [B,S] + full attention to
+    the shared prefix. The block is the first local cache content (local
+    offset 0); absolute positions are sh_len[b] + i (RoPE applied by the
+    caller)."""
+    B, S, H, Dh = q.shape
+    K = k.shape[2]
+    scale = 1.0 / (Dh**0.5)
+    qr = q.to(k.dtype).reshape(B, S, K, H // K, Dh).permute(0, 2, 3, 1, 4)
+    sh = _shared_logits(qr, k_sh, sh_len, scale)  # [B,K,g,S,P]
+    loc = torch.einsum("bkgsd,btkd->bkgst", qr.float(), k.float()) * scale
+    loc = loc.masked_fill(~_causal_mask(S, S, q.device), NEG_INF)
+    probs = torch.nan_to_num(torch.softmax(torch.cat([sh, loc], dim=-1), dim=-1))
+    P = k_sh.shape[0]
+    out = _seg_value_einsum("bkgsp,pkd->bkgsd", probs[..., :P], v_sh, v.dtype) + torch.einsum(
+        "bkgst,btkd->bkgsd", probs[..., P:].to(v.dtype).float(), v.float()
+    )
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
+
+
+def decode_attention_shared(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor,
+    k_sh: torch.Tensor, v_sh: torch.Tensor, sh_len: torch.Tensor,
+) -> torch.Tensor:
+    """decode_attention over [shared prefix | local cache]. lengths indexes
+    the LOCAL cache (current token already written at lengths[b])."""
+    _refuse_int8_segments(k_cache, v_cache)
+    B, _, H, Dh = q.shape
+    Smax, K = k_cache.shape[1], k_cache.shape[2]
+    scale = 1.0 / (Dh**0.5)
+    qr = q.to(k_cache.dtype).reshape(B, K, H // K, 1, Dh)
+    sh = _shared_logits(qr, k_sh, sh_len, scale)[:, :, :, 0]  # [B,K,g,P]
+    loc = torch.einsum("bkgd,bskd->bkgs", qr[:, :, :, 0].float(), k_cache.float()) * scale
+    pos = torch.arange(Smax, device=q.device)
+    loc = loc.masked_fill(~(pos[None, :] <= lengths.to(q.device)[:, None])[:, None, None, :], NEG_INF)
+    probs = torch.softmax(torch.cat([sh, loc], dim=-1), dim=-1)
+    P = k_sh.shape[0]
+    out = _seg_value_einsum("bkgp,pkd->bkgd", probs[..., :P], v_sh, v_cache.dtype) + torch.einsum(
+        "bkgs,bskd->bkgd", probs[..., P:].to(v_cache.dtype).float(), v_cache.float()
+    )
+    return out.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def _chunk_span_shared(
+    qr: torch.Tensor,  # [Bs, K, g, S, Dh] rows of this span
+    k: torch.Tensor,   # [Bs, S, K, Dh] local keys
+    v: torch.Tensor,
+    k_sh: torch.Tensor,  # [G, P, K, Dh]
+    v_sh: torch.Tensor,
+    sh_len: torch.Tensor,  # [Bs]
+    R: int,
+    scale: float,
+) -> torch.Tensor:
+    """One-table grouped chunk attention over a contiguous row span →
+    [Bs, K, g, S, Dh] fp32."""
+    _refuse_int8_segments(k_sh, v_sh)
+    Bs, K, g, S, Dh = qr.shape
+    G, P = k_sh.shape[0], k_sh.shape[1]
+    qg = qr.reshape(G, R, K, g, S, Dh)
+    sh = torch.einsum("Grkgsd,Gpkd->Grkgsp", qg.float(), k_sh.to(qr.dtype).float()) * scale
+    col = torch.arange(P, device=qr.device)
+    valid = col < sh_len.to(qr.device).reshape(G, R, 1, 1, 1, 1)
+    sh = sh.masked_fill(~valid, NEG_INF).reshape(Bs, K, g, S, P)
+    loc = torch.einsum("bkgsd,btkd->bkgst", qr.float(), k.float()) * scale
+    loc = loc.masked_fill(~_causal_mask(S, S, qr.device), NEG_INF)
+    probs = torch.nan_to_num(torch.softmax(torch.cat([sh, loc], dim=-1), dim=-1))
+    p_sh = probs[..., :P].reshape(G, R, K, g, S, P)
+    out_sh = torch.einsum(
+        "Grkgsp,Gpkd->Grkgsd", p_sh.to(v.dtype).float(), v_sh.to(v.dtype).float()
+    ).reshape(Bs, K, g, S, Dh)
+    return out_sh + torch.einsum("bkgst,btkd->bkgsd", probs[..., P:].to(v.dtype).float(), v.float())
+
+
+def chunk_attention_shared_grouped(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    k_sh: torch.Tensor, v_sh: torch.Tensor, sh_len: torch.Tensor, rows_per_prefix: int,
+    k_sh2: Optional[torch.Tensor] = None, v_sh2: Optional[torch.Tensor] = None,
+    rows_per_prefix2: int = 0,
+) -> torch.Tensor:
+    """Suffix prefill with one shared prefix per static row group. Rows are
+    [table-1 span | table-2 span (optional)]; each span's rows block by its
+    own rows_per_prefix."""
+    B, S, H, Dh = q.shape
+    K = k.shape[2]
+    scale = 1.0 / (Dh**0.5)
+    M1 = k_sh.shape[0] * rows_per_prefix
+    qr = q.to(k.dtype).reshape(B, S, K, H // K, Dh).permute(0, 2, 3, 1, 4)
+    out = _chunk_span_shared(qr[:M1], k[:M1], v[:M1], k_sh, v_sh, sh_len[:M1], rows_per_prefix, scale)
+    if k_sh2 is not None:
+        out2 = _chunk_span_shared(
+            qr[M1:], k[M1:], v[M1:], k_sh2, v_sh2, sh_len[M1:], rows_per_prefix2, scale
+        )
+        out = torch.cat([out, out2], dim=0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
+
+
+def _decode_span_shared(
+    qr: torch.Tensor,  # [Ms, K, g, Dh]
+    k_cache: torch.Tensor,  # [Ms, Smax, K, Dh]
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,  # [Ms]
+    k_sh: torch.Tensor,  # [G, P, K, Dh]
+    v_sh: torch.Tensor,
+    sh_len: torch.Tensor,  # [Ms]
+    R: int,
+    scale: float,
+) -> torch.Tensor:
+    """One-table grouped decode attention over a row span → [Ms, K, g, Dh]
+    fp32."""
+    _refuse_int8_segments(k_sh, v_sh)
+    Ms, K, g, Dh = qr.shape
+    G, P = k_sh.shape[0], k_sh.shape[1]
+    Smax = k_cache.shape[1]
+    qg = qr.reshape(G, R, K, g, Dh)
+    sh = torch.einsum("Grkgd,Gpkd->Grkgp", qg.float(), k_sh.to(qr.dtype).float()) * scale
+    col = torch.arange(P, device=qr.device)
+    valid = col < sh_len.to(qr.device).reshape(G, R, 1, 1, 1)
+    sh = sh.masked_fill(~valid, NEG_INF).reshape(Ms, K, g, P)
+    loc = torch.einsum("bkgd,bskd->bkgs", qr.float(), k_cache.float()) * scale
+    pos = torch.arange(Smax, device=qr.device)
+    loc = loc.masked_fill(~(pos[None, :] <= lengths.to(qr.device)[:, None])[:, None, None, :], NEG_INF)
+    probs = torch.softmax(torch.cat([sh, loc], dim=-1), dim=-1)
+    vdt = v_cache.dtype
+    out_sh = torch.einsum(
+        "Grkgp,Gpkd->Grkgd", probs[..., :P].reshape(G, R, K, g, P).to(vdt).float(),
+        v_sh.to(vdt).float(),
+    ).reshape(Ms, K, g, Dh)
+    return out_sh + torch.einsum("bkgs,bskd->bkgd", probs[..., P:].to(vdt).float(), v_cache.float())
+
+
+def decode_attention_shared_grouped(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor,
+    k_sh: torch.Tensor, v_sh: torch.Tensor, sh_len: torch.Tensor, rows_per_prefix: int,
+    k_sh2: Optional[torch.Tensor] = None, v_sh2: Optional[torch.Tensor] = None,
+    rows_per_prefix2: int = 0,
+) -> torch.Tensor:
+    """Decode over [the row group's shared prefix | local cache]. Row layout:
+    [table-1 span | table-2 span (optional) | plain rows]; plain rows (text
+    branches with no shared segment) attend their local cache only."""
+    _refuse_int8_segments(k_cache, v_cache)
+    B, _, H, Dh = q.shape
+    K = k_cache.shape[2]
+    scale = 1.0 / (Dh**0.5)
+    M1 = k_sh.shape[0] * rows_per_prefix
+    M2 = k_sh2.shape[0] * rows_per_prefix2 if k_sh2 is not None else 0
+    M = M1 + M2
+    qr = q[:M].to(k_cache.dtype).reshape(M, K, H // K, Dh)
+    outs = [_decode_span_shared(qr[:M1], k_cache[:M1], v_cache[:M1], lengths[:M1],
+                                k_sh, v_sh, sh_len[:M1], rows_per_prefix, scale)]
+    if M2:
+        outs.append(_decode_span_shared(qr[M1:M], k_cache[M1:M], v_cache[M1:M], lengths[M1:M],
+                                        k_sh2, v_sh2, sh_len[M1:M], rows_per_prefix2, scale))
+    out_m = torch.cat(outs, dim=0).reshape(M, 1, H, Dh).to(q.dtype)
+    if M == B:
+        return out_m
+    out_r = decode_attention(q[M:], k_cache[M:], v_cache[M:], lengths[M:])
+    return torch.cat([out_m, out_r], dim=0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Runner plumbing for the port (copies of llava_align_tpu/runners/common.py
-MockTokenizer, build_prompt and load_model's random:* models).
+MockTokenizer, build_prompt and load_model's random:* models), and
+pope_groups, POPE-style traffic split as the grouped entry points take it.
 
 Loading real checkpoints (hf_convert) is not ported yet.
 """
@@ -50,6 +51,24 @@ def build_prompt(
     return conv.get_prompt(), conv.stop_str
 
 
+POPE_OBJECTS = ("dog", "person", "dining table", "car", "bicycle", "chair")
+
+
+def pope_groups(tokenizer, image_size: int, n_groups: int, seed: int = 0):
+    """n_groups image groups of POPE's 6 questions, split as the POPE runner
+    splits them: (common token prefix, suffixes, seeded uint8 image)."""
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.tokenization import tokenizer_image_token
+
+    rng = np.random.default_rng(seed)
+    ids = [tokenizer_image_token(build_prompt(f"Is there a {o} in the image?", "llava_v1")[0], tokenizer)
+           for o in POPE_OBJECTS]
+    p = DecodeEngine.common_token_prefix(ids)
+    return [(ids[0][:p], [x[p:] for x in ids],
+             rng.integers(0, 256, (3, image_size, image_size), dtype=np.uint8))
+            for _ in range(n_groups)]
+
+
 class MockTokenizer:
     """Deterministic offline tokenizer for smoke runs (no checkpoint files).
     One id per character, BOS=1, EOS=2; decode maps back to characters."""
@@ -90,9 +109,10 @@ class LoadedModel:
 
 def load_model(model_path: str, quant: str = "none", device=None, seed: int = 0) -> LoadedModel:
     """'random:tiny' | 'random:7b' | 'random:13b': a random-weight model at
-    that config's shapes with the mock tokenizer, built on `device`.
-    quant='int8' builds the quantized, fused tree directly (tiny too, unlike
-    the JAX package, which keeps random:tiny in float)."""
+    that config's shapes with the mock tokenizer, built on `device` (default:
+    the GPU; raises without one unless device="cpu" is asked for).
+    quant='int8' or 'int4' builds the quantized, fused tree directly (tiny
+    too, unlike the JAX package, which keeps random:tiny in float)."""
     if not model_path.startswith("random:"):
         raise NotImplementedError("checkpoint loading (hf_convert) is not ported yet")
     size = model_path.split(":", 1)[1]

@@ -2,7 +2,9 @@
 
 Both packages keep the same tree: LLaMA linears are [out, in] in both, and
 CLIP/projector kernels stay [in, out] (used as y @ kernel) — nothing is
-transposed. int8 dicts {'q', 's'} become int8 and fp32 tensors. Takes numpy
+transposed. int8 dicts {'q', 's'} become int8 and fp32 tensors, int4 dicts
+{'q4', 'gs'} packed int8 and fp32 tensors (the same layout in both
+packages, so the carry-over is a copy). Takes numpy
 leaves (jax.device_get of a param tree), so this module imports no jax.
 """
 
@@ -32,12 +34,19 @@ def _to_tensor(x, device, dtype: Optional[torch.dtype], is_scale: bool) -> torch
 def from_jax_params(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dicts/lists of numpy arrays → the same structure of tensors on
     `device`. Float leaves take `dtype` when given (else their own); the
-    scales of int8 dicts stay fp32."""
+    scales of int8 ('s') and int4 ('gs') dicts stay fp32."""
+
+    def scale_key(node: dict) -> Optional[str]:
+        if "q" in node and "s" in node:
+            return "s"
+        if "q4" in node and "gs" in node:
+            return "gs"
+        return None
 
     def walk(node, is_scale=False):
         if isinstance(node, dict):
-            quant = "q" in node and "s" in node
-            return {k: walk(v, quant and k == "s") for k, v in node.items()}
+            sk = scale_key(node)
+            return {k: walk(v, k == sk) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)
         return _to_tensor(node, device, dtype, is_scale)

@@ -2,11 +2,16 @@
 llava_align_tpu/utils/synthetic.py build_random_llava_params).
 
 The tree and the init scales are those of the JAX package's llava.init (+
-quantize_llama_params(fuse=True) for quant="int8"); the random numbers are
-not (parity tests carry JAX params over with utils/jax_params instead).
-int8 stacks are built layer by layer on the device — each layer's weights
-are drawn in the model dtype, fused (q|k|v, gate|up) and quantized — so the
-peak is the int8 total plus one layer in float.
+quantize_llama_params(fuse=True) for quant="int8", + bits=4 for "int4"); the
+random numbers are not (parity tests carry JAX params over with
+utils/jax_params instead). Quantized stacks are built layer by layer on the
+device — each layer's weights are drawn in the model dtype, fused (q|k|v,
+gate|up) and quantized — so the peak is the quantized total plus one layer
+in float. int4 stacks use the largest group that packs every contraction
+dim (128 at real widths); the lm_head stays int8.
+
+The default device is the GPU: without one, building raises unless
+device="cpu" is asked for.
 """
 
 from __future__ import annotations
@@ -16,12 +21,26 @@ from typing import Any, Dict
 import torch
 
 from llava_align_tpu_torch.models import projector
-from llava_align_tpu_torch.ops.quant import quantize_weight
+from llava_align_tpu_torch.ops.quant import (
+    int4_auto_group,
+    quantize_weight,
+    quantize_weight_int4,
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device to build on: the GPU unless the caller names another.
+    Raises when the GPU is asked for (or defaulted to) and CUDA is absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build on the CPU")
+    return dev
 
 
 def build_random_llava_params(cfg, quant: str = "none", device=None, seed: int = 0) -> Dict[str, Any]:
-    if quant not in ("none", "int8"):
-        raise NotImplementedError(f"quant={quant!r}: only none/int8 are ported")
+    if quant not in ("none", "int8", "int4"):
+        raise NotImplementedError(f"quant={quant!r}: only none/int8/int4 are ported")
+    device = resolve_device(device)
     g = torch.Generator(device=device).manual_seed(seed)
 
     def w(shape, fan_in, dtype):
@@ -46,15 +65,22 @@ def build_random_llava_params(cfg, quant: str = "none", device=None, seed: int =
         "down": ([(D, F)], F),
     }
     layers: Dict[str, Any] = {"attn_norm": ones((L, D), dt), "mlp_norm": ones((L, D), dt)}
-    if quant == "int8":
+    if quant in ("int8", "int4"):
+        group = int4_auto_group(cols for _, cols in stacks.values())
         for name, (parts, cols) in stacks.items():
             O = sum(r for r, _ in parts)
-            q = torch.empty((L, O, cols), dtype=torch.int8, device=device)
-            s = torch.empty((L, O), dtype=torch.float32, device=device)
+            if quant == "int8":
+                wq = {"q": torch.empty((L, O, cols), dtype=torch.int8, device=device),
+                      "s": torch.empty((L, O), dtype=torch.float32, device=device)}
+            else:
+                wq = {"q4": torch.empty((L, cols // 2, O), dtype=torch.int8, device=device),
+                      "gs": torch.empty((L, cols // group, O), dtype=torch.float32, device=device)}
             for li in range(L):
-                wq = quantize_weight(torch.cat([w((r, cols), f, dt) for r, f in parts]))
-                q[li], s[li] = wq["q"], wq["s"]
-            layers[name] = {"q": q, "s": s}
+                wl = torch.cat([w((r, cols), f, dt) for r, f in parts])
+                layer = quantize_weight(wl) if quant == "int8" else quantize_weight_int4(wl, group)
+                for k, v in layer.items():
+                    wq[k][li] = v
+            layers[name] = wq
         lm_head = quantize_weight(w((V, D), D, dt))
     else:
         layers.update(

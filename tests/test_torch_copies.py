@@ -1,6 +1,8 @@
 """The port's copies of the JAX package's pure-Python pieces must behave
 identically: conversation prompts for every template, plan_splice,
-tokenizer_image_token, MockTokenizer and build_prompt. Exact equality."""
+tokenizer_image_token, MockTokenizer, build_prompt, and the grouped
+engine's host logic (common_token_prefix, _txt_kind_prefix_bases). Exact
+equality."""
 
 import dataclasses
 
@@ -110,3 +112,74 @@ def test_mock_tokenizer_identical():
     assert t.decode(np.int64(70)) == j.decode(np.int64(70))
     for attr in ("bos_token_id", "eos_token_id", "unk_token_id", "pad_token_id"):
         assert getattr(t, attr) == getattr(j, attr)
+
+
+def _token_lists(rng):
+    base = [int(t) for t in rng.integers(3, 50, size=rng.integers(0, 6))]
+    return [base + [int(t) for t in rng.integers(3, 50, size=rng.integers(0, 5))]
+            for _ in range(int(rng.integers(0, 5)))]
+
+
+def test_common_token_prefix_identical():
+    from llava_align_tpu.decoding.engine import DecodeEngine as JEngine
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine as TEngine
+
+    rng = np.random.default_rng(0)
+    cases = [[[1, 2, 3, 4], [1, 2, 3, 5, 6]], [[1, 2], [1, 2]], [], [[7]], [[1, 2, 3]]]
+    cases += [_token_lists(rng) for _ in range(50)]
+    for lists in cases:
+        assert TEngine.common_token_prefix(lists) == JEngine.common_token_prefix(lists), lists
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """A JAX and a port DecodeEngine (dual VDD) for their host-side logic;
+    neither runs a model here."""
+    import jax
+
+    from llava_align_tpu.config import GenerationConfig as JGen
+    from llava_align_tpu.config import LlavaConfig as JCfg
+    from llava_align_tpu.decoding.engine import DecodeEngine as JEngine
+    from llava_align_tpu_torch.config import GenerationConfig as TGen
+    from llava_align_tpu_torch.config import LlavaConfig as TCfg
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine as TEngine
+
+    flags = dict(use_dd=True, use_dd_unk=True)
+    jeng = JEngine(jax.eval_shape(lambda k: jllava.init(k, JCfg.tiny(97)), jax.random.PRNGKey(0)),
+                   JCfg.tiny(97), JGen(**flags))
+    teng = TEngine({"llama": {"embed": None}}, TCfg.tiny(97), TGen(**flags), device="cpu")
+    return jeng, teng
+
+
+def test_assemble_images_identical(engines):
+    """Per-group images → one array: raw uint8 only when every present slot
+    is uint8, else uint8 slots normalized on the host; None slots zero."""
+    jeng, teng = engines
+    rng = np.random.default_rng(3)
+    H = 28
+    u8 = [rng.integers(0, 256, (3, H, H), dtype=np.uint8) for _ in range(2)]
+    f32 = rng.normal(size=(3, H, H)).astype(np.float32)
+    for slots in ([u8[0], u8[1]], [u8[0], None], [u8[0], f32], [None, f32], [None, None]):
+        want = jeng._assemble_images(slots, len(slots))
+        got = teng._assemble_images(slots, len(slots))
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_txt_kind_prefix_bases_identical(engines):
+    """Which text kinds share a per-group prefix segment, and with which
+    transformed prefix: the port's host logic against the JAX engine's."""
+    jeng, teng = engines
+    S = IMAGE_TOKEN_INDEX
+    groups_list = [
+        [([1, 5, S, 6], [[7, 8], [9]], None, None)],
+        [([1, 5, S, 6], [[7], [8]], None, None), ([1, S], [[3], [4, 5]], None, None)],
+        [([1, 5, 6], [[S, 8], [9]], None, None)],               # sentinel in a suffix
+        [([S], [[2], [3]], None, None)],                        # 'none' prefix is empty
+        [([1, S, 2], [[3], [4]], None, [{"unk": [1, 0, 2, 3]}, None])],  # explicit ids
+        [([1, S, 2], [[3], [4]], None, [None, {"none": [1, 2, 4]}])],
+    ]
+    for groups in groups_list:
+        for kind in ("unk", "none"):
+            assert teng._txt_kind_prefix_bases(kind, groups) == jeng._txt_kind_prefix_bases(
+                kind, groups), (kind, groups)

@@ -127,18 +127,35 @@ def test_llama_prefill_then_decode(params, quant):
     _close(tcache["v"], jcache["v"])
 
 
-@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
 def test_synthetic_tree_matches_jax_layout(quant):
     """build_random_llava_params gives the JAX tree's keys, shapes and dtypes
-    (llava.init, + quantize_llama_params(fuse=True) for int8)."""
+    (llava.init, + quantize_llama_params(fuse=True) for int8, bits=4 for
+    int4)."""
     from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
 
     jp = jax.eval_shape(lambda k: jllava.init(k, JCFG), jax.random.PRNGKey(0))
-    if quant == "int8":
-        jp = dict(jp, llama=jax.eval_shape(lambda p: quantize_llama_params(p, fuse=True), jp["llama"]))
-    tp = build_random_llava_params(TCFG, quant=quant, seed=0)
+    if quant != "none":
+        bits = 4 if quant == "int4" else 8
+        jp = dict(jp, llama=jax.eval_shape(
+            lambda p: quantize_llama_params(p, fuse=True, bits=bits), jp["llama"]))
+    tp = build_random_llava_params(TCFG, quant=quant, device="cpu", seed=0)
     want = {jax.tree_util.keystr(p): (tuple(x.shape), np.dtype(x.dtype).name)
             for p, x in jax.tree_util.tree_flatten_with_path(jp)[0]}
     got = {jax.tree_util.keystr(p): (tuple(x.shape), str(x.dtype).replace("torch.", ""))
            for p, x in jax.tree_util.tree_flatten_with_path(tp)[0]}
     assert got == want
+
+
+def test_random_params_default_to_the_gpu(monkeypatch):
+    """build_random_llava_params and load_model build on the card unless the
+    caller asks for the CPU; with no CUDA they raise instead of falling back."""
+    from llava_align_tpu_torch.runners.common import load_model
+    from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_random_llava_params(TCFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model("random:tiny", quant="int4")
+    assert load_model("random:tiny", quant="int4", device="cpu").params["llama"]["embed"].device.type == "cpu"
