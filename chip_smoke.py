@@ -7,40 +7,53 @@ Phases, each fatal on failure (exit code != 0, no result line):
   1. device: the card's name and power limit (nvidia-smi), CUDA must exist;
   2. build: compile the package's CUDA kernels from csrc/ with nvcc (one
      process per source, in parallel);
-  3. kernels: each kernel against its plain PyTorch version on the card, in
-     bf16, at its main paths' shapes (K2 at the 7B and the 13B lm_head, each
-     regime; K4 in both of its regimes), with the tolerance stated; by CUDA
-     events the kernel's, the plain version's and a library call's times
-     (torch.matmul on a weight dequantized beforehand, or
+  3. kernels: K1-K4 against their plain PyTorch versions on the card, in
+     bf16, at their main paths' shapes (K1 also at the 7B text-branch
+     prefill's rows on the O >= D stacks; K2 at the 7B and the 13B lm_head,
+     each regime; K4 in both of its regimes), with the tolerance stated; by
+     CUDA events the kernel's, the plain version's and a library call's
+     times (torch.matmul on a weight dequantized beforehand, or
      scaled_dot_product_attention: a yardstick only, the port never calls
      it);
-  4. 7B path: LLaVA-v1.5-7B at full width and depth with random int8
+  4. microbenchmark path: each twin of a TPU script
+     (llava_align_tpu_torch/scripts) runs its main() once at the script's
+     shapes; each must launch the kernels of its TPU script (S1-S7), and
+     each kernel's record from that run (its error against the plain
+     version, held here at the same tolerance, S7's copies exact; kernel,
+     plain and library times, the library being torch.matmul on a weight
+     dequantized beforehand or Tensor.repeat / repeat_interleave) is the
+     S entry's;
+  5. 7B path: LLaVA-v1.5-7B at full width and depth with random int8
      weights, several POPE-style requests through DecodeEngine.generate with
      dual-branch VDD (use_dd + use_dd_unk, cd_alpha=1, cd_beta=0.1, greedy,
-     8 new tokens, EOS out of range); K1, K2 and K3 must launch;
-  5. 7B reference: the same model cut to 2 decoder / 2 vision layers at full
+     8 new tokens, EOS out of range); K1, K2 and K3 must launch, and no call
+     the JAX dispatch rule streams may take the dequant path;
+  6. 7B reference: the same model cut to 2 decoder / 2 vision layers at full
      width, its prefill and decode logits on the card against the same
      params run in fp32 on the CPU (the kernels' plain versions);
-  6. 13B grouped path: LLaVA-v1.5-13B at full width and depth with random
+  7. 13B grouped path: LLaVA-v1.5-13B at full width and depth with random
      int4 (group 128) weights, the same decoding, POPE's 6 questions per
      image: one generate_batch_prefix call, one generate_batch_groups call
      at G = 4 groups (the POPE runner's cap), then a submit_batch_groups /
      collect_batch_groups loop at G = 4, sequential (the port's submit runs
      the whole call); K4, K2 and K3 must launch in the G = 1 call and in the
      G = 4 calls on their own;
-  7. 13B grouped reference: that model cut to 2 decoder / 2 vision layers at
+  8. 13B grouped reference: that model cut to 2 decoder / 2 vision layers at
      full width; the grouped path's first-step fused scores on the card
      against the same params in fp32 on the CPU, and against `generate` on
      the card for the same question.
 
 Prints a JSON line with each kernel's record (launches: both main paths'
-counts, per path under launches_by_path; K2's times per path under
-by_path), the card's name and power limit,
+counts, per path under launches_by_path; K1's prefill-row times under
+prefill, K2's times per path under by_path; S1-S7: launches, errors and
+times from the run of the twin that runs each), the card's name and power
+limit,
 then as the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import subprocess
@@ -69,7 +82,6 @@ QUESTIONS = (
 )
 GROUPS = 4          # image groups per grouped call: the POPE runner's cap
 GROUP_CALLS = 3     # G = 4 calls: one generate_batch_groups (warm-up), then submit/collect
-STACKS_7B = {"qkv": (12288, 4096), "o": (4096, 4096), "gateup": (22016, 4096), "down": (4096, 11008)}
 LM_HEAD_7B = (32000, 4096)
 LM_HEAD_13B = (32000, 5120)
 STACKS_13B = {"qkv": (15360, 5120), "o": (5120, 5120), "gateup": (27648, 5120), "down": (5120, 13824)}
@@ -115,12 +127,6 @@ def bound(nbytes: float, flops: float) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def matmul_work(B: int, O: int, D: int, weight_bytes: float, scale_bytes: float, act_bytes: int = 2):
-    """(bytes, flops) of y[B,O] = h[B,D] W: weights and scales read once, h
-    read once, y written once."""
-    return weight_bytes + scale_bytes + act_bytes * B * (D + O), 2.0 * B * O * D
-
-
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -156,25 +162,32 @@ def phase_build() -> None:
             log("  ptxas: " + line.strip())
 
 
-def phase_kernels_int8_flash(attn_shapes, grouped_decode_rows) -> dict:
+def phase_kernels_int8_flash(attn_shapes, grouped_decode_rows, prefill_rows: int) -> dict:
     """K1, K2 and K3 against their plain versions at the 7B path's shapes
-    (K2 also at the 13B lm_head's grouped rows, K3 at the 13B grouped
+    (K1 also at its text-branch prefill's `prefill_rows` on the O >= D
+    stacks, K2 at the 13B lm_head's grouped rows, K3 at the 13B grouped
     path's prefills)."""
     from llava_align_tpu_torch.ops import attention, quant
+    from llava_align_tpu_torch.scripts._common import SHAPES_7B, matmul_work
 
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(0)
     rec = {}
 
-    log("kernels: K1 int8_matmul_stacked (decoder linears) vs plain, bf16")
+    log("kernels: K1 int8_matmul_stacked (decoder linears) vs plain, bf16; streaming up to "
+        f"{quant.DECODE_MAX_ROWS} rows, tiled above (the O >= D stacks' {prefill_rows}-row "
+        "text-branch prefill)")
     k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
     k1_bytes = k1_flops = 0.0
-    for name, (O, D) in STACKS_7B.items():
+    pre = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
+    for name, (O, D) in SHAPES_7B.items():
         L = 32
         q = torch.randint(-127, 128, (L, O, D), dtype=torch.int8, device=dev, generator=g)
         s = (torch.rand((L, O), device=dev, generator=g) + 0.5) / (127.0 * D**0.5)
         w_bf16 = [quant.dequantize({"q": q[i], "s": s[i]}, torch.bfloat16) for i in range(2)]
-        for B in (3, 16, 64):
+        # the text-branch prefill's rows reach K1 only on the O >= D stacks (the JAX rule)
+        prefill = (prefill_rows,) if quant._stream_rows_ok(prefill_rows, O, D) else ()
+        for B in (3, 16, 64) + prefill:
             h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
             for li in (0, L - 1):
                 k1["max_abs_err"] = max(k1["max_abs_err"], compare(
@@ -188,18 +201,28 @@ def phase_kernels_int8_flash(attn_shapes, grouped_decode_rows) -> dict:
             lib_ms = cuda_ms(lambda i: torch.matmul(h, w_bf16[i % 2].t()), 32)
             gbs = O * D / (ms * 1e-3) / 1e9
             log(f"  {name} B={B}: kernel {ms:.4f} ms ({gbs:.0f} GB/s of int8 weights), "
-                f"plain {plain_ms:.4f} ms, library (torch.matmul, bf16 weight) {lib_ms:.4f} ms")
+                f"plain {plain_ms:.4f} ms, library (torch.matmul, bf16 weight) {lib_ms:.4f} ms, "
+                f"bound {bound(*matmul_work(B, O, D, O * D, 4 * O))['bound_ms']:.4f} ms")
+            nb, fl = matmul_work(B, O, D, O * D, 4 * O)
             if B == 3:  # the decode row count of dual-branch VDD
                 k1["ms"] += ms
                 k1["plain_ms"] += plain_ms
                 k1["library_ms"] += lib_ms
-                nb, fl = matmul_work(B, O, D, O * D, 4 * O)
                 k1_bytes += nb
                 k1_flops += fl
+            if B == prefill_rows:
+                for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                                 ("bytes", nb), ("flops", fl)):
+                    pre[key] += val
         del q, s, w_bf16
     rec["K1"] = dict(k1, **bound(k1_bytes, k1_flops))
     log(f"  one 7B decode layer's four linears at B=3: kernel {k1['ms']:.4f} ms, plain "
         f"{k1['plain_ms']:.4f} ms, library {k1['library_ms']:.4f} ms, bound {rec['K1']['bound_ms']:.4f} ms")
+    b = bound(pre.pop("bytes"), pre.pop("flops"))
+    rec["K1"]["prefill"] = dict(pre, rows=prefill_rows, stacks=["qkv", "o", "gateup"], **b)
+    log(f"  one 7B layer's qkv, o and gate|up at B={prefill_rows} (text-branch prefill): kernel "
+        f"{pre['ms']:.4f} ms, plain {pre['plain_ms']:.4f} ms, library {pre['library_ms']:.4f} ms, "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
 
     log("kernels: K2 int8_matmul_cuda (lm_head) vs plain, bf16; streaming up to "
         f"{quant.DECODE_MAX_ROWS} rows, tiled above")
@@ -271,6 +294,7 @@ def phase_kernels_int4(decode_rows, suffix_rows: int, prefix_rows: int) -> dict:
     counts, timed; and at the rows on both sides of INT4_SKINNY_MAX_ROWS
     (the skinny regime's 1 and 2 rows, the tiled regime's 3), checked."""
     from llava_align_tpu_torch.ops import quant
+    from llava_align_tpu_torch.scripts._common import matmul_work
 
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(4)
@@ -331,6 +355,74 @@ def phase_kernels_int4(decode_rows, suffix_rows: int, prefix_rows: int) -> dict:
                 library_ms=head["library_ms"], **bound(head["bytes"], head["flops"]))
 
 
+# kernels-line entries of the microbenchmark path: TPU kernel -> (the twin
+# that runs it, the key of the kernel's record in the twin's main() result,
+# the port's wrapper, its source, the TPU kernel's file:line)
+PROBE_KERNELS = {
+    "S1a": ("bench_int4_probe", "int4_mm", "int4_rowmajor_matmul_stacked",
+            "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_int4_probe.py:58"),
+    "S1b": ("bench_int4_probe", "int4_native_mm", "int8_matmul_stacked",
+            "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_int4_probe.py:115"),
+    "S2a": ("bench_int4_probe2", "int4_mm", "int4_rowmajor_matmul_stacked",
+            "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_int4_probe2.py:55"),
+    "S2b": ("bench_int4_probe2", "int4_native_mm", "int8_matmul_stacked",
+            "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_int4_probe2.py:182"),
+    "S3": ("bench_int4_probe3", "int4_mm", "int4_rowmajor_matmul_stacked",
+           "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_int4_probe3.py:46"),
+    "S4": ("bench_int4_transposed", "int4t_mm", "int4_matmul_stacked",
+           "llava_align_tpu_torch/csrc/int4_mm.cu", "scripts/bench_int4_transposed.py:43"),
+    "S5": ("bench_bf16_stream", "stream_mm", "bf16_matmul_stacked",
+           "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_bf16_stream.py:37"),
+    "S6": ("probe_int4_kernel_bisect", "kern", "int4_rowmajor_matmul_stacked",
+           "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/probe_int4_kernel_bisect.py:24"),
+    "S7": ("probe_mosaic_ops", "tryk", "repeat2d", "llava_align_tpu_torch/csrc/repeat2d.cu",
+           "scripts/probe_mosaic_ops.py:9"),
+}
+
+
+def phase_probes() -> dict:
+    """The microbenchmark path: each twin's main() once, at its TPU
+    script's shapes, on the card; every count is reset before a twin and
+    read after it. Each twin must launch the kernels of its TPU script. A
+    twin's main() returns its kernels' records (error against the plain
+    version at the twin's shapes; kernel, plain and library ms; the timed
+    work's bytes and operations): each error is held here at KERNEL_TOL
+    (S7 exact) and each record becomes the S entry's numbers."""
+    import importlib
+
+    from llava_align_tpu_torch.scripts import TWINS
+
+    counts, results = {}, {}
+    for twin in TWINS:
+        mod = importlib.import_module(f"llava_align_tpu_torch.scripts.{twin}")
+        log(f"microbenchmark twin {twin}:")
+        reset_launches()
+        t0 = time.perf_counter()
+        results[twin] = mod.main([])
+        torch.cuda.synchronize()
+        counts[twin] = read_launches()
+        torch.cuda.empty_cache()
+        log(f"  {twin}: {time.perf_counter() - t0:.2f} s, launches "
+            f"{ {k: v for k, v in counts[twin].items() if v} }")
+    dead = [(sid, twin, w) for sid, (twin, _, w, _, _) in PROBE_KERNELS.items() if counts[twin][w] <= 0]
+    if dead:
+        raise AssertionError(f"kernels not launched by their twins: {dead}")
+    entries = {}
+    for sid, (twin, key, w, _, _) in PROBE_KERNELS.items():
+        r = results[twin][key]
+        tol = 0.0 if sid == "S7" else KERNEL_TOL * r["ref_max"]
+        ok = np.isfinite(r["max_abs_err"]) and r["max_abs_err"] <= tol
+        b = bound(r["bytes"], r["flops"])
+        log(f"  {sid} ({twin}.{key}): max_abs_err={r['max_abs_err']:.6g} tol={tol:.6g} "
+            f"{'ok' if ok else 'FAIL'}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); launches {counts[twin][w]}")
+        if not ok:
+            raise AssertionError(f"{sid}: the kernel disagrees with its plain version in {twin}")
+        entries[sid] = dict(launches=counts[twin][w], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], library_ms=r["library_ms"], **b)
+    return entries
+
+
 def pope_requests(tokenizer, image_size: int):
     """POPE-style requests: llava_v1 prompts and seeded uint8 images."""
     from llava_align_tpu_torch.runners.common import build_prompt
@@ -380,12 +472,16 @@ def check_output(out, V: int, what: str) -> None:
 
 def wrappers():
     from llava_align_tpu_torch.ops import attention, quant
+    from llava_align_tpu_torch.ops import stream_probes as sp
 
     return {
         "int8_matmul_stacked": quant.int8_matmul_stacked,
         "int8_matmul_cuda": quant.int8_matmul_cuda,
         "flash_attention": attention.flash_attention,
         "int4_matmul_stacked": quant.int4_matmul_stacked,
+        "int4_rowmajor_matmul_stacked": sp.int4_rowmajor_matmul_stacked,
+        "bf16_matmul_stacked": sp.bf16_matmul_stacked,
+        "repeat2d": sp.repeat2d,
     }
 
 
@@ -401,6 +497,7 @@ def read_launches() -> dict:
 def phase_main_path(dev) -> dict:
     """LLaVA-v1.5-7B int8, dual-branch VDD, through DecodeEngine.generate."""
     from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.ops import quant
     from llava_align_tpu_torch.runners.common import load_model
 
     t0 = time.perf_counter()
@@ -412,20 +509,37 @@ def phase_main_path(dev) -> dict:
     requests = pope_requests(lm.tokenizer, lm.cfg.vision.image_size)
     V = lm.cfg.text.vocab_size
 
+    # every call that takes the dequant path, as (rows, O, D): none may be
+    # one the JAX rule streams (an O >= D stack at 65..640 rows)
+    dequant_calls = collections.Counter()
+    dequant = quant.int8_matmul_dequant
+
+    def counted_dequant(h, q, s):
+        dequant_calls[(h.numel() // h.shape[-1], q.shape[0], q.shape[1])] += 1
+        return dequant(h, q, s)
+
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     stats = []
-    for i, (ids, image) in enumerate(requests):
-        out = engine.generate(ids, image)
-        torch.cuda.synchronize()
-        check_output(out, V, f"request {i}")
-        decode_s = out.seconds_total - out.seconds_to_first_token
-        tps = (out.num_generated - 1) / decode_s
-        stats.append((out.seconds_total, out.seconds_to_first_token, tps))
-        log(f"  request {i}{' (warm-up)' if i == 0 else ''}: prompt {len(ids)} ids -> spliced "
-            f"{out.prompt_length}, tokens {out.token_ids}, total {out.seconds_total:.4f} s, "
-            f"prefill+first token {out.seconds_to_first_token:.4f} s, decode {tps:.2f} tok/s")
+    quant.int8_matmul_dequant = counted_dequant
+    try:
+        for i, (ids, image) in enumerate(requests):
+            out = engine.generate(ids, image)
+            torch.cuda.synchronize()
+            check_output(out, V, f"request {i}")
+            decode_s = out.seconds_total - out.seconds_to_first_token
+            tps = (out.num_generated - 1) / decode_s
+            stats.append((out.seconds_total, out.seconds_to_first_token, tps))
+            log(f"  request {i}{' (warm-up)' if i == 0 else ''}: prompt {len(ids)} ids -> spliced "
+                f"{out.prompt_length}, tokens {out.token_ids}, total {out.seconds_total:.4f} s, "
+                f"prefill+first token {out.seconds_to_first_token:.4f} s, decode {tps:.2f} tok/s")
+    finally:
+        quant.int8_matmul_dequant = dequant
     launches = read_launches()
+    log(f"  dequant-path calls (rows, O, D): {dict(dequant_calls)}")
+    streamable = [c for c in dequant_calls if quant._stream_rows_ok(*c)]
+    if streamable:
+        raise AssertionError(f"calls the JAX rule streams took the dequant path: {streamable}")
     peak = torch.cuda.max_memory_allocated()
     steady = stats[1:]
     log(f"  launches during the 7B path: {launches}")
@@ -643,9 +757,11 @@ def main() -> int:
     attn_shapes = [(1, 640, 32, 128), (2, 128, 32, 128), (1, main_lens[0], 32, 128),
                    (2, main_lens[1], 32, 128), (GROUPS, shapes["pad_prefix"], 40, 128),
                    (2 * GROUPS, shapes["pad_txt"], 40, 128)]
-    rec = phase_kernels_int8_flash(attn_shapes, shapes["decode_rows"])
+    # the text-branch rows (unk, none) prefill together at their bucket
+    rec = phase_kernels_int8_flash(attn_shapes, shapes["decode_rows"], 2 * main_lens[1])
     rec["K4"] = phase_kernels_int4(shapes["decode_rows"], shapes["suffix_rows"], shapes["prefix_rows"])
     torch.cuda.synchronize()
+    probes = phase_probes()
     by_path = {"7b_int8_generate": phase_main_path(dev)}
     torch.cuda.synchronize()
     phase_reference(dev)
@@ -667,8 +783,13 @@ def main() -> int:
              launches=sum(p[n] for p in by_path.values()),
              launches_by_path={path: p[n] for path, p in by_path.items()},
              **{k: rec[kid][k] for k in keys},
-             **({"by_path": rec[kid]["by_path"]} if "by_path" in rec[kid] else {}))
+             **{k: rec[kid][k] for k in ("by_path", "prefill") if k in rec[kid]})
         for n, (kid, src, rep) in sources.items()
+    ] + [
+        # the microbenchmark path: launches, errors and times from the twin's run
+        dict(name=f"{sid} {w}", route="cuda", source=src, replaces=rep, twin=twin,
+             launches=probes[sid]["launches"], **{k: probes[sid][k] for k in keys})
+        for sid, (twin, _, w, src, rep) in PROBE_KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

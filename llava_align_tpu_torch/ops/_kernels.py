@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("int8_mm.cu", "flash_attn.cu", "int4_mm.cu")
+SOURCES = ("int8_mm.cu", "flash_attn.cu", "int4_mm.cu", "repeat2d.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
@@ -36,7 +36,7 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 # the kernels' `dtype` argument
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_vp, _int = ctypes.c_void_p, ctypes.c_int
+_vp, _int, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     # h, q, s, y, B, O, D, layer, dtype, stream
@@ -49,6 +49,12 @@ SIGNATURES = {
     "int4_mm_stacked": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
     # B, O, D -> fp32 elements of split-K workspace
     "int4_mm_workspace": (_int, _int, _int),
+    # h, p, s, y, B, O, D, layer, mode (0 per-channel, 1 group 128), stream
+    "int4_rowmajor_mm_stacked": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
+    # h, w, y, B, O, D, layer, stream
+    "bf16_mm_stacked": (_vp, _vp, _vp, _int, _int, _int, _int, _vp),
+    # x, y, ld, rows, cols, r0, c0, mode_r, n_r, mode_c, n_c, scale, stream
+    "repeat2d": (_vp, _vp, _i64, _int, _int, _int, _int, _int, _int, _int, _int, _f32, _vp),
 }
 
 _lib: Optional[ctypes.CDLL] = None  # the process's one loaded library

@@ -11,12 +11,13 @@ paths, which round differently:
 * the dequant path (int8_matmul_dequant, twin of int8_matmul_xla): q*s
   rounded to the activation dtype first, then torch.matmul.
 
-int8 dispatch, the JAX package's rule: the decoder stacks take K1 at row
-counts up to DECODE_MAX_ROWS (decode), larger ones (prefill) the dequant
-path; the lm_head takes K2 at up to DECODE_MAX_ROWS rows and, being
-output-major (O >= D), up to STREAM_MAX_ROWS, as the TPU sends such matrices
-to its Pallas kernel up to 640 rows. Above 64 rows the kernel runs its
-tiled tensor-core regime, which takes bf16 only.
+int8 dispatch, the JAX package's rule (_stream_rows_ok): every matrix
+takes the kernel at row counts up to DECODE_MAX_ROWS (decode); output-major
+ones (O >= D: the fused qkv, o and gate|up stacks, the lm_head) also up to
+STREAM_MAX_ROWS, as the TPU sends them to its Pallas kernels up to 640 rows;
+everything else (the down stack's prefill, rows past 640) takes the dequant
+path. Above 64 rows the kernel runs its tiled tensor-core regime, which
+takes bf16 only.
 
 int4 (group 128) keeps the JAX package's layout, so quantize_weight_int4 is
 bit-identical to it and a JAX tree carries over as a copy: packed int8
@@ -177,13 +178,14 @@ def int8_matmul_stacked_dispatch(
     act_quant: bool = False,
 ) -> torch.Tensor:
     """h [..., D] x stacked quantized [L, O, D] at layer_idx → [..., O].
-    Decode row counts (<= DECODE_MAX_ROWS) take K1; prefill rows the dequant
-    path. act_quant (W8A8) is not ported yet."""
+    Row counts the JAX package streams (_stream_rows_ok: every stack up to
+    DECODE_MAX_ROWS, output-major ones up to STREAM_MAX_ROWS) take K1; the
+    rest the dequant path. act_quant (W8A8) is not ported yet."""
     if act_quant:
         raise NotImplementedError("W8A8 (act_quant) is not ported yet")
     q, s = wq["q"], wq["s"]
     lead = h.shape[:-1]
-    if _rows(h) <= DECODE_MAX_ROWS:
+    if _stream_rows_ok(_rows(h), q.shape[1], q.shape[2]):
         out = int8_matmul_stacked(h.reshape(-1, h.shape[-1]).contiguous(), q, s, layer_idx)
         return out.reshape(*lead, q.shape[1])
     return int8_matmul_dequant(h, q[layer_idx], s[layer_idx])
@@ -225,6 +227,16 @@ def int4_auto_group(dims) -> int:
     return g
 
 
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int4 codes [..., O, D] (values in [-8, 7], any integer dtype) →
+    split-half packed int8 [..., O, D/2]: the low nibble of byte d holds
+    code d, the high nibble code D/2 + d."""
+    q32 = q.to(torch.int32)
+    half = q.shape[-1] // 2
+    packed = (q32[..., :half] & 0xF) | ((q32[..., half:] & 0xF) << 4)
+    return packed.to(torch.uint8).view(torch.int8)
+
+
 def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP) -> Dict[str, torch.Tensor]:
     """[..., O, D] float → {'q4': int8 [..., D/2, O] packed, split-half,
     'gs': fp32 [..., D/group, O]}: group absmax/7 scales, codes in [-8, 7]."""
@@ -237,10 +249,8 @@ def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP) -> Dict[str, 
     absmax = gr.abs().amax(dim=-1)
     s = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 7.0)
     q = torch.clamp(torch.round(gr / s[..., None]), -8, 7).to(torch.int32).reshape(*lead, O, D)
-    packed = (q[..., : D // 2] & 0xF) | ((q[..., D // 2 :] & 0xF) << 4)  # [..., O, D/2]
-    packed = packed.to(torch.uint8).view(torch.int8)
     return {
-        "q4": packed.transpose(-1, -2).contiguous(),
+        "q4": pack_int4(q).transpose(-1, -2).contiguous(),
         "gs": s.transpose(-1, -2).contiguous(),
     }
 

@@ -6,6 +6,10 @@ transposed. int8 dicts {'q', 's'} become int8 and fp32 tensors, int4 dicts
 {'q4', 'gs'} packed int8 and fp32 tensors (the same layout in both
 packages, so the carry-over is a copy). Takes numpy
 leaves (jax.device_get of a param tree), so this module imports no jax.
+
+The default device is the GPU, as for load_model and
+build_random_llava_params: without one, the carry-over raises unless
+device="cpu" is asked for.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from llava_align_tpu_torch.utils.synthetic import resolve_device
 
 
 def _to_tensor(x, device, dtype: Optional[torch.dtype], is_scale: bool) -> torch.Tensor:
@@ -33,8 +39,10 @@ def _to_tensor(x, device, dtype: Optional[torch.dtype], is_scale: bool) -> torch
 
 def from_jax_params(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dicts/lists of numpy arrays → the same structure of tensors on
-    `device`. Float leaves take `dtype` when given (else their own); the
-    scales of int8 ('s') and int4 ('gs') dicts stay fp32."""
+    `device` (the GPU unless another is named). Float leaves take `dtype`
+    when given (else their own); the scales of int8 ('s') and int4 ('gs')
+    dicts stay fp32."""
+    device = resolve_device(device)
 
     def scale_key(node: dict) -> Optional[str]:
         if "q" in node and "s" in node:

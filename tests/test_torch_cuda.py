@@ -2,8 +2,10 @@
 
 Marked `cuda`: they skip where torch sees no GPU. They are the checks of
 chip_smoke.py's kernel phase at small shapes plus the wrappers' refusals:
-K1/K2 (int8, both regimes), K3 (flash attention) and K4 (int4, both
-regimes).
+K1/K2 (int8, both regimes), K3 (flash attention), K4 (int4, both
+regimes), and the kernels of the TPU microbenchmark scripts
+(ops/stream_probes: row-major int4 in both scale modes, bf16 streaming,
+repeat2d, which is exact).
 This file imports no jax, so on the machine with the card it runs without
 the repository's conftest (which imports jax):
 
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from llava_align_tpu_torch.ops import attention, quant
+from llava_align_tpu_torch.ops import stream_probes as sp
 
 TOL = 2.0**-6
 
@@ -178,3 +181,95 @@ def test_int4_wrapper_refuses_what_the_kernel_does_not_take(dev):
         quant.int4_matmul_stacked(h.float(), q4, gs, 0)
     with pytest.raises(TypeError):
         quant.int4_matmul_stacked(h.half(), q4, gs, 0)
+
+
+def test_int8_stacked_dispatch_streams_output_major_prefill_rows(dev):
+    """An O >= D stack at 65..640 rows takes K1's tiled regime, as the TPU
+    package streams it; an O < D stack there takes the dequant path."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    for O, D, to_k1 in ((384, 256, True), (256, 384, False)):
+        q = torch.randint(-127, 128, (2, O, D), dtype=torch.int8, device=dev, generator=g)
+        s = torch.rand((2, O), device=dev, generator=g) / 100 + 1e-3
+        h = torch.randn((2, 256, D), device=dev, generator=g).to(torch.bfloat16)
+        before = quant.int8_matmul_stacked.launches
+        got = quant.int8_matmul_stacked_dispatch(h, {"q": q, "s": s}, 1)
+        assert quant.int8_matmul_stacked.launches == before + int(to_k1)
+        _assert_close(got.reshape(512, O), quant.int8_matmul_stacked_plain(h.reshape(512, D), q, s, 1))
+
+
+def _rowmajor_stack(dev, L, O, D, seed, group):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.randint(-128, 128, (L, O, D // 2), dtype=torch.int8, device=dev, generator=g)
+    shape = (L, O, D // 128) if group else (L, O)
+    s = (torch.rand(shape, device=dev, generator=g) + 0.5) / (7.0 * D**0.5)
+    return p, s
+
+
+@pytest.mark.parametrize("group", [False, True])
+@pytest.mark.parametrize("B", [1, 3, 5, 16, 33, 64])
+def test_int4_rowmajor_kernel_matches_plain(dev, B, group):
+    """Both scale modes, any packed byte (both nibbles sign-extend), ragged
+    O, layers 0 and L-1; per-channel also at D % 256 != 0."""
+    for L, O, D in ((3, 200, 512), (2, 96, 1024)) + (() if group else ((2, 72, 96),)):
+        p, s = _rowmajor_stack(dev, L, O, D, seed=B + D, group=group)
+        h = torch.randn((B, D), device=dev, generator=torch.Generator(device=dev).manual_seed(B))
+        h = h.to(torch.bfloat16)
+        for li in (0, L - 1):
+            _assert_close(sp.int4_rowmajor_matmul_stacked(h, p, s, li),
+                          sp.int4_rowmajor_matmul_stacked_plain(h, p, s, li))
+
+
+@pytest.mark.parametrize("B", [1, 4, 16, 40, 64])
+def test_bf16_stream_kernel_matches_plain(dev, B):
+    g = torch.Generator(device=dev).manual_seed(B)
+    L, O, D = 3, 200, 520  # ragged O; D % 8 == 0 only
+    w = torch.randn((L, O, D), device=dev, generator=g).to(torch.bfloat16)
+    h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
+    for li in (0, L - 1):
+        _assert_close(sp.bf16_matmul_stacked(h, w, li), sp.bf16_matmul_stacked_plain(h, w, li))
+
+
+def test_repeat2d_kernel_is_exact(dev):
+    from llava_align_tpu_torch.scripts import probe_mosaic_ops
+
+    src = probe_mosaic_ops.sources(dev)
+    for name in probe_mosaic_ops.OPS:
+        got = probe_mosaic_ops.run(name, src)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probe_mosaic_ops.run(name, src, plain=True)), name
+    # a strided source (a column window of a wider tensor), both maps at once
+    x = torch.randn((40, 70), device=dev)[:, 3:50]
+    args = ((96, 33), ("repeat", 3), ("tile", 11), (2, 5), -1.5)
+    assert torch.equal(sp.repeat2d(x, *args), sp.repeat2d_plain(x, *args))
+
+
+def test_stream_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    p, s = _rowmajor_stack(dev, 2, 64, 512, seed=1, group=True)
+    h = torch.zeros((4, 512), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError):  # bf16 activations only
+        sp.int4_rowmajor_matmul_stacked(h.float(), p, s, 0)
+    with pytest.raises(ValueError):  # rows past 64
+        sp.int4_rowmajor_matmul_stacked(torch.zeros((65, 512), dtype=torch.bfloat16, device=dev), p, s, 0)
+    with pytest.raises(ValueError):  # group 64, not 128
+        sp.int4_rowmajor_matmul_stacked(h, p, torch.ones((2, 64, 8), device=dev), 0)
+    with pytest.raises(ValueError):  # group mode needs D % 256 == 0
+        sp.int4_rowmajor_matmul_stacked(torch.zeros((4, 384), dtype=torch.bfloat16, device=dev),
+                                        p[..., :192].contiguous(), s[..., :3].contiguous(), 0)
+    with pytest.raises(ValueError):  # not contiguous
+        sp.int4_rowmajor_matmul_stacked(torch.zeros((512, 4), dtype=torch.bfloat16, device=dev).t(), p, s, 0)
+    with pytest.raises(ValueError):  # mixed devices
+        sp.int4_rowmajor_matmul_stacked(h, p.cpu(), s, 0)
+    with pytest.raises(ValueError):  # layer out of range
+        sp.int4_rowmajor_matmul_stacked(h, p, s, 2)
+    w = torch.zeros((2, 64, 512), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # fp32 weights
+        sp.bf16_matmul_stacked(h, w.float(), 0)
+    with pytest.raises(TypeError):
+        sp.bf16_matmul_stacked(h.half(), w, 0)
+    x = torch.zeros((8, 16), device=dev)
+    with pytest.raises(ValueError):  # reads past the source
+        sp.repeat2d(x, (8, 32), ("repeat", 1), ("tile", 32))
+    with pytest.raises(TypeError):  # fp32 only
+        sp.repeat2d(x.double(), (8, 32), ("repeat", 1), ("tile", 16))
+    with pytest.raises(TypeError):  # rows must be contiguous
+        sp.repeat2d(x.t(), (16, 8), ("repeat", 1), ("tile", 8))

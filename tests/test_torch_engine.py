@@ -42,7 +42,8 @@ LAYOUTS = {
 def trees():
     jp = jax.device_get(jllava.init(jax.random.PRNGKey(0), JCFG))
     jq = dict(jp, llama=jax.device_get(quantize_llama_params(jp["llama"], fuse=True)))
-    return {"fp32": (jp, from_jax_params(jp)), "int8_fused": (jq, from_jax_params(jq))}
+    return {"fp32": (jp, from_jax_params(jp, device="cpu")),
+            "int8_fused": (jq, from_jax_params(jq, device="cpu"))}
 
 
 @pytest.fixture(scope="module")

@@ -53,10 +53,10 @@ def images():
 @pytest.fixture(scope="module")
 def trees():
     jp = jax.device_get(jllava.init(jax.random.PRNGKey(0), JCFG))
-    out = {"fp32": (jp, from_jax_params(jp))}
+    out = {"fp32": (jp, from_jax_params(jp, device="cpu"))}
     for name, bits in (("int8_fused", 8), ("int4_fused", 4)):
         jq = dict(jp, llama=jax.device_get(quantize_llama_params(jp["llama"], fuse=True, bits=bits)))
-        out[name] = (jq, from_jax_params(jq))
+        out[name] = (jq, from_jax_params(jq, device="cpu"))
     return out
 
 

@@ -59,7 +59,7 @@ def _stack(seed, L, O, D):
     rng = np.random.default_rng(seed)
     w = (rng.normal(size=(L, O, D)) * 0.05).astype(np.float32)
     wq = jax.device_get(jq.quantize_weight_int4(jnp.asarray(w)))
-    return wq, from_jax_params(wq)
+    return wq, from_jax_params(wq, device="cpu")
 
 
 @pytest.mark.parametrize("rows", [(3,), (2, 5), (72,), (3, 96)])
@@ -101,7 +101,8 @@ def test_quantize_llama_params_int4_tree_bit_exact(fuse):
 
     params = jllama.init(jax.random.PRNGKey(0), LlamaConfig.tiny(vocab_size=97))
     want = jax.device_get(jq.quantize_llama_params(params, fuse=fuse, bits=4))
-    got = tq.quantize_llama_params(from_jax_params(jax.device_get(params)), fuse=fuse, bits=4)
+    got = tq.quantize_llama_params(from_jax_params(jax.device_get(params), device="cpu"),
+                                   fuse=fuse, bits=4)
     flat = jax.tree_util.tree_flatten_with_path(want)[0]
     got_flat = jax.tree_util.tree_flatten_with_path(jax.tree_util.tree_map(_np, got))[0]
     assert sorted(jax.tree_util.keystr(p) for p, _ in flat) == sorted(
@@ -142,7 +143,7 @@ def test_fused_int4_equals_unfused_parts():
 def test_from_jax_params_keeps_int4_layout_and_fp32_scales():
     wq, _ = _stack(6, 2, 64, 256)
     tree = {"layers": {"down": wq}, "embed": np.ones((4, 8), np.float32)}
-    got = from_jax_params(tree, dtype=torch.bfloat16)
+    got = from_jax_params(tree, device="cpu", dtype=torch.bfloat16)
     assert got["embed"].dtype == torch.bfloat16
     assert got["layers"]["down"]["q4"].dtype == torch.int8
     assert got["layers"]["down"]["gs"].dtype == torch.float32  # not rounded to bf16

@@ -40,7 +40,7 @@ def _close(t, j):
 @pytest.fixture(scope="module")
 def params():
     jp = jax.device_get(jllava.init(jax.random.PRNGKey(0), JCFG))
-    return jp, from_jax_params(jp)
+    return jp, from_jax_params(jp, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +60,8 @@ def test_projector(ptype):
     D = 64 if ptype != "identity" else 32
     jp = jax.device_get(jproj.init(jax.random.PRNGKey(2), ptype, 32, D, jnp.float32))
     x = np.random.default_rng(3).normal(size=(2, 4, 32)).astype(np.float32)
-    _close(tproj.forward(from_jax_params(jp), torch.from_numpy(x)), jproj.forward(jp, jnp.asarray(x)))
+    _close(tproj.forward(from_jax_params(jp, device="cpu"), torch.from_numpy(x)),
+           jproj.forward(jp, jnp.asarray(x)))
 
 
 def test_encode_images_and_splice(params, images):
@@ -95,7 +96,7 @@ def test_llama_prefill_then_decode(params, quant):
     jl = params[0]["llama"]
     if quant != "fp32":
         jl = jax.device_get(quantize_llama_params(jl, fuse=quant == "int8_fused"))
-    tl = from_jax_params(jl)
+    tl = from_jax_params(jl, device="cpu")
     c = JCFG.text
     rng = np.random.default_rng(4)
     Smax, SA, SB = 80, 72, 8

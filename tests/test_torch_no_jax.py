@@ -1,6 +1,7 @@
-"""llava_align_tpu_torch imports, and runs a tiny generate (int8) and a tiny
-grouped shared-prefix decode (int4) on the CPU, with jax (and the JAX
-package) blocked — the machine with the card has no jax."""
+"""llava_align_tpu_torch imports, and runs a tiny generate (int8), a tiny
+grouped shared-prefix decode (int4) and every microbenchmark twin (at
+rehearsal size) on the CPU, with jax (and the JAX package) blocked — the
+machine with the card has no jax."""
 
 import os
 import subprocess
@@ -50,11 +51,42 @@ print("OK", len(names), out.token_ids)
 """
 
 
-def test_port_runs_with_jax_blocked():
+TWINS_CODE = r"""
+import sys
+for blocked in ("jax", "jaxlib", "llava_align_tpu", "scripts"):
+    sys.modules[blocked] = None  # any import of them now raises ImportError
+
+import importlib
+import llava_align_tpu_torch.ops.stream_probes
+from llava_align_tpu_torch.scripts import TWINS
+
+for name in TWINS:
+    mod = importlib.import_module("llava_align_tpu_torch.scripts." + name)
+    assert mod.main(["--device", "cpu", "--tiny"]), name
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "llava_align_tpu", "scripts"))]
+assert not loaded, loaded
+print("OK", TWINS)
+"""
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run(
-        [sys.executable, "-c", CODE], cwd=REPO, env=env, capture_output=True, text=True,
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
         timeout=300,
     )
+
+
+def test_port_runs_with_jax_blocked():
+    proc = _run(CODE)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("OK"), proc.stdout
+
+
+def test_microbenchmark_twins_run_with_jax_blocked():
+    """Each twin of a TPU script imports and runs its main() at rehearsal
+    size, with neither jax, the JAX package nor scripts/ importable."""
+    proc = _run(TWINS_CODE)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1].startswith("OK"), proc.stdout[-2000:]

@@ -48,7 +48,7 @@ def test_quantize_llama_params_tree_bit_exact(fuse):
 
     params = jllama.init(jax.random.PRNGKey(0), LlamaConfig.tiny(vocab_size=97))
     want = jax.device_get(jq.quantize_llama_params(params, fuse=fuse))
-    got = tq.quantize_llama_params(from_jax_params(jax.device_get(params)), fuse=fuse)
+    got = tq.quantize_llama_params(from_jax_params(jax.device_get(params), device="cpu"), fuse=fuse)
 
     flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
     assert sorted(jax.tree_util.keystr(p) for p, _ in flat_w) == sorted(
@@ -66,7 +66,7 @@ def _stack(seed, L, O, D):
     rng = np.random.default_rng(seed)
     w = rng.normal(size=(L, O, D)).astype(np.float32)
     wq = jax.device_get(jq.quantize_weight(jnp.asarray(w)))
-    return wq, from_jax_params(wq)
+    return wq, from_jax_params(wq, device="cpu")
 
 
 @pytest.mark.parametrize("B,li", [(3, 0), (3, 2), (24, 1), (16, 3)])
