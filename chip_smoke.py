@@ -6,15 +6,19 @@
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: the card's name and power limit (nvidia-smi), CUDA must exist;
   2. build: compile the package's CUDA kernels from csrc/ with nvcc (one
-     process per source, in parallel);
+     process per source, in parallel); ptxas must report no spill for K3's
+     tensor-core kernel;
   3. kernels: K1-K4 against their plain PyTorch versions on the card, in
      bf16, at their main paths' shapes (K1 also at the 7B text-branch
      prefill's rows on the O >= D stacks; K2 at the 7B and the 13B lm_head,
-     each regime; K4 in both of its regimes), with the tolerance stated; by
-     CUDA events the kernel's, the plain version's and a library call's
-     times (torch.matmul on a weight dequantized beforehand, or
-     scaled_dot_product_attention: a yardstick only, the port never calls
-     it);
+     each regime; K3 at each prefill shape of both model paths; K4 in both
+     of its regimes), with the tolerance stated; by CUDA events the
+     kernel's, the plain version's and a library call's times (torch.matmul
+     on a weight dequantized beforehand, or scaled_dot_product_attention: a
+     yardstick only, the port never calls it; K3 and SDPA also as launches
+     captured in a CUDA graph, their device time without the host's); K3
+     is held row by row, and that rule must pass a control (K3's algorithm
+     in PyTorch with P rounded to bf16) and catch three planted faults;
   4. microbenchmark path: each twin of a TPU script
      (llava_align_tpu_torch/scripts) runs its main() once at the script's
      shapes; each must launch the kernels of its TPU script (S1-S7), and
@@ -45,10 +49,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
 
 Prints a JSON line with each kernel's record (launches: both main paths'
 counts, per path under launches_by_path; K1's prefill-row times under
-prefill, K2's times per path under by_path; S1-S7: launches, errors and
-times from the run of the twin that runs each), the card's name and power
-limit,
-then as the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
+prefill, K2's times per path under by_path, K3's per shape under by_shape,
+with its CUDA-graph times as graph_ms / graph_library_ms and its row
+errors);
+S1-S7: launches, errors and times from the run of the twin that runs
+each), the card's name and power limit, then as the last line
+{"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -110,6 +117,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Mean device time of fn() over `iters` calls captured in one CUDA
+    graph, by CUDA events over `replays` replays: no host launch overhead
+    between the calls, for kernels shorter than their Python wrapper."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def compare(kernel_out: torch.Tensor, plain_out: torch.Tensor, what: str) -> float:
     err = (kernel_out.float() - plain_out.float()).abs().max().item()
     tol = KERNEL_TOL * plain_out.float().abs().max().item()
@@ -157,17 +188,36 @@ def phase_build() -> None:
     _kernels.lib()
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"({'nvcc ' + format(_kernels.build_seconds, '.2f') + ' s' if _kernels.build_seconds else 'cached'}) -> {path}")
-    for line in (path.parent / "build.log").read_text().splitlines():
+    text = (path.parent / "build.log").read_text()
+    for line in text.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log("  ptxas: " + line.strip())
+    # K3's tensor-core kernel holds Q fragments, S and O in registers: a
+    # spill would put them in local memory
+    mma = {fn: n for fn, n in ptxas_spill_stores(text).items() if "flash_fwd_mma_kernel" in fn}
+    log(f"  K3 tensor-core kernel, spill-store bytes per instance: {mma}")
+    if len(mma) != 2 or any(mma.values()):
+        raise AssertionError(f"K3's bf16 kernel: expected 2 instances without spills, got {mma}")
 
 
-def phase_kernels_int8_flash(attn_shapes, grouped_decode_rows, prefill_rows: int) -> dict:
-    """K1, K2 and K3 against their plain versions at the 7B path's shapes
-    (K1 also at its text-branch prefill's `prefill_rows` on the O >= D
-    stacks, K2 at the 13B lm_head's grouped rows, K3 at the 13B grouped
-    path's prefills)."""
-    from llava_align_tpu_torch.ops import attention, quant
+def ptxas_spill_stores(build_log: str) -> dict:
+    """{function: spill-store bytes} from nvcc's -Xptxas -v output."""
+    spills, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            spills[fn] = int(m.group(1))
+    return spills
+
+
+def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
+    """K1 and K2 against their plain versions at the 7B path's shapes (K1
+    also at its text-branch prefill's `prefill_rows` on the O >= D stacks,
+    K2 at the 13B lm_head's grouped rows)."""
+    from llava_align_tpu_torch.ops import quant
     from llava_align_tpu_torch.scripts._common import SHAPES_7B, matmul_work
 
     dev = torch.device("cuda:0")
@@ -257,29 +307,121 @@ def phase_kernels_int8_flash(attn_shapes, grouped_decode_rows, prefill_rows: int
     # top-level numbers: the 7B path's decode step, as in the K1 record
     top = {k: v for k, v in k2_by_path["7b_int8_generate"].items() if k not in ("shape", "rows")}
     rec["K2"] = dict(top, max_abs_err=k2_err, by_path=k2_by_path)
+    return rec
 
-    log("kernels: K3 flash_attention (causal prefill) vs plain, bf16")
-    k3_err = 0.0
-    for i, (B, S, H, Dh) in enumerate(attn_shapes):
+
+K3_TILE = 64  # keys per tile of K3's tensor-core kernel
+K3_FAULTS = ("skip_tile", "no_rescale", "mask_off_by_one")
+
+
+def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """K3's measure: the worst over the output rows (b, s, h) of max|got -
+    want| over the row, over max|want| over the row. One bound for the
+    whole tensor would be set by the first rows, which attend to one key
+    and are the largest outputs (|v| up to ~4, against ~0.1 for a row over
+    300 keys): a fault in a late key tile would pass under it."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    ref = want.float().abs().amax(-1)
+    return (diff / ref.clamp_min(torch.finfo(torch.float32).tiny)).max().item()
+
+
+def flash_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fault: str | None = None) -> torch.Tensor:
+    """K3's bf16 algorithm in PyTorch, fp32: 64-key tiles, the online max
+    and sum, P rounded to bf16 before PV, the output to bf16. Unfaulted,
+    it is the control of K3's row tolerance (what the design's own rounding
+    costs). `fault` plants one bug in the rows of the last query block (the
+    longest rows, whose outputs are the smallest) that the tolerance must
+    catch: "skip_tile" (they skip the middle key tile), "no_rescale" (their
+    acc is not rescaled when the running max grows), "mask_off_by_one"
+    (they also see the key after them)."""
+    B, S, H, Dh = q.shape
+    K = k.shape[2]
+    qf = q.float().reshape(B, S, K, H // K, Dh).permute(0, 2, 3, 1, 4)  # [B, K, G, S, Dh]
+    kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k, v))            # [B, K, S, Dh]
+    rows = torch.arange(S, device=q.device)[:, None]
+    last = (S - 1) // K3_TILE
+    late = rows // K3_TILE == last if fault else torch.zeros_like(rows, dtype=torch.bool)
+    m = torch.full(qf.shape[:-1] + (1,), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, S, K3_TILE):
+        keys = torch.arange(k0, min(k0 + K3_TILE, S), device=q.device)[None, :]
+        sc = torch.einsum("bkgqd,bksd->bkgqs", qf, kf[:, :, k0:k0 + K3_TILE]) * Dh**-0.5
+        masked = keys > rows + (late & (fault == "mask_off_by_one")).int()
+        if fault == "skip_tile" and k0 // K3_TILE == last // 2:
+            masked = masked | late
+        sc = sc.masked_fill(masked, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = torch.where(late, acc, acc * corr) if fault == "no_rescale" else acc * corr
+        acc = acc + torch.einsum("bkgqs,bksd->bkgqd", p.to(torch.bfloat16).float(), vf[:, :, k0:k0 + K3_TILE])
+        m = m_new
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
+
+
+def phase_kernel_flash(attn_shapes) -> dict:
+    """K3 against its plain version and SDPA at the prefill shapes of both
+    model paths, row by row (row_err) at KERNEL_TOL; the rule is shown to
+    sit between the control (flash_tiled) and each planted fault. The
+    record is the first shape's, with every shape under by_shape."""
+    from llava_align_tpu_torch.ops import attention
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(3)
+    log(f"kernels: K3 flash_attention (causal prefill, tensor cores) vs plain, bf16, each output row "
+        f"within {KERNEL_TOL:g} of its largest |plain|; kernel and SDPA timed eager (CUDA events), "
+        "and as 20 launches in one CUDA graph (device time without the host's)")
+    k3_err = k3_row = 0.0
+    by_shape = []
+    for B, S, H, Dh in attn_shapes:
+        what = f"[{B},{S},{H},{Dh}]"
         qkv = [torch.randn((B, S, H, Dh), device=dev, generator=g).to(torch.bfloat16)
                for _ in range(3)]
-        k3_err = max(k3_err, compare(
-            attention.flash_attention(*qkv), attention.flash_attention_plain(*qkv),
-            f"[{B},{S},{H},{Dh}]",
-        ))
-        ms = cuda_ms(lambda _: attention.flash_attention(*qkv), 20)
-        plain_ms = cuda_ms(lambda _: attention.flash_attention_plain(*qkv), 5)
+        got, want = attention.flash_attention(*qkv), attention.flash_attention_plain(*qkv)
+        err = (got.float() - want.float()).abs().max().item()
+        row = row_err(got, want)
+        control = row_err(flash_tiled(*qkv), want)
+        planted = {f: flash_tiled(*qkv, fault=f) for f in K3_FAULTS}
+        faults = {f: row_err(x, want) for f, x in planted.items()}
+        # the same faults under one bound for the whole tensor, for the record
+        whole = {f: ((x.float() - want.float()).abs().max() / want.float().abs().max()).item()
+                 for f, x in planted.items()}
+        ok = np.isfinite(row) and row <= KERNEL_TOL and control <= KERNEL_TOL
+        caught = all(r > KERNEL_TOL for r in faults.values())
+        log(f"  {what}: max_abs_err={err:.6g}, worst row {row:.6g} (control, bf16 P: {control:.6g}; "
+            f"planted faults: " + ", ".join(f"{f} {r:.6g}" for f, r in faults.items())
+            + f") tol={KERNEL_TOL:g} {'ok' if ok and caught else 'FAIL'}; under one bound for the "
+            "whole tensor the faults read " + ", ".join(f"{f} {r:.6g}" for f, r in whole.items()))
+        if not ok:
+            raise AssertionError(f"K3 {what}: kernel disagrees with its plain version")
+        if not caught:
+            raise AssertionError(f"K3 {what}: the row tolerance lets a planted fault through")
+        k3_err, k3_row = max(k3_err, err), max(k3_row, row)
         qt, kt, vt = (x.transpose(1, 2) for x in qkv)  # [B, H, S, Dh], as SDPA takes it
-        lib_ms = cuda_ms(lambda _: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
+        kernel = lambda *_: attention.flash_attention(*qkv)  # noqa: E731
+        sdpa = lambda *_: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+        ms, lib_ms = cuda_ms(kernel, 20), cuda_ms(sdpa, 20)
+        g_ms, g_lib_ms = graph_ms(kernel, 20), graph_ms(sdpa, 20)
+        plain_ms = cuda_ms(lambda _: attention.flash_attention_plain(*qkv), 5)
         nbytes = 4 * B * S * H * Dh * 2
         flops = 4.0 * Dh * H * B * S * (S + 1) / 2  # QK and PV over the causal pairs
-        log(f"  [{B},{S},{H},{Dh}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) "
-            f"{lib_ms:.4f} ms, bound {bound(nbytes, flops)['bound_ms']:.4f} ms")
-        if i == 0:
-            rec["K3"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound(nbytes, flops))
-    rec["K3"]["max_abs_err"] = k3_err
+        b = bound(nbytes, flops)
+        log(f"  {what}: kernel {ms:.4f} ms eager, {g_ms:.4f} ms in a graph ({flops / (g_ms * 1e-3) / 1e12:.1f} "
+            f"TFLOP/s); library (SDPA) {lib_ms:.4f} ms eager, {g_lib_ms:.4f} ms in a graph; kernel/SDPA "
+            f"{ms / lib_ms:.2f}x eager, {g_ms / g_lib_ms:.2f}x in a graph; plain {plain_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        by_shape.append(dict(shape=[B, S, H, Dh], ms=ms, library_ms=lib_ms, graph_ms=g_ms,
+                             graph_library_ms=g_lib_ms, plain_ms=plain_ms, max_abs_err=err,
+                             row_err=row, control_row_err=control, fault_row_err=faults,
+                             fault_whole_err=whole, **b))
+        del qkv, got, want, planted, qt, kt, vt
+    top = {k: v for k, v in by_shape[0].items()
+           if k in ("ms", "library_ms", "graph_ms", "graph_library_ms", "plain_ms", "bound_ms", "bound_by")}
     torch.cuda.synchronize()
-    return rec
+    return dict(top, max_abs_err=k3_err, max_row_err=k3_row, by_shape=by_shape)
 
 
 def random_int4_stack(L: int, O: int, D: int, g) -> tuple:
@@ -758,7 +900,8 @@ def main() -> int:
                    (2, main_lens[1], 32, 128), (GROUPS, shapes["pad_prefix"], 40, 128),
                    (2 * GROUPS, shapes["pad_txt"], 40, 128)]
     # the text-branch rows (unk, none) prefill together at their bucket
-    rec = phase_kernels_int8_flash(attn_shapes, shapes["decode_rows"], 2 * main_lens[1])
+    rec = phase_kernels_int8(shapes["decode_rows"], 2 * main_lens[1])
+    rec["K3"] = phase_kernel_flash(attn_shapes)
     rec["K4"] = phase_kernels_int4(shapes["decode_rows"], shapes["suffix_rows"], shapes["prefix_rows"])
     torch.cuda.synchronize()
     probes = phase_probes()
@@ -778,12 +921,13 @@ def main() -> int:
         "int4_matmul_stacked": ("K4", "llava_align_tpu_torch/csrc/int4_mm.cu", "llava_align_tpu/ops/quant.py:541"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("by_path", "prefill", "graph_ms", "graph_library_ms", "max_row_err", "by_shape")
     kernels = [
         dict(name=n, route="cuda", source=src, replaces=rep,
              launches=sum(p[n] for p in by_path.values()),
              launches_by_path={path: p[n] for path, p in by_path.items()},
              **{k: rec[kid][k] for k in keys},
-             **{k: rec[kid][k] for k in ("by_path", "prefill") if k in rec[kid]})
+             **{k: rec[kid][k] for k in extra if k in rec[kid]})
         for n, (kid, src, rep) in sources.items()
     ] + [
         # the microbenchmark path: launches, errors and times from the twin's run

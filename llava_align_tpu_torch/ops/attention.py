@@ -296,7 +296,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K3 wrapper (twin of flash_attention_tpu, TPU kernel _flash_kernel):
     causal attention, q [B,S,H,Dh], k/v [B,S,K,Dh] → [B,S,H,Dh]. Any S;
-    Dh in {64, 128}; bf16 or fp32. CPU tensors take the plain version."""
+    Dh in {64, 128}; bf16 runs on the tensor cores (P rounded to bf16 before
+    PV), fp32 on the CUDA cores. CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     B, S, H, Dh = q.shape

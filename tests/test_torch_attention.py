@@ -31,10 +31,16 @@ def _qkv(seed, B, Sq, Sk, H, K, Dh):
             rng.normal(size=(B, Sk, K, Dh)).astype(np.float32))
 
 
-def test_k3_plain_matches_pallas_interpret():
-    q, k, v = _qkv(2, 2, 256, 256, 4, 2, 128)
+@pytest.mark.parametrize(
+    "H,K,Dh,block",
+    [(4, 2, 128, 128),  # GQA group 2
+     (4, 2, 64, 64),    # the Dh = 64 instance at 64-blocks
+     (8, 2, 128, 128)],  # GQA group 4
+)
+def test_k3_plain_matches_pallas_interpret(H, K, Dh, block):
+    q, k, v = _qkv(2, 2, 256, 256, H, K, Dh)
     want = ja.flash_attention_tpu(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                  block_q=128, block_k=128, interpret=True)
+                                  block_q=block, block_k=block, interpret=True)
     got = ta.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))  # CPU → plain
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=FLASH_RTOL, atol=FLASH_ATOL)
 
