@@ -7,12 +7,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
   1. device: the card's name and power limit (nvidia-smi), CUDA must exist;
   2. build: compile the package's CUDA kernels from csrc/ with nvcc (one
      process per source, in parallel); ptxas must report no spill for K3's
-     tensor-core kernel;
+     tensor-core kernel nor for the wgmma main loop of K1/K2 and K4, and
+     must not serialize that loop's wgmma (C7515);
   3. kernels: K1-K4 against their plain PyTorch versions on the card, in
      bf16, at their main paths' shapes (K1 also at the 7B text-branch
      prefill's rows on the O >= D stacks; K2 at the 7B and the 13B lm_head,
-     each regime; K3 at each prefill shape of both model paths; K4 in both
-     of its regimes), with the tolerance stated; by CUDA events the
+     each regime; K3 at each prefill shape of both model paths; K4 in each
+     of its regimes, at the grouped path's decode and prefill rows), with
+     the tolerance stated; by CUDA events the
      kernel's, the plain version's and a library call's times (torch.matmul
      on a weight dequantized beforehand, or scaled_dot_product_attention: a
      yardstick only, the port never calls it; K3 and SDPA also as launches
@@ -48,8 +50,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the card for the same question.
 
 Prints a JSON line with each kernel's record (launches: both main paths'
-counts, per path under launches_by_path; K1's prefill-row times under
-prefill, K2's times per path under by_path, K3's per shape under by_shape,
+counts, per path under launches_by_path; K1's and K4's prefill-row times
+under prefill, K2's times per path under by_path, K3's per shape under by_shape,
 with its CUDA-graph times as graph_ms / graph_library_ms and its row
 errors);
 S1-S7: launches, errors and times from the run of the twin that runs
@@ -192,12 +194,21 @@ def phase_build() -> None:
     for line in text.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log("  ptxas: " + line.strip())
-    # K3's tensor-core kernel holds Q fragments, S and O in registers: a
-    # spill would put them in local memory
-    mma = {fn: n for fn, n in ptxas_spill_stores(text).items() if "flash_fwd_mma_kernel" in fn}
-    log(f"  K3 tensor-core kernel, spill-store bytes per instance: {mma}")
-    if len(mma) != 2 or any(mma.values()):
-        raise AssertionError(f"K3's bf16 kernel: expected 2 instances without spills, got {mma}")
+    # K3's tensor-core kernel holds Q fragments, S and O in registers, the
+    # wgmma main loop of K1/K2/K4 its 128 accumulators: a spill would put
+    # them in local memory
+    spills = ptxas_spill_stores(text)
+    for what, key in (("K3 tensor-core kernel", "flash_fwd_mma_kernel"),
+                      ("wgmma main loop (K1/K2 int8, K4 int4)", "wq_gemm_kernel")):
+        inst = {fn: n for fn, n in spills.items() if key in fn}
+        log(f"  {what}, spill-store bytes per instance: {inst}")
+        if len(inst) != 2 or any(inst.values()):
+            raise AssertionError(f"{what}: expected 2 instances without spills, got {inst}")
+    # ptxas C7515: wgmma serialized (each MMA waited for), which undoes the
+    # main loop's overlap of widening and MMAs
+    serial = [line.strip() for line in text.splitlines() if "C7515" in line and "wq_gemm_kernel" in line]
+    if serial:
+        raise AssertionError(f"the wgmma main loop is serialized by ptxas: {serial}")
 
 
 def ptxas_spill_stores(build_log: str) -> dict:
@@ -431,10 +442,11 @@ def random_int4_stack(L: int, O: int, D: int, g) -> tuple:
     return q4, gs
 
 
-def phase_kernels_int4(decode_rows, suffix_rows: int, prefix_rows: int) -> dict:
+def phase_kernels_int4(decode_rows, prefill_rows) -> dict:
     """K4 at each 13B stack, layers 0 and 39, at the grouped path's row
-    counts, timed; and at the rows on both sides of INT4_SKINNY_MAX_ROWS
-    (the skinny regime's 1 and 2 rows, the tiled regime's 3), checked."""
+    counts (decode, then the prefills), timed; at the rows on both sides of
+    INT4_SKINNY_MAX_ROWS (the skinny regime's 1 and 2 rows, the mma.sync
+    tiles' 3) and of INT4_WGMMA_MIN_ROWS (32 and 33), checked."""
     from llava_align_tpu_torch.ops import quant
     from llava_align_tpu_torch.scripts._common import matmul_work
 
@@ -442,9 +454,9 @@ def phase_kernels_int4(decode_rows, suffix_rows: int, prefix_rows: int) -> dict:
     g = torch.Generator(device=dev).manual_seed(4)
     thr = quant.INT4_SKINNY_MAX_ROWS
     log(f"kernels: K4 int4_matmul_stacked (13B int4 decoder linears) vs plain, bf16; "
-        f"skinny regime up to {thr} rows")
+        f"skinny regime up to {thr} rows, mma.sync tiles up to {quant.INT4_MMA_SYNC_MAX_ROWS}, wgmma above")
     stacks = {name: random_int4_stack(L_13B, O, D, g) for name, (O, D) in STACKS_13B.items()}
-    rows_all = list(decode_rows) + [suffix_rows, prefix_rows]
+    rows_all = list(decode_rows) + list(prefill_rows)
     per_rows = {B: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0) for B in rows_all}
     err = 0.0
     for name, (q4, gs) in stacks.items():
@@ -460,15 +472,17 @@ def phase_kernels_int4(decode_rows, suffix_rows: int, prefix_rows: int) -> dict:
                     f"{name} [{L_13B},{Dp},{O}] B={B} li={li}",
                 ))
             if B == decode_rows[0]:
-                # both sides of the regime threshold
-                for Bs in range(1, thr + 2):
-                    hs = h[:Bs].contiguous()
+                # both sides of each regime threshold
+                wg = quant.INT4_WGMMA_MIN_ROWS
+                hs_all = torch.randn((wg, D), device=dev, generator=g).to(torch.bfloat16)
+                for Bs in (*range(1, thr + 2), wg - 1, wg):
+                    hs = hs_all[:Bs].contiguous()
+                    regime = "skinny regime" if Bs <= thr else "mma.sync tiles" if Bs < wg else "wgmma regime"
                     for li in (0, L_13B - 1):
                         err = max(err, compare(
                             quant.int4_matmul_stacked(hs, q4, gs, li),
                             quant.int4_matmul_stacked_plain(hs, q4, gs, li),
-                            f"{name} [{L_13B},{Dp},{O}] B={Bs} li={li} "
-                            f"{'skinny' if Bs <= thr else 'tiled'} regime",
+                            f"{name} [{L_13B},{Dp},{O}] B={Bs} li={li} {regime}",
                         ))
             big = B > 512
             ms = cuda_ms(lambda i: quant.int4_matmul_stacked(h, q4, gs, i % L_13B), 10 if big else 40)
@@ -486,15 +500,15 @@ def phase_kernels_int4(decode_rows, suffix_rows: int, prefix_rows: int) -> dict:
                 f"(torch.matmul, bf16 weight) {lib_ms:.4f} ms, bound {bound(nb, fl)['bound_ms']:.4f} ms")
         del w_bf16
     for B, r in per_rows.items():
-        b = bound(r["bytes"], r["flops"])
+        r.update(bound(r.pop("bytes"), r.pop("flops")))
         log(f"  one 13B layer's four linears at B={B}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']})")
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
     del stacks
     torch.cuda.empty_cache()
     head = per_rows[decode_rows[-1]]  # the G = 4 decode step, the grouped path's headline
-    return dict(max_abs_err=err, ms=head["ms"], plain_ms=head["plain_ms"],
-                library_ms=head["library_ms"], **bound(head["bytes"], head["flops"]))
+    prefill = [dict(rows=B, **per_rows[B]) for B in prefill_rows]
+    return dict(head, max_abs_err=err, prefill=prefill)
 
 
 # kernels-line entries of the microbenchmark path: TPU kernel -> (the twin
@@ -588,9 +602,11 @@ def grouped_shapes(num_image_tokens: int, bucket: int = 128) -> dict:
     pad_txt = pad(len(prefix), bucket)  # 'unk' keeps the sentinel's slot; 'none' is 1 shorter
     pad_suf = pad(max(len(s) for s in suffixes), 32)
     rows_q = 6 * 3  # questions x VDD branches
+    # the prefills' rows: image prefixes, text-branch prefixes (unk, none),
+    # suffixes
+    prefill_rows = (GROUPS * pad_prefix, GROUPS * 2 * pad_txt, GROUPS * rows_q * pad_suf)
     return dict(pad_prefix=pad_prefix, pad_txt=pad_txt, pad_suf=pad_suf,
-                decode_rows=(rows_q, GROUPS * rows_q), suffix_rows=GROUPS * rows_q * pad_suf,
-                prefix_rows=GROUPS * pad_prefix)
+                decode_rows=(rows_q, GROUPS * rows_q), prefill_rows=prefill_rows)
 
 
 def dual_vdd_config():
@@ -902,7 +918,7 @@ def main() -> int:
     # the text-branch rows (unk, none) prefill together at their bucket
     rec = phase_kernels_int8(shapes["decode_rows"], 2 * main_lens[1])
     rec["K3"] = phase_kernel_flash(attn_shapes)
-    rec["K4"] = phase_kernels_int4(shapes["decode_rows"], shapes["suffix_rows"], shapes["prefix_rows"])
+    rec["K4"] = phase_kernels_int4(shapes["decode_rows"], shapes["prefill_rows"])
     torch.cuda.synchronize()
     probes = phase_probes()
     by_path = {"7b_int8_generate": phase_main_path(dev)}

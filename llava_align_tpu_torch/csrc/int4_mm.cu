@@ -14,20 +14,22 @@
 //                     d/128, rows of the high half group D/256 + d/128
 //   y   [B, O]        output in h's dtype
 //
-// Unpack, exact: lo = ((p & 15) ^ 8) - 8, hi = p >> 4 (arithmetic). Both are
-// widened to fp32 without an int->float instruction: (nibble + 8) is placed
-// as the low mantissa byte of 2^23 by a byte-permute, then 2^23 + 8 is
-// subtracted.
+// Unpack, exact: lo = ((p & 15) ^ 8) - 8, hi = p >> 4 (arithmetic). The
+// skinny and mma.sync regimes widen both to fp32 without an int->float
+// instruction: (nibble + 8) is placed as the low mantissa byte of 2^23 by a
+// byte-permute, then 2^23 + 8 is subtracted; the wgmma regime does the same
+// in bf16 pairs (Int4Fmt::widen).
 //
-// Two regimes, picked by row count at kSkinnyMaxRows (the crossover measured
-// on the H100 at the 13B stacks; ops/quant.py mirrors it as
-// INT4_SKINNY_MAX_ROWS):
+// Three regimes, picked by row count: up to kSkinnyMaxRows, below
+// kWgmmaMinRows, and from it on (both crossovers measured on the H100;
+// ops/quant.py mirrors them as INT4_SKINNY_MAX_ROWS and
+// INT4_WGMMA_MIN_ROWS):
 //
 // * Skinny (one or two rows): weight streaming on the CUDA cores. Its bound
 //   at a few rows is weight bytes: each packed byte feeds 2*B multiply-adds,
 //   far below the ~295 operations per byte at which the card leaves its
 //   memory bound; but from three rows on the unpack and FMA work saturates
-//   the CUDA cores, and the tiled regime is faster. A lane owns 4
+//   the CUDA cores, and the tensor cores are faster. A lane owns 4
 //   consecutive output columns and reads one 32-bit word per packed row (a
 //   warp: 128 contiguous bytes), 32 rows at a time in registers; the h rows
 //   (both halves) are staged in shared memory as fp32 and read as
@@ -37,23 +39,30 @@
 //   fill 132 SMs, so D is split over blocks by whole groups (split-K); each
 //   split writes fp32 partials to a workspace and a second small kernel
 //   sums them in a fixed order (deterministic) and casts.
-// * Tiled (every other row count, prefill and decode): bf16 tensor-core MMA
-//   (mma.sync m16n8k16, fp32 accumulators). A block owns BM rows x BN
-//   columns (32x128, 64x256 or 128x256 by row count, each the fastest of
-//   the shapes timed on the H100) and walks D/2 in steps of 32 packed rows,
-//   which always lie inside one group. Per step it unpacks the int4 tile,
-//   multiplies by the group scale rounded to bf16 and rounds the product to
-//   bf16 (as the TPU kernel does in bf16), and writes it to shared memory as
-//   one k = 64 slab: 32 low-half rows paired with h[:, d-range] and 32
-//   high-half rows paired with h[:, D/2 + d-range]. Fragments come from
-//   shared memory by ldmatrix (the weight slab is [k][n], so its fragments
-//   use .trans). The next step's global loads are issued before the current
-//   step's MMAs (register double buffering, two shared-memory buffers, one
-//   barrier per step). No dense weight is ever written to device memory.
-//   When the row and column tiles alone cannot fill the card, D is split as
-//   in the skinny regime. Its bound: tensor-core operations at prefill
-//   rows, weight bytes at decode rows.
-// wgmma, TMA and a deeper shared-memory ring are left for later work.
+// * mma.sync tiles (3 to 32 rows: the 18-row grouped decode step and the
+//   microbenchmark twins' 16): bf16 tensor-core MMA (mma.sync m16n8k16,
+//   fp32 accumulators). A block owns 32 rows x 128 columns and walks
+//   D/2 in steps of 32 packed rows, which always lie inside one group. Per
+//   step it unpacks the int4 tile, multiplies by the group scale rounded to
+//   bf16 and rounds the product to bf16 (as the TPU kernel does in bf16),
+//   and writes it to shared memory as one k = 64 slab: 32 low-half rows
+//   paired with h[:, d-range] and 32 high-half rows paired with h[:, D/2 +
+//   d-range]. Fragments come from shared memory by ldmatrix (.trans for the
+//   [k][n] weight slab). The next step's global loads are issued before the
+//   current step's MMAs (register double buffering). At these rows the
+//   bound is weight bytes; the wgmma regime's 128-row tiles, mostly zero
+//   rows here, measured 3-10% slower at the 13B stacks at 3-18 rows (a tie
+//   at 32) and 12-28% slower at the 7B stacks at 3-32 rows, and 40-49%
+//   faster at 72 rows (NVIDIA H100 80GB HBM3, 700 W; PERF.md), so they
+//   take over above 32 rows.
+// * wgmma (the prefills' 2048-4608 rows and the 72-row grouped decode
+//   step): the main loop of wq_gemm.cuh with the Int4Fmt format below. Its
+//   bound at prefill rows is tensor-core operations, which mma.sync reached
+//   only at 25-29% of the card's bf16 rate; wgmma fed by a TMA ring, with
+//   the int4 tile widened to bf16 pairs beside the running MMAs, is the
+//   design for that. At 72 rows the bound is weight bytes: each weight tile
+//   is read once per 128-row block, three stages ahead.
+// No dense weight is ever written to device memory in any regime.
 //
 // C interface (bound with ctypes): every pointer and the stream are void*,
 // launches go on the caller's stream, nothing is allocated (the caller
@@ -64,10 +73,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wq_gemm.cuh"
+
 namespace {
 
 constexpr int kGroup = 128;        // rows of W per scale group
 constexpr int kSkinnyMaxRows = 2;  // rows up to here run the skinny regime
+constexpr int kWgmmaMinRows = 33;  // rows from here on run the wgmma regime
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -185,26 +197,6 @@ int4_skinny_kernel(const T* __restrict__ h, const uint8_t* __restrict__ q,
       for (int c = 0; c < kSkCols; ++c) y[(size_t)i * O + col + c] = from_float<T>(tot[i][c]);
     }
   }
-}
-
-// y = sum over the S split partials [S, n] (fixed order), cast; n % 4 == 0.
-template <typename T>
-__global__ void splitk_reduce_kernel(const float* __restrict__ part, T* __restrict__ y, int S,
-                                     int n) {
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i >= n) return;
-  float4 a = *reinterpret_cast<const float4*>(part + i);
-  for (int s = 1; s < S; ++s) {
-    const float4 b = *reinterpret_cast<const float4*>(part + (size_t)s * n + i);
-    a.x += b.x;
-    a.y += b.y;
-    a.z += b.z;
-    a.w += b.w;
-  }
-  y[i + 0] = from_float<T>(a.x);
-  y[i + 1] = from_float<T>(a.y);
-  y[i + 2] = from_float<T>(a.z);
-  y[i + 3] = from_float<T>(a.w);
 }
 
 // ---------------------------------------------------------------------------
@@ -431,31 +423,131 @@ int4_tiled_kernel(const __nv_bfloat16* __restrict__ h, const uint8_t* __restrict
 }
 
 // ---------------------------------------------------------------------------
+// wgmma regime (rows from kWgmmaMinRows on): the main loop of
+// wq_gemm.cuh with this int4 format. A k-step is 32 packed rows d0..d0+31,
+// inside one group: TMA brings h[:, d0..] and h[:, D/2 + d0..] as two
+// [128 rows][32] tiles, 64-byte swizzled (wgmma's K-major A), the raw
+// [32][256] packed tile and the step's two group-scale rows (low half
+// group g, high half group D/256 + g) as [2][256] fp32. The consumers
+// unpack both nibbles, multiply by the group scale rounded to bf16 and round
+// the product to bf16 (the TPU kernel's bf16 multiply), and store the
+// [k 64][256] slab MN-major (output columns contiguous, as q4 stores them),
+// 128-byte swizzled: wgmma reads it as B with the transpose bit. Rows 0..31
+// of the slab (the low half) pair with A's first tile, rows 32..63 with the
+// second.
+// ---------------------------------------------------------------------------
+
+struct Int4Fmt {
+  static constexpr int kStages = 4;
+  static constexpr int kAHalf = wq::kBM * 64;  // h: 128 rows x 32 bf16, one half
+  static constexpr int kABytes = 2 * kAHalf;
+  static constexpr int kWBytes = kTKp * wq::kBN;  // 32 packed rows x 256 columns
+  static constexpr int kSBytes = 2 * wq::kBN * 4;  // two group-scale rows
+  static constexpr int kStageBytes = kABytes + kWBytes + kSBytes;
+  static constexpr int kTransB = 1;
+  static constexpr bool kColScale = false;
+  static constexpr int kNBlock = 64 * 64 * 2;  // MN-major slab: 64 columns x k 64, bf16
+
+  static __device__ __forceinline__ void load(const CUtensorMap* a, const CUtensorMap* w, const CUtensorMap* s,
+                                              uint8_t* stage, uint64_t* bar, int step, int m0, int n0,
+                                              int hi) {
+    const int d0 = step * kTKp;
+    wq::tma_load_2d(stage, a, bar, d0, m0);
+    wq::tma_load_2d(stage + kAHalf, a, bar, hi + d0, m0);
+    wq::tma_load_2d(stage + kABytes, w, bar, n0, d0);
+    wq::tma_load_3d(stage + kABytes + kWBytes, s, bar, n0, d0 / kGroup, 0);
+  }
+
+  // the half tile (j / 2) of warpgroup wg, k16 slice j % 2: 64-byte rows,
+  // 8-row atoms 512 bytes apart
+  static __device__ __forceinline__ uint64_t desc_a(const uint8_t* stage, int wg, int j) {
+    return wq::desc(stage + (j >> 1) * kAHalf + wg * 64 * 64 + 32 * (j & 1), 16, 512, wq::kSw64);
+  }
+  // MN-major: 64-column blocks kNBlock apart (leading), 8-k atoms 1024 apart
+  // (stride); k16 slice j starts 16 rows of 128 bytes further
+  static __device__ __forceinline__ uint64_t desc_b(const uint8_t* b, int j) {
+    return wq::desc(b + 2048 * j, kNBlock, 1024, wq::kSw128);
+  }
+
+  // thread: columns c8..c8+7, packed rows warp + 8i; k row r of the slab
+  // holds columns n at block n / 64, 16-byte chunk ((n % 64) / 8) ^ (r % 8).
+  // Widening works on bf16 pairs: a nibble n, flipped to n ^ 8, becomes the
+  // low mantissa bits of bf16 128 (0x4300), the exact value 128 + (n ^ 8);
+  // minus 136 that is the signed code, exact; the bf16 multiply by the
+  // bf16-rounded scale rounds the exact product to bf16, as the TPU kernel's
+  // bf16 multiply does. Three bf16x2 operations and a few bit operations
+  // per two weights, where fp32 needs four operations per weight.
+  static __device__ __forceinline__ void widen(const uint8_t* stage, uint8_t* b, int tid) {
+    const uint8_t* raw = stage + kABytes;
+    const float* sc = reinterpret_cast<const float*>(stage + kABytes + kWBytes);
+    const int c8 = (tid & 31) * 8;
+    __nv_bfloat162 sl[4], sh[4];
+#pragma unroll
+    for (int e = 0; e < 8; e += 4) {
+      const float4 l = *reinterpret_cast<const float4*>(sc + c8 + e);
+      const float4 h = *reinterpret_cast<const float4*>(sc + wq::kBN + c8 + e);
+      sl[e / 2] = __floats2bfloat162_rn(l.x, l.y), sl[e / 2 + 1] = __floats2bfloat162_rn(l.z, l.w);
+      sh[e / 2] = __floats2bfloat162_rn(h.x, h.y), sh[e / 2 + 1] = __floats2bfloat162_rn(h.z, h.w);
+    }
+    const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+    uint8_t* blk = b + (c8 >> 6) * kNBlock;
+    const int chunk = (c8 & 63) >> 3;
+#pragma unroll
+    for (int i = 0; i < kTKp / 8; ++i) {
+      const int d = (tid >> 5) + 8 * i;
+      const uint2 v = *reinterpret_cast<const uint2*>(raw + d * wq::kBN + c8);
+      uint32_t lo[4], hi[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        // columns 2p, 2p + 1: their bytes, flipped, in the low byte of each half
+        const uint32_t x = __byte_perm((p < 2 ? v.x : v.y) ^ 0x88888888u, 0u, (p & 1) ? 0x4342 : 0x4140);
+        const uint32_t l = (x & 0x000F000Fu) | 0x43004300u;
+        const uint32_t h = ((x >> 4) & 0x000F000Fu) | 0x43004300u;
+        const __nv_bfloat162 wl = __hmul2(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&l), bias), sl[p]);
+        const __nv_bfloat162 wh = __hmul2(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&h), bias), sh[p]);
+        lo[p] = *reinterpret_cast<const uint32_t*>(&wl);
+        hi[p] = *reinterpret_cast<const uint32_t*>(&wh);
+      }
+      const int off = (chunk ^ (d & 7)) << 4;  // (32 + d) % 8 == d % 8
+      *reinterpret_cast<uint4*>(blk + d * 128 + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(blk + (kTKp + d) * 128 + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    }
+  }
+};
+
+cudaError_t run_wgmma(const void* h, const uint8_t* q, const float* gs, void* y, float* work, int M, int O,
+                      int Dp, cudaStream_t st) {
+  const int Gh = Dp / kGroup;
+  CUtensorMap ta, tw, ts;
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(O), static_cast<cuuint64_t>(Dp)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(O)};
+  const cuuint32_t wbox[2] = {wq::kBN, kTKp};
+  // gs [D/128, O] as [2 halves][Gh][O]: one box brings both halves' rows
+  const cuuint64_t sdims[3] = {static_cast<cuuint64_t>(O), static_cast<cuuint64_t>(Gh), 2};
+  const cuuint64_t sstrides[2] = {static_cast<cuuint64_t>(O) * 4, static_cast<cuuint64_t>(Gh) * O * 4};
+  const cuuint32_t sbox[3] = {wq::kBN, 1, 2};
+  if (!wq::encode_h(&ta, h, M, 2 * Dp, kTKp, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !wq::encode(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !wq::encode(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, gs, sdims, sstrides, sbox, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  return wq::launch<Int4Fmt>(ta, tw, ts, nullptr, y, work, M, O, Dp / kTKp, Dp, st);
+}
+
+// ---------------------------------------------------------------------------
 // host side: one plan for both entry points
 // ---------------------------------------------------------------------------
 
-int num_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
-
-// The tiled regime's tile shapes by row count, each the fastest of the
-// shapes timed at the 13B stacks (PERF.md): up to 32 rows, up to 64, more.
+// The mma.sync regime's tile shape (up to 32 rows), the fastest of the
+// shapes timed at the 13B stacks (PERF.md).
 using TileSmall = TileCfg<32, 128, 1, 4, 4>;
-using TileMid = TileCfg<64, 256, 2, 4, 2>;
-using TileLarge = TileCfg<128, 256, 2, 4, 1>;
+static_assert(kWgmmaMinRows == TileSmall::BM + 1, "the mma.sync tiles take one row tile");
+
+enum class Regime { kSkinny, kSmall, kWgmma };
 
 struct Plan {
-  bool skinny;
-  int tile;    // tiled: 0 TileSmall, 1 TileMid, 2 TileLarge
+  Regime regime;
   dim3 grid;
-  int per;     // groups (skinny) or k-steps (tiled) per split
+  int per;     // groups (skinny) or k-steps (mma.sync tiles) per split
   int splits;
 };
 
@@ -474,7 +566,7 @@ void plan_tiled(Plan& p, int B, int O, int Dp) {
   const int tiles = (O + C::BN - 1) / C::BN;
   const int mtiles = (B + C::BM - 1) / C::BM;
   // MINB blocks per SM in flight; a split keeps at least 4 k-steps
-  split_k(p, tiles * mtiles, Dp / kTKp, C::MINB * num_sms(), 4);
+  split_k(p, tiles * mtiles, Dp / kTKp, C::MINB * wq::num_sms(), 4);
   p.grid = dim3(tiles, mtiles, p.splits);
 }
 
@@ -482,19 +574,18 @@ Plan make_plan(int B, int O, int D) {
   Plan p{};
   const int Dp = D / 2;
   if (B <= kSkinnyMaxRows) {
-    p.skinny = true;
+    p.regime = Regime::kSkinny;
     const int tiles = (O + kSkTileCols - 1) / kSkTileCols;
     // about 8 warps in flight per SM to cover the memory latency
-    split_k(p, tiles, Dp / kGroup, 8 * num_sms(), 1);
+    split_k(p, tiles, Dp / kGroup, 8 * wq::num_sms(), 1);
     p.grid = dim3(tiles, p.splits);
-  } else if (B <= TileSmall::BM) {
-    plan_tiled<TileSmall>(p, B, O, Dp);
-  } else if (B <= TileMid::BM) {
-    p.tile = 1;
-    plan_tiled<TileMid>(p, B, O, Dp);
+  } else if (B >= kWgmmaMinRows) {
+    p.regime = Regime::kWgmma;
+    const wq::Plan w = wq::plan(B, O, Dp / kTKp);
+    p.grid = w.grid, p.per = w.per, p.splits = w.splits;
   } else {
-    p.tile = 2;
-    plan_tiled<TileLarge>(p, B, O, Dp);
+    p.regime = Regime::kSmall;
+    plan_tiled<TileSmall>(p, B, O, Dp);
   }
   return p;
 }
@@ -530,14 +621,6 @@ cudaError_t run_tiled(const Plan& p, const void* h, const uint8_t* q, const floa
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t reduce(const float* part, void* y, int S, int n, cudaStream_t st) {
-  const int threads = 256;
-  const int blocks = (n / 4 + threads - 1) / threads;
-  splitk_reduce_kernel<T><<<blocks, threads, 0, st>>>(part, static_cast<T*>(y), S, n);
-  return cudaGetLastError();
-}
-
 bool valid(int B, int O, int D, int dtype) {
   if (B < 1 || O < 16 || O % 16 != 0 || D < 256 || D % 256 != 0) return false;
   if (dtype == 0) return B <= kSkinnyMaxRows;  // fp32 activations: skinny regime only
@@ -556,10 +639,11 @@ int int4_mm_workspace(int B, int O, int D) {
   return p.splits > 1 ? p.splits * B * O : 0;
 }
 
-// dtype: 0 = fp32 (skinny regime only), 1 = bf16. Preconditions (checked by
-// the Python wrapper): group 128, D % 256 == 0, O % 16 == 0, 0 <= li < L,
-// contiguous 16-byte-aligned operands, `work` holding int4_mm_workspace(...)
-// floats. Rows B <= kSkinnyMaxRows run the skinny regime.
+// dtype: 0 = fp32 (skinny regime only), 1 = bf16. Rows B <= kSkinnyMaxRows
+// run the skinny regime, B >= kWgmmaMinRows the wgmma regime, the rows
+// between the mma.sync tiles. Preconditions (checked by the Python
+// wrapper): group 128, D % 256 == 0, O % 16 == 0, 0 <= li < L, contiguous
+// 16-byte-aligned operands, `work` holding int4_mm_workspace(...) floats.
 int int4_mm_stacked(const void* h, const void* q4, const void* gs, void* y, void* work, int B,
                     int O, int D, int li, int dtype, void* stream) {
   if (!valid(B, O, D, dtype) || li < 0)
@@ -573,17 +657,20 @@ int int4_mm_stacked(const void* h, const void* q4, const void* gs, void* y, void
   if (p.splits > 1 && part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaError_t err;
-  if (p.skinny) {
-    err = dtype == 1 ? run_skinny<__nv_bfloat16>(p, h, q, g, y, part, B, O, Dp, st)
-                     : run_skinny<float>(p, h, q, g, y, part, B, O, Dp, st);
-  } else {
-    err = p.tile == 0   ? run_tiled<TileSmall>(p, h, q, g, y, part, B, O, Dp, st)
-          : p.tile == 1 ? run_tiled<TileMid>(p, h, q, g, y, part, B, O, Dp, st)
-                        : run_tiled<TileLarge>(p, h, q, g, y, part, B, O, Dp, st);
+  switch (p.regime) {
+    case Regime::kWgmma:  // reduces its own splits
+      return static_cast<int>(run_wgmma(h, q, g, y, part, B, O, Dp, st));
+    case Regime::kSkinny:
+      err = dtype == 1 ? run_skinny<__nv_bfloat16>(p, h, q, g, y, part, B, O, Dp, st)
+                       : run_skinny<float>(p, h, q, g, y, part, B, O, Dp, st);
+      break;
+    default:
+      err = run_tiled<TileSmall>(p, h, q, g, y, part, B, O, Dp, st);
   }
   if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
-  return static_cast<int>(dtype == 1 ? reduce<__nv_bfloat16>(part, y, p.splits, B * O, st)
-                                     : reduce<float>(part, y, p.splits, B * O, st));
+  const size_t n = static_cast<size_t>(B) * O;
+  return static_cast<int>(dtype == 1 ? wq::splitk_reduce<__nv_bfloat16>(part, y, p.splits, n, st)
+                                     : wq::splitk_reduce<float>(part, y, p.splits, n, st));
 }
 
 }  // extern "C"

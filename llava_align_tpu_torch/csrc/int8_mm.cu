@@ -1,5 +1,6 @@
 // Weight-streaming skinny GEMMs for Hopper (sm_90a), one template over the
-// weight format, and the int8 tiled regime (below):
+// weight format, and the int8 tiled regime on the wgmma main loop of
+// wq_gemm.cuh (below, 65-640 rows):
 //
 //   y[B,O] = h[B,D] . W[li]^T,  W row-major (D contiguous per output row)
 //
@@ -52,6 +53,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wq_gemm.cuh"
 
 namespace {
 
@@ -256,196 +259,109 @@ cudaError_t dispatch_rows(const void* h, const void* w, const float* s, void* y,
 }
 
 // ---------------------------------------------------------------------------
-// Tiled regime (65..640 rows, bf16 only): bf16 tensor-core MMA
-// (mma.sync m16n8k16, fp32 accumulators). Above 64 rows the FMA work of the
-// streaming kernel grows with B; this regime serves the lm_head at the
-// grouped path's 72 rows and, as on the TPU, output-major (O >= D) matrices
-// up to 640 rows. A block owns kBM rows x kBN output rows of q and walks D in
-// steps of kBK: the int8 weights are widened to bf16 (exact: |q| <= 127) into
-// shared memory as [n][k], the activation tile is copied as [m][k], and both
-// load as fragments by ldmatrix without .trans (y = h . q^T). The scale is
-// applied once per output after the reduction, as in the streaming kernel.
-// The next step's global loads are issued before the current step's MMAs
-// (register double buffering, two shared-memory buffers, one barrier per
-// step). The grid's fastest axis is the row tile, so the blocks that share a
-// weight tile run together and read it once from device memory.
+// Tiled regime (65..640 rows, bf16 only): the wgmma main loop of
+// wq_gemm.cuh with this int8 format. Above 64 rows the streaming kernel's
+// FMA work grows with B; this regime serves the lm_head at the grouped
+// path's 72 rows (bound by weight bytes: each weight tile is read once per
+// 128-row block) and, as on the TPU, output-major (O >= D) matrices up to
+// 640 rows, such as the 7B text-branch prefill's 512 rows (bound by
+// tensor-core operations). A k-step is 64 columns of D: TMA brings h's
+// [128 rows][64] tile 128-byte swizzled, as wgmma's K-major A, and q's raw
+// [256 rows][64] int8 tile; the consumers widen q (exact: |q| <= 127) into
+// the K-major swizzled bf16 tile wgmma takes as B (y = h . q^T needs no
+// transpose). The per-channel scale is applied once per output after the
+// fp32 reduction, as in the streaming kernel and the TPU kernel.
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64, kBN = 64, kBK = 64;
-constexpr int kTWarpsN = 2;               // 2 x 2 warps, 32 x 32 outputs each
-constexpr int kTThreads = 128;
-constexpr int kTStride = kBK + 8;         // bf16 per shared row (ldmatrix without conflicts)
-constexpr int kAChunks = kBM * kBK / 8 / kTThreads;   // 16-byte bf16 chunks per thread
-constexpr int kWChunks = kBN * kBK / 16 / kTThreads;  // 16-byte int8 chunks per thread
+struct Int8Fmt {
+  static constexpr int kStages = 4;
+  static constexpr int kABytes = wq::kBM * 128;  // h: 128 rows x 64 bf16
+  static constexpr int kWBytes = wq::kBN * 64;   // q: 256 output rows x 64 int8
+  static constexpr int kStageBytes = kABytes + kWBytes;
+  static constexpr int kTransB = 0;
+  static constexpr bool kColScale = true;
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
+  static __device__ __forceinline__ void load(const CUtensorMap* a, const CUtensorMap* w, const CUtensorMap*,
+                                              uint8_t* stage, uint64_t* bar, int step, int m0, int n0, int) {
+    wq::tma_load_2d(stage, a, bar, step * 64, m0);
+    wq::tma_load_2d(stage + kABytes, w, bar, step * 64, n0);
+  }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+  // h rows of warpgroup wg, k16 slice j: 128-byte rows, 8-row atoms 1024 bytes apart
+  static __device__ __forceinline__ uint64_t desc_a(const uint8_t* stage, int wg, int j) {
+    return wq::desc(stage + wg * 64 * 128 + 32 * j, 16, 1024, wq::kSw128);
+  }
+  static __device__ __forceinline__ uint64_t desc_b(const uint8_t* b, int j) {
+    return wq::desc(b + 32 * j, 16, 1024, wq::kSw128);
+  }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Grid: (ceil(B / kBM), ceil(O / kBN)); D % kBK == 0.
-__global__ void __launch_bounds__(kTThreads)
-int8_tiled_kernel(const __nv_bfloat16* __restrict__ h, const int8_t* __restrict__ q,
-                  const float* __restrict__ s, __nv_bfloat16* __restrict__ y, int B, int O,
-                  int D) {
-  __shared__ __align__(128) __nv_bfloat16 As[2][kBM][kTStride];
-  __shared__ __align__(128) __nv_bfloat16 Ws[2][kBN][kTStride];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp / kTWarpsN;
-  const int wn = warp % kTWarpsN;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int nsteps = D / kBK;
-
-  uint4 areg[kAChunks];
-  uint4 wreg[kWChunks];
-
-  auto load_global = [&](int step) {
-    const int k0 = step * kBK;
+  // q's [256][64] int8 tile -> bf16 [256][64] K-major, 16-byte chunk c of
+  // row n stored at chunk c ^ (n % 8) (the 128-byte swizzle)
+  static __device__ __forceinline__ void widen(const uint8_t* stage, uint8_t* b, int tid) {
+    const uint8_t* raw = stage + kABytes;
 #pragma unroll
-    for (int c = 0; c < kAChunks; ++c) {
-      const int idx = tid + c * kTThreads;
-      const int row = idx >> 3;  // 8 chunks of 8 bf16 per row
-      areg[c] = m0 + row < B
-                    ? __ldg(reinterpret_cast<const uint4*>(h + (size_t)(m0 + row) * D + k0) + (idx & 7))
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int c = 0; c < kWChunks; ++c) {
-      const int idx = tid + c * kTThreads;
-      const int row = idx >> 2;  // 4 chunks of 16 int8 per row
-      wreg[c] = n0 + row < O
-                    ? __ldg(reinterpret_cast<const uint4*>(q + (size_t)(n0 + row) * D + k0) + (idx & 3))
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-
-  auto store_smem = [&](int buf) {
-#pragma unroll
-    for (int c = 0; c < kAChunks; ++c) {
-      const int idx = tid + c * kTThreads;
-      *reinterpret_cast<uint4*>(&As[buf][idx >> 3][(idx & 7) * 8]) = areg[c];
-    }
-#pragma unroll
-    for (int c = 0; c < kWChunks; ++c) {
-      const int idx = tid + c * kTThreads;
-      const uint32_t words[4] = {wreg[c].x, wreg[c].y, wreg[c].z, wreg[c].w};
+    for (int i = 0; i < kWBytes / 16 / wq::kConsumers; ++i) {
+      const int idx = tid + i * wq::kConsumers;
+      const int n = idx >> 2;
+      const int c = idx & 3;  // 16 int8 = k 16c .. 16c + 15
+      const uint4 v = *reinterpret_cast<const uint4*>(raw + n * 64 + c * 16);
+      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
       uint32_t packed[8];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float f[4];
         widen4<0x80>(words[j], f);
-        packed[2 * j] = pack_bf16x2(f[0], f[1]);
-        packed[2 * j + 1] = pack_bf16x2(f[2], f[3]);
+        // an integer below 256 in fp32 is exact in bf16: keep the high halves
+        packed[2 * j] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+        packed[2 * j + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
       }
-      uint4* dst = reinterpret_cast<uint4*>(&Ws[buf][idx >> 2][(idx & 3) * 16]);
-      dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+      uint8_t* row = b + n * 128;
+      *reinterpret_cast<uint4*>(row + (((2 * c) ^ (n & 7)) << 4)) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      *reinterpret_cast<uint4*>(row + (((2 * c + 1) ^ (n & 7)) << 4)) =
+          make_uint4(packed[4], packed[5], packed[6], packed[7]);
     }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  auto compute = [&](int buf) {
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[2][4];
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(af[mt], &As[buf][wm * 32 + mt * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        // matrices 0, 1: n-tile 2np at k 0-7, 8-15; matrices 2, 3: n-tile 2np + 1
-        uint32_t r[4];
-        ldmatrix_x4(r, &Ws[buf][wn * 32 + np * 16 + (lane >> 4) * 8 + (lane & 7)]
-                          [kk * 16 + ((lane >> 3) & 1) * 8]);
-        bf[2 * np][0] = r[0];
-        bf[2 * np][1] = r[1];
-        bf[2 * np + 1][0] = r[2];
-        bf[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt]);
-    }
-  };
-
-  load_global(0);
-  store_smem(0);
-  __syncthreads();
-  for (int step = 0; step < nsteps; ++step) {
-    const int buf = step & 1;
-    const bool more = step + 1 < nsteps;
-    if (more) load_global(step + 1);  // in flight during this step's MMAs
-    compute(buf);
-    if (more) store_smem(buf ^ 1);
-    __syncthreads();
   }
+};
 
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 32 + mt * 16 + gid + (e >> 1) * 8;
-        const int col = n0 + wn * 32 + nt * 8 + tig * 2 + (e & 1);
-        if (row < B && col < O) y[(size_t)row * O + col] = __float2bfloat16_rn(acc[mt][nt][e] * s[col]);
-      }
-}
+constexpr int kTiledK = 64;  // D per k-step of the tiled regime
 
-cudaError_t launch_tiled(const void* h, const int8_t* q, const float* s, void* y, int B, int O,
-                         int D, cudaStream_t stream) {
-  const dim3 grid((B + kBM - 1) / kBM, (O + kBN - 1) / kBN);
-  int8_tiled_kernel<<<grid, kTThreads, 0, stream>>>(static_cast<const __nv_bfloat16*>(h), q, s,
-                                                    static_cast<__nv_bfloat16*>(y), B, O, D);
-  return cudaGetLastError();
+cudaError_t launch_tiled(const void* h, const int8_t* q, const float* s, void* y, float* work, int B,
+                         int O, int D, cudaStream_t stream) {
+  CUtensorMap ta, tw;
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(O)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(D)};
+  const cuuint32_t wbox[2] = {kTiledK, wq::kBN};
+  if (!wq::encode_h(&ta, h, B, D, kTiledK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !wq::encode(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  return wq::launch<Int8Fmt>(ta, tw, tw, s, y, work, B, O, D / kTiledK, 0, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// fp32 elements of split-K workspace int8_mm_stacked / int8_mm need for
+// this call (0 when D is not split; the streaming regime never splits).
+int int8_mm_workspace(int B, int O, int D) {
+  if (B <= 64 || B > 640 || D % kTiledK != 0) return 0;
+  return static_cast<int>(wq::workspace(B, O, D / kTiledK));
+}
+
 // dtype: 0 = fp32, 1 = bf16. Preconditions (checked by the Python wrapper):
 // D % 16 == 0, all pointers 16-byte aligned, 0 <= li < L; 1 <= B <= 64 (the
 // streaming kernel, either dtype), or 64 < B <= 640 with bf16 and D % 64 == 0
-// (the tiled regime).
-int int8_mm_stacked(const void* h, const void* q, const void* s, void* y, int B, int O,
+// (the tiled regime), `work` holding int8_mm_workspace(...) floats.
+int int8_mm_stacked(const void* h, const void* q, const void* s, void* y, void* work, int B, int O,
                     int D, int li, int dtype, void* stream) {
   const int8_t* ql = static_cast<const int8_t*>(q) + (size_t)li * O * D;
   const float* sl = static_cast<const float*>(s) + (size_t)li * O;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > 640 || D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 64) {
-    if (dtype != 1 || D % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_tiled(h, ql, sl, y, B, O, D, st);
+    if (dtype != 1 || D % kTiledK != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tiled(h, ql, sl, y, static_cast<float*>(work), B, O, D, st);
   }
   if (dtype == 1) return dispatch_rows<__nv_bfloat16, Int8W>(h, ql, sl, y, B, O, D, st);
   if (dtype == 0) return dispatch_rows<float, Int8W>(h, ql, sl, y, B, O, D, st);
@@ -453,9 +369,9 @@ int int8_mm_stacked(const void* h, const void* q, const void* s, void* y, int B,
 }
 
 // The lm_head form (TPU _int8_mm_kernel): one [O, D] matrix, no layer axis.
-int int8_mm(const void* h, const void* q, const void* s, void* y, int B, int O, int D,
+int int8_mm(const void* h, const void* q, const void* s, void* y, void* work, int B, int O, int D,
             int dtype, void* stream) {
-  return int8_mm_stacked(h, q, s, y, B, O, D, 0, dtype, stream);
+  return int8_mm_stacked(h, q, s, y, work, B, O, D, 0, dtype, stream);
 }
 
 // Row-major int4, bf16 h. mode: 0 = per-channel scales s [L, O], 1 =

@@ -60,12 +60,13 @@ class LlavaAdapter:
     def init_cache(self, batch: int, max_len: int, device=None):
         return llama.init_cache(self.cfg.text, batch, max_len, device=device)
 
-    def forward(self, params, embeds, positions, cache, offsets, *, cache_row_offset=0,
-                shared_kv=None, shared_len=None, shared_rows_per_prefix=None,
+    def forward(self, params, embeds, positions, cache, offsets, *, attn_impl="auto",
+                cache_row_offset=0, shared_kv=None, shared_len=None, shared_rows_per_prefix=None,
                 shared_rows_per_prefix2=0):
         return llama.forward(
             params["llama"], self.cfg.text, embeds, positions, cache, offsets,
-            cache_row_offset=cache_row_offset, shared_kv=shared_kv, shared_len=shared_len,
+            attn_impl=attn_impl, cache_row_offset=cache_row_offset, shared_kv=shared_kv,
+            shared_len=shared_len,
             shared_rows_per_prefix=shared_rows_per_prefix,
             shared_rows_per_prefix2=shared_rows_per_prefix2,
         )

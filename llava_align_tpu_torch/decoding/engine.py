@@ -108,6 +108,7 @@ class DecodeEngine:
         *,
         adapter=None,
         stop_keyword_ids: Optional[Sequence[Sequence[int]]] = None,
+        attn_impl: str = "auto",
         bucket: int = 128,
         top_scores_k: int = 100,
         device: Optional[torch.device] = None,
@@ -120,6 +121,7 @@ class DecodeEngine:
         self.adapter = adapter if adapter is not None else LlavaAdapter(cfg)
         self.kinds = branch_kinds(gen)
         self.stop_keyword_ids = [list(map(int, k)) for k in (stop_keyword_ids or [])]
+        self.attn_impl = attn_impl  # the causal prefill's route (ops.attention.causal_attention)
         self.bucket = bucket
         self.top_scores_k = top_scores_k
         self.device = torch.device(device) if device is not None else params["llama"]["embed"].device
@@ -232,6 +234,7 @@ class DecodeEngine:
         hidden, _ = self.adapter.forward(
             self.params, embeds, positions, cache,
             torch.zeros((rows,), dtype=torch.long, device=dev), cache_row_offset=row_offset,
+            attn_impl=self.attn_impl,
         )
         last = hidden[torch.arange(rows, device=dev), lengths.long() - 1]
         return self.adapter.logits(self.params, last)
@@ -297,7 +300,8 @@ class DecodeEngine:
             if int(lengths_host.max()) >= cache_len:  # torch would fault, not clamp
                 raise RuntimeError(f"cache write at {lengths_host} past cache_len={cache_len}")
             emb = adapter.embed_tokens(self.params, tok.reshape(1, 1).expand(nb, 1))
-            hidden, cache = adapter.forward(self.params, emb, lengths[:, None], cache, lengths)
+            hidden, cache = adapter.forward(self.params, emb, lengths[:, None], cache, lengths,
+                                            attn_impl=self.attn_impl)
             logits = adapter.logits(self.params, hidden[:, 0])
             lengths = lengths + 1
             lengths_host = lengths_host + 1
@@ -529,7 +533,7 @@ class DecodeEngine:
             positions = torch.arange(pad, device=dev).expand(rows, pad)
             hidden, _ = adapter.forward(
                 params, embeds, positions, cache, torch.zeros((rows,), dtype=torch.long, device=dev),
-                cache_row_offset=row_offset, **shared,
+                cache_row_offset=row_offset, attn_impl=self.attn_impl, **shared,
             )
             return hidden, lengths
 
@@ -563,7 +567,7 @@ class DecodeEngine:
             params, adapter.embed_tokens(params, put(tokens2)), positions, cache,
             torch.zeros((M2 + Msh,), dtype=torch.long, device=dev),
             shared_kv=shared, shared_len=sh_len, shared_rows_per_prefix=Qg,
-            shared_rows_per_prefix2=Qg,
+            shared_rows_per_prefix2=Qg, attn_impl=self.attn_impl,
         )
         rows = torch.arange(M2 + Msh, device=dev)
         logits = adapter.logits(params, hidden[rows, put(lens2).long() - 1])
@@ -608,7 +612,7 @@ class DecodeEngine:
             hidden, cache = adapter.forward(
                 params, emb, (sh_len_all + lengths)[:, None], cache, lengths,
                 shared_kv=shared, shared_len=sh_len_all, shared_rows_per_prefix=Qg,
-                shared_rows_per_prefix2=Qg,
+                shared_rows_per_prefix2=Qg, attn_impl=self.attn_impl,
             )
             logits = adapter.logits(params, hidden[:, 0])
             lengths = lengths + 1

@@ -96,6 +96,7 @@ def forward(
     cache: Optional[KVCache] = None,
     cache_offset: Optional[torch.Tensor] = None,
     *,
+    attn_impl: str = "auto",
     cache_row_offset: int = 0,
     tp_mesh=None,
     shared_kv: Optional[KVCache] = None,
@@ -112,6 +113,8 @@ def forward(
     cache_offset [B] int     where this block starts in the cache. Prefill
                  requires offset == 0 (fresh rows, causal within the block);
                  decode uses S == 1 at the per-row current length.
+    attn_impl    the causal prefill's route: 'auto' | 'pallas' (K3) | 'xla'
+                 (mha); see ops.attention.causal_attention.
     cache_row_offset: first cache row of this batch (split-bucket prefill
                  writes the text rows after the image rows).
     shared_kv    optional read-only prefix KV segment {'k', 'v': [L, P, K,
@@ -198,7 +201,7 @@ def forward(
             rows = slice(cache_row_offset, cache_row_offset + B)
             attn = decode_attention(q, cache["k"][li, rows], cache["v"][li, rows], cache_offset)
         else:
-            attn = causal_attention(q, k, v)
+            attn = causal_attention(q, k, v, impl=attn_impl)
 
         x = x + lin(attn.reshape(B, S, QD), "o", li)
 

@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("int8_mm.cu", "flash_attn.cu", "int4_mm.cu", "repeat2d.cu")
+SOURCES = ("int8_mm.cu", "flash_attn.cu", "int4_mm.cu", "repeat2d.cu")  # + wq_gemm.cuh, included
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
@@ -39,10 +39,12 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _vp, _int, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argument types (pointers and the stream as void*)
 SIGNATURES = {
-    # h, q, s, y, B, O, D, layer, dtype, stream
-    "int8_mm_stacked": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
-    # h, q, s, y, B, O, D, dtype, stream
-    "int8_mm": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp),
+    # h, q, s, y, work, B, O, D, layer, dtype, stream
+    "int8_mm_stacked": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
+    # h, q, s, y, work, B, O, D, dtype, stream
+    "int8_mm": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp),
+    # B, O, D -> fp32 elements of split-K workspace
+    "int8_mm_workspace": (_int, _int, _int),
     # q, k, v, o, B, S, H, K, Dh, dtype, stream
     "flash_attn_causal": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp),
     # h, q4, gs, y, work, B, O, D, layer, dtype, stream

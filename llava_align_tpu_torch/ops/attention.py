@@ -8,7 +8,8 @@ Layouts:
 All softmax math is float32; inputs may be bf16. `mha`, `decode_attention`
 and the shared-prefix (grouped) variants are plain torch, as their JAX
 counterparts are XLA einsums; causal prefill goes through the flash kernel
-K3 (csrc/flash_attn.cu) on the card.
+K3 (csrc/flash_attn.cu) on the card where K3 takes the shape, and through
+mha where it does not (causal_attention_impl).
 """
 
 from __future__ import annotations
@@ -328,8 +329,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 flash_attention.launches = 0
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention for prefill. Every CUDA prefill goes to K3 (the
-    JAX package's 1536-token XLA/Pallas cut-over was measured on a TPU and
-    does not carry over); CPU tensors take K3's plain version."""
-    return flash_attention(q, k, v)
+def causal_attention_impl(Dh: int, H: int, K: int, dtype: torch.dtype) -> str:
+    """The dispatch rule of causal_attention(impl="auto"): 'pallas' (K3)
+    where K3 takes the shape (Dh in {64, 128}, H % K == 0, bf16 or fp32),
+    'xla' (mha, the twin of mha_xla) for every other shape. The JAX
+    package's 1536-token cut-over was measured on a TPU and does not carry
+    over."""
+    return "pallas" if Dh in (64, 128) and H % K == 0 and dtype in _kernels.DTYPE_CODE else "xla"
+
+
+def causal_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, impl: str = "auto"
+) -> torch.Tensor:
+    """Causal self-attention for prefill (twin of causal_attention): 'pallas'
+    runs K3 (CPU tensors: its plain version), 'xla' runs mha; 'auto' picks by
+    causal_attention_impl."""
+    if impl == "auto":
+        impl = causal_attention_impl(q.shape[3], q.shape[2], k.shape[2], q.dtype)
+    if impl == "pallas":
+        return flash_attention(q, k, v)
+    if impl == "xla":
+        return mha(q, k, v, causal=True)
+    raise ValueError(f"impl must be 'auto', 'pallas' or 'xla', got {impl!r}")

@@ -16,16 +16,17 @@ takes the kernel at row counts up to DECODE_MAX_ROWS (decode); output-major
 ones (O >= D: the fused qkv, o and gate|up stacks, the lm_head) also up to
 STREAM_MAX_ROWS, as the TPU sends them to its Pallas kernels up to 640 rows;
 everything else (the down stack's prefill, rows past 640) takes the dequant
-path. Above 64 rows the kernel runs its tiled tensor-core regime, which
-takes bf16 only.
+path. Above 64 rows the kernel runs its tiled regime (the wgmma main loop
+of csrc/wq_gemm.cuh, shared with K4), which takes bf16 only.
 
 int4 (group 128) keeps the JAX package's layout, so quantize_weight_int4 is
 bit-identical to it and a JAX tree carries over as a copy: packed int8
 [..., D/2, O] with O contiguous, split-half (low nibble = row d, high nibble
 = row D/2 + d), fp32 group scales [..., D/group, O]. int4 dispatch: every
-CUDA row count goes to the kernel K4 (csrc/int4_mm.cu), as the TPU package
-sends every row count to its Pallas kernel; CPU tensors take its plain
-version.
+CUDA row count goes to the kernel K4 (csrc/int4_mm.cu; from
+INT4_WGMMA_MIN_ROWS rows on the wgmma main loop it shares with K1/K2), as
+the TPU package sends every row count to its Pallas kernel; CPU tensors
+take its plain version.
 """
 
 from __future__ import annotations
@@ -99,6 +100,20 @@ def _check_kernel_args(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> Non
         raise ValueError("kernel operands must be 16-byte aligned")
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _int8_workspace(h: torch.Tensor, O: int, D: int) -> Optional[torch.Tensor]:
+    """The fp32 split-K workspace of a tiled-regime call that splits D,
+    else None (the streaming regime never splits; at a few rows the query
+    and the allocation would cost as much as the kernel)."""
+    if h.shape[0] <= DECODE_MAX_ROWS:
+        return None
+    n = _kernels.lib().int8_mm_workspace(h.shape[0], O, D)
+    return torch.empty((n,), dtype=torch.float32, device=h.device) if n else None
+
+
 def int8_matmul_stacked_plain(
     h: torch.Tensor, q: torch.Tensor, s: torch.Tensor, layer_idx: int
 ) -> torch.Tensor:
@@ -122,8 +137,9 @@ def int8_matmul_stacked(
     if s.shape != (L, O) or not 0 <= layer_idx < L:
         raise ValueError(f"bad scales {tuple(s.shape)} or layer {layer_idx} for q {tuple(q.shape)}")
     y = torch.empty((h.shape[0], O), dtype=h.dtype, device=h.device)
+    work = _int8_workspace(h, O, D)
     err = _kernels.lib().int8_mm_stacked(
-        h.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
+        h.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), _ptr(work),
         h.shape[0], O, D, int(layer_idx), _kernels.DTYPE_CODE[h.dtype],
         torch.cuda.current_stream(h.device).cuda_stream,
     )
@@ -147,8 +163,9 @@ def int8_matmul_cuda(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch
     if s.shape != (O,):
         raise ValueError(f"bad scales {tuple(s.shape)} for q {tuple(q.shape)}")
     y = torch.empty((h.shape[0], O), dtype=h.dtype, device=h.device)
+    work = _int8_workspace(h, O, D)
     err = _kernels.lib().int8_mm(
-        h.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
+        h.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), _ptr(work),
         h.shape[0], O, D, _kernels.DTYPE_CODE[h.dtype],
         torch.cuda.current_stream(h.device).cuda_stream,
     )
@@ -210,11 +227,20 @@ def int8_matmul(h: torch.Tensor, wq: Dict[str, torch.Tensor]) -> torch.Tensor:
 INT4_GROUP = 128
 
 # K4 takes row counts up to here in its skinny (weight-streaming, CUDA-core)
-# regime and larger ones in its tiled (tensor-core) regime. Set from the
-# crossover measured on the H100 at the 13B stacks (PERF.md): the tiled
-# regime is faster from 3 rows up. The same constant, kSkinnyMaxRows, is
-# compiled into csrc/int4_mm.cu.
+# regime and larger ones in its tensor-core regimes. Set from the crossover
+# measured on the H100 at the 13B stacks (PERF.md): the tensor cores are
+# faster from 3 rows up. The same constant, kSkinnyMaxRows, is compiled
+# into csrc/int4_mm.cu.
 INT4_SKINNY_MAX_ROWS = 2
+# K4's mma.sync tiles take rows above INT4_SKINNY_MAX_ROWS up to here (their
+# tile height, TileSmall::BM in csrc/int4_mm.cu); the wgmma regime (the
+# main loop of csrc/wq_gemm.cuh, shared with K1/K2's tiled regime) the rows
+# from INT4_WGMMA_MIN_ROWS on (kWgmmaMinRows there). Measured on an NVIDIA
+# H100 80GB HBM3 at 700 W with runners/time_int4_rows.py (PERF.md): below
+# 33 rows the wgmma regime's 128-row tiles are up to 10% slower at the 13B
+# stacks and up to 28% slower at the 7B ones; at 72 rows 40-49% faster.
+INT4_MMA_SYNC_MAX_ROWS = 32
+INT4_WGMMA_MIN_ROWS = INT4_MMA_SYNC_MAX_ROWS + 1
 
 
 def int4_auto_group(dims) -> int:
@@ -313,7 +339,7 @@ def _check_int4_args(h: torch.Tensor, q4: torch.Tensor, gs: torch.Tensor, layer_
     if O % 16 or not 0 <= layer_idx < L:
         raise ValueError(f"O={O} must be a multiple of 16; layer {layer_idx} of {L}")
     if B > INT4_SKINNY_MAX_ROWS and h.dtype != torch.bfloat16:
-        raise TypeError(f"K4's tiled regime ({B} rows > {INT4_SKINNY_MAX_ROWS}) takes bf16 only")
+        raise TypeError(f"K4's tensor-core regimes ({B} rows > {INT4_SKINNY_MAX_ROWS}) take bf16 only")
     if any(t.data_ptr() % 16 for t in (h, q4, gs)):
         raise ValueError("kernel operands must be 16-byte aligned")
 
@@ -327,10 +353,11 @@ def int4_matmul_stacked(
     The layer is a pointer offset into the whole stack.
 
     Rows up to INT4_SKINNY_MAX_ROWS run the skinny regime, which takes
-    bf16 or fp32 activations; more rows
-    run the tiled tensor-core regime, which takes bf16 only and raises on
-    fp32. Split-K partial sums go to an fp32 workspace this wrapper
-    allocates. CPU tensors take the plain version."""
+    bf16 or fp32 activations; rows up to INT4_MMA_SYNC_MAX_ROWS the
+    mma.sync tiles, larger row counts the wgmma regime; both tensor-core
+    regimes take bf16 only and raise on fp32. Split-K partial sums go to an
+    fp32 workspace this wrapper allocates. CPU tensors take the plain
+    version."""
     if h.device.type == "cpu":
         return int4_matmul_stacked_plain(h, q4, gs, layer_idx)
     _check_int4_args(h, q4, gs, layer_idx)

@@ -111,8 +111,10 @@ def load_model(model_path: str, quant: str = "none", device=None, seed: int = 0)
     """'random:tiny' | 'random:7b' | 'random:13b': a random-weight model at
     that config's shapes with the mock tokenizer, built on `device` (default:
     the GPU; raises without one unless device="cpu" is asked for).
-    quant='int8' or 'int4' builds the quantized, fused tree directly (tiny
-    too, unlike the JAX package, which keeps random:tiny in float)."""
+    For 7b and 13b, quant='int8' or 'int4' builds the quantized, fused tree
+    directly (quantizing beside a live bf16 tree would double the peak);
+    random:tiny stays in float whatever `quant` says, as in the JAX package,
+    and its caller quantizes it (ops.quant.quantize_llama_params)."""
     if not model_path.startswith("random:"):
         raise NotImplementedError("checkpoint loading (hf_convert) is not ported yet")
     size = model_path.split(":", 1)[1]
@@ -126,5 +128,6 @@ def load_model(model_path: str, quant: str = "none", device=None, seed: int = 0)
         raise ValueError(size)
     from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
 
-    params = build_random_llava_params(cfg, quant=quant, device=device, seed=seed)
+    params = build_random_llava_params(cfg, quant="none" if size == "tiny" else quant,
+                                       device=device, seed=seed)
     return LoadedModel(MockTokenizer(), params, cfg, f"random-{size}")

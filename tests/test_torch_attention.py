@@ -2,7 +2,9 @@
 
 K3's plain version (what csrc/flash_attn.cu computes) is held to the Pallas
 flash kernel in interpret mode at tests/test_attention.py's shapes; mha and
-decode_attention to their XLA twins. fp32 on the CPU throughout.
+decode_attention to their XLA twins; causal_attention's route for shapes K3
+does not take to the JAX causal_attention(impl="xla"). fp32 on the CPU
+throughout.
 """
 
 import jax.numpy as jnp
@@ -51,6 +53,29 @@ def test_causal_attention_matches_xla(S):
     want = ja.causal_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl="xla")
     got = ta.causal_attention(*(torch.from_numpy(x) for x in (q, k, v)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Dh", [64, 80, 128, 256])
+def test_causal_attention_dispatch_rule(Dh, dtype):
+    """'auto' sends a shape to K3 only where K3 takes it (Dh in {64, 128},
+    H % K == 0, bf16 or fp32); every other shape goes to mha."""
+    want = "pallas" if Dh in (64, 128) else "xla"
+    assert ta.causal_attention_impl(Dh, 32, 8, dtype) == want
+    assert ta.causal_attention_impl(Dh, 6, 4, dtype) == "xla"  # H % K != 0
+    assert ta.causal_attention_impl(Dh, 32, 8, torch.float16) == "xla"
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_causal_attention_dh80_matches_jax_xla(impl):
+    """Dh = 80 (OPT-2.7b's head width), which K3 does not take: 'auto' and
+    'xla' run mha and agree with the JAX causal_attention(impl="xla")."""
+    q, k, v = _qkv(7, 2, 33, 33, 4, 2, 80)
+    want = ja.causal_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl="xla")
+    got = ta.causal_attention(*(torch.from_numpy(x) for x in (q, k, v)), impl=impl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError):
+        ta.causal_attention(*(torch.from_numpy(x) for x in (q, k, v)), impl="flash")
 
 
 @pytest.mark.parametrize("causal", [True, False])

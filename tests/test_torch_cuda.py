@@ -2,9 +2,10 @@
 
 Marked `cuda`: they skip where torch sees no GPU. They are the checks of
 chip_smoke.py's kernel phase at small shapes plus the wrappers' refusals:
-K1/K2 (int8, both regimes), K3 (flash attention: bf16 on the tensor
-cores, fp32 on the CUDA cores; causality, large scores), K4 (int4, both
-regimes), and the kernels of the TPU microbenchmark scripts
+K1/K2 (int8, both regimes; the tiled one split over D and not), K3 (flash attention: bf16 on the tensor
+cores, fp32 on the CUDA cores; causality, large scores; the Dh = 80
+route to mha), K4 (int4, each regime; the wgmma one at prefill rows, split
+over D and not), and the kernels of the TPU microbenchmark scripts
 (ops/stream_probes: row-major int4 in both scale modes, bf16 streaming,
 repeat2d, which is exact).
 This file imports no jax, so on the machine with the card it runs without
@@ -135,6 +136,22 @@ def test_int8_tiled_regime_matches_plain(dev, B):
     _assert_close(quant.int8_matmul_cuda(h, q[1], s[1]), quant.int8_matmul_plain(h, q[1], s[1]))
 
 
+def test_int8_tiled_regime_splits_and_last_layer(dev):
+    """The tiled regime with D split over blocks (few tiles, 32 k-steps) and
+    without (70 column tiles), at the last layer of a 3-layer stack."""
+    from llava_align_tpu_torch.ops import _kernels
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    for B, O, D, split in ((130, 400, 2048, True), (65, 70 * 256 - 40, 256, False)):
+        L = 3
+        q = torch.randint(-127, 128, (L, O, D), dtype=torch.int8, device=dev, generator=g)
+        s = torch.rand((L, O), device=dev, generator=g) / 100 + 1e-3
+        h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
+        assert (_kernels.lib().int8_mm_workspace(B, O, D) > 0) == split
+        _assert_close(quant.int8_matmul_stacked(h, q, s, L - 1), quant.int8_matmul_stacked_plain(h, q, s, L - 1))
+        _assert_close(quant.int8_matmul_cuda(h, q[L - 1], s[L - 1]), quant.int8_matmul_plain(h, q[L - 1], s[L - 1]))
+
+
 def test_int8_lm_head_dispatch_runs_the_kernel_past_decode_rows(dev):
     """The lm_head (O >= D) takes K2 up to STREAM_MAX_ROWS, as the TPU
     package streams it; nothing dequantizes to a dense weight."""
@@ -191,7 +208,7 @@ def test_int4_kernel_matches_plain_default_dispatch(dev, L, D, O):
                           quant.int4_matmul_stacked_plain(h, q4, gs, li))
 
 
-@pytest.mark.parametrize("B", [1, 2, 3, 4, 7, 18, 33, 64])
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 7, 18, 32, 33, 64])
 def test_int4_kernel_each_regime(dev, B):
     """Each regime at its own row counts (the split-K paths of both), bf16;
     the skinny regime (B <= INT4_SKINNY_MAX_ROWS) in fp32 as well."""
@@ -204,6 +221,33 @@ def test_int4_kernel_each_regime(dev, B):
         for li in (0, L - 1):
             _assert_close(quant.int4_matmul_stacked(h, q4, gs, li),
                           quant.int4_matmul_stacked_plain(h, q4, gs, li))
+
+
+@pytest.mark.parametrize("B", [130, 640, 3072])
+@pytest.mark.parametrize("D,O", [(512, 400), (768, 272)])  # 2 and 3 groups per half; ragged O
+def test_int4_wgmma_regime_matches_plain(dev, B, D, O):
+    """The wgmma regime at prefill row counts, layers 0 and L-1 (a pointer
+    offset into the stack)."""
+    L = 3
+    q4, gs = _int4_stack(dev, L, D, O, seed=B + D)
+    h = torch.randn((B, D), device=dev, generator=torch.Generator(device=dev).manual_seed(B)).to(torch.bfloat16)
+    for li in (0, L - 1):
+        _assert_close(quant.int4_matmul_stacked(h, q4, gs, li), quant.int4_matmul_stacked_plain(h, q4, gs, li))
+
+
+@pytest.mark.parametrize("B,O,D,split", [(quant.INT4_WGMMA_MIN_ROWS, 400, 2048, True), (72, 256, 4096, True),
+                                         (130, 70 * 256 - 16, 256, False), (640, 256, 4096, True)])
+def test_int4_wgmma_regime_splits(dev, B, O, D, split):
+    """The wgmma regime with D split over blocks (a few column tiles, up to
+    64 k-steps) and without (70 column tiles), at the last layer; from its
+    first row count (INT4_WGMMA_MIN_ROWS) on."""
+    from llava_align_tpu_torch.ops import _kernels
+
+    L = 2
+    q4, gs = _int4_stack(dev, L, D, O, seed=B)
+    h = torch.randn((B, D), device=dev, generator=torch.Generator(device=dev).manual_seed(12)).to(torch.bfloat16)
+    assert (_kernels.lib().int4_mm_workspace(B, O, D) > 0) == split
+    _assert_close(quant.int4_matmul_stacked(h, q4, gs, L - 1), quant.int4_matmul_stacked_plain(h, q4, gs, L - 1))
 
 
 def test_int4_dispatch_runs_the_kernel(dev):
@@ -250,6 +294,19 @@ def test_int8_stacked_dispatch_streams_output_major_prefill_rows(dev):
         got = quant.int8_matmul_stacked_dispatch(h, {"q": q, "s": s}, 1)
         assert quant.int8_matmul_stacked.launches == before + int(to_k1)
         _assert_close(got.reshape(512, O), quant.int8_matmul_stacked_plain(h.reshape(512, D), q, s, 1))
+
+
+def test_causal_attention_dh80_runs_mha_not_k3(dev):
+    """A Dh = 80 bf16 prefill (a shape K3 does not take) goes through
+    causal_attention to mha; K3 is not launched."""
+    q, k, v = _qkv(dev, 2, 77, 8, 4, 80, torch.bfloat16, seed=80)
+    before = attention.flash_attention.launches
+    got = attention.causal_attention(q, k, v)
+    assert attention.flash_attention.launches == before
+    _assert_rows_close(got, attention.mha(q, k, v, causal=True))
+    q, k, v = _qkv(dev, 2, 77, 8, 4, 128, torch.bfloat16, seed=128)
+    attention.causal_attention(q, k, v)
+    assert attention.flash_attention.launches == before + 1
 
 
 def _rowmajor_stack(dev, L, O, D, seed, group):

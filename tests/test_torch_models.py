@@ -160,3 +160,29 @@ def test_random_params_default_to_the_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_model("random:tiny", quant="int4")
     assert load_model("random:tiny", quant="int4", device="cpu").params["llama"]["embed"].device.type == "cpu"
+
+
+def _layout(tree):
+    return {jax.tree_util.keystr(p): (tuple(x.shape), str(x.dtype).replace("torch.", ""))
+            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_load_model_keeps_tiny_in_float_as_jax(quant):
+    """load_model("random:tiny", quant=...) returns the float tree, with the
+    JAX load_model's keys, shapes and dtypes (no q/q4 leaves); the caller
+    quantizes it with quantize_llama_params, as the JAX POPE runner does,
+    and gets the JAX quantized layout, which the engine takes."""
+    from llava_align_tpu.runners.common import load_model as jload_model
+    from llava_align_tpu_torch.ops.quant import quantize_llama_params as tquantize
+    from llava_align_tpu_torch.runners.common import load_model
+
+    bits = 4 if quant == "int4" else 8
+    jp = jload_model("random:tiny", quant=quant).params
+    tp = load_model("random:tiny", quant=quant, device="cpu").params
+    assert _layout(tp) == {k: (shape, np.dtype(dt).name) for k, (shape, dt) in _layout(jp).items()}
+    # float: no int8 leaf (no 'q' or 'q4' dict), no scales
+    assert not any(dt == "int8" or k.endswith(("['s']", "['gs']")) for k, (_, dt) in _layout(tp).items())
+    jq = jax.eval_shape(lambda p: quantize_llama_params(p, bits=bits), jp["llama"])
+    tq = tquantize(tp["llama"], bits=bits)
+    assert _layout(tq) == {k: (shape, np.dtype(dt).name) for k, (shape, dt) in _layout(jq).items()}

@@ -27,7 +27,14 @@ from llava_align_tpu_torch.decoding.engine import DecodeEngine
 from llava_align_tpu_torch.runners.common import build_prompt, load_model
 from llava_align_tpu_torch.tokenization import tokenizer_image_token
 
-lm = load_model("random:tiny", quant="int8", device="cpu")
+from llava_align_tpu_torch.ops.quant import quantize_llama_params
+
+def quantized(lm, bits):  # random:tiny loads in float; quantize as the POPE runner does
+    lm.params["llama"] = quantize_llama_params(lm.params["llama"], bits=bits)
+    return lm
+
+lm = quantized(load_model("random:tiny", quant="int8", device="cpu"), 8)
+assert "q" in lm.params["llama"]["layers"]["qkv"]
 ids = tokenizer_image_token(build_prompt("Is there a dog in the image?", "llava_v1")[0], lm.tokenizer)
 image = np.random.default_rng(0).integers(0, 256, (3, 28, 28), dtype=np.uint8)
 gen = GenerationConfig(max_new_tokens=4, do_sample=False, use_dd=True, use_dd_unk=True,
@@ -35,7 +42,7 @@ gen = GenerationConfig(max_new_tokens=4, do_sample=False, use_dd=True, use_dd_un
 out = DecodeEngine(lm.params, lm.cfg, gen).generate(ids, image)
 assert out.num_generated == 4, out
 
-lm4 = load_model("random:tiny", quant="int4", device="cpu")
+lm4 = quantized(load_model("random:tiny", quant="int4", device="cpu"), 4)
 assert "q4" in lm4.params["llama"]["layers"]["qkv"]
 prompts = [tokenizer_image_token(build_prompt(q, "llava_v1")[0], lm4.tokenizer)
            for q in ("Is there a dog in the image?", "Is there a cat in the image?")]
