@@ -7,12 +7,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
   1. device: the card's name and power limit (nvidia-smi), CUDA must exist;
   2. build: compile the package's CUDA kernels from csrc/ with nvcc (one
      process per source, in parallel); ptxas must report no spill for K3's
-     tensor-core kernel nor for the wgmma main loop of K1/K2 and K4, and
-     must not serialize that loop's wgmma (C7515);
+     tensor-core kernel, for the wgmma main loop of K1/K2 and K4 nor for the
+     tensor-core streaming kernel (K1/K2 at 1-64 rows, S1-S3, S5, S6), and
+     must not serialize the wgmma main loop (C7515);
   3. kernels: K1-K4 against their plain PyTorch versions on the card, in
-     bf16, at their main paths' shapes (K1 also at the 7B text-branch
-     prefill's rows on the O >= D stacks; K2 at the 7B and the 13B lm_head,
-     each regime; K3 at each prefill shape of both model paths; K4 in each
+     bf16, at their main paths' shapes (K1 at 3, 16, 18 and 64 rows, each
+     timed under by_rows, and at the 7B text-branch prefill's rows on the
+     O >= D stacks; K2 at the 7B and the 13B lm_head, each regime, every
+     row count timed under by_path's by_rows; K3 at each prefill shape of both model paths; K4 in each
      of its regimes, at the grouped path's decode and prefill rows), with
      the tolerance stated; by CUDA events the
      kernel's, the plain version's and a library call's times (torch.matmul
@@ -51,7 +53,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
 
 Prints a JSON line with each kernel's record (launches: both main paths'
 counts, per path under launches_by_path; K1's and K4's prefill-row times
-under prefill, K2's times per path under by_path, K3's per shape under by_shape,
+under prefill, K1's per decode row count under by_rows, K2's times per path
+under by_path (each row count under its by_rows), K3's per shape under by_shape,
 with its CUDA-graph times as graph_ms / graph_library_ms and its row
 errors);
 S1-S7: launches, errors and times from the run of the twin that runs
@@ -195,15 +198,18 @@ def phase_build() -> None:
         if "registers" in line or "spill" in line or "error" in line:
             log("  ptxas: " + line.strip())
     # K3's tensor-core kernel holds Q fragments, S and O in registers, the
-    # wgmma main loop of K1/K2/K4 its 128 accumulators: a spill would put
-    # them in local memory
+    # wgmma main loop of K1/K2/K4 its 128 accumulators, the streaming
+    # kernel its widened weights and accumulators: a spill would put them
+    # in local memory
     spills = ptxas_spill_stores(text)
-    for what, key in (("K3 tensor-core kernel", "flash_fwd_mma_kernel"),
-                      ("wgmma main loop (K1/K2 int8, K4 int4)", "wq_gemm_kernel")):
+    for what, key, n_inst in (("K3 tensor-core kernel", "flash_fwd_mma_kernel", 2),
+                              ("wgmma main loop (K1/K2 int8, K4 int4)", "wq_gemm_kernel", 2),
+                              # 4 formats x 4 row bounds (8, 16, 32, 64)
+                              ("tensor-core streaming kernel (K1/K2, S1-S3, S5, S6)", "stream_mma_kernel", 16)):
         inst = {fn: n for fn, n in spills.items() if key in fn}
         log(f"  {what}, spill-store bytes per instance: {inst}")
-        if len(inst) != 2 or any(inst.values()):
-            raise AssertionError(f"{what}: expected 2 instances without spills, got {inst}")
+        if len(inst) != n_inst or any(inst.values()):
+            raise AssertionError(f"{what}: expected {n_inst} instances without spills, got {inst}")
     # ptxas C7515: wgmma serialized (each MMA waited for), which undoes the
     # main loop's overlap of widening and MMAs
     serial = [line.strip() for line in text.splitlines() if "C7515" in line and "wq_gemm_kernel" in line]
@@ -224,10 +230,14 @@ def ptxas_spill_stores(build_log: str) -> dict:
     return spills
 
 
+K1_ROWS = (3, 16, 18, 64)  # the 7B decode step, the twins' rows, the grouped decode step, DECODE_MAX_ROWS
+
+
 def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
     """K1 and K2 against their plain versions at the 7B path's shapes (K1
-    also at its text-branch prefill's `prefill_rows` on the O >= D stacks,
-    K2 at the 13B lm_head's grouped rows)."""
+    at K1_ROWS, each timed per layer under by_rows, and at its text-branch
+    prefill's `prefill_rows` on the O >= D stacks; K2 at the 13B lm_head's
+    grouped rows too, every row count timed under by_path's by_rows)."""
     from llava_align_tpu_torch.ops import quant
     from llava_align_tpu_torch.scripts._common import SHAPES_7B, matmul_work
 
@@ -235,11 +245,11 @@ def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     rec = {}
 
-    log("kernels: K1 int8_matmul_stacked (decoder linears) vs plain, bf16; streaming up to "
+    log("kernels: K1 int8_matmul_stacked (decoder linears) vs plain, bf16; tensor-core streaming up to "
         f"{quant.DECODE_MAX_ROWS} rows, tiled above (the O >= D stacks' {prefill_rows}-row "
         "text-branch prefill)")
-    k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
-    k1_bytes = k1_flops = 0.0
+    k1_err = 0.0
+    by_rows = {B: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0) for B in K1_ROWS}
     pre = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
     for name, (O, D) in SHAPES_7B.items():
         L = 32
@@ -248,10 +258,10 @@ def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
         w_bf16 = [quant.dequantize({"q": q[i], "s": s[i]}, torch.bfloat16) for i in range(2)]
         # the text-branch prefill's rows reach K1 only on the O >= D stacks (the JAX rule)
         prefill = (prefill_rows,) if quant._stream_rows_ok(prefill_rows, O, D) else ()
-        for B in (3, 16, 64) + prefill:
+        for B in K1_ROWS + prefill:
             h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
             for li in (0, L - 1):
-                k1["max_abs_err"] = max(k1["max_abs_err"], compare(
+                k1_err = max(k1_err, compare(
                     quant.int8_matmul_stacked(h, q, s, li),
                     quant.int8_matmul_stacked_plain(h, q, s, li),
                     f"{name} [{L},{O},{D}] B={B} li={li}",
@@ -265,20 +275,19 @@ def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
                 f"plain {plain_ms:.4f} ms, library (torch.matmul, bf16 weight) {lib_ms:.4f} ms, "
                 f"bound {bound(*matmul_work(B, O, D, O * D, 4 * O))['bound_ms']:.4f} ms")
             nb, fl = matmul_work(B, O, D, O * D, 4 * O)
-            if B == 3:  # the decode row count of dual-branch VDD
-                k1["ms"] += ms
-                k1["plain_ms"] += plain_ms
-                k1["library_ms"] += lib_ms
-                k1_bytes += nb
-                k1_flops += fl
-            if B == prefill_rows:
-                for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                                 ("bytes", nb), ("flops", fl)):
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                             ("bytes", nb), ("flops", fl)):
+                if B in by_rows:
+                    by_rows[B][key] += val
+                if B == prefill_rows:
                     pre[key] += val
         del q, s, w_bf16
-    rec["K1"] = dict(k1, **bound(k1_bytes, k1_flops))
-    log(f"  one 7B decode layer's four linears at B=3: kernel {k1['ms']:.4f} ms, plain "
-        f"{k1['plain_ms']:.4f} ms, library {k1['library_ms']:.4f} ms, bound {rec['K1']['bound_ms']:.4f} ms")
+    for B, r in by_rows.items():
+        r.update(bound(r.pop("bytes"), r.pop("flops")))
+        log(f"  one 7B layer's four linears at B={B}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    # top-level numbers: the 7B decode step (3 rows: dual-branch VDD)
+    rec["K1"] = dict(by_rows[3], max_abs_err=k1_err, by_rows={str(B): r for B, r in by_rows.items()})
     b = bound(pre.pop("bytes"), pre.pop("flops"))
     rec["K1"]["prefill"] = dict(pre, rows=prefill_rows, stacks=["qkv", "o", "gateup"], **b)
     log(f"  one 7B layer's qkv, o and gate|up at B={prefill_rows} (text-branch prefill): kernel "
@@ -295,6 +304,7 @@ def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
     }
     k2_err, k2_by_path = 0.0, {}
     for path, ((O, D), rows_list, head_rows) in k2_paths.items():
+        per_rows = {}
         q = torch.randint(-127, 128, (O, D), dtype=torch.int8, device=dev, generator=g)
         s = (torch.rand((O,), device=dev, generator=g) + 0.5) / (127.0 * D**0.5)
         w_bf16 = quant.dequantize({"q": q, "s": s}, torch.bfloat16)
@@ -311,12 +321,11 @@ def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
             log(f"  lm_head [{O},{D}] B={B}: kernel {ms:.4f} ms ({O * D / (ms * 1e-3) / 1e9:.0f} GB/s of "
                 f"int8 weights), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
                 f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-            if B == head_rows:
-                k2_by_path[path] = dict(shape=[O, D], rows=B, ms=ms, plain_ms=plain_ms,
-                                        library_ms=lib_ms, **b)
+            per_rows[str(B)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+        k2_by_path[path] = dict(shape=[O, D], rows=head_rows, **per_rows[str(head_rows)], by_rows=per_rows)
         del q, s, w_bf16
     # top-level numbers: the 7B path's decode step, as in the K1 record
-    top = {k: v for k, v in k2_by_path["7b_int8_generate"].items() if k not in ("shape", "rows")}
+    top = {k: v for k, v in k2_by_path["7b_int8_generate"].items() if k not in ("shape", "rows", "by_rows")}
     rec["K2"] = dict(top, max_abs_err=k2_err, by_path=k2_by_path)
     return rec
 
@@ -516,21 +525,21 @@ def phase_kernels_int4(decode_rows, prefill_rows) -> dict:
 # the port's wrapper, its source, the TPU kernel's file:line)
 PROBE_KERNELS = {
     "S1a": ("bench_int4_probe", "int4_mm", "int4_rowmajor_matmul_stacked",
-            "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_int4_probe.py:58"),
+            "llava_align_tpu_torch/csrc/stream_mma.cuh", "scripts/bench_int4_probe.py:58"),
     "S1b": ("bench_int4_probe", "int4_native_mm", "int8_matmul_stacked",
             "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_int4_probe.py:115"),
     "S2a": ("bench_int4_probe2", "int4_mm", "int4_rowmajor_matmul_stacked",
-            "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_int4_probe2.py:55"),
+            "llava_align_tpu_torch/csrc/stream_mma.cuh", "scripts/bench_int4_probe2.py:55"),
     "S2b": ("bench_int4_probe2", "int4_native_mm", "int8_matmul_stacked",
             "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_int4_probe2.py:182"),
     "S3": ("bench_int4_probe3", "int4_mm", "int4_rowmajor_matmul_stacked",
-           "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_int4_probe3.py:46"),
+           "llava_align_tpu_torch/csrc/stream_mma.cuh", "scripts/bench_int4_probe3.py:46"),
     "S4": ("bench_int4_transposed", "int4t_mm", "int4_matmul_stacked",
            "llava_align_tpu_torch/csrc/int4_mm.cu", "scripts/bench_int4_transposed.py:43"),
     "S5": ("bench_bf16_stream", "stream_mm", "bf16_matmul_stacked",
-           "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/bench_bf16_stream.py:37"),
+           "llava_align_tpu_torch/csrc/stream_mma.cuh", "scripts/bench_bf16_stream.py:37"),
     "S6": ("probe_int4_kernel_bisect", "kern", "int4_rowmajor_matmul_stacked",
-           "llava_align_tpu_torch/csrc/int8_mm.cu", "scripts/probe_int4_kernel_bisect.py:24"),
+           "llava_align_tpu_torch/csrc/stream_mma.cuh", "scripts/probe_int4_kernel_bisect.py:24"),
     "S7": ("probe_mosaic_ops", "tryk", "repeat2d", "llava_align_tpu_torch/csrc/repeat2d.cu",
            "scripts/probe_mosaic_ops.py:9"),
 }
@@ -937,7 +946,7 @@ def main() -> int:
         "int4_matmul_stacked": ("K4", "llava_align_tpu_torch/csrc/int4_mm.cu", "llava_align_tpu/ops/quant.py:541"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("by_path", "prefill", "graph_ms", "graph_library_ms", "max_row_err", "by_shape")
+    extra = ("by_rows", "by_path", "prefill", "graph_ms", "graph_library_ms", "max_row_err", "by_shape")
     kernels = [
         dict(name=n, route="cuda", source=src, replaces=rep,
              launches=sum(p[n] for p in by_path.values()),

@@ -28,7 +28,8 @@ from typing import Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("int8_mm.cu", "flash_attn.cu", "int4_mm.cu", "repeat2d.cu")  # + wq_gemm.cuh, included
+# + wq_gemm.cuh and stream_mma.cuh, included
+SOURCES = ("int8_mm.cu", "flash_attn.cu", "int4_mm.cu", "repeat2d.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
@@ -55,6 +56,9 @@ SIGNATURES = {
     "int4_rowmajor_mm_stacked": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
     # h, w, y, B, O, D, layer, stream
     "bf16_mm_stacked": (_vp, _vp, _vp, _int, _int, _int, _int, _vp),
+    # format (0 int8, 1 int4, 2 bf16), B, O, D -> blocks per channel tile of
+    # the tensor-core streaming kernel's split plan
+    "stream_mma_splits": (_int, _int, _int, _int),
     # x, y, ld, rows, cols, r0, c0, mode_r, n_r, mode_c, n_c, scale, stream
     "repeat2d": (_vp, _vp, _i64, _int, _int, _int, _int, _int, _int, _int, _int, _f32, _vp),
 }
@@ -139,6 +143,14 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on t's device, where a
+    kernel launches (cheaper than torch.cuda.current_stream(...).cuda_stream,
+    which builds a Stream object: at a few rows the wrapper's host time is
+    a share of the call)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(err: int, name: str) -> None:

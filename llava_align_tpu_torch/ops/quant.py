@@ -7,7 +7,9 @@ paths, which round differently:
 * the kernel path (csrc/int8_mm.cu, K1/K2 below): weights widened in
   registers, fp32 accumulation, the scale applied once after the reduction
   over D — the math of the TPU kernels _int8_mm_stacked_kernel and
-  _int8_mm_kernel;
+  _int8_mm_kernel. Its regimes (stream_regime): bf16 at 1..64 rows on the
+  tensor cores (csrc/stream_mma.cuh), fp32 at 1..64 rows on the CUDA cores,
+  bf16 at 65..640 rows on the wgmma main loop;
 * the dequant path (int8_matmul_dequant, twin of int8_matmul_xla): q*s
   rounded to the activation dtype first, then torch.matmul.
 
@@ -37,10 +39,25 @@ import torch
 
 from llava_align_tpu_torch.ops import _kernels
 
-# Rows up to here run the int8 kernel's weight-streaming regime (any dtype);
+# Rows up to here run the int8 kernel's weight-streaming regimes (any dtype);
 # up to STREAM_MAX_ROWS its tiled tensor-core regime (bf16 only).
 DECODE_MAX_ROWS = 64
 STREAM_MAX_ROWS = 640
+
+def stream_regime(dtype: torch.dtype, rows: int) -> str:
+    """Which body of K1/K2 runs a call, the rule compiled into
+    csrc/int8_mm.cu: "mma" (bf16, 1..DECODE_MAX_ROWS rows: the tensor-core
+    streaming kernel), "cuda_cores" (fp32, 1..DECODE_MAX_ROWS: fp32 FMAs, as
+    bf16 MMAs would round fp32 activations) or "tiled" (bf16, up to
+    STREAM_MAX_ROWS: the wgmma main loop). Every D the wrapper takes runs in
+    the regime its dtype and rows pick."""
+    if not 1 <= rows <= STREAM_MAX_ROWS:
+        raise ValueError(f"kernel takes 1..{STREAM_MAX_ROWS} rows, got {rows}")
+    if rows > DECODE_MAX_ROWS:
+        if dtype != torch.bfloat16:
+            raise TypeError(f"the tiled regime ({rows} rows > {DECODE_MAX_ROWS}) takes bf16 only")
+        return "tiled"
+    return "mma" if dtype == torch.bfloat16 else "cuda_cores"
 
 
 def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -89,13 +106,10 @@ def _check_kernel_args(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> Non
     if h.dim() != 2 or not (h.is_contiguous() and q.is_contiguous() and s.is_contiguous()):
         raise ValueError("h must be a contiguous [B, D] matrix; q and s contiguous")
     B, D = h.shape
-    if not 1 <= B <= STREAM_MAX_ROWS:
-        raise ValueError(f"kernel takes 1..{STREAM_MAX_ROWS} rows, got {B}")
     if D % 16 or q.shape[-1] != D:
         raise ValueError(f"D={D} must be a multiple of 16 and match q {tuple(q.shape)}")
-    if B > DECODE_MAX_ROWS and (h.dtype != torch.bfloat16 or D % 64):
-        raise TypeError(f"the tiled regime ({B} rows > {DECODE_MAX_ROWS}) takes bf16 with "
-                        f"D % 64 == 0, got {h.dtype}, D={D}")
+    if stream_regime(h.dtype, B) == "tiled" and D % 64:
+        raise TypeError(f"the tiled regime ({B} rows > {DECODE_MAX_ROWS}) takes D % 64 == 0, got D={D}")
     if any(t.data_ptr() % 16 for t in (h, q, s)):
         raise ValueError("kernel operands must be 16-byte aligned")
 
@@ -106,8 +120,9 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _int8_workspace(h: torch.Tensor, O: int, D: int) -> Optional[torch.Tensor]:
     """The fp32 split-K workspace of a tiled-regime call that splits D,
-    else None (the streaming regime never splits; at a few rows the query
-    and the allocation would cost as much as the kernel)."""
+    else None (the streaming regimes need none: the tensor-core kernel
+    reduces its splits inside a cluster; at a few rows a query and an
+    allocation would cost as much as the kernel)."""
     if h.shape[0] <= DECODE_MAX_ROWS:
         return None
     n = _kernels.lib().int8_mm_workspace(h.shape[0], O, D)
@@ -127,9 +142,10 @@ def int8_matmul_stacked(
     _int8_mm_stacked_kernel): h [B, D] x q int8 [L, O, D] at layer
     `layer_idx`, scales s [L, O] → [B, O] in h's dtype. The layer is a
     pointer offset into the whole stack. Up to DECODE_MAX_ROWS rows the
-    kernel streams the weights (bf16 or fp32 activations); up to
-    STREAM_MAX_ROWS it runs its tiled regime, which takes bf16 only and
-    raises on fp32. CPU tensors take the plain version."""
+    kernel streams the weights (bf16 on the tensor cores, fp32 on the CUDA
+    cores: stream_regime); up to STREAM_MAX_ROWS it runs its tiled regime,
+    which takes bf16 only and raises on fp32. CPU tensors take the plain
+    version."""
     if h.device.type == "cpu":
         return int8_matmul_stacked_plain(h, q, s, layer_idx)
     _check_kernel_args(h, q, s)
@@ -140,8 +156,7 @@ def int8_matmul_stacked(
     work = _int8_workspace(h, O, D)
     err = _kernels.lib().int8_mm_stacked(
         h.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), _ptr(work),
-        h.shape[0], O, D, int(layer_idx), _kernels.DTYPE_CODE[h.dtype],
-        torch.cuda.current_stream(h.device).cuda_stream,
+        h.shape[0], O, D, int(layer_idx), _kernels.DTYPE_CODE[h.dtype], _kernels.stream_of(h),
     )
     _kernels.check(err, "int8_mm_stacked")
     int8_matmul_stacked.launches += 1
@@ -166,8 +181,7 @@ def int8_matmul_cuda(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch
     work = _int8_workspace(h, O, D)
     err = _kernels.lib().int8_mm(
         h.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), _ptr(work),
-        h.shape[0], O, D, _kernels.DTYPE_CODE[h.dtype],
-        torch.cuda.current_stream(h.device).cuda_stream,
+        h.shape[0], O, D, _kernels.DTYPE_CODE[h.dtype], _kernels.stream_of(h),
     )
     _kernels.check(err, "int8_mm")
     int8_matmul_cuda.launches += 1
@@ -236,9 +250,10 @@ INT4_SKINNY_MAX_ROWS = 2
 # tile height, TileSmall::BM in csrc/int4_mm.cu); the wgmma regime (the
 # main loop of csrc/wq_gemm.cuh, shared with K1/K2's tiled regime) the rows
 # from INT4_WGMMA_MIN_ROWS on (kWgmmaMinRows there). Measured on an NVIDIA
-# H100 80GB HBM3 at 700 W with runners/time_int4_rows.py (PERF.md): below
-# 33 rows the wgmma regime's 128-row tiles are up to 10% slower at the 13B
-# stacks and up to 28% slower at the 7B ones; at 72 rows 40-49% faster.
+# H100 80GB HBM3 at 700 W (PERF.md; the k4 format of
+# runners/time_stream_rows.py times it): below 33 rows the wgmma regime's
+# 128-row tiles are up to 10% slower at the 13B stacks and up to 28% slower
+# at the 7B ones; at 72 rows 40-49% faster.
 INT4_MMA_SYNC_MAX_ROWS = 32
 INT4_WGMMA_MIN_ROWS = INT4_MMA_SYNC_MAX_ROWS + 1
 

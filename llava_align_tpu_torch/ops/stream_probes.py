@@ -1,8 +1,9 @@
 """The kernels of the TPU microbenchmark scripts that no decoder kernel
 computes: row-major int4 (per-channel or group-128 scales), bf16 weight
 streaming, and the index-mapping copy the int4 scale broadcasts are built
-from. The two matmuls are formats of K1's streaming kernel
-(csrc/int8_mm.cu); the copy is csrc/repeat2d.cu. Each has a wrapper with a
+from. The two matmuls are formats of K1's tensor-core streaming kernel
+(csrc/stream_mma.cuh, entries in csrc/int8_mm.cu); the copy is
+csrc/repeat2d.cu. Each has a wrapper with a
 `launches` counter, which launches the kernel on CUDA tensors (or raises on
 what the kernel does not take), and a plain PyTorch version of the same
 math, which the wrapper takes for CPU tensors.
@@ -101,7 +102,7 @@ def int4_rowmajor_matmul_stacked(
     y = torch.empty((B, O), dtype=h.dtype, device=h.device)
     err = _kernels.lib().int4_rowmajor_mm_stacked(
         h.data_ptr(), p.data_ptr(), s.data_ptr(), y.data_ptr(), B, O, D, int(layer_idx), mode,
-        torch.cuda.current_stream(h.device).cuda_stream,
+        _kernels.stream_of(h),
     )
     _kernels.check(err, "int4_rowmajor_mm_stacked")
     int4_rowmajor_matmul_stacked.launches += 1
@@ -137,8 +138,7 @@ def bf16_matmul_stacked(h: torch.Tensor, w: torch.Tensor, layer_idx: int) -> tor
         raise ValueError(f"layer {layer_idx} of {L}")
     y = torch.empty((B, O), dtype=h.dtype, device=h.device)
     err = _kernels.lib().bf16_mm_stacked(
-        h.data_ptr(), w.data_ptr(), y.data_ptr(), B, O, D, int(layer_idx),
-        torch.cuda.current_stream(h.device).cuda_stream,
+        h.data_ptr(), w.data_ptr(), y.data_ptr(), B, O, D, int(layer_idx), _kernels.stream_of(h),
     )
     _kernels.check(err, "bf16_mm_stacked")
     bf16_matmul_stacked.launches += 1

@@ -2,12 +2,15 @@
 
 Marked `cuda`: they skip where torch sees no GPU. They are the checks of
 chip_smoke.py's kernel phase at small shapes plus the wrappers' refusals:
-K1/K2 (int8, both regimes; the tiled one split over D and not), K3 (flash attention: bf16 on the tensor
+K1/K2 (int8, each regime: bf16 on the tensor-core streaming kernel at every
+row count 1-64, split over a cluster and not, fp32 on the CUDA cores; the
+tiled one split over D and not), K3 (flash attention: bf16 on the tensor
 cores, fp32 on the CUDA cores; causality, large scores; the Dh = 80
 route to mha), K4 (int4, each regime; the wgmma one at prefill rows, split
 over D and not), and the kernels of the TPU microbenchmark scripts
-(ops/stream_probes: row-major int4 in both scale modes, bf16 streaming,
-repeat2d, which is exact).
+(ops/stream_probes: row-major int4 in both scale modes and bf16, on the
+same streaming kernel, at the same rows, the smallest D each takes and a
+ragged O; repeat2d, which is exact).
 This file imports no jax, so on the machine with the card it runs without
 the repository's conftest (which imports jax):
 
@@ -20,7 +23,9 @@ element): the first rows attend to one key and are the largest outputs, so
 one bound for the whole tensor would be as large as a typical value of the
 long rows, and a skipped or mis-masked late key tile would pass under it.
 K3's bf16 kernel also rounds the probabilities to bf16 before PV (as every
-tensor-core flash kernel does), which stays inside the row bound.
+tensor-core flash kernel does), which stays inside the row bound. The
+group-128 int4 streaming kernel rounds each scaled weight to bf16 exactly
+as its plain version does, so only the order of the fp32 sums differs there.
 """
 
 import pytest
@@ -57,18 +62,87 @@ def _assert_rows_close(got, want):
     assert bool((diff <= TOL * ref).all()), (diff / ref.clamp_min(1e-30)).max().item()
 
 
+# the streaming kernels' row counts: each side of every n8 tile edge and of
+# the instances' bounds (8, 16, 32, 64 rows), and 5 full n8 tiles of the
+# 64-row instance (40)
+STREAM_ROWS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 18, 24, 31, 32, 33, 40, 48, 63, 64]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B", [1, 3, 5, 16, 33, 64])
+@pytest.mark.parametrize("B", STREAM_ROWS)
 def test_int8_stacked_kernel_matches_plain(dev, B, dtype):
+    """bf16 runs the tensor-core streaming kernel, fp32 the CUDA-core body;
+    ragged O (not a multiple of a block's rows), D % 16 == 0 but not a whole
+    k-step, and the smallest D (16)."""
+    assert quant.stream_regime(dtype, B) == ("mma" if dtype == torch.bfloat16 else "cuda_cores")
     g = torch.Generator(device=dev).manual_seed(B)
-    L, O, D = 3, 200, 528  # ragged O (not a multiple of a block's rows), D % 16 == 0
+    for L, O, D in ((3, 200, 528), (2, 40, 16)):
+        q = torch.randint(-127, 128, (L, O, D), dtype=torch.int8, device=dev, generator=g)
+        s = torch.rand((L, O), device=dev, generator=g) / 100 + 1e-3
+        h = torch.randn((B, D), device=dev, generator=g).to(dtype)
+        for li in range(L):
+            _assert_close(quant.int8_matmul_stacked(h, q, s, li),
+                          quant.int8_matmul_stacked_plain(h, q, s, li))
+        _assert_close(quant.int8_matmul_cuda(h, q[1], s[1]), quant.int8_matmul_plain(h, q[1], s[1]))
+
+
+def _splits(fmt: str, B: int, O: int, D: int) -> int:
+    """Blocks per channel tile of the tensor-core streaming kernel's split
+    plan (csrc/stream_mma.cuh), for fmt "int8", "int4" or "bf16"."""
+    from llava_align_tpu_torch.ops import _kernels
+
+    return _kernels.lib().stream_mma_splits({"int8": 0, "int4": 1, "bf16": 2}[fmt], B, O, D)
+
+
+def _stream_formats_match_plain(dev, B, O, D, seed):
+    """int8, row-major int4 in both scale modes and bf16 at layer 1 of a
+    2-layer stack, each against its plain version."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L = 2
+    h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
     q = torch.randint(-127, 128, (L, O, D), dtype=torch.int8, device=dev, generator=g)
     s = torch.rand((L, O), device=dev, generator=g) / 100 + 1e-3
-    h = torch.randn((B, D), device=dev, generator=g).to(dtype)
-    for li in range(L):
-        _assert_close(quant.int8_matmul_stacked(h, q, s, li),
-                      quant.int8_matmul_stacked_plain(h, q, s, li))
-    _assert_close(quant.int8_matmul_cuda(h, q[1], s[1]), quant.int8_matmul_plain(h, q[1], s[1]))
+    _assert_close(quant.int8_matmul_stacked(h, q, s, 1), quant.int8_matmul_stacked_plain(h, q, s, 1))
+    del q
+    for group in (False, True) if D % 256 == 0 else (False,):
+        p, s4 = _rowmajor_stack(dev, L, O, D, seed=seed + group, group=group)
+        got = sp.int4_rowmajor_matmul_stacked(h, p, s4, 1)
+        assert torch.equal(got, sp.int4_rowmajor_matmul_stacked(h, p, s4, 1))  # the splits sum in rank order
+        _assert_close(got, sp.int4_rowmajor_matmul_stacked_plain(h, p, s4, 1))
+    w = (torch.randn((L, O, D), device=dev, generator=g) * 0.02).to(torch.bfloat16)
+    _assert_close(sp.bf16_matmul_stacked(h, w, 1), sp.bf16_matmul_stacked_plain(h, w, 1))
+
+
+# LLaVA-v1.5-7B's narrow stacks: 32 channel tiles, so K splits over a cluster
+@pytest.mark.parametrize("B", [1, 3, 16, 64])
+@pytest.mark.parametrize("O,D", [(4096, 4096), (4096, 11008)])
+def test_stream_kernels_split_k_full_width(dev, B, O, D):
+    """The 7B o and down stacks at full width in every streaming format
+    (int8, row-major int4 in both scale modes, bf16), where the plan splits
+    K over 4 or 8 blocks and the blocks reach the card's SMs: a lost or
+    doubled split moves every output by far more than TOL."""
+    for fmt in ("int8", "int4", "bf16"):
+        assert _splits(fmt, B, O, D) in (4, 8), fmt
+    _stream_formats_match_plain(dev, B, O, D, seed=O + D + B)
+
+
+def test_stream_plan_leaves_wide_stacks_whole(dev):
+    """The 7B gate|up stack (172 channel tiles at 17-64 rows) fills the SMs
+    unsplit; a row too short for two splits of 2 k-steps stays whole."""
+    for fmt in ("int8", "int4", "bf16"):
+        assert _splits(fmt, 64, 22016, 4096) == 1, fmt
+        assert _splits(fmt, 3, 200, 32) == 1, fmt
+    assert _splits("int8", 65, 4096, 4096) == -1  # past the streaming rows
+
+
+# ragged splits: a partial last k-step and k-step counts that the splits
+# divide unevenly (at D = 2080 int8 walks 17 steps of 128 bytes in 8
+# splits, int4 5 steps of 256 in 2 at 3 rows); group int4 at D = 2304
+@pytest.mark.parametrize("B", [3, 17, 40, 64])
+@pytest.mark.parametrize("O,D", [(200, 2080), (136, 2304)])
+def test_stream_kernels_split_k_ragged(dev, B, O, D):
+    assert _splits("int8", B, O, D) > 1
+    _stream_formats_match_plain(dev, B, O, D, seed=O + D + B)
 
 
 def _qkv(dev, B, S, H, K, Dh, dtype, seed, scale=1.0):
@@ -318,11 +392,12 @@ def _rowmajor_stack(dev, L, O, D, seed, group):
 
 
 @pytest.mark.parametrize("group", [False, True])
-@pytest.mark.parametrize("B", [1, 3, 5, 16, 33, 64])
+@pytest.mark.parametrize("B", STREAM_ROWS)
 def test_int4_rowmajor_kernel_matches_plain(dev, B, group):
     """Both scale modes, any packed byte (both nibbles sign-extend), ragged
-    O, layers 0 and L-1; per-channel also at D % 256 != 0."""
-    for L, O, D in ((3, 200, 512), (2, 96, 1024)) + (() if group else ((2, 72, 96),)):
+    O, layers 0 and L-1, the smallest D of each mode (32, 256); per-channel
+    also at D % 256 != 0."""
+    for L, O, D in ((3, 200, 512), (2, 96, 1024), (2, 40, 256)) + (() if group else ((2, 72, 96), (2, 40, 32))):
         p, s = _rowmajor_stack(dev, L, O, D, seed=B + D, group=group)
         h = torch.randn((B, D), device=dev, generator=torch.Generator(device=dev).manual_seed(B))
         h = h.to(torch.bfloat16)
@@ -331,14 +406,14 @@ def test_int4_rowmajor_kernel_matches_plain(dev, B, group):
                           sp.int4_rowmajor_matmul_stacked_plain(h, p, s, li))
 
 
-@pytest.mark.parametrize("B", [1, 4, 16, 40, 64])
+@pytest.mark.parametrize("B", STREAM_ROWS)
 def test_bf16_stream_kernel_matches_plain(dev, B):
     g = torch.Generator(device=dev).manual_seed(B)
-    L, O, D = 3, 200, 520  # ragged O; D % 8 == 0 only
-    w = torch.randn((L, O, D), device=dev, generator=g).to(torch.bfloat16)
-    h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
-    for li in (0, L - 1):
-        _assert_close(sp.bf16_matmul_stacked(h, w, li), sp.bf16_matmul_stacked_plain(h, w, li))
+    for L, O, D in ((3, 200, 520), (2, 40, 8)):  # ragged O; D % 8 == 0 only, and the smallest D
+        w = torch.randn((L, O, D), device=dev, generator=g).to(torch.bfloat16)
+        h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
+        for li in (0, L - 1):
+            _assert_close(sp.bf16_matmul_stacked(h, w, li), sp.bf16_matmul_stacked_plain(h, w, li))
 
 
 def test_repeat2d_kernel_is_exact(dev):

@@ -167,13 +167,28 @@ def test_native_int4_probe2_matches_k1_plain(dtype):
 # ---------------------------------------------------------------------------
 
 
+# rows at the streaming kernel's n8-tile edges (1, 8, 9, 17) and its bound
+# (64), beside the scripts' B = 16
+STREAM_ROWS = [1, 8, 9, 17, 64]
+
+
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_rowmajor_int4_group_matches_script(dtype):
+    _rowmajor_int4_group_case(dtype, B)
+
+
+@pytest.mark.parametrize("rows", STREAM_ROWS)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_rowmajor_int4_group_matches_script_at_rows(dtype, rows):
+    _rowmajor_int4_group_case(dtype, rows)
+
+
+def _rowmajor_int4_group_case(dtype, rows):
     ns = _load("bench_int4_probe3.py", ("G", "_kern_rep", "KERNS", "_choose_blocks4", "int4_mm", "pack"))
     q = _codes(10, (L, O, D))
     p = np.asarray(ns["pack"](jnp.asarray(q)))
     s = _scales(11, (L, O, D // 128))
-    hj, ht = _h(12, dtype)
+    hj, ht = _h(12, dtype, rows)
     for li in range(L):
         want = ns["int4_mm"](hj, jnp.asarray(p), jnp.asarray(s), li)
         _check(sp.int4_rowmajor_matmul_stacked(ht, _t(p), _t(s), li), want, dtype)
@@ -204,13 +219,25 @@ def test_transposed_int4_matches_k4_plain(monkeypatch, unpack, dtype):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_bf16_stream_matches_script(dtype):
+    _bf16_stream_case(dtype, B)
+
+
+@pytest.mark.parametrize("rows", STREAM_ROWS)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_bf16_stream_matches_script_at_rows(dtype, rows):
+    _bf16_stream_case(dtype, rows)
+
+
+def _bf16_stream_case(dtype, rows):
     ns = _load("bench_bf16_stream.py", ("_kern", "_choose_blocks_b", "stream_mm"))
     w = torch.from_numpy(np.random.default_rng(16).normal(size=(L, O, D)).astype(np.float32))
     w = w.to(torch.bfloat16)  # the script streams bf16 weights
     wj = jnp.asarray(w.float().numpy(), jnp.bfloat16 if dtype == "bf16" else jnp.float32)
-    hj, ht = _h(17, dtype)
+    hj, ht = _h(17, dtype, rows)
     for li in range(L):
-        want = ns["stream_mm"](hj, wj, li)
+        # the script slices its output by the padded h, so it returns its
+        # 16-row padding too (rows of zero activations): compare the real rows
+        want = ns["stream_mm"](hj, wj, li)[:rows]
         _check(sp.bf16_matmul_stacked(ht, w, li), want, dtype)
 
 

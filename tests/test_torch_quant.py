@@ -69,7 +69,8 @@ def _stack(seed, L, O, D):
     return wq, from_jax_params(wq, device="cpu")
 
 
-@pytest.mark.parametrize("B,li", [(3, 0), (3, 2), (24, 1), (16, 3)])
+# rows at the streaming kernel's n8-tile edges (1, 8, 9, 17) and its bound (64)
+@pytest.mark.parametrize("B,li", [(3, 0), (3, 2), (24, 1), (16, 3), (1, 0), (8, 1), (9, 2), (17, 3), (64, 0)])
 def test_k1_plain_matches_pallas_interpret(B, li):
     L, O, D = 4, 256, 512
     wq, tw = _stack(1, L, O, D)
@@ -81,7 +82,7 @@ def test_k1_plain_matches_pallas_interpret(B, li):
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=MM_RTOL, atol=MM_ATOL)
 
 
-@pytest.mark.parametrize("B", [1, 3, 24])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 17, 24, 64])
 def test_k2_plain_matches_pallas_interpret(B):
     wq, tw = _stack(3, 1, 256, 512)
     q, s = wq["q"][0], wq["s"][0]
@@ -119,3 +120,32 @@ def test_dequant_path_rounds_like_xla():
     scale = np.abs(np.asarray(want, np.float32)).max()
     np.testing.assert_allclose(_np(got.float()), np.asarray(want, np.float32), rtol=0,
                                atol=2.0**-7 * scale)
+
+
+# ---------------------------------------------------------------------------
+# K1/K2's regime rule (no card needed; the streaming kernel's split plan is
+# computed in csrc/stream_mma.cuh and checked on the card)
+# ---------------------------------------------------------------------------
+
+# each side of the streaming kernel's n8-tile edges and instance bounds
+# (8, 16, 32, 64 rows), and the tiled regime's rows
+_REGIME_CASES = (
+    [(torch.bfloat16, B, "mma") for B in (1, 2, 3, 4, 5, 8, 9, 16, 17, 18, 24, 31, 32, 33, 48, 63, 64)]
+    + [(torch.float32, B, "cuda_cores") for B in (1, 2, 3, 4, 5, 8, 9, 16, 17, 18, 24, 31, 32, 33, 48, 63, 64)]
+    + [(torch.bfloat16, B, "tiled") for B in (65, 72, 640)]
+)
+
+
+@pytest.mark.parametrize("dtype,rows,regime", _REGIME_CASES)
+def test_stream_regime_rule(dtype, rows, regime):
+    """bf16 at 1..64 rows runs the tensor-core streaming kernel, fp32 the
+    CUDA-core body, bf16 past 64 rows the tiled regime."""
+    assert tq.stream_regime(dtype, rows) == regime
+
+
+def test_stream_regime_refuses_what_no_regime_takes():
+    with pytest.raises(TypeError):
+        tq.stream_regime(torch.float32, 65)  # the tiled regime takes bf16 only
+    for rows in (0, 641):
+        with pytest.raises(ValueError):
+            tq.stream_regime(torch.bfloat16, rows)
