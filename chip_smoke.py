@@ -7,15 +7,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
   1. device: the card's name and power limit (nvidia-smi), CUDA must exist;
   2. build: compile the package's CUDA kernels from csrc/ with nvcc (one
      process per source, in parallel); ptxas must report no spill for K3's
-     tensor-core kernel, for the wgmma main loop of K1/K2 and K4 nor for the
-     tensor-core streaming kernel (K1/K2 at 1-64 rows, S1-S3, S5, S6), and
-     must not serialize the wgmma main loop (C7515);
+     tensor-core kernel, for the wgmma main loop of K1/K2 and K4, for the
+     tensor-core streaming kernel (K1/K2 at 1-64 rows, S1-S3, S5, S6) nor
+     for K4's streaming kernel (its decode rows), and must not serialize the
+     wgmma main loop (C7515);
   3. kernels: K1-K4 against their plain PyTorch versions on the card, in
      bf16, at their main paths' shapes (K1 at 3, 16, 18 and 64 rows, each
      timed under by_rows, and at the 7B text-branch prefill's rows on the
      O >= D stacks; K2 at the 7B and the 13B lm_head, each regime, every
      row count timed under by_path's by_rows; K3 at each prefill shape of both model paths; K4 in each
-     of its regimes, at the grouped path's decode and prefill rows), with
+     of its regimes, at the grouped path's decode rows (each timed under
+     by_rows) and prefill rows, and on both sides of each regime threshold), with
      the tolerance stated; by CUDA events the
      kernel's, the plain version's and a library call's times (torch.matmul
      on a weight dequantized beforehand, or scaled_dot_product_attention: a
@@ -53,7 +55,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
 
 Prints a JSON line with each kernel's record (launches: both main paths'
 counts, per path under launches_by_path; K1's and K4's prefill-row times
-under prefill, K1's per decode row count under by_rows, K2's times per path
+under prefill, K1's and K4's per decode row count under by_rows, K2's times per path
 under by_path (each row count under its by_rows), K3's per shape under by_shape,
 with its CUDA-graph times as graph_ms / graph_library_ms and its row
 errors);
@@ -205,7 +207,9 @@ def phase_build() -> None:
     for what, key, n_inst in (("K3 tensor-core kernel", "flash_fwd_mma_kernel", 2),
                               ("wgmma main loop (K1/K2 int8, K4 int4)", "wq_gemm_kernel", 2),
                               # 4 formats x 4 row bounds (8, 16, 32, 64)
-                              ("tensor-core streaming kernel (K1/K2, S1-S3, S5, S6)", "stream_mma_kernel", 16)):
+                              ("tensor-core streaming kernel (K1/K2, S1-S3, S5, S6)", "stream_mma_kernel", 16),
+                              # 6 row bounds (8, 16, 24, 32, 48, 72)
+                              ("K4's streaming kernel (decode rows)", "int4_stream_kernel", 6)):
         inst = {fn: n for fn, n in spills.items() if key in fn}
         log(f"  {what}, spill-store bytes per instance: {inst}")
         if len(inst) != n_inst or any(inst.values()):
@@ -451,19 +455,30 @@ def random_int4_stack(L: int, O: int, D: int, g) -> tuple:
     return q4, gs
 
 
+def int4_crossover_rows() -> list:
+    """(dtype, rows) on both sides of each of K4's regime thresholds: the
+    bf16 streaming kernel from 1 row (it measured faster than the skinny
+    regime there, which keeps fp32's 1-2 rows) and its last row count, the
+    wgmma regime's first."""
+    from llava_align_tpu_torch.ops import quant
+
+    bf16 = [(torch.bfloat16, B) for B in (1, 2, 3, quant.INT4_STREAM_MAX_ROWS, quant.INT4_WGMMA_MIN_ROWS)]
+    return bf16 + [(torch.float32, B) for B in range(1, quant.INT4_SKINNY_MAX_ROWS + 1)]
+
+
 def phase_kernels_int4(decode_rows, prefill_rows) -> dict:
     """K4 at each 13B stack, layers 0 and 39, at the grouped path's row
     counts (decode, then the prefills), timed; at the rows on both sides of
-    INT4_SKINNY_MAX_ROWS (the skinny regime's 1 and 2 rows, the mma.sync
-    tiles' 3) and of INT4_WGMMA_MIN_ROWS (32 and 33), checked."""
+    each bf16 regime threshold (int4_crossover_rows), checked, each line
+    naming its regime (quant.int4_regime)."""
     from llava_align_tpu_torch.ops import quant
     from llava_align_tpu_torch.scripts._common import matmul_work
 
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(4)
-    thr = quant.INT4_SKINNY_MAX_ROWS
-    log(f"kernels: K4 int4_matmul_stacked (13B int4 decoder linears) vs plain, bf16; "
-        f"skinny regime up to {thr} rows, mma.sync tiles up to {quant.INT4_MMA_SYNC_MAX_ROWS}, wgmma above")
+    log(f"kernels: K4 int4_matmul_stacked (13B int4 decoder linears) vs plain, bf16: the streaming kernel up "
+        f"to {quant.INT4_STREAM_MAX_ROWS} rows, wgmma above; fp32: the skinny regime up to "
+        f"{quant.INT4_SKINNY_MAX_ROWS} rows")
     stacks = {name: random_int4_stack(L_13B, O, D, g) for name, (O, D) in STACKS_13B.items()}
     rows_all = list(decode_rows) + list(prefill_rows)
     per_rows = {B: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0) for B in rows_all}
@@ -478,20 +493,20 @@ def phase_kernels_int4(decode_rows, prefill_rows) -> dict:
                 err = max(err, compare(
                     quant.int4_matmul_stacked(h, q4, gs, li),
                     quant.int4_matmul_stacked_plain(h, q4, gs, li),
-                    f"{name} [{L_13B},{Dp},{O}] B={B} li={li}",
+                    f"{name} [{L_13B},{Dp},{O}] B={B} li={li} {quant.int4_regime(h.dtype, B)}",
                 ))
             if B == decode_rows[0]:
                 # both sides of each regime threshold
-                wg = quant.INT4_WGMMA_MIN_ROWS
-                hs_all = torch.randn((wg, D), device=dev, generator=g).to(torch.bfloat16)
-                for Bs in (*range(1, thr + 2), wg - 1, wg):
-                    hs = hs_all[:Bs].contiguous()
-                    regime = "skinny regime" if Bs <= thr else "mma.sync tiles" if Bs < wg else "wgmma regime"
+                cross = int4_crossover_rows()
+                hs_all = torch.randn((max(B for _, B in cross), D), device=dev, generator=g)
+                for dtype, Bs in cross:
+                    hs = hs_all[:Bs].to(dtype).contiguous()
                     for li in (0, L_13B - 1):
                         err = max(err, compare(
                             quant.int4_matmul_stacked(hs, q4, gs, li),
                             quant.int4_matmul_stacked_plain(hs, q4, gs, li),
-                            f"{name} [{L_13B},{Dp},{O}] B={Bs} li={li} {regime}",
+                            f"{name} [{L_13B},{Dp},{O}] B={Bs} {str(dtype)[6:]} li={li} "
+                            f"{quant.int4_regime(dtype, Bs)}",
                         ))
             big = B > 512
             ms = cuda_ms(lambda i: quant.int4_matmul_stacked(h, q4, gs, i % L_13B), 10 if big else 40)
@@ -504,8 +519,8 @@ def phase_kernels_int4(decode_rows, prefill_rows) -> dict:
             r["library_ms"] += lib_ms
             r["bytes"] += nb
             r["flops"] += fl
-            log(f"  {name} B={B}: kernel {ms:.4f} ms ({Dp * O / (ms * 1e-3) / 1e9:.0f} GB/s of packed "
-                f"weights, {fl / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
+            log(f"  {name} B={B} ({quant.int4_regime(h.dtype, B)}): kernel {ms:.4f} ms "
+                f"({Dp * O / (ms * 1e-3) / 1e9:.0f} GB/s of packed weights, {fl / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
                 f"(torch.matmul, bf16 weight) {lib_ms:.4f} ms, bound {bound(nb, fl)['bound_ms']:.4f} ms")
         del w_bf16
     for B, r in per_rows.items():
@@ -517,7 +532,8 @@ def phase_kernels_int4(decode_rows, prefill_rows) -> dict:
     torch.cuda.empty_cache()
     head = per_rows[decode_rows[-1]]  # the G = 4 decode step, the grouped path's headline
     prefill = [dict(rows=B, **per_rows[B]) for B in prefill_rows]
-    return dict(head, max_abs_err=err, prefill=prefill)
+    by_rows = {str(B): per_rows[B] for B in decode_rows}
+    return dict(head, max_abs_err=err, by_rows=by_rows, prefill=prefill)
 
 
 # kernels-line entries of the microbenchmark path: TPU kernel -> (the twin

@@ -53,7 +53,11 @@
 //   fp32 partial tile in its own shared memory; after a cluster barrier,
 //   block r sums its 1/S of the tile's channels over the S blocks in rank
 //   order through distributed shared memory (fixed order: deterministic),
-//   scales and stores. No workspace, no second kernel.
+//   scales and stores (reduce_store). No workspace, no second kernel.
+//
+// The split plan (plan_splits), the cluster launch (launch_cluster) and the
+// reduction (reduce_store) also serve K4's streaming kernel
+// (csrc/int4_mm.cu), which streams the JAX layout [D/2, O].
 
 #pragma once
 
@@ -246,11 +250,65 @@ struct Layout {
   // one, whose 8 warps may use more than 128 registers a thread (two
   // blocks there spilled or ran slower, PERF.md)
   static constexpr int kBlocks = kBytes <= kSmemTwoBlocks && NB <= 16 ? 2 : 1;
-  static constexpr int kRedStride = NB + 1;  // fp32 per channel of the partial tile
+  static constexpr int kRedStride = kBM + 4;  // fp32 per row of h in the partial tile
   static_assert(kRW * kKW == kWarps && kBM % kMaxSplits == 0, "warps");
-  static_assert(kBM * kRedStride * 4 <= kBytes, "partial tile");
+  static_assert(NB * kRedStride * 4 <= kBytes && kBM % (4 * kMaxSplits) == 0, "partial tile");
   static_assert(kBytes <= kSmemLimit, "shared memory");
 };
+
+// The end of a cluster-split kernel: each of the S = gridDim.x blocks of a
+// cluster has left its fp32 partial tile red[row b of h][stride] (the tile's
+// kBM channels contiguous in each row; stride a multiple of 4) in its own
+// shared memory; block z sums its 1/S of the channels over the S blocks in
+// rank order through distributed shared memory (a fixed order:
+// deterministic), scales them (kColScale: by s[o]) and stores y[:, o0 ..]
+// in bf16. A thread takes 4 consecutive channels of a row and reads each
+// block's 16 bytes at once, all S in flight, so a warp reads 512
+// contiguous bytes of a remote block (element-wise reads across the
+// channels were slower than the main loop at 72 rows). No workspace, no
+// second kernel.
+template <bool kColScale>
+__device__ __forceinline__ void reduce_store(cg::cluster_group& cluster, float* red, int stride, int kBM,
+                                             const float* __restrict__ s, __nv_bfloat16* __restrict__ y, int B,
+                                             int O, int o0) {
+  const int S = gridDim.x;
+  const int z = blockIdx.x;
+  if (S > 1) cluster.sync();  // every split's partial tile is written
+  const int quads = kBM / S / 4;  // 4-channel pieces of this block's share of a row
+  for (int idx = threadIdx.x; idx < quads * B; idx += blockDim.x) {
+    const int b = idx / quads;
+    const int c = z * (kBM / S) + 4 * (idx % quads);
+    const int o = o0 + c;
+    if (o >= O) continue;
+    float4 part[kMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < S)
+        part[r] = *reinterpret_cast<const float4*>((S == 1 ? red : cluster.map_shared_rank(red, r)) + b * stride + c);
+    float v[4] = {part[0].x, part[0].y, part[0].z, part[0].w};
+#pragma unroll
+    for (int r = 1; r < kMaxSplits; ++r)
+      if (r < S) v[0] += part[r].x, v[1] += part[r].y, v[2] += part[r].z, v[3] += part[r].w;
+    __nv_bfloat16* yo = y + static_cast<size_t>(b) * O + o;
+    if (o + 4 <= O && O % 4 == 0) {
+      if constexpr (kColScale) {
+        const float4 sc = *reinterpret_cast<const float4*>(s + o);
+        v[0] *= sc.x, v[1] *= sc.y, v[2] *= sc.z, v[3] *= sc.w;
+      }
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<uint2*>(yo) = make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (o + e >= O) break;
+        float x = v[e];
+        if constexpr (kColScale) x *= s[o + e];
+        yo[e] = __float2bfloat16_rn(x);
+      }
+    }
+  }
+  if (S > 1) cluster.sync();  // no block leaves while another reads its shared memory
+}
 
 // Grid: (S splits, ceil(O / kBM) channel tiles), cluster (S, 1, 1). Split z
 // walks k-steps [z * nsteps / S, (z + 1) * nsteps / S). Warp w computes
@@ -386,7 +444,7 @@ stream_mma_kernel(const __nv_bfloat16* __restrict__ h, const uint8_t* __restrict
   cp_async_wait<0>();
   __syncthreads();
 
-  // the partial tile [kBM channels][NB rows] in this block's shared memory:
+  // the partial tile [NB rows][kBM channels] in this block's shared memory:
   // the last chunk's warps write it, the others add theirs in turn
   float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
@@ -397,32 +455,18 @@ stream_mma_kernel(const __nv_bfloat16* __restrict__ h, const uint8_t* __restrict
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const int row = (wr * kMT + m) * 16 + g;
-          float* r0 = red + row * Lo::kRedStride + n * 8 + 2 * t;
-          float* r1 = r0 + 8 * Lo::kRedStride;
+          float* r0 = red + (n * 8 + 2 * t) * Lo::kRedStride + row;  // (channel row, row n * 8 + 2t of h)
+          float* r1 = r0 + Lo::kRedStride;
           if (pass == Lo::kKW - 1) {  // the stage bytes beneath are no floats: overwrite them
-            r0[0] = acc[m][n][0], r0[1] = acc[m][n][1], r1[0] = acc[m][n][2], r1[1] = acc[m][n][3];
+            r0[0] = acc[m][n][0], r1[0] = acc[m][n][1], r0[8] = acc[m][n][2], r1[8] = acc[m][n][3];
           } else {
-            r0[0] += acc[m][n][0], r0[1] += acc[m][n][1], r1[0] += acc[m][n][2], r1[1] += acc[m][n][3];
+            r0[0] += acc[m][n][0], r1[0] += acc[m][n][1], r0[8] += acc[m][n][2], r1[8] += acc[m][n][3];
           }
         }
     }
     __syncthreads();
   }
-  if (S > 1) cluster.sync();  // every split's partial tile is written
-
-  // this block's share of the tile's channels, summed over the splits in rank order
-  const int per = kBM / S;
-  for (int idx = tid; idx < per * B; idx += kThreads) {
-    const int b = idx / per;
-    const int row = z * per + idx % per;
-    const int o = o0 + row;
-    if (o >= O) continue;
-    float v = 0.f;
-    for (int r = 0; r < S; ++r) v += (S == 1 ? red : cluster.map_shared_rank(red, r))[row * Lo::kRedStride + b];
-    if constexpr (F::kColScale) v *= s[o];
-    y[static_cast<size_t>(b) * O + o] = __float2bfloat16_rn(v);
-  }
-  if (S > 1) cluster.sync();  // no block leaves while another reads its shared memory
+  reduce_store<F::kColScale>(cluster, red, Lo::kRedStride, kBM, s, y, B, O, o0);
 }
 
 // The card's SM count, read once per device.
@@ -437,42 +481,43 @@ inline int sm_count() {
 
 constexpr int kMinSteps = 2;  // k-steps each split keeps at least
 
-// The split plan of instance F on O channels of row_bytes each: K is split
-// over 2, 4 or 8 blocks of one cluster while the channel tiles alone leave
-// SMs idle and each split keeps kMinSteps k-steps; split z walks k-steps
-// [z * steps / S, (z + 1) * steps / S), so every step is walked once.
-template <class F>
-int plan(int O, size_t row_bytes) {
-  constexpr int kBM = Layout<F, 8>::kBM;  // the same for every NB
-  const long long tiles = (O + kBM - 1) / kBM;
-  const size_t steps = (row_bytes + F::kRowBytes - 1) / F::kRowBytes;
+// The split plan of `tiles` channel tiles of `steps` k-steps each: K is
+// split over 2, 4 or 8 blocks of one cluster while the channel tiles alone
+// leave SMs idle and each split keeps kMinSteps k-steps; split z walks
+// k-steps [z * steps / S, (z + 1) * steps / S), so every step is walked once.
+inline int plan_splits(long long tiles, size_t steps) {
   const int sms = sm_count();
   int splits = 1;
   while (splits < kMaxSplits && tiles * splits < sms && static_cast<size_t>(2 * splits * kMinSteps) <= steps) splits *= 2;
   return splits;
 }
 
-// The launch: `splits` blocks of one cluster per channel tile (no cluster
-// for one).
-template <class F, int NB>
-cudaError_t launch(const void* h, const uint8_t* w, const float* s, void* y, int B, int O, int D, size_t row_bytes,
-                   cudaStream_t stream) {
-  using Lo = Layout<F, NB>;
-  static bool opted_in = false;  // above 48 KB of dynamic shared memory only after opting in
-  if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(stream_mma_kernel<F, NB>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, Lo::kBytes);
-    // all of the SM's unified L1/shared memory as shared, so Lo::kBlocks blocks fit
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(stream_mma_kernel<F, NB>, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
-  const int splits = plan<F>(O, row_bytes);
+// the plan of instance F on O channels of row_bytes each
+template <class F>
+int plan(int O, size_t row_bytes) {
+  constexpr int kBM = Layout<F, 8>::kBM;  // the same for every NB
+  return plan_splits((O + kBM - 1) / kBM, (row_bytes + F::kRowBytes - 1) / F::kRowBytes);
+}
+
+// Once per kernel instance: above 48 KB of dynamic shared memory only after
+// opting in, and all of the SM's unified L1/shared memory as shared, so
+// that the blocks the instance asks for fit on one SM.
+template <class Kernel>
+cudaError_t opt_in(Kernel kernel, int smem_bytes) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  return err;
+}
+
+// A launch of `splits` blocks of one cluster per channel tile (no cluster
+// for one): grid (splits, tiles).
+template <class... Params, class... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int splits, int tiles, int threads, int smem_bytes,
+                           cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, (O + Lo::kBM - 1) / Lo::kBM, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = Lo::kBytes;
+  cfg.gridDim = dim3(splits, tiles, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -481,9 +526,23 @@ cudaError_t launch(const void* h, const uint8_t* w, const float* s, void* y, int
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  cudaLaunchKernelEx(&cfg, stream_mma_kernel<F, NB>, static_cast<const __nv_bfloat16*>(h), w, s,
-                     static_cast<__nv_bfloat16*>(y), B, O, D);
+  cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
   return cudaGetLastError();
+}
+
+template <class F, int NB>
+cudaError_t launch(const void* h, const uint8_t* w, const float* s, void* y, int B, int O, int D, size_t row_bytes,
+                   cudaStream_t stream) {
+  using Lo = Layout<F, NB>;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = opt_in(stream_mma_kernel<F, NB>, Lo::kBytes);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  return launch_cluster(stream_mma_kernel<F, NB>, plan<F>(O, row_bytes), (O + Lo::kBM - 1) / Lo::kBM, kThreads,
+                        Lo::kBytes, stream, static_cast<const __nv_bfloat16*>(h), w, s,
+                        static_cast<__nv_bfloat16*>(y), B, O, D);
 }
 
 // rows -> the instance's chunks per k-step: up to kWideRows rows (0 or 16)

@@ -50,8 +50,13 @@ SIGNATURES = {
     "flash_attn_causal": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp),
     # h, q4, gs, y, work, B, O, D, layer, dtype, stream
     "int4_mm_stacked": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
-    # B, O, D -> fp32 elements of split-K workspace
-    "int4_mm_workspace": (_int, _int, _int),
+    # B, O, D, dtype -> fp32 elements of split-K workspace
+    "int4_mm_workspace": (_int, _int, _int, _int),
+    # B, O, D, dtype -> K4's regime (0 skinny, 1 streaming, 2 wgmma; -1 none)
+    "int4_mm_regime": (_int, _int, _int, _int),
+    # B, O, D, dtype -> blocks per channel tile of K4's streaming split plan
+    # (-1 where the call takes another regime)
+    "int4_mm_splits": (_int, _int, _int, _int),
     # h, p, s, y, B, O, D, layer, mode (0 per-channel, 1 group 128), stream
     "int4_rowmajor_mm_stacked": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
     # h, w, y, B, O, D, layer, stream

@@ -25,10 +25,9 @@ int4 (group 128) keeps the JAX package's layout, so quantize_weight_int4 is
 bit-identical to it and a JAX tree carries over as a copy: packed int8
 [..., D/2, O] with O contiguous, split-half (low nibble = row d, high nibble
 = row D/2 + d), fp32 group scales [..., D/group, O]. int4 dispatch: every
-CUDA row count goes to the kernel K4 (csrc/int4_mm.cu; from
-INT4_WGMMA_MIN_ROWS rows on the wgmma main loop it shares with K1/K2), as
-the TPU package sends every row count to its Pallas kernel; CPU tensors
-take its plain version.
+CUDA row count goes to the kernel K4 (csrc/int4_mm.cu; its regimes:
+int4_regime), as the TPU package sends every row count to its Pallas
+kernel; CPU tensors take its plain version.
 """
 
 from __future__ import annotations
@@ -240,22 +239,37 @@ def int8_matmul(h: torch.Tensor, wq: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 INT4_GROUP = 128
 
-# K4 takes row counts up to here in its skinny (weight-streaming, CUDA-core)
-# regime and larger ones in its tensor-core regimes. Set from the crossover
-# measured on the H100 at the 13B stacks (PERF.md): the tensor cores are
-# faster from 3 rows up. The same constant, kSkinnyMaxRows, is compiled
-# into csrc/int4_mm.cu.
+# K4's regime rule (int4_regime; compiled into csrc/int4_mm.cu as
+# kSkinnyMaxRows and kStreamMaxRows): fp32 activations take the skinny
+# regime (CUDA-core weight streaming) up to INT4_SKINNY_MAX_ROWS rows and no
+# other; bf16 takes the streaming kernel (weight streaming on the tensor
+# cores, one launch) up to INT4_STREAM_MAX_ROWS and the wgmma regime (the
+# main loop of csrc/wq_gemm.cuh, shared with K1/K2's tiled regime) from
+# INT4_WGMMA_MIN_ROWS on. Measured on an NVIDIA H100 80GB HBM3 at 700 W,
+# parent and change alternated (PERF.md; runners/time_stream_rows.py, k4
+# format): the streaming kernel beats the skinny regime at 1-2 rows and
+# the mma.sync tiles it replaced at 3-32, and loses to the wgmma regime
+# from 80 rows on.
 INT4_SKINNY_MAX_ROWS = 2
-# K4's mma.sync tiles take rows above INT4_SKINNY_MAX_ROWS up to here (their
-# tile height, TileSmall::BM in csrc/int4_mm.cu); the wgmma regime (the
-# main loop of csrc/wq_gemm.cuh, shared with K1/K2's tiled regime) the rows
-# from INT4_WGMMA_MIN_ROWS on (kWgmmaMinRows there). Measured on an NVIDIA
-# H100 80GB HBM3 at 700 W (PERF.md; the k4 format of
-# runners/time_stream_rows.py times it): below 33 rows the wgmma regime's
-# 128-row tiles are up to 10% slower at the 13B stacks and up to 28% slower
-# at the 7B ones; at 72 rows 40-49% faster.
-INT4_MMA_SYNC_MAX_ROWS = 32
-INT4_WGMMA_MIN_ROWS = INT4_MMA_SYNC_MAX_ROWS + 1
+INT4_STREAM_MAX_ROWS = 72
+INT4_WGMMA_MIN_ROWS = INT4_STREAM_MAX_ROWS + 1
+
+
+def int4_regime(dtype: torch.dtype, rows: int) -> str:
+    """Which body of K4 runs a call, the rule compiled into csrc/int4_mm.cu
+    (int4_mm_regime reports it on the card): "skinny" (fp32, up to
+    INT4_SKINNY_MAX_ROWS rows), "stream" (bf16 up to INT4_STREAM_MAX_ROWS:
+    the tensor-core streaming kernel) or "wgmma" (bf16 above). fp32 above
+    the skinny rows raises."""
+    if rows < 1:
+        raise ValueError(f"K4 takes at least one row, got {rows}")
+    if dtype == torch.float32:
+        if rows > INT4_SKINNY_MAX_ROWS:
+            raise TypeError(f"K4's tensor-core regimes ({rows} rows > {INT4_SKINNY_MAX_ROWS}) take bf16 only")
+        return "skinny"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"activation dtype {dtype} not supported (bf16/fp32)")
+    return "stream" if rows <= INT4_STREAM_MAX_ROWS else "wgmma"
 
 
 def int4_auto_group(dims) -> int:
@@ -353,8 +367,7 @@ def _check_int4_args(h: torch.Tensor, q4: torch.Tensor, gs: torch.Tensor, layer_
                          f"for D={D}, O={O}")
     if O % 16 or not 0 <= layer_idx < L:
         raise ValueError(f"O={O} must be a multiple of 16; layer {layer_idx} of {L}")
-    if B > INT4_SKINNY_MAX_ROWS and h.dtype != torch.bfloat16:
-        raise TypeError(f"K4's tensor-core regimes ({B} rows > {INT4_SKINNY_MAX_ROWS}) take bf16 only")
+    int4_regime(h.dtype, B)  # raises on fp32 above the skinny rows
     if any(t.data_ptr() % 16 for t in (h, q4, gs)):
         raise ValueError("kernel operands must be 16-byte aligned")
 
@@ -367,25 +380,27 @@ def int4_matmul_stacked(
     `layer_idx` with group-128 scales gs [L, D/128, O] → [B, O] in h's dtype.
     The layer is a pointer offset into the whole stack.
 
-    Rows up to INT4_SKINNY_MAX_ROWS run the skinny regime, which takes
-    bf16 or fp32 activations; rows up to INT4_MMA_SYNC_MAX_ROWS the
-    mma.sync tiles, larger row counts the wgmma regime; both tensor-core
-    regimes take bf16 only and raise on fp32. Split-K partial sums go to an
-    fp32 workspace this wrapper allocates. CPU tensors take the plain
-    version."""
+    The regime follows int4_regime: fp32 activations run the skinny regime
+    (up to INT4_SKINNY_MAX_ROWS rows, and raise above), bf16 the streaming
+    kernel at decode rows (one launch, no workspace) and the wgmma regime
+    above INT4_STREAM_MAX_ROWS. Where a regime splits D over a workspace
+    (the skinny and wgmma regimes), this wrapper allocates it. CPU tensors
+    take the plain version."""
     if h.device.type == "cpu":
         return int4_matmul_stacked_plain(h, q4, gs, layer_idx)
     _check_int4_args(h, q4, gs, layer_idx)
     B, D = h.shape
     O = q4.shape[2]
     lib = _kernels.lib()
-    n_work = lib.int4_mm_workspace(B, O, D)
-    work = torch.empty((max(n_work, 1),), dtype=torch.float32, device=h.device)
+    code = _kernels.DTYPE_CODE[h.dtype]
+    work = None
+    if int4_regime(h.dtype, B) != "stream":
+        n_work = lib.int4_mm_workspace(B, O, D, code)
+        work = torch.empty((n_work,), dtype=torch.float32, device=h.device) if n_work else None
     y = torch.empty((B, O), dtype=h.dtype, device=h.device)
     err = lib.int4_mm_stacked(
-        h.data_ptr(), q4.data_ptr(), gs.data_ptr(), y.data_ptr(), work.data_ptr(),
-        B, O, D, int(layer_idx), _kernels.DTYPE_CODE[h.dtype],
-        torch.cuda.current_stream(h.device).cuda_stream,
+        h.data_ptr(), q4.data_ptr(), gs.data_ptr(), y.data_ptr(), _ptr(work),
+        B, O, D, int(layer_idx), code, _kernels.stream_of(h),
     )
     _kernels.check(err, "int4_mm_stacked")
     int4_matmul_stacked.launches += 1

@@ -6,8 +6,10 @@ K1/K2 (int8, each regime: bf16 on the tensor-core streaming kernel at every
 row count 1-64, split over a cluster and not, fp32 on the CUDA cores; the
 tiled one split over D and not), K3 (flash attention: bf16 on the tensor
 cores, fp32 on the CUDA cores; causality, large scores; the Dh = 80
-route to mha), K4 (int4, each regime; the wgmma one at prefill rows, split
-over D and not), and the kernels of the TPU microbenchmark scripts
+route to mha), K4 (int4, each regime: the streaming kernel at every decode
+row count, split over a cluster and not, deterministic; the wgmma one at
+prefill rows, split over D and not; the C regime rule against
+quant.int4_regime), and the kernels of the TPU microbenchmark scripts
 (ops/stream_probes: row-major int4 in both scale modes and bf16, on the
 same streaming kernel, at the same rows, the smallest D each takes and a
 ragged O; repeat2d, which is exact).
@@ -265,14 +267,17 @@ def _int4_stack(dev, L, D, O, seed):
 
 
 def _int4_rows():
-    thr = quant.INT4_SKINNY_MAX_ROWS
-    near = {max(thr - 1, 1), max(thr, 1), thr + 1}
+    """Each side of every K4 regime threshold, the grouped path's decode rows
+    (18, 72) and prefill-like rows past the streaming kernel."""
+    near = set()
+    for thr in (quant.INT4_SKINNY_MAX_ROWS, quant.INT4_STREAM_MAX_ROWS):
+        near |= {thr - 1, thr, thr + 1}
     return sorted(near | {1, 3, 18, 72, 130, 300})
 
 
 @pytest.mark.parametrize("L,D,O", [(3, 512, 384), (2, 768, 400)])  # ragged O; 3 groups per half
 def test_int4_kernel_matches_plain_default_dispatch(dev, L, D, O):
-    """Rows below, at and above INT4_SKINNY_MAX_ROWS, at layers 0 and L-1."""
+    """Rows below, at and above each regime threshold, at layers 0 and L-1."""
     q4, gs = _int4_stack(dev, L, D, O, seed=D)
     for B in _int4_rows():
         h = torch.randn((B, D), device=dev, generator=torch.Generator(device=dev).manual_seed(B))
@@ -282,10 +287,11 @@ def test_int4_kernel_matches_plain_default_dispatch(dev, L, D, O):
                           quant.int4_matmul_stacked_plain(h, q4, gs, li))
 
 
-@pytest.mark.parametrize("B", [1, 2, 3, 4, 7, 18, 32, 33, 64])
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 7, 18, 32, 33, 64, quant.INT4_WGMMA_MIN_ROWS])
 def test_int4_kernel_each_regime(dev, B):
-    """Each regime at its own row counts (the split-K paths of both), bf16;
-    the skinny regime (B <= INT4_SKINNY_MAX_ROWS) in fp32 as well."""
+    """Each regime at its own row counts, bf16 (the streaming kernel's
+    cluster split: 3 channel tiles over 16 k-steps); the skinny regime
+    (B <= INT4_SKINNY_MAX_ROWS) in fp32 as well, split over D."""
     L, D, O = 2, 1024, 640
     q4, gs = _int4_stack(dev, L, D, O, seed=B)
     g = torch.Generator(device=dev).manual_seed(100 + B)
@@ -295,6 +301,64 @@ def test_int4_kernel_each_regime(dev, B):
         for li in (0, L - 1):
             _assert_close(quant.int4_matmul_stacked(h, q4, gs, li),
                           quant.int4_matmul_stacked_plain(h, q4, gs, li))
+
+
+# the streaming kernel's rows: each side of every n8 tile edge and of its
+# instances' bounds (8, 16, 24, 32, 48, 72 rows), the grouped path's 18 and
+# 72, and the first row past it (the wgmma regime)
+INT4_STREAM_ROWS = [1, 2, 3, 4, 8, 9, 16, 17, 18, 24, 25, 31, 32, 33, 40, 48, 49, 64, 65, 72,
+                    quant.INT4_STREAM_MAX_ROWS + 1]
+
+
+@pytest.mark.parametrize("B", INT4_STREAM_ROWS)
+@pytest.mark.parametrize("D,O", [(512, 400), (768, 272)])  # 2 and 3 groups per half; O % 256 != 0
+def test_int4_stream_kernel_matches_plain(dev, B, D, O):
+    """bf16 at decode rows (the streaming kernel, and the regime on each side
+    of it), layers 0 and L-1 (a pointer offset into the stack), a ragged
+    channel tile."""
+    L = 3
+    q4, gs = _int4_stack(dev, L, D, O, seed=B + D)
+    h = torch.randn((B, D), device=dev, generator=torch.Generator(device=dev).manual_seed(B)).to(torch.bfloat16)
+    for li in (0, L - 1):
+        _assert_close(quant.int4_matmul_stacked(h, q4, gs, li), quant.int4_matmul_stacked_plain(h, q4, gs, li))
+
+
+@pytest.mark.parametrize("B", [3, 18, 72])
+@pytest.mark.parametrize("O,D", [(256, 4096), (5120, 13824)])  # one channel tile; the 13B down stack
+def test_int4_stream_kernel_cluster_split_deterministic(dev, B, O, D):
+    """Narrow stacks split K over a cluster (the plan's blocks per channel
+    tile, from the C entry int4_mm_splits); the splits meet in rank order, so
+    two calls are bit-identical; no workspace."""
+    from llava_align_tpu_torch.ops import _kernels
+
+    assert quant.int4_regime(torch.bfloat16, B) == "stream"
+    assert _kernels.lib().int4_mm_splits(B, O, D, 1) > 1
+    assert _kernels.lib().int4_mm_workspace(B, O, D, 1) == 0
+    L = 2
+    q4, gs = _int4_stack(dev, L, D, O, seed=B + O)
+    h = torch.randn((B, D), device=dev, generator=torch.Generator(device=dev).manual_seed(7)).to(torch.bfloat16)
+    got = quant.int4_matmul_stacked(h, q4, gs, L - 1)
+    assert torch.equal(got, quant.int4_matmul_stacked(h, q4, gs, L - 1))
+    _assert_close(got, quant.int4_matmul_stacked_plain(h, q4, gs, L - 1))
+
+
+# int4_regime's rows (tests/test_torch_int4.py)
+INT4_REGIME_ROWS = [1, 2, 3, 16, 18, 32, 33, 64, 72, quant.INT4_STREAM_MAX_ROWS + 1, 640, 3072]
+
+
+@pytest.mark.parametrize("B", INT4_REGIME_ROWS)
+def test_int4_regime_c_entry_agrees(dev, B):
+    """The rule compiled into csrc/int4_mm.cu (int4_mm_regime) is
+    quant.int4_regime, in both dtypes (-1 where int4_regime refuses)."""
+    from llava_align_tpu_torch.ops import _kernels
+
+    codes = {"skinny": 0, "stream": 1, "wgmma": 2}
+    for dtype in (torch.bfloat16, torch.float32):
+        try:
+            want = codes[quant.int4_regime(dtype, B)]
+        except TypeError:
+            want = -1
+        assert _kernels.lib().int4_mm_regime(B, 5120, 13824, _kernels.DTYPE_CODE[dtype]) == want
 
 
 @pytest.mark.parametrize("B", [130, 640, 3072])
@@ -309,7 +373,7 @@ def test_int4_wgmma_regime_matches_plain(dev, B, D, O):
         _assert_close(quant.int4_matmul_stacked(h, q4, gs, li), quant.int4_matmul_stacked_plain(h, q4, gs, li))
 
 
-@pytest.mark.parametrize("B,O,D,split", [(quant.INT4_WGMMA_MIN_ROWS, 400, 2048, True), (72, 256, 4096, True),
+@pytest.mark.parametrize("B,O,D,split", [(quant.INT4_WGMMA_MIN_ROWS, 400, 2048, True), (128, 256, 4096, True),
                                          (130, 70 * 256 - 16, 256, False), (640, 256, 4096, True)])
 def test_int4_wgmma_regime_splits(dev, B, O, D, split):
     """The wgmma regime with D split over blocks (a few column tiles, up to
@@ -320,7 +384,8 @@ def test_int4_wgmma_regime_splits(dev, B, O, D, split):
     L = 2
     q4, gs = _int4_stack(dev, L, D, O, seed=B)
     h = torch.randn((B, D), device=dev, generator=torch.Generator(device=dev).manual_seed(12)).to(torch.bfloat16)
-    assert (_kernels.lib().int4_mm_workspace(B, O, D) > 0) == split
+    assert quant.int4_regime(torch.bfloat16, B) == "wgmma"
+    assert (_kernels.lib().int4_mm_workspace(B, O, D, 1) > 0) == split
     _assert_close(quant.int4_matmul_stacked(h, q4, gs, L - 1), quant.int4_matmul_stacked_plain(h, q4, gs, L - 1))
 
 
@@ -350,7 +415,7 @@ def test_int4_wrapper_refuses_what_the_kernel_does_not_take(dev):
         quant.int4_matmul_stacked(torch.zeros((512, 4), dtype=torch.bfloat16, device=dev).t(), q4, gs, 0)
     with pytest.raises(ValueError):  # layer out of range
         quant.int4_matmul_stacked(h, q4, gs, 2)
-    with pytest.raises(TypeError):  # the tiled regime (4 rows) takes bf16 only
+    with pytest.raises(TypeError):  # fp32 above the skinny rows (4 rows): no regime takes it
         quant.int4_matmul_stacked(h.float(), q4, gs, 0)
     with pytest.raises(TypeError):
         quant.int4_matmul_stacked(h.half(), q4, gs, 0)

@@ -149,3 +149,38 @@ def test_stream_regime_refuses_what_no_regime_takes():
     for rows in (0, 641):
         with pytest.raises(ValueError):
             tq.stream_regime(torch.bfloat16, rows)
+
+
+# ---------------------------------------------------------------------------
+# K4's regime rule (no card needed; the C entry int4_mm_regime is held to it
+# on the card)
+# ---------------------------------------------------------------------------
+
+_INT4_ROWS = (1, 2, 3, 16, 18, 32, 33, 64, 72, 73, 640, 3072)
+_INT4_BF16 = {73: "wgmma", 640: "wgmma", 3072: "wgmma"}  # the rest: "stream"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", _INT4_ROWS)
+def test_int4_regime_rule(dtype, rows):
+    """bf16 runs the tensor-core streaming kernel at the decode rows (1-72)
+    and the wgmma regime above; fp32 runs the skinny regime at 1-2 rows and
+    is refused above."""
+    if dtype == torch.float32:
+        if rows <= tq.INT4_SKINNY_MAX_ROWS:
+            assert tq.int4_regime(dtype, rows) == "skinny"
+        else:
+            with pytest.raises(TypeError):
+                tq.int4_regime(dtype, rows)
+    else:
+        assert tq.int4_regime(dtype, rows) == _INT4_BF16.get(rows, "stream")
+
+
+def test_int4_regime_thresholds():
+    assert (tq.INT4_SKINNY_MAX_ROWS, tq.INT4_STREAM_MAX_ROWS) == (2, 72)
+    assert tq.INT4_WGMMA_MIN_ROWS == tq.INT4_STREAM_MAX_ROWS + 1 == 73
+    for rows in (0, -1):
+        with pytest.raises(ValueError):
+            tq.int4_regime(torch.bfloat16, rows)
+    with pytest.raises(TypeError):
+        tq.int4_regime(torch.float16, 3)
