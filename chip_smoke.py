@@ -12,10 +12,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      for K4's streaming kernel (its decode rows), and must not serialize the
      wgmma main loop (C7515);
   3. kernels: K1-K4 against their plain PyTorch versions on the card, in
-     bf16, at their main paths' shapes (K1 at 3, 16, 18 and 64 rows, each
-     timed under by_rows, and at the 7B text-branch prefill's rows on the
-     O >= D stacks; K2 at the 7B and the 13B lm_head, each regime, every
-     row count timed under by_path's by_rows; K3 at each prefill shape of both model paths; K4 in each
+     bf16, at their main paths' shapes (K1 at 3, 16, 18, 36 and 64 rows,
+     each timed under by_rows, and at the 7B text-branch prefill's rows on
+     the O >= D stacks; K2 at the 7B and the 13B lm_head, each regime, every
+     row count timed under by_path's by_rows, the POPE runner's rows
+     included; K3 at each prefill shape of the model paths, the POPE
+     runner's batch-6 shapes included; K4 in each
      of its regimes, at the grouped path's decode rows (each timed under
      by_rows) and prefill rows, and on both sides of each regime threshold), with
      the tolerance stated; by CUDA events the
@@ -31,24 +33,36 @@ Phases, each fatal on failure (exit code != 0, no result line):
      each kernel's record from that run (its error against the plain
      version, held here at the same tolerance, S7's copies exact; kernel,
      plain and library times, the library being torch.matmul on a weight
-     dequantized beforehand or Tensor.repeat / repeat_interleave) is the
+     dequantized beforehand or Tensor.repeat / repeat_interleave; S7's
+     kernel and library also as launches captured in a CUDA graph) is the
      S entry's;
   5. 7B path: LLaVA-v1.5-7B at full width and depth with random int8
      weights, several POPE-style requests through DecodeEngine.generate with
      dual-branch VDD (use_dd + use_dd_unk, cd_alpha=1, cd_beta=0.1, greedy,
      8 new tokens, EOS out of range); K1, K2 and K3 must launch, and no call
      the JAX dispatch rule streams may take the dequant path;
-  6. 7B reference: the same model cut to 2 decoder / 2 vision layers at full
+  6. POPE runner: llava_align_tpu_torch.runners.pope.run on that 7B int8
+     model (full width and depth), on a question file written here (2
+     images x POPE's 6 questions, image files absent: --synthetic-images),
+     dual VDD (cd_alpha=1, cd_beta=0.1), greedy, 8 new tokens, EOS out of
+     range, --calibrate, twice: --batch-size 6 ungrouped (generate_batch on
+     both engines) and --group-by-image (submit_batch_groups + the scoring
+     engine's submit_batch); each run must answer every question with its
+     naive/none/unk dumps and launch K1, K2 and K3, and the port's POPE
+     scorer (evals.pope) must score each answers file, calibrated report
+     included; every shape K3 takes in these runs that phase 3 did not
+     check is then checked and timed as phase 3 does;
+  7. 7B reference: the same model cut to 2 decoder / 2 vision layers at full
      width, its prefill and decode logits on the card against the same
      params run in fp32 on the CPU (the kernels' plain versions);
-  7. 13B grouped path: LLaVA-v1.5-13B at full width and depth with random
+  8. 13B grouped path: LLaVA-v1.5-13B at full width and depth with random
      int4 (group 128) weights, the same decoding, POPE's 6 questions per
      image: one generate_batch_prefix call, one generate_batch_groups call
      at G = 4 groups (the POPE runner's cap), then a submit_batch_groups /
      collect_batch_groups loop at G = 4, sequential (the port's submit runs
      the whole call); K4, K2 and K3 must launch in the G = 1 call and in the
      G = 4 calls on their own;
-  8. 13B grouped reference: that model cut to 2 decoder / 2 vision layers at
+  9. 13B grouped reference: that model cut to 2 decoder / 2 vision layers at
      full width; the grouped path's first-step fused scores on the card
      against the same params in fp32 on the CPU, and against `generate` on
      the card for the same question.
@@ -60,7 +74,8 @@ under by_path (each row count under its by_rows), K3's per shape under by_shape,
 with its CUDA-graph times as graph_ms / graph_library_ms and its row
 errors);
 S1-S7: launches, errors and times from the run of the twin that runs
-each), the card's name and power limit, then as the last line
+each, S7's graph times as graph_ms / graph_library_ms), the card's name
+and power limit, then as the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -73,6 +88,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -122,30 +138,6 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters: int, replays: int = 5) -> float:
-    """Mean device time of fn() over `iters` calls captured in one CUDA
-    graph, by CUDA events over `replays` replays: no host launch overhead
-    between the calls, for kernels shorter than their Python wrapper."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / (iters * replays)
 
 
 def compare(kernel_out: torch.Tensor, plain_out: torch.Tensor, what: str) -> float:
@@ -234,7 +226,9 @@ def ptxas_spill_stores(build_log: str) -> dict:
     return spills
 
 
-K1_ROWS = (3, 16, 18, 64)  # the 7B decode step, the twins' rows, the grouped decode step, DECODE_MAX_ROWS
+# the 7B decode step, the twins' rows, the grouped decode step (and the POPE
+# runner's at Q = 6), the runner's grouped decode step (2 images), DECODE_MAX_ROWS
+K1_ROWS = (3, 16, 18, 36, 64)
 
 
 def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
@@ -303,6 +297,9 @@ def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
     # per path: (lm_head shape, the path's decode rows, the rows its record times)
     k2_paths = {
         "7b_int8_generate": (LM_HEAD_7B, (1, 2, 3, 18), 3),
+        # the POPE runner: image rows, text rows and decode rows at Q = 6,
+        # the grouped decode rows at 2 images
+        "7b_int8_pope_runner": (LM_HEAD_7B, (6, 12, 18, 36), 18),
         "13b_int4_grouped": (LM_HEAD_13B, tuple(grouped_decode_rows) + (65, quant.STREAM_MAX_ROWS),
                              grouped_decode_rows[-1]),
     }
@@ -392,6 +389,7 @@ def phase_kernel_flash(attn_shapes) -> dict:
     sit between the control (flash_tiled) and each planted fault. The
     record is the first shape's, with every shape under by_shape."""
     from llava_align_tpu_torch.ops import attention
+    from llava_align_tpu_torch.scripts._common import graph_ms
 
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(3)
@@ -428,7 +426,7 @@ def phase_kernel_flash(attn_shapes) -> dict:
         kernel = lambda *_: attention.flash_attention(*qkv)  # noqa: E731
         sdpa = lambda *_: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
         ms, lib_ms = cuda_ms(kernel, 20), cuda_ms(sdpa, 20)
-        g_ms, g_lib_ms = graph_ms(kernel, 20), graph_ms(sdpa, 20)
+        g_ms, g_lib_ms = graph_ms(kernel, dev, 20), graph_ms(sdpa, dev, 20)
         plain_ms = cuda_ms(lambda _: attention.flash_attention_plain(*qkv), 5)
         nbytes = 4 * B * S * H * Dh * 2
         flops = 4.0 * Dh * H * B * S * (S + 1) / 2  # QK and PV over the causal pairs
@@ -600,13 +598,16 @@ def phase_probes() -> dict:
         if not ok:
             raise AssertionError(f"{sid}: the kernel disagrees with its plain version in {twin}")
         entries[sid] = dict(launches=counts[twin][w], max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"], library_ms=r["library_ms"], **b)
+                            plain_ms=r["plain_ms"], library_ms=r["library_ms"], **b,
+                            **{k: r[k] for k in ("graph_ms", "graph_library_ms") if k in r})
+        if "graph_ms" in r:
+            log(f"  {sid} in a CUDA graph: kernel {r['graph_ms']:.4f} ms, library {r['graph_library_ms']:.4f} ms")
     return entries
 
 
 def pope_requests(tokenizer, image_size: int):
     """POPE-style requests: llava_v1 prompts and seeded uint8 images."""
-    from llava_align_tpu_torch.runners.common import build_prompt
+    from llava_align_tpu_torch.runners.common import POPE_OBJECTS, build_prompt
     from llava_align_tpu_torch.tokenization import tokenizer_image_token
 
     rng = np.random.default_rng(0)
@@ -677,10 +678,9 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
-def phase_main_path(dev) -> dict:
-    """LLaVA-v1.5-7B int8, dual-branch VDD, through DecodeEngine.generate."""
-    from llava_align_tpu_torch.decoding.engine import DecodeEngine
-    from llava_align_tpu_torch.ops import quant
+def load_7b(dev):
+    """The 7B int8 model of the 7B path and the POPE runner phase, as the
+    runner's load_model("random:7b", quant="int8") builds it."""
     from llava_align_tpu_torch.runners.common import load_model
 
     t0 = time.perf_counter()
@@ -688,6 +688,14 @@ def phase_main_path(dev) -> dict:
     torch.cuda.synchronize()
     log(f"7B path: built random LLaVA-v1.5-7B int8 on {dev} in {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return lm
+
+
+def phase_main_path(lm) -> dict:
+    """LLaVA-v1.5-7B int8, dual-branch VDD, through DecodeEngine.generate."""
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.ops import quant
+
     engine = DecodeEngine(lm.params, lm.cfg, dual_vdd_config())
     requests = pope_requests(lm.tokenizer, lm.cfg.vision.image_size)
     V = lm.cfg.text.vocab_size
@@ -733,9 +741,135 @@ def phase_main_path(dev) -> dict:
     dead = [n for n in ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention") if launches[n] <= 0]
     if dead:
         raise AssertionError(f"kernels not launched on the 7B path: {dead}")
-    del engine, lm
+    del engine
     torch.cuda.empty_cache()
     return launches
+
+
+RUNNER_IMAGES = 2  # images of the runner phase's question file, 6 questions each
+RUNNER_LAYOUTS = {  # runner flags of each run: ungrouped lockstep, then grouped by image
+    "7b_pope_runner_batch": ["--no-group-by-image", "--batch-size", "6"],
+    "7b_pope_runner_grouped": ["--group-by-image"],
+}
+
+
+def write_pope_files(root) -> tuple:
+    """A POPE-style question file (RUNNER_IMAGES images x 6 questions, the
+    image files absent) and its ground truth, under `root`."""
+    from llava_align_tpu_torch.runners.common import POPE_OBJECTS
+
+    root.mkdir(parents=True, exist_ok=True)
+    qf, gt = root / "smoke_POPE_questions.jsonl", root / "smoke_POPE_gt.jsonl"
+    with open(qf, "w") as f_q, open(gt, "w") as f_gt:
+        for i in range(6 * RUNNER_IMAGES):
+            q = {"question_id": i, "image": f"COCO_val2014_{i // 6:012d}.jpg",
+                 "text": f"Is there a {POPE_OBJECTS[i % 6]} in the image?"}
+            f_q.write(json.dumps(q) + "\n")
+            f_gt.write(json.dumps(dict(q, label="yes" if i % 2 == 0 else "no")) + "\n")
+    return qf, gt
+
+
+def runner_shapes(tokenizer, cfg, bucket: int = 128) -> dict:
+    """The POPE runner's 7B prefill buckets for the question file's prompts
+    (one-word suffix: the file name holds POPE): the image rows' and the
+    text rows'."""
+    from llava_align_tpu_torch.runners.common import POPE_OBJECTS, build_prompt
+    from llava_align_tpu_torch.tokenization import tokenizer_image_token
+
+    ids = tokenizer_image_token(build_prompt(f"Is there a {POPE_OBJECTS[2]} in the image?", "llava_v1",
+                                             one_word=True)[0], tokenizer)
+    pad = lambda n: -(-max(n, bucket) // bucket) * bucket  # noqa: E731
+    return dict(pad_img=pad(len(ids) - 1 + cfg.num_image_tokens), pad_txt=pad(len(ids)))
+
+
+def phase_runner(lm, root, smi: str) -> tuple:
+    """The POPE runner on the card: run() on the 7B int8 model (its
+    load_model returns `lm`, the tree load_model("random:7b",
+    quant="int8") builds), once per RUNNER_LAYOUTS entry, each with the
+    launch counts reset before it and read after it; then the port's scorer
+    on each answers file. Returns the launches by layout and the set of
+    (q shape, k shape, dtype) K3 took in the runs."""
+    import contextlib
+    import io
+
+    from llava_align_tpu_torch.evals import pope as pope_eval
+    from llava_align_tpu_torch.models import llama
+    from llava_align_tpu_torch.ops import attention
+    from llava_align_tpu_torch.runners import pope
+
+    causal = llama.causal_attention
+    k3_seen = set()
+
+    def k3_recording(q, k, v, *, impl="auto"):
+        """The decoder's causal prefill, noting each shape it sends to K3."""
+        route = attention.causal_attention_impl(q.shape[3], q.shape[2], k.shape[2], q.dtype)
+        if (route if impl == "auto" else impl) == "pallas":
+            k3_seen.add((tuple(q.shape), tuple(k.shape), q.dtype))
+        return causal(q, k, v, impl=impl)
+
+    qf, gt = write_pope_files(root)
+    n_q = 6 * RUNNER_IMAGES
+    load = pope.load_model
+    pope.load_model = lambda *a, **k: lm
+    by_layout = {}
+    try:
+        for layout, flags in RUNNER_LAYOUTS.items():
+            answers = root / f"{layout}.jsonl"
+            args = pope.build_parser().parse_args([
+                "--model-path", "random:7b", "--quant", "int8", "--question-file", str(qf),
+                "--answers-file", str(answers), "--use_dd", "--use_dd_unk", "--cd_alpha", "1",
+                "--cd_beta", "0.1", "--max_new_tokens", str(NEW_TOKENS), "--temperature", "0",
+                "--synthetic-images", "--calibrate", *flags])
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            llama.causal_attention = k3_recording
+            try:
+                pope.run(args)
+            finally:
+                llama.causal_attention = causal
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches()
+            recs = pope_eval.load_jsonl(str(answers))
+            log(f"POPE runner {layout} ({' '.join(flags)}) on {smi}: {n_q} questions in {secs:.4f} s, "
+                f"{n_q / secs:.4f} questions/s; launches {launches}")
+            log(f"  answers: {[r['text'] for r in recs]}")
+            if [r["question_id"] for r in recs] != list(range(n_q)):
+                raise AssertionError(f"{layout}: answers for {[r['question_id'] for r in recs]}")
+            bad = [r["question_id"] for r in recs
+                   if not all(isinstance(r.get(k), dict) and r[k] for k in ("naive", "none", "unk"))]
+            if bad:
+                raise AssertionError(f"{layout}: records without naive/none/unk dumps: {bad}")
+            dead = [n for n in ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention") if launches[n] <= 0]
+            if dead:
+                raise AssertionError(f"kernels not launched by the POPE runner, {layout}: {dead}")
+            report = io.StringIO()
+            with contextlib.redirect_stdout(report):
+                rc = pope_eval.main([str(gt), str(answers)])
+            for line in report.getvalue().splitlines():
+                log(f"  score: {line}")
+            if rc != 0 or "[none_unk]" not in report.getvalue():
+                raise AssertionError(f"{layout}: the POPE scorer failed (rc {rc}) or gave no calibrated report")
+            by_layout[layout] = launches
+    finally:
+        pope.load_model = load
+    torch.cuda.empty_cache()
+    return by_layout, k3_seen
+
+
+def runner_attn_shapes(k3_seen, checked) -> list:
+    """The [B, S, H, Dh] shapes K3 took in the runner phase that are not in
+    `checked`; each must be one phase_kernel_flash can make (bf16, as many
+    k/v heads as q heads, as LLaVA-v1.5-7B has)."""
+    new = []
+    for q_shape, k_shape, dtype in sorted(k3_seen, key=str):
+        if dtype != torch.bfloat16 or k_shape != q_shape:
+            raise AssertionError(f"K3 took q {q_shape} k {k_shape} {dtype} in the runner phase: "
+                                 "not a shape its check makes")
+        if q_shape not in checked and q_shape not in new:
+            new.append(q_shape)
+    return new
 
 
 def to_cpu32(node):
@@ -930,6 +1064,7 @@ def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda:0")
     phase_build()
+    from llava_align_tpu_torch.config import LlavaConfig
     from llava_align_tpu_torch.runners.common import MockTokenizer
 
     # the 7B path's prefill lengths: image row and text rows at 128-buckets
@@ -937,17 +1072,33 @@ def main() -> int:
     main_lens = (-(-(len(ids) - 1 + 576) // 128) * 128, -(-len(ids) // 128) * 128)
     shapes = grouped_shapes(576)
     log(f"13B grouped path shapes: {shapes}")
+    runner = runner_shapes(MockTokenizer(), LlavaConfig.llava_v15_7b())
+    log(f"POPE runner 7B prefill buckets: {runner}")
     attn_shapes = [(1, 640, 32, 128), (2, 128, 32, 128), (1, main_lens[0], 32, 128),
                    (2, main_lens[1], 32, 128), (GROUPS, shapes["pad_prefix"], 40, 128),
-                   (2 * GROUPS, shapes["pad_txt"], 40, 128)]
+                   (2 * GROUPS, shapes["pad_txt"], 40, 128),
+                   # the POPE runner at --batch-size 6: 6 image rows, 12 text rows
+                   (6, runner["pad_img"], 32, 128), (12, runner["pad_txt"], 32, 128)]
     # the text-branch rows (unk, none) prefill together at their bucket
     rec = phase_kernels_int8(shapes["decode_rows"], 2 * main_lens[1])
     rec["K3"] = phase_kernel_flash(attn_shapes)
     rec["K4"] = phase_kernels_int4(shapes["decode_rows"], shapes["prefill_rows"])
     torch.cuda.synchronize()
     probes = phase_probes()
-    by_path = {"7b_int8_generate": phase_main_path(dev)}
+    lm = load_7b(dev)
+    by_path = {"7b_int8_generate": phase_main_path(lm)}
     torch.cuda.synchronize()
+    runner_launches, k3_seen = phase_runner(lm, Path(__file__).resolve().parent / "build" / "pope_smoke", smi)
+    by_path.update(runner_launches)
+    del lm  # the 7B tree goes before the 13B one is built
+    torch.cuda.empty_cache()
+    new_shapes = runner_attn_shapes(k3_seen, set(attn_shapes))
+    log(f"POPE runner: K3 took {sorted(q for q, _, _ in k3_seen)}; not checked yet: {new_shapes}")
+    if new_shapes:
+        more = phase_kernel_flash(new_shapes)
+        rec["K3"]["by_shape"] += more["by_shape"]
+        for k in ("max_abs_err", "max_row_err"):
+            rec["K3"][k] = max(rec["K3"][k], more[k])
     phase_reference(dev)
     torch.cuda.synchronize()
     by_path["13b_int4_grouped"] = phase_grouped(dev, shapes)
@@ -973,7 +1124,8 @@ def main() -> int:
     ] + [
         # the microbenchmark path: launches, errors and times from the twin's run
         dict(name=f"{sid} {w}", route="cuda", source=src, replaces=rep, twin=twin,
-             launches=probes[sid]["launches"], **{k: probes[sid][k] for k in keys})
+             launches=probes[sid]["launches"], **{k: probes[sid][k] for k in keys},
+             **{k: probes[sid][k] for k in ("graph_ms", "graph_library_ms") if k in probes[sid]})
         for sid, (twin, _, w, src, rep) in PROBE_KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 """Debiased decode engine (torch twin of llava_align_tpu/decoding/engine.py:
-`generate`, `submit_generate`, `collect_generate`, and the grouped
+`generate`, `submit_generate`, `collect_generate`, the lockstep batch
+`generate_batch`, `submit_batch`, `collect_batch`, and the grouped
 shared-prefix entry points `generate_batch_prefix`, `generate_batch_groups`,
 `submit_batch_groups`, `collect_batch_groups`).
 
@@ -18,9 +19,9 @@ decoding too.
 The decode loops are eager Python loops with one host read per step (the
 sampled tokens, which decide `done`); the JAX engine runs them on device in
 lax.while_loop. Unlike it, the loops skip the forward after the last token.
-Not ported yet: generate_batch (lockstep, unshared), beam search, VCD
-(use_cd), mesh/act_quant/kv_quant, and in `generate` explicit per-branch ids
-and precomputed image features.
+Not ported yet: beam search, VCD (use_cd), mesh/act_quant/kv_quant, and in
+`generate` explicit per-branch ids, precomputed image features and anyres
+image stacks.
 """
 
 from __future__ import annotations
@@ -337,6 +338,167 @@ class DecodeEngine:
         return self.collect_generate(self.submit_generate(input_ids, image, generator=generator))
 
     # ------------------------------------------------------------------
+    # lockstep multi-question generation (unshared prompts)
+    # ------------------------------------------------------------------
+
+    def generate_batch(
+        self,
+        batch: Sequence[tuple],
+        *,
+        generator: Optional[torch.Generator] = None,
+    ) -> List[GenerationOutput]:
+        """batch: list of (input_ids, image), image [3, H, W] or None. All
+        questions decode in lockstep on a [Q * nb] packed batch axis, and
+        each stops on its own done flag (EOS, a stop keyword, or
+        max_new_tokens); a finished question's later tokens are pad.
+
+        Prefill is split-bucket, as in `generate`: the Q * n_img
+        image-bearing rows prefill at the image bucket, the Q * n_txt
+        text-only rows at their own, into disjoint cache row groups
+        [image rows | text rows]."""
+        return self.collect_batch(self.submit_batch(batch, generator=generator))
+
+    @torch.inference_mode()
+    def submit_batch(
+        self,
+        batch: Sequence[tuple],
+        *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Host packing, the prefills and the decode loop of
+        generate_batch; the first-step scores (the warped fused logits
+        [Q, V], 'first_scores') and their summaries stay on the device until
+        collect_batch. The loop reads each step's tokens, so this returns
+        when the decode is done (the JAX engine returns at dispatch): the
+        POPE runner's order (submit the main call and both scoring calls,
+        then collect) is kept but overlaps nothing here."""
+        t0 = time.perf_counter()
+        Q = len(batch)
+        if Q == 0:
+            return []
+        img_packs, txt_packs, imgs_np = [], [], []
+        feats_src = np.full((Q * len(self.img_kinds),), -1, np.int32)
+        for qi, (input_ids, image) in enumerate(batch):
+            n_sentinels = sum(1 for t in input_ids if t == IMAGE_TOKEN_INDEX)
+            has_image = image is not None and n_sentinels > 0
+            if has_image and n_sentinels != 1:
+                raise ValueError(f"one image per question, but question {qi} holds {n_sentinels} <image>")
+            if has_image and np.asarray(image).ndim != 3:
+                raise ValueError(f"question {qi}: images are [3, H, W]; anyres stacks are not ported")
+            img_packs.append(self._pack(input_ids, has_image, kinds=self.img_kinds))
+            if self.txt_kinds:
+                txt_packs.append(self._pack(input_ids, has_image, kinds=self.txt_kinds))
+            if has_image:  # only the images a row takes are encoded
+                feats_src[qi * len(self.img_kinds) + self.img_kinds.index("main")] = len(imgs_np)
+                imgs_np.append(np.asarray(image))
+        pack_img = _stack_packs(img_packs)[:5] + (feats_src,)
+        pack_txt = _stack_packs(txt_packs) if txt_packs else None
+        images = self._assemble_images(imgs_np, len(imgs_np)) if imgs_np else None
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(self.gen.seed)
+        out = self._run_batch(Q, pack_img, pack_txt, images, generator)
+        out.update(lens_img=pack_img[4], n_img=len(self.img_kinds),
+                   seconds_to_first_token=out["t_first"] - t0, seconds_total=time.perf_counter() - t0)
+        return out
+
+    def _run_batch(self, Q, pack_img, pack_txt, images, generator):
+        """The device side of submit_batch: encode (only when a row takes
+        image features), the two prefills, and the decode loop over the
+        cache rows [Q * n_img image rows | Q * n_txt text rows]."""
+        gen, adapter, params, dev = self.gen, self.adapter, self.params, self.device
+        nb, n_img, n_txt = len(self.kinds), len(self.img_kinds), len(self.txt_kinds)
+        pad_img = pack_img[0].shape[1]
+        pad_txt = pack_txt[0].shape[1] if n_txt else 0
+        cache_len = max(pad_img, pad_txt) + gen.max_new_tokens
+
+        # branch b of question q sits at cache row perm[q * nb + b]
+        perm = np.zeros((Q * nb,), np.int64)
+        for q in range(Q):
+            i = j = 0
+            for b, kind in enumerate(self.kinds):
+                if kind in ("main", "cd"):
+                    perm[q * nb + b] = q * n_img + i
+                    i += 1
+                else:
+                    perm[q * nb + b] = Q * n_img + q * n_txt + j
+                    j += 1
+        # cache row -> question, to broadcast each sampled token to its rows
+        row_to_q = np.concatenate([np.repeat(np.arange(Q), n_img), np.repeat(np.arange(Q), n_txt)])
+
+        feats = None
+        if images is not None:
+            img = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
+            feats = adapter.encode_images(params, normalize_device(img, adapter.vision_dtype))
+        cache = adapter.init_cache(Q * nb, cache_len, device=dev)
+        logits = self._prefill(pack_img, pad_img, feats, cache, 0)
+        lengths_host = pack_img[4].astype(np.int64)
+        if n_txt:
+            logits = torch.cat([logits, self._prefill(pack_txt, pad_txt, None, cache, Q * n_img)])
+            lengths_host = np.concatenate([lengths_host, pack_txt[4].astype(np.int64)])
+        lengths = torch.from_numpy(lengths_host).to(dev)
+
+        def step(tok_rows):  # at most T - 1 steps: the cache holds every write
+            nonlocal cache, lengths
+            emb = adapter.embed_tokens(params, tok_rows[:, None])
+            hidden, cache = adapter.forward(params, emb, lengths[:, None], cache, lengths,
+                                            attn_impl=self.attn_impl)
+            lengths = lengths + 1
+            return adapter.logits(params, hidden[:, 0])
+
+        return self._lockstep_decode(logits, perm, row_to_q, step, generator)
+
+    def collect_batch(self, handle) -> List[GenerationOutput]:
+        """Fetch a submit_batch handle's outputs to the host, one
+        GenerationOutput per question (timings are the whole call's)."""
+        if not handle:  # submit of an empty batch returns []
+            return []
+        lens_img, n_img = handle["lens_img"], handle["n_img"]
+        return _collect(handle, [int(lens_img[q * n_img]) for q in range(len(handle["n_done"]))])
+
+    def _lockstep_decode(self, logits, perm, row_to_q, step, generator):
+        """The decode loop of the lockstep entry points (generate_batch,
+        generate_batch_groups) over Q questions: logits [R, V] of the cache
+        rows after the prefills, perm[q * nb + b] the cache row of branch b
+        of question q, row_to_q the question of each cache row, and
+        step(tok_rows [R], on the device) -> the next logits [R, V] (one
+        forward of every row). One host read (the step's tokens) per step;
+        each question stops on its own done flag (EOS, a stop keyword, or
+        max_new_tokens), and a finished question's later tokens are pad.
+        Returns the tokens [Q, T], each question's count, and the
+        first-step scores with their softmax top-k."""
+        gen = self.gen
+        nb = len(self.kinds)
+        Q, V, T = len(perm) // nb, logits.shape[-1], gen.max_new_tokens
+        fuse_and_warp = _make_fuse_and_warp(gen, nb - 1)
+        kws = [k for k in self.stop_keyword_ids if 0 < len(k) <= T]
+        perm_t = torch.from_numpy(perm).to(self.device)
+        out_buf = np.zeros((Q, T), np.int64)
+        done = np.zeros((Q,), bool)
+        n_done = np.full((Q,), T, np.int64)
+        first_scores, t_first, n = None, None, 0
+        while True:
+            warped = fuse_and_warp(logits[perm_t].reshape(Q, nb, V))
+            if first_scores is None:
+                first_scores = warped
+            toks = S.sample_token(generator, warped, gen.do_sample).cpu().numpy()
+            if t_first is None:
+                t_first = time.perf_counter()
+            toks = np.where(done, gen.pad_token_id, toks)
+            out_buf[:, n] = toks
+            n += 1
+            done_now = (toks == gen.eos_token_id) | _stop_hits(out_buf, n, kws)
+            n_done = np.where(done_now & ~done, n, n_done)
+            done = done | done_now | (n >= T)
+            if done.all():
+                break
+            logits = step(torch.from_numpy(toks[row_to_q]).to(self.device))
+
+        probs = torch.softmax(first_scores, dim=-1)
+        top = torch.topk(probs, min(self.top_scores_k, V))
+        return dict(out_buf=out_buf, n_done=n_done, top_probs=top.values, top_ids=top.indices,
+                    first_scores=first_scores, t_first=t_first)
+
+    # ------------------------------------------------------------------
     # shared-prefix grouped generation (the POPE throughput path)
     #
     # POPE ships 6 questions per image, and within one question the VDD
@@ -583,66 +745,27 @@ class DecodeEngine:
         # segmented rows carry their segment length, plain rows 0
         sh_len_all = put(np.concatenate([sh_len_suf, np.zeros((M * n_pl,), np.int64)])).long()
 
-        # ---- decode loop: one host read (the step's tokens) per step
-        V = logits.shape[-1]
-        fuse_and_warp = _make_fuse_and_warp(gen, nb - 1)
-        kws = [k for k in self.stop_keyword_ids if 0 < len(k) <= T]
-        perm_t = put(perm)
         lengths = put(lengths_host)
-        out_buf = np.zeros((M, T), np.int64)
-        done = np.zeros((M,), bool)
-        n_done = np.full((M,), T, np.int64)
-        first_scores, t_first, n = None, None, 0
-        while True:
-            warped = fuse_and_warp(logits[perm_t].reshape(M, nb, V))
-            if first_scores is None:
-                first_scores = warped
-            toks = S.sample_token(generator, warped, gen.do_sample).cpu().numpy()
-            if t_first is None:
-                t_first = time.perf_counter()
-            toks = np.where(done, gen.pad_token_id, toks)
-            out_buf[:, n] = toks
-            n += 1
-            done_now = (toks == gen.eos_token_id) | _stop_hits(out_buf, n, kws)
-            n_done = np.where(done_now & ~done, n, n_done)
-            done = done | done_now | (n >= T)
-            if done.all():
-                break
-            emb = adapter.embed_tokens(params, put(toks[row_to_q])[:, None])
+
+        def step(tok_rows):
+            nonlocal cache, lengths
             hidden, cache = adapter.forward(
-                params, emb, (sh_len_all + lengths)[:, None], cache, lengths,
-                shared_kv=shared, shared_len=sh_len_all, shared_rows_per_prefix=Qg,
+                params, adapter.embed_tokens(params, tok_rows[:, None]), (sh_len_all + lengths)[:, None],
+                cache, lengths, shared_kv=shared, shared_len=sh_len_all, shared_rows_per_prefix=Qg,
                 shared_rows_per_prefix2=Qg, attn_impl=self.attn_impl,
             )
-            logits = adapter.logits(params, hidden[:, 0])
             lengths = lengths + 1
+            return adapter.logits(params, hidden[:, 0])
 
-        probs = torch.softmax(first_scores, dim=-1)
-        top = torch.topk(probs, min(self.top_scores_k, V))
-        return dict(out_buf=out_buf, n_done=n_done, top_probs=top.values, top_ids=top.indices,
-                    first_scores=first_scores, t_first=t_first)
+        return self._lockstep_decode(logits, perm, row_to_q, step, generator)
 
     def collect_batch_groups(self, handle) -> List[GenerationOutput]:
         """Fetch a submit_batch_groups handle's outputs to the host, one
         GenerationOutput per question (timings are the whole call's)."""
         if not handle:  # submit of an empty groups list returns []
             return []
-        top_probs = handle["top_probs"].cpu().numpy()
-        top_ids = handle["top_ids"].cpu().numpy()
         Qg, p_lens, suf_lens = handle["Qg"], handle["p_lens"], handle["suf_lens"]
-        outs = []
-        for row in range(handle["M"]):
-            n = int(handle["n_done"][row])
-            outs.append(GenerationOutput(
-                token_ids=[int(t) for t in handle["out_buf"][row, :n]],
-                num_generated=n,
-                first_scores_top_probs=top_probs[row],
-                first_scores_top_ids=top_ids[row],
-                prompt_length=int(p_lens[row // Qg]) + int(suf_lens[row]),
-                seconds_to_first_token=handle["seconds_to_first_token"],
-                seconds_total=handle["seconds_total"],
-            ))
-        return outs
+        return _collect(handle, [int(p_lens[row // Qg]) + int(suf_lens[row]) for row in range(handle["M"])])
 
     def _txt_kind_prefix_bases(self, kind: str, groups):
         """Per-group transformed prefixes when this text kind's branch
@@ -682,6 +805,26 @@ class DecodeEngine:
         while p < lo - 1 and all(t[p] == first[p] for t in token_lists):
             p += 1
         return p
+
+
+def _collect(handle, prompt_lengths: Sequence[int]) -> List[GenerationOutput]:
+    """A lockstep handle's outputs on the host, one GenerationOutput per
+    question, each trimmed to its own count."""
+    top_probs = handle["top_probs"].cpu().numpy()
+    top_ids = handle["top_ids"].cpu().numpy()
+    outs = []
+    for q, prompt_length in enumerate(prompt_lengths):
+        n = int(handle["n_done"][q])
+        outs.append(GenerationOutput(
+            token_ids=[int(t) for t in handle["out_buf"][q, :n]],
+            num_generated=n,
+            first_scores_top_probs=top_probs[q],
+            first_scores_top_ids=top_ids[q],
+            prompt_length=prompt_length,
+            seconds_to_first_token=handle["seconds_to_first_token"],
+            seconds_total=handle["seconds_total"],
+        ))
+    return outs
 
 
 def _stack_packs(packs) -> tuple:

@@ -1,24 +1,141 @@
-"""Runner plumbing for the port (copies of llava_align_tpu/runners/common.py
-MockTokenizer, build_prompt and load_model's random:* models), and
-pope_groups, POPE-style traffic split as the grouped entry points take it.
+"""Runner plumbing for the port: copies of llava_align_tpu/runners/common.py
+(dataset chunking, question loading, the resumable jsonl AnswerFile and its
+per-rank merge, build_prompt, postprocess_answer, load_image_tensor,
+make_generation_config, MockTokenizer and load_model's random:* models),
+and pope_groups, POPE-style traffic split as the grouped entry points take
+it.
 
-Loading real checkpoints (hf_convert) is not ported yet.
+Loading real checkpoints (hf_convert) and --dist auto (jax.distributed in
+the JAX package) are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+import json
+import math
+import os
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from llava_align_tpu_torch.config import LlavaConfig
+from llava_align_tpu_torch.config import GenerationConfig, LlavaConfig
 from llava_align_tpu_torch.constants import (
     DEFAULT_IM_END_TOKEN,
     DEFAULT_IM_START_TOKEN,
     DEFAULT_IMAGE_TOKEN,
 )
 from llava_align_tpu_torch.conversation import conv_templates
+
+
+def split_list(lst: Sequence, n: int) -> List[Sequence]:
+    """Split into n (roughly) equal chunks (reference MME/run_llava.py:32-38)."""
+    chunk_size = math.ceil(len(lst) / n)
+    return [lst[i : i + chunk_size] for i in range(0, len(lst), chunk_size)]
+
+
+def get_chunk(
+    lst: Sequence, n: int, k: int, *, allow_out_of_range: bool = False
+) -> Sequence:
+    """Chunk k of split_list(lst, n). Ceil chunking can yield fewer than n
+    chunks; an index past them is an empty shard when allow_out_of_range
+    (a rank of a distributed run), an IndexError otherwise (a user-typed
+    --chunk-idx, as in the reference MME/run_llava.py:41)."""
+    chunks = split_list(lst, n)
+    if k < len(chunks):
+        return chunks[k]
+    if allow_out_of_range:
+        return lst[:0]
+    raise IndexError(
+        f"chunk_idx {k} out of range: {len(lst)} items split into "
+        f"{len(chunks)} chunks (num_chunks={n})"
+    )
+
+
+def load_questions(
+    path: str, num_chunks: int = 1, chunk_idx: int = 0,
+    *, allow_out_of_range: bool = False,
+) -> List[dict]:
+    """jsonl questions (trailing commas on a line tolerated, as some
+    reference splits carry them), chunk chunk_idx of num_chunks."""
+    with open(os.path.expanduser(path)) as f:
+        questions = [
+            json.loads(line.strip().rstrip(","))
+            for line in f
+            if line.strip().rstrip(",")
+        ]
+    if num_chunks > 1:
+        questions = list(
+            get_chunk(questions, num_chunks, chunk_idx,
+                      allow_out_of_range=allow_out_of_range)
+        )
+    return questions
+
+
+def load_questions_for(args) -> List[dict]:
+    """load_questions wired to the runner arg namespace: chunk indices set
+    by a distributed run may exceed the ceil-chunk count (empty shard),
+    while user-typed --num-chunks/--chunk-idx out of range raises."""
+    return load_questions(
+        args.question_file, args.num_chunks, args.chunk_idx,
+        allow_out_of_range=getattr(args, "dist_merge_target", None) is not None,
+    )
+
+
+def merge_chunk_files(answers_file: str, world_size: int) -> str:
+    """Concatenate per-rank `.rank{r}-of-{n}` parts back into
+    `answers_file`. Chunks are contiguous slices (split_list), so rank-order
+    concatenation restores question order. A missing part (a failed rank)
+    raises rather than hand scoring a truncated file."""
+    root, ext = os.path.splitext(os.path.expanduser(answers_file))
+    parts = [f"{root}.rank{r}-of-{world_size}{ext}" for r in range(world_size)]
+    missing = [p for p in parts if not os.path.exists(p)]
+    if missing:
+        raise FileNotFoundError(
+            f"answer part(s) missing at merge — did those ranks fail? {missing}"
+        )
+    with open(os.path.expanduser(answers_file), "w") as out:
+        for part in parts:
+            with open(part) as f:
+                out.write(f.read())
+    return answers_file
+
+
+class AnswerFile:
+    """Append-only jsonl answers with skip-done resume."""
+
+    def __init__(self, path: str, resume: bool = False):
+        self.path = os.path.expanduser(path)
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        self.done_ids = set()
+        self.done_keys = set()
+        if resume and os.path.exists(self.path):
+            with open(self.path) as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                        self.done_ids.add(rec["question_id"])
+                        self.done_keys.add((rec["question_id"], rec.get("prompt")))
+                    except (ValueError, KeyError, TypeError):  # a torn or foreign line
+                        pass
+            self._f = open(self.path, "a")
+        else:
+            self._f = open(self.path, "w")
+
+    def is_done(self, question_id, prompt=None) -> bool:
+        """Resume check. Pass the question text too when ids are not unique
+        (MME reuses the image name as question_id for both of its questions
+        per image)."""
+        if prompt is None:
+            return question_id in self.done_ids
+        return (question_id, prompt) in self.done_keys
+
+    def write(self, record: dict) -> None:
+        self._f.write(json.dumps(record) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
 
 
 def build_prompt(
@@ -49,6 +166,82 @@ def build_prompt(
     conv.append_message(conv.roles[0], qs)
     conv.append_message(conv.roles[1], None)
     return conv.get_prompt(), conv.stop_str
+
+
+def postprocess_answer(text: str, stop_str: str) -> str:
+    """Trim at the stop keyword (reference llava_calibrate.py:202-207 plus
+    first-occurrence truncation for strings the token matcher couldn't see)."""
+    text = text.strip()
+    if stop_str:
+        pos = text.find(stop_str)
+        if pos >= 0:
+            text = text[:pos]
+    return text.strip()
+
+
+def load_image_tensor(
+    image_folder: str,
+    image_file: str,
+    *,
+    image_size: int = 336,
+    image_aspect_ratio: Optional[str] = None,
+    synthetic_ok: bool = False,
+    grid_pinpoints=None,
+    transfer: str = "uint8",
+) -> np.ndarray:
+    """CLIP-preprocessed [3, H, W]. transfer='uint8' (default) returns raw
+    resized pixels, which the DecodeEngine normalizes on the device;
+    transfer='float32' returns host-normalized floats. anyres grids return
+    float32 stacks. With synthetic_ok, a deterministic noise image replaces
+    a missing file; that branch needs no PIL (ops.image.synthetic_image_uint8)."""
+    from llava_align_tpu_torch.ops.image import (
+        clip_preprocess_pil,
+        clip_resize_pil_uint8,
+        normalize_host,
+        synthetic_image_uint8,
+    )
+
+    path = os.path.join(image_folder, image_file) if image_folder else image_file
+    if os.path.exists(path):
+        from PIL import Image
+
+        img = Image.open(path)
+        if image_aspect_ratio == "anyres":
+            from llava_align_tpu_torch.ops.anyres import process_anyres_image
+
+            pinpoints = grid_pinpoints or [
+                (image_size, image_size * 2), (image_size * 2, image_size),
+                (image_size * 2, image_size * 2),
+            ]
+            return process_anyres_image(img, pinpoints, image_size, image_size)
+        if transfer == "uint8":
+            return clip_resize_pil_uint8(img, image_size, image_aspect_ratio)
+        return clip_preprocess_pil(img, image_size, image_aspect_ratio)
+    if not synthetic_ok:
+        raise FileNotFoundError(path)
+    u8 = synthetic_image_uint8(image_file, image_size)
+    return u8 if transfer == "uint8" else normalize_host(u8)
+
+
+def make_generation_config(args, **overrides) -> GenerationConfig:
+    """argparse namespace (reference knob names) → GenerationConfig."""
+    temp = getattr(args, "temperature", 1.0)
+    kw = dict(
+        max_new_tokens=getattr(args, "max_new_tokens", 64),
+        do_sample=temp > 0,
+        temperature=temp if temp > 0 else 1.0,
+        top_p=getattr(args, "top_p", None),
+        top_k=getattr(args, "top_k", None),
+        seed=getattr(args, "seed", 42),
+        use_cd=getattr(args, "use_cd", False),
+        use_dd=getattr(args, "use_dd", False),
+        use_dd_unk=getattr(args, "use_dd_unk", False),
+        cd_alpha=getattr(args, "cd_alpha", 1.0),
+        cd_beta=getattr(args, "cd_beta", 0.1),
+        noise_step=getattr(args, "noise_step", 500),
+    )
+    kw.update(overrides)
+    return GenerationConfig(**kw)
 
 
 POPE_OBJECTS = ("dog", "person", "dining table", "car", "bicycle", "chair")

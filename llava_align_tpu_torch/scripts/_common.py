@@ -90,6 +90,34 @@ def time_ms(fn: Callable[[], object], device: torch.device, iters: int = ITERS, 
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn: Callable[[], object], device: torch.device, iters: int = ITERS,
+             replays: int = 5) -> Optional[float]:
+    """Mean device time of fn() in ms over `iters` calls captured in one
+    CUDA graph, by CUDA events over `replays` replays: the kernels' time
+    without the host's launch cost between them. None on the CPU, which
+    has no graphs."""
+    if device.type != "cuda":
+        return None
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(device)
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def layer_ms(call: Callable[[int, str], object], names: Sequence[str], L: int,
              device: torch.device, iters: int = ITERS, warmup: int = 2) -> float:
     """Time of one layer: a step calls call(li, name) for every layer li and

@@ -1,7 +1,10 @@
 """Twin of scripts/probe_mosaic_ops.py: the scale-broadcast copies the TPU
 script probed Mosaic for, as index-mapping copies on the H100 (repeat2d,
 csrc/repeat2d.cu), each checked exactly against its plain version and one
-PyTorch call of the same function, and timed beside both.
+PyTorch call of the same function, and timed beside both: eager (each
+call from Python, the wrapper's host cost included) and, on the GPU, as
+ITERS calls captured in one CUDA graph (graph_ms, graph_library_ms: the
+device time alone; None on the CPU).
 
 pltpu.repeat tiles (repeat([[0, 1, 2]], 2, 1) is [[0, 1, 2, 0, 1, 2]]);
 jnp.repeat and the broadcast_in_dim + reshape of k_bcast repeat each
@@ -19,7 +22,7 @@ import sys
 import torch
 
 from llava_align_tpu_torch.ops.stream_probes import repeat2d, repeat2d_plain
-from llava_align_tpu_torch.scripts._common import clock, parse, setup, time_ms
+from llava_align_tpu_torch.scripts._common import clock, graph_ms, parse, setup, time_ms
 
 # TPU kernel -> (the TPU script's label, source, output shape, row map,
 # column map, window offset, scale); a map is ("tile", n): i % n or
@@ -82,9 +85,13 @@ def tryk(name: str, src: dict, device) -> dict:
                ms=time_ms(lambda: run(name, src), device, ITERS),
                plain_ms=time_ms(lambda: run(name, src, plain=True), device, ITERS),
                library_ms=time_ms(lambda: LIBRARY[name](src[key]), device, ITERS),
+               graph_ms=graph_ms(lambda: run(name, src), device, ITERS),
+               graph_library_ms=graph_ms(lambda: LIBRARY[name](src[key]), device, ITERS),
                bytes=copy_bytes(name), flops=0)
+    graphs = ("" if rec["graph_ms"] is None else
+              f"; in a graph {rec['graph_ms']:.4f} ms, library {rec['graph_library_ms']:.4f} ms")
     print(f"{label} ({name}): {'OK' if ok else 'FAIL'} {[round(v, 4) for v in got.ravel()[:4].tolist()]} "
-          f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms)")
+          f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms){graphs}")
     if not ok:
         raise AssertionError(f"{name}: the kernel disagrees with its plain version or the library")
     return rec
@@ -97,6 +104,8 @@ def main(argv=None) -> dict:
     print(f"[{clock(dev)}] fp32 sources {[tuple(v.shape) for v in src.values()]}")
     out = {name: tryk(name, src, dev) for name in OPS}
     total = {k: sum(r[k] for r in out.values()) for k in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
+    for k in ("graph_ms", "graph_library_ms"):
+        total[k] = None if dev.type != "cuda" else sum(r[k] for r in out.values())
     total.update(max_abs_err=max(r["max_abs_err"] for r in out.values()),
                  ref_max=max(r["ref_max"] for r in out.values()))
     return dict(out, tryk=total)

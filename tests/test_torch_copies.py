@@ -5,6 +5,7 @@ engine's host logic (common_token_prefix, _txt_kind_prefix_bases). Exact
 equality."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -183,3 +184,187 @@ def test_txt_kind_prefix_bases_identical(engines):
         for kind in ("unk", "none"):
             assert teng._txt_kind_prefix_bases(kind, groups) == jeng._txt_kind_prefix_bases(
                 kind, groups), (kind, groups)
+
+
+# ---------------------------------------------------------------------------
+# the POPE slice's pure-Python copies: Post-Hoc calibration, the POPE
+# scorers, the prefetch loader, the runner plumbing
+# ---------------------------------------------------------------------------
+
+
+def _posthoc_cases():
+    from llava_align_tpu.runners.common import MockTokenizer
+
+    rng = np.random.default_rng(5)
+    probs = rng.random((12, 2))
+    labels = rng.integers(0, 2, 12)
+    top_probs = np.sort(rng.random(20))[::-1].astype(np.float32)
+    top_ids = np.asarray([ord(c) + 3 for c in "yYnNo yes no".ljust(20, "a")])
+    return {
+        "calibrate_weight_diagonal": lambda m: m.calibrate_weight([0.7, 0.3], "diagonal_W"),
+        "calibrate_weight_identity": lambda m: m.calibrate_weight([0.7, 0.3], "identity_W"),
+        "apply_calibration": lambda m: m.apply_calibration([0.2, 0.6], *m.calibrate_weight([0.4, 0.6])),
+        "eval_accuracy_plain": lambda m: m.eval_accuracy(probs, labels),
+        "eval_accuracy_calibrated": lambda m: m.eval_accuracy(probs, labels, "diagonal_W", [0.55, 0.45]),
+        "ece": lambda m: m.ece(probs, labels, n_bins=10),
+        "calibrate_label_dict": lambda m: m.calibrate_label_dict(top_probs, top_ids, MockTokenizer(), 15),
+        "get_prob_from_logits": lambda m: m.get_prob_from_logits({"Yes ": 0.25, "no": 0.5, "x": 0.1}),
+    }
+
+
+def _same(a, b):
+    """Exact equality through tuples, lists, dicts and numpy arrays."""
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+@pytest.mark.parametrize("case", list(_posthoc_cases()))
+def test_posthoc_identical(case):
+    from llava_align_tpu.calibrate import posthoc as jpost
+    from llava_align_tpu_torch.calibrate import posthoc as tpost
+
+    fn = _posthoc_cases()[case]
+    assert _same(fn(tpost), fn(jpost))
+    assert tpost.LABEL_DICT == jpost.LABEL_DICT and tpost.LABEL_TO_INT == jpost.LABEL_TO_INT
+
+
+def _pope_files(tmp_path, n=8, calibrated=True, seed=0):
+    """A gt file and an answers file with top-k dumps; the gt file's lines
+    end in trailing commas, as some reference splits do."""
+    rng = np.random.default_rng(seed)
+    gt, gen = tmp_path / "gt.json", tmp_path / "gen.jsonl"
+    with open(gt, "w") as f_gt, open(gen, "w") as f_gen:
+        for i in range(n):
+            f_gt.write(json.dumps({"question_id": i, "label": ["yes", "no"][i % 2]}) + ",\n")
+            rec = {"question_id": i, "text": ["Yes.", "no", "maybe"][i % 3]}
+            for name in ("naive", "none", "unk") if calibrated else ("naive",):
+                p = rng.random(3)
+                rec[name] = {"Yes": float(p[0]), "no ": float(p[1]), "the": float(p[2])}
+            if i == 3:
+                rec["naive"] = {"the": 0.5}  # neither class in the top-k: uniform fallback
+            f_gen.write(json.dumps(rec) + "\n")
+    return str(gt), str(gen)
+
+
+POPE_SCORER_CASES = {
+    "score_pope": lambda m, gt, gen: m.score_pope(gt, gen),
+    "calibrated_individual": lambda m, gt, gen: m.score_pope_calibrated(gt, gen),
+    "calibrated_all_identity": lambda m, gt, gen: m.score_pope_calibrated(
+        gt, gen, calibrate_mode="all", mode="identity_W", settings=("naive", "none_unk", "unk")),
+    "calibrated_confidence_window": lambda m, gt, gen: m.score_pope_calibrated(
+        gt, gen, confidence_low=0.4, confidence_high=0.9, ece_bins=5),
+    "report": lambda m, gt, gen: m.format_calibrated_report(m.score_pope_calibrated(gt, gen)),
+}
+
+
+@pytest.mark.parametrize("case", list(POPE_SCORER_CASES) + ["misaligned", "missing_dumps"])
+def test_pope_scorer_identical(case, tmp_path):
+    from llava_align_tpu.evals import pope as jpope
+    from llava_align_tpu_torch.evals import pope as tpope
+
+    gt_path, gen_path = _pope_files(tmp_path, calibrated=case != "missing_dumps")
+    outs = []
+    for m in (jpope, tpope):
+        gt, gen = m.load_jsonl(gt_path), m.load_jsonl(gen_path)
+        if case == "misaligned":
+            gen = gen[1:] + gen[:1]
+        try:
+            fn = POPE_SCORER_CASES.get(case, POPE_SCORER_CASES["calibrated_individual"])
+            outs.append(("ok", fn(m, gt, gen)))
+        except ValueError as e:
+            outs.append(("ValueError", str(e)))
+    assert _same(outs[0], outs[1]), outs
+    assert outs[0][0] == ("ValueError" if case in ("misaligned", "missing_dumps") else "ok")
+    assert tpope.BASE_SETTINGS == jpope.BASE_SETTINGS and tpope.COMBO_SETTINGS == jpope.COMBO_SETTINGS
+
+
+@pytest.mark.parametrize("num_workers,batch_size,prefetch", [(1, 1, 1), (3, 2, 4), (4, 3, 2)])
+def test_prefetch_loader_identical(num_workers, batch_size, prefetch):
+    """Order-preserving batches of transformed rows, the same from both
+    copies, and a worker's exception raised in the consumer."""
+    from llava_align_tpu.framework import data as jdata
+    from llava_align_tpu_torch.framework import data as tdata
+
+    rows = list(range(11))
+    outs = []
+    for m in (jdata, tdata):
+        ds = m.ListDataset(rows, transform=lambda r: (r, r * r))
+        loader = m.PrefetchLoader(ds, batch_size=batch_size, num_workers=num_workers, prefetch=prefetch,
+                                  collate=lambda b: [x for x, _ in b])
+        outs.append((len(ds), ds[4], len(loader), list(loader)))
+
+        def bad(r):
+            if r == 5:
+                raise KeyError(r)
+            return r
+
+        with pytest.raises(KeyError):
+            list(m.PrefetchLoader(m.ListDataset(rows, transform=bad), num_workers=num_workers))
+    assert outs[0] == outs[1]
+    assert [x for b in outs[1][3] for x in b] == rows
+
+
+def _runner_helper_cases(tmp_path):
+    import argparse
+
+    qf = tmp_path / "q.jsonl"
+    qf.write_text("".join(json.dumps({"question_id": i, "text": f"q{i}"}) + ("," if i % 2 else "") + "\n"
+                          for i in range(7)) + "\n")
+    ns = argparse.Namespace(question_file=str(qf), num_chunks=3, chunk_idx=2, temperature=0.0,
+                            max_new_tokens=9, top_k=5, use_dd=True, cd_alpha=0.5, seed=3)
+    return {
+        "split_list": lambda m: [m.split_list(list(range(n)), k) for n in (1, 6, 7) for k in (1, 3, 4)],
+        "get_chunk": lambda m: [m.get_chunk(list(range(6)), 4, k, allow_out_of_range=True) for k in range(5)],
+        "get_chunk_out_of_range": lambda m: m.get_chunk(list(range(6)), 4, 3),
+        "load_questions": lambda m: [m.load_questions(str(qf)), m.load_questions(str(qf), 3, 1)],
+        "load_questions_for": lambda m: m.load_questions_for(ns),
+        "postprocess_answer": lambda m: [m.postprocess_answer(t, s) for t in (" Yes</s> no", "no ###", " x ")
+                                         for s in ("</s>", "###", "")],
+        "make_generation_config": lambda m: [dataclasses.asdict(m.make_generation_config(ns)),
+                                             dataclasses.asdict(m.make_generation_config(
+                                                 ns, use_dd=False, max_new_tokens=1))],
+    }
+
+
+@pytest.mark.parametrize("case", ["split_list", "get_chunk", "get_chunk_out_of_range", "load_questions",
+                                  "load_questions_for", "postprocess_answer", "make_generation_config"])
+def test_runner_helpers_identical(case, tmp_path):
+    outs = []
+    for m in (jcommon, tcommon):
+        try:
+            outs.append(("ok", _runner_helper_cases(tmp_path)[case](m)))
+        except IndexError as e:
+            outs.append(("IndexError", str(e)))
+    assert _same(outs[0], outs[1]), outs
+
+
+def test_answer_file_and_merge_identical(tmp_path):
+    """AnswerFile: fresh write, resume that skips done (id, prompt) keys and
+    tolerates a torn line, append; merge_chunk_files of per-rank parts, and
+    its refusal when a part is missing."""
+    results = []
+    for tag, m in (("j", jcommon), ("t", tcommon)):
+        path = tmp_path / tag / "ans.jsonl"
+        f = m.AnswerFile(str(path))
+        f.write({"question_id": 1, "prompt": "a"})
+        f.write({"question_id": 2, "prompt": "b"})
+        f.close()
+        with open(path, "a") as raw:
+            raw.write('{"question_id": 3, "pro')  # a torn last line
+        f = m.AnswerFile(str(path), resume=True)
+        done = [f.is_done(1), f.is_done(1, "a"), f.is_done(1, "b"), f.is_done(3), f.is_done(2, "b")]
+        f.write({"question_id": 4, "prompt": "c"})
+        f.close()
+        root = tmp_path / tag / "merged.jsonl"
+        for r in range(2):
+            (tmp_path / tag / f"merged.rank{r}-of-2.jsonl").write_text(f"part {r}\n")
+        m.merge_chunk_files(str(root), 2)
+        with pytest.raises(FileNotFoundError):
+            m.merge_chunk_files(str(root), 3)
+        results.append((done, path.read_text(), root.read_text()))
+    assert results[0] == results[1]

@@ -495,6 +495,39 @@ def test_repeat2d_kernel_is_exact(dev):
     assert torch.equal(sp.repeat2d(x, *args), sp.repeat2d_plain(x, *args))
 
 
+# repeat2d's paths, each exact: (source shape, column window start, output
+# shape, row map, column map, window offset)
+REPEAT2D_PATHS = {
+    "float4_tile": ((8, 64), 0, (16, 128), ("tile", 8), ("tile", 16), (0, 4)),
+    "float4_tile_period_past_row": ((6, 40), 0, (5, 32), ("repeat", 2), ("tile", 33), (1, 4)),
+    "float4_repeat_by_one": ((6, 40), 0, (12, 24), ("repeat", 2), ("repeat", 1), (0, 8)),
+    "broadcast_repeat": ((9, 20), 0, (9, 64), ("tile", 9), ("repeat", 4), (0, 3)),
+    "broadcast_repeat_8": ((4, 20), 0, (33, 96), ("repeat", 9), ("repeat", 8), (0, 7)),
+    "scalar_gather_tile": ((7, 20), 0, (7, 24), ("tile", 7), ("tile", 6), (0, 1)),
+    "scalar_gather_repeat": ((7, 20), 0, (14, 24), ("repeat", 2), ("repeat", 3), (0, 2)),
+    "scalar_misaligned_source": ((6, 41), 1, (6, 32), ("tile", 6), ("tile", 16), (0, 0)),
+    "scalar_tail_tile": ((5, 20), 0, (10, 30), ("tile", 5), ("tile", 7), (0, 2)),
+    "scalar_tail_repeat": ((5, 20), 0, (10, 30), ("repeat", 2), ("repeat", 2), (0, 1)),
+    "rows_past_the_grid": ((7, 8), 0, (65535 * 256 + 5, 4), ("tile", 7), ("tile", 4), (0, 4)),
+}
+
+
+@pytest.mark.parametrize("path", list(REPEAT2D_PATHS))
+def test_repeat2d_kernel_each_path_is_exact(dev, path):
+    """The redesigned copy's paths: one float4 of contiguous source elements
+    (tile with n % 4 == 0 or a period past the row, repeat by 1), one load
+    broadcast to four (repeat with n % 4 == 0), one element a thread (any
+    other map, a source not 16-byte aligned, or cols % 4 != 0), and more
+    rows than the grid's 65535 row blocks cover (the row loop strides)."""
+    src_shape, start, shape, rows, cols, offset = REPEAT2D_PATHS[path]
+    g = torch.Generator(device=dev).manual_seed(len(path))
+    x = torch.randn(src_shape, device=dev, generator=g)[:, start:]
+    for scale in (1.0, -0.75):
+        got = sp.repeat2d(x, shape, rows, cols, offset, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sp.repeat2d_plain(x, shape, rows, cols, offset, scale)), (path, scale)
+
+
 def test_stream_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
     p, s = _rowmajor_stack(dev, 2, 64, 512, seed=1, group=True)
     h = torch.zeros((4, 512), dtype=torch.bfloat16, device=dev)
@@ -525,3 +558,54 @@ def test_stream_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
         sp.repeat2d(x.double(), (8, 32), ("repeat", 1), ("tile", 16))
     with pytest.raises(TypeError):  # rows must be contiguous
         sp.repeat2d(x.t(), (16, 8), ("repeat", 1), ("tile", 8))
+
+
+def _to_cpu32(node):
+    if isinstance(node, dict):
+        return {k: _to_cpu32(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to_cpu32(v) for v in node]
+    return node.cpu().float() if node.is_floating_point() else node.cpu()
+
+
+def test_generate_batch_on_card_matches_cpu_fp32(dev):
+    """generate_batch on LLaVA-v1.5-7B at full width cut to 2 decoder / 2
+    vision layers, int8, dual VDD: the first-step fused scores of a batch
+    that mixes images and None, on the card (the kernels, bf16) against the
+    same params in fp32 on the CPU (the plain versions), within 5e-2 of the
+    largest score where both are finite (chip_smoke's bound for bf16 against
+    fp32 over 2 layers); the plausibility cutoff may differ for tokens right
+    at it, on at most 1% of the vocabulary."""
+    import dataclasses
+
+    import numpy as np
+
+    from llava_align_tpu_torch.config import GenerationConfig, LlavaConfig
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.runners.common import MockTokenizer, build_prompt
+    from llava_align_tpu_torch.tokenization import tokenizer_image_token
+    from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
+
+    full = LlavaConfig.llava_v15_7b()
+
+    def cut(dtype=None):
+        text = dataclasses.replace(full.text, num_layers=2, **({"dtype": dtype} if dtype else {}))
+        vision = dataclasses.replace(full.vision, num_layers=3, **({"dtype": dtype} if dtype else {}))
+        return dataclasses.replace(full, text=text, vision=vision)
+
+    params = build_random_llava_params(cut(), quant="int8", device=dev, seed=5)
+    params_cpu = _to_cpu32(params)
+    tok = MockTokenizer()
+    rng = np.random.default_rng(0)
+    batch = [(tokenizer_image_token(build_prompt(f"Is there a {o} in the image?", "llava_v1")[0], tok),
+              rng.integers(0, 256, (3, 336, 336), dtype=np.uint8) if o != "car" else None)
+             for o in ("dog", "car", "dining table")]
+    gen = GenerationConfig(max_new_tokens=1, do_sample=False, use_dd=True, use_dd_unk=True,
+                           cd_alpha=1.0, cd_beta=0.1, eos_token_id=10**9)
+    with torch.inference_mode():
+        got = DecodeEngine(params, cut(), gen).submit_batch(batch)["first_scores"].float().cpu()
+        want = DecodeEngine(params_cpu, cut(torch.float32), gen).submit_batch(batch)["first_scores"]
+    both = torch.isfinite(got) & torch.isfinite(want)
+    assert (torch.isfinite(got) != torch.isfinite(want)).float().mean().item() <= 0.01
+    err = (got[both] - want[both]).abs().max().item() / want[both].abs().max().item()
+    assert err <= 5e-2, err

@@ -1,7 +1,8 @@
 """llava_align_tpu_torch imports, and runs a tiny generate (int8), a tiny
-grouped shared-prefix decode (int4) and every microbenchmark twin (at
-rehearsal size) on the CPU, with jax (and the JAX package) blocked — the
-machine with the card has no jax."""
+lockstep generate_batch, a tiny grouped shared-prefix decode (int4), the
+POPE runner and its scorer on a question file it writes, and every
+microbenchmark twin (at rehearsal size) on the CPU, with jax (and the JAX
+package) blocked — the machine with the card has no jax."""
 
 import os
 import subprocess
@@ -51,6 +52,31 @@ engine4 = DecodeEngine(lm4.params, lm4.cfg, gen)
 outs = engine4.generate_batch_groups([(prompts[0][:p], [ids_[p:] for ids_ in prompts], image)] * 2)
 assert [o.num_generated for o in outs] == [4] * 4, outs
 assert outs[0].token_ids == engine4.generate(prompts[0], image).token_ids
+outs = engine4.generate_batch([(prompts[0], image), (prompts[1], None)])
+assert [o.num_generated for o in outs] == [4, 4], outs
+assert outs[0].token_ids == engine4.generate(prompts[0], image).token_ids
+
+import json, os, tempfile
+from llava_align_tpu_torch.evals.pope import load_jsonl, main as score_main
+from llava_align_tpu_torch.runners import pope
+d = tempfile.mkdtemp()
+qf, af = os.path.join(d, "q_POPE.jsonl"), os.path.join(d, "answers.jsonl")
+with open(qf, "w") as f:
+    for i in range(4):
+        f.write(json.dumps({"question_id": i, "image": f"img_{i // 2}.jpg", "label": ["yes", "no"][i % 2],
+                            "text": f"Is there a {['dog', 'cat'][i % 2]} in the image?"}) + "\n")
+args = pope.build_parser().parse_args([
+    "--model-path", "random:tiny", "--device", "cpu", "--quant", "int8", "--question-file", qf,
+    "--answers-file", af, "--use_dd", "--use_dd_unk", "--max_new_tokens", "3", "--temperature", "0",
+    "--synthetic-images", "--calibrate", "--no-group-by-image", "--batch-size", "2"])
+pope.run(args)
+recs = load_jsonl(af)
+assert [r["question_id"] for r in recs] == [0, 1, 2, 3] and all("none" in r and "unk" in r for r in recs)
+import contextlib, io
+report = io.StringIO()
+with contextlib.redirect_stdout(report):
+    assert score_main([qf, af]) == 0
+assert report.getvalue().startswith("Precision:") and "[none_unk]" in report.getvalue()
 loaded = [m for m, mod in sys.modules.items()
           if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "llava_align_tpu"))]
 assert not loaded, loaded

@@ -1,0 +1,153 @@
+"""The port's POPE runner end to end against the JAX runner: both runners'
+load_model return the same tiny fp32 tree (the JAX one, and its port
+conversion), and every answer record the port writes must equal the JAX
+runner's: text, ids and prompt exactly, the top-k dicts' keys exactly and
+their probabilities (and logits_score) within 1e-5 (fp32 softmaxes of
+logits that differ by ~1e-7). Modes, as tests/test_runner.py runs the JAX
+runner: plain batched, --calibrate, --group-by-image, --group-by-image
+--calibrate (the pipelined submit path), and resume.
+
+Also: the port's scorer entry prints what scripts/pope/score.sh prints on
+the same files, and the runner refuses what the port does not take yet.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import pytest
+
+from llava_align_tpu.config import LlavaConfig as JCfg
+from llava_align_tpu.models import llava as jllava
+from llava_align_tpu.runners import common as jcommon
+from llava_align_tpu.runners import pope as jpope
+from llava_align_tpu_torch.config import LlavaConfig as TCfg
+from llava_align_tpu_torch.evals.pope import load_jsonl
+from llava_align_tpu_torch.runners import common as tcommon
+from llava_align_tpu_torch.runners import pope as tpope
+from llava_align_tpu_torch.utils.jax_params import from_jax_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL = 1e-5
+OBJECTS = ["dog", "car", "person", "chair", "cat", "tree"]
+
+
+@pytest.fixture(scope="module")
+def models():
+    jp = jax.device_get(jllava.init(jax.random.PRNGKey(0), JCfg.tiny(vocab_size=512)))
+    jm = jcommon.LoadedModel(jcommon.MockTokenizer(), jp, JCfg.tiny(vocab_size=512), "random-tiny")
+    tm = tcommon.LoadedModel(tcommon.MockTokenizer(), from_jax_params(jp, device="cpu"),
+                             TCfg.tiny(vocab_size=512), "random-tiny")
+    return jm, tm
+
+
+@pytest.fixture(scope="module")
+def question_file(tmp_path_factory):
+    """POPE-shaped: 2 images x 3 questions, consecutive questions sharing an
+    image; the image files do not exist (--synthetic-images)."""
+    qf = tmp_path_factory.mktemp("pope_port") / "tiny_POPE_questions.json"
+    with open(qf, "w") as f:
+        for i in range(6):
+            f.write(json.dumps({"question_id": i, "image": f"img_{i // 3}.jpg",
+                                "text": f"Is there a {OBJECTS[i]} in the image?",
+                                "label": "yes" if i % 2 == 0 else "no"}) + "\n")
+    return str(qf)
+
+
+def _args(mod, question_file, answers_file, **kw):
+    args = mod.build_parser().parse_args(
+        ["--model-path", "random:tiny", "--question-file", question_file, "--answers-file", answers_file]
+    )
+    args.synthetic_images = True
+    args.max_new_tokens = 4
+    args.temperature = 0.0  # greedy
+    args.verbose = False
+    args.use_dd = args.use_dd_unk = True
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def _run_both(models, monkeypatch, question_file, tmp_path, tag, runs=({},)):
+    """Run the JAX and the port runner on the same question file with each
+    of `runs`' settings in turn (into one answers file each); return both
+    answers files' records."""
+    jm, tm = models
+    monkeypatch.setattr(jpope, "load_model", lambda *a, **k: jm)
+    monkeypatch.setattr(tpope, "load_model", lambda *a, **k: tm)
+    out = {}
+    for name, mod, extra in (("jax", jpope, {}), ("port", tpope, {"device": "cpu"})):
+        path = str(tmp_path / f"{tag}_{name}.jsonl")
+        for kw in runs:
+            mod.run(_args(mod, question_file, path, **extra, **kw))
+        out[name] = load_jsonl(path)
+    return out["jax"], out["port"]
+
+
+def _assert_records_match(got, want):
+    assert len(got) == len(want) and want
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys(), (g.keys(), w.keys())
+        for key in w:
+            if key in ("naive", "none", "unk"):
+                assert g[key].keys() == w[key].keys(), (w["question_id"], key)
+                for tok in w[key]:
+                    assert abs(g[key][tok] - w[key][tok]) <= TOL, (w["question_id"], key, tok)
+            elif key == "logits_score":
+                assert all(abs(a - b) <= TOL for a, b in zip(g[key], w[key]))
+            else:
+                assert g[key] == w[key], (w["question_id"], key)
+
+
+MODES = {
+    "plain_batched": {"group_by_image": False, "batch_size": 4},
+    "calibrate": {"group_by_image": False, "batch_size": 4, "calibrate": True},
+    "group_by_image": {"group_by_image": True},
+    "group_by_image_calibrate": {"group_by_image": True, "calibrate": True},
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_runner_records_equal_jax(models, monkeypatch, question_file, tmp_path, mode):
+    want, got = _run_both(models, monkeypatch, question_file, tmp_path, mode, runs=(MODES[mode],))
+    _assert_records_match(got, want)
+    assert len(got) == 6
+    if MODES[mode].get("calibrate"):
+        assert all("none" in r and "unk" in r for r in got)
+
+
+def test_runner_resume_equals_jax(models, monkeypatch, question_file, tmp_path):
+    """Two questions, then --resume for the rest: the port's file holds the
+    JAX runner's six records, each once."""
+    runs = ({"max_questions": 2}, {"resume": True})
+    want, got = _run_both(models, monkeypatch, question_file, tmp_path, "resume", runs=runs)
+    _assert_records_match(got, want)
+    assert [r["question_id"] for r in got] == list(range(6))
+
+
+def test_scorer_entry_prints_what_score_sh_prints(models, monkeypatch, question_file, tmp_path):
+    """The port's `python -m llava_align_tpu_torch.evals.pope` and
+    scripts/pope/score.sh on the same files: identical output, plain and
+    calibrated reports both."""
+    _, tm = models
+    monkeypatch.setattr(tpope, "load_model", lambda *a, **k: tm)
+    answers = str(tmp_path / "answers.jsonl")
+    tpope.run(_args(tpope, question_file, answers, device="cpu", calibrate=True))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    port = subprocess.run([sys.executable, "-m", "llava_align_tpu_torch.evals.pope", question_file, answers],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    ref = subprocess.run(["bash", os.path.join(REPO, "scripts/pope/score.sh"), question_file, answers],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert ref.returncode == 0 and port.returncode == 0, (ref.stderr[-2000:], port.stderr[-2000:])
+    assert "[none_unk]" in port.stdout and port.stdout.startswith("Precision:")
+    assert port.stdout == ref.stdout
+
+
+def test_runner_refuses_what_is_not_ported(question_file, tmp_path):
+    out = str(tmp_path / "refused.jsonl")
+    for kw, match in (({"dist": "auto"}, "item 13"), ({"image_aspect_ratio": "anyres"}, "item 10"),
+                      ({"quant": "w8a8"}, "w8a8")):
+        with pytest.raises(NotImplementedError, match=match):
+            tpope.run(_args(tpope, question_file, out, device="cpu", **kw))
