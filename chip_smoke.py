@@ -12,11 +12,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      for K4's streaming kernel (its decode rows), and must not serialize the
      wgmma main loop (C7515);
   3. kernels: K1-K4 against their plain PyTorch versions on the card, in
-     bf16, at their main paths' shapes (K1 at 3, 16, 18, 36 and 64 rows,
-     each timed under by_rows, and at the 7B text-branch prefill's rows on
-     the O >= D stacks; K2 at the 7B and the 13B lm_head, each regime, every
-     row count timed under by_path's by_rows, the POPE runner's rows
-     included; K3 at each prefill shape of the model paths, the POPE
+     bf16, at their main paths' shapes (K1 at 3, 12, 16, 18, 24, 36 and 64
+     rows, each timed under by_rows, and at the 7B text-branch prefill's
+     rows on the O >= D stacks; K2 at the 7B and the 13B lm_head, each
+     regime, every row count timed under by_path's by_rows, the POPE
+     runner's rows (VDD and VCD) included; K3 at each prefill shape of the model paths, the POPE
      runner's batch-6 shapes included; K4 in each
      of its regimes, at the grouped path's decode rows (each timed under
      by_rows) and prefill rows, and on both sides of each regime threshold), with
@@ -52,9 +52,28 @@ Phases, each fatal on failure (exit code != 0, no result line):
      scorer (evals.pope) must score each answers file, calibrated report
      included; every shape K3 takes in these runs that phase 3 did not
      check is then checked and timed as phase 3 does;
+  6b. the same runner with VCD (--use_cd, noise step 500, cd_alpha=1,
+     cd_beta=0.1) in the same two layouts on the same file, each with its
+     questions/s beside dual VDD's of the same run; then the MME runner
+     (runners/mme.run, 2 categories x 2 images x 2 questions written here,
+     dual VDD, grouped; category files and score printed; K1, K2, K3 must
+     launch) on that model, and the MMMU runner's command line
+     (runners/mmmu.main, 4 samples written here, multiple choice and open,
+     --calibrate, scored with none_unk and its table printed) on random:7b
+     in bf16 as the runner loads it (K3 must launch); every shape K3 takes
+     in phases 6 and 6b that phase 3 did not check is then checked and
+     timed as phase 3 does;
   7. 7B reference: the same model cut to 2 decoder / 2 vision layers at full
      width, its prefill and decode logits on the card against the same
-     params run in fp32 on the CPU (the kernels' plain versions);
+     params run in fp32 on the CPU (the kernels' plain versions); then a VCD
+     `generate` on that cut, its first-step fused scores on the card
+     against fp32 on the CPU, both given one eps for the noised image;
+  7b. checkpoint: a llava-v1.5-7b-shaped checkpoint dir (2 decoder layers,
+     the whole vision tower, bf16 weights from a seed in two .bin shards
+     under HF key names) written to a temporary dir and loaded onto the card
+     by utils.hf_convert.load_llava_checkpoint (seconds and GB/s printed),
+     every leaf held exactly against its source tensor; then quantized int8
+     and one dual-VDD `generate`, which must launch K1, K2 and K3;
   8. 13B grouped path: LLaVA-v1.5-13B at full width and depth with random
      int4 (group 128) weights, the same decoding, POPE's 6 questions per
      image: one generate_batch_prefix call, one generate_batch_groups call
@@ -226,9 +245,11 @@ def ptxas_spill_stores(build_log: str) -> dict:
     return spills
 
 
-# the 7B decode step, the twins' rows, the grouped decode step (and the POPE
-# runner's at Q = 6), the runner's grouped decode step (2 images), DECODE_MAX_ROWS
-K1_ROWS = (3, 16, 18, 36, 64)
+# the 7B decode step, the VCD runner's decode steps (Q = 6 x 2 ungrouped, 2
+# images x 6 x 2 grouped), the twins' rows, the grouped decode step (and
+# the POPE runner's at Q = 6), the runner's grouped decode step (2 images),
+# DECODE_MAX_ROWS
+K1_ROWS = (3, 12, 16, 18, 24, 36, 64)
 
 
 def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
@@ -300,6 +321,9 @@ def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
         # the POPE runner: image rows, text rows and decode rows at Q = 6,
         # the grouped decode rows at 2 images
         "7b_int8_pope_runner": (LM_HEAD_7B, (6, 12, 18, 36), 18),
+        # the VCD runner: 12 image rows (main, cd) and decode rows at Q = 6,
+        # 24 decode rows grouped at 2 images
+        "7b_int8_vcd_runner": (LM_HEAD_7B, (12, 24), 12),
         "13b_int4_grouped": (LM_HEAD_13B, tuple(grouped_decode_rows) + (65, quant.STREAM_MAX_ROWS),
                              grouped_decode_rows[-1]),
     }
@@ -738,9 +762,7 @@ def phase_main_path(lm) -> dict:
         f"mean prefill+first token {np.mean([s[1] for s in steady]):.4f} s, "
         f"mean decode {np.mean([s[2] for s in steady]):.2f} tok/s; "
         f"peak memory {peak / 2**30:.2f} GiB")
-    dead = [n for n in ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention") if launches[n] <= 0]
-    if dead:
-        raise AssertionError(f"kernels not launched on the 7B path: {dead}")
+    require_launches(launches, ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention"), "the 7B path")
     del engine
     torch.cuda.empty_cache()
     return launches
@@ -748,8 +770,12 @@ def phase_main_path(lm) -> dict:
 
 RUNNER_IMAGES = 2  # images of the runner phase's question file, 6 questions each
 RUNNER_LAYOUTS = {  # runner flags of each run: ungrouped lockstep, then grouped by image
-    "7b_pope_runner_batch": ["--no-group-by-image", "--batch-size", "6"],
-    "7b_pope_runner_grouped": ["--group-by-image"],
+    "batch": ["--no-group-by-image", "--batch-size", "6"],
+    "grouped": ["--group-by-image"],
+}
+RUNNER_MODES = {  # the decoding of each runner phase: dual VDD, then VCD
+    "pope": ["--use_dd", "--use_dd_unk"],
+    "vcd": ["--use_cd", "--noise_step", "500"],
 }
 
 
@@ -782,90 +808,115 @@ def runner_shapes(tokenizer, cfg, bucket: int = 128) -> dict:
     return dict(pad_img=pad(len(ids) - 1 + cfg.num_image_tokens), pad_txt=pad(len(ids)))
 
 
-def phase_runner(lm, root, smi: str) -> tuple:
-    """The POPE runner on the card: run() on the 7B int8 model (its
-    load_model returns `lm`, the tree load_model("random:7b",
-    quant="int8") builds), once per RUNNER_LAYOUTS entry, each with the
-    launch counts reset before it and read after it; then the port's scorer
-    on each answers file. Returns the launches by layout and the set of
-    (q shape, k shape, dtype) K3 took in the runs."""
+class K3Recorder:
+    """Within `with`, the decoder's causal prefill notes each (q shape, k
+    shape, dtype) it sends to K3 in `seen`."""
+
+    def __init__(self):
+        self.seen = set()
+
+    def __enter__(self):
+        from llava_align_tpu_torch.models import llama
+        from llava_align_tpu_torch.ops import attention
+
+        self.causal = causal = llama.causal_attention
+
+        def k3_recording(q, k, v, *, impl="auto"):
+            route = attention.causal_attention_impl(q.shape[3], q.shape[2], k.shape[2], q.dtype)
+            if (route if impl == "auto" else impl) == "pallas":
+                self.seen.add((tuple(q.shape), tuple(k.shape), q.dtype))
+            return causal(q, k, v, impl=impl)
+
+        llama.causal_attention = k3_recording
+        return self
+
+    def __exit__(self, *exc):
+        from llava_align_tpu_torch.models import llama
+
+        llama.causal_attention = self.causal
+        return False
+
+
+def require_launches(launches: dict, names, what: str) -> None:
+    dead = [n for n in names if launches[n] <= 0]
+    if dead:
+        raise AssertionError(f"kernels not launched by {what}: {dead}")
+
+
+def phase_runner(lm, root, smi: str, mode: str) -> tuple:
+    """The POPE runner on the card in one decoding mode (RUNNER_MODES: dual
+    VDD, or VCD): run() on the 7B int8 model (its load_model returns `lm`,
+    the tree load_model("random:7b", quant="int8") builds), once per
+    RUNNER_LAYOUTS entry, each with the launch counts reset before it and
+    read after it; then the port's scorer on each answers file. Returns the
+    launches by layout, the questions/s by layout and the set of (q shape,
+    k shape, dtype) K3 took in the runs."""
     import contextlib
     import io
 
     from llava_align_tpu_torch.evals import pope as pope_eval
-    from llava_align_tpu_torch.models import llama
-    from llava_align_tpu_torch.ops import attention
     from llava_align_tpu_torch.runners import pope
-
-    causal = llama.causal_attention
-    k3_seen = set()
-
-    def k3_recording(q, k, v, *, impl="auto"):
-        """The decoder's causal prefill, noting each shape it sends to K3."""
-        route = attention.causal_attention_impl(q.shape[3], q.shape[2], k.shape[2], q.dtype)
-        if (route if impl == "auto" else impl) == "pallas":
-            k3_seen.add((tuple(q.shape), tuple(k.shape), q.dtype))
-        return causal(q, k, v, impl=impl)
 
     qf, gt = write_pope_files(root)
     n_q = 6 * RUNNER_IMAGES
     load = pope.load_model
     pope.load_model = lambda *a, **k: lm
-    by_layout = {}
+    by_layout, rates, k3 = {}, {}, K3Recorder()
     try:
         for layout, flags in RUNNER_LAYOUTS.items():
-            answers = root / f"{layout}.jsonl"
+            name = f"7b_{mode}_runner_{layout}"
+            answers = root / f"{name}.jsonl"
             args = pope.build_parser().parse_args([
                 "--model-path", "random:7b", "--quant", "int8", "--question-file", str(qf),
-                "--answers-file", str(answers), "--use_dd", "--use_dd_unk", "--cd_alpha", "1",
+                "--answers-file", str(answers), *RUNNER_MODES[mode], "--cd_alpha", "1",
                 "--cd_beta", "0.1", "--max_new_tokens", str(NEW_TOKENS), "--temperature", "0",
                 "--synthetic-images", "--calibrate", *flags])
             reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            llama.causal_attention = k3_recording
-            try:
+            with k3:
                 pope.run(args)
-            finally:
-                llama.causal_attention = causal
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             launches = read_launches()
             recs = pope_eval.load_jsonl(str(answers))
-            log(f"POPE runner {layout} ({' '.join(flags)}) on {smi}: {n_q} questions in {secs:.4f} s, "
-                f"{n_q / secs:.4f} questions/s; launches {launches}")
+            rates[layout] = n_q / secs
+            log(f"POPE runner {name} ({' '.join(RUNNER_MODES[mode] + flags)}) on {smi}: {n_q} questions in "
+                f"{secs:.4f} s, {n_q / secs:.4f} questions/s; launches {launches}")
+            log(f"  launches of K1 {launches['int8_matmul_stacked']}, K2 {launches['int8_matmul_cuda']}, "
+                f"K3 {launches['flash_attention']}")
             log(f"  answers: {[r['text'] for r in recs]}")
             if [r["question_id"] for r in recs] != list(range(n_q)):
-                raise AssertionError(f"{layout}: answers for {[r['question_id'] for r in recs]}")
+                raise AssertionError(f"{name}: answers for {[r['question_id'] for r in recs]}")
             bad = [r["question_id"] for r in recs
                    if not all(isinstance(r.get(k), dict) and r[k] for k in ("naive", "none", "unk"))]
             if bad:
-                raise AssertionError(f"{layout}: records without naive/none/unk dumps: {bad}")
-            dead = [n for n in ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention") if launches[n] <= 0]
-            if dead:
-                raise AssertionError(f"kernels not launched by the POPE runner, {layout}: {dead}")
+                raise AssertionError(f"{name}: records without naive/none/unk dumps: {bad}")
+            require_launches(launches, ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention"),
+                             f"the POPE runner, {name}")
             report = io.StringIO()
             with contextlib.redirect_stdout(report):
                 rc = pope_eval.main([str(gt), str(answers)])
             for line in report.getvalue().splitlines():
                 log(f"  score: {line}")
             if rc != 0 or "[none_unk]" not in report.getvalue():
-                raise AssertionError(f"{layout}: the POPE scorer failed (rc {rc}) or gave no calibrated report")
-            by_layout[layout] = launches
+                raise AssertionError(f"{name}: the POPE scorer failed (rc {rc}) or gave no calibrated report")
+            by_layout[name] = launches
     finally:
         pope.load_model = load
     torch.cuda.empty_cache()
-    return by_layout, k3_seen
+    return by_layout, rates, k3.seen
 
 
 def runner_attn_shapes(k3_seen, checked) -> list:
-    """The [B, S, H, Dh] shapes K3 took in the runner phase that are not in
-    `checked`; each must be one phase_kernel_flash can make (bf16, as many
-    k/v heads as q heads, as LLaVA-v1.5-7B has)."""
+    """The [B, S, H, Dh] shapes K3 took in the runner phases (POPE with VDD
+    and with VCD, MME, MMMU) that are not in `checked`; each must be one
+    phase_kernel_flash can make (bf16, as many k/v heads as q heads, as
+    LLaVA-v1.5-7B has)."""
     new = []
     for q_shape, k_shape, dtype in sorted(k3_seen, key=str):
         if dtype != torch.bfloat16 or k_shape != q_shape:
-            raise AssertionError(f"K3 took q {q_shape} k {k_shape} {dtype} in the runner phase: "
+            raise AssertionError(f"K3 took q {q_shape} k {k_shape} {dtype} in a runner phase: "
                                  "not a shape its check makes")
         if q_shape not in checked and q_shape not in new:
             new.append(q_shape)
@@ -946,6 +997,345 @@ def rel_check(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return err
 
 
+def finite_check(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
+    """First-step fused scores against a reference where both are finite
+    (the plausibility cutoff may differ for tokens right at it, on at most
+    1% of the vocabulary), within REFERENCE_TOL of the largest."""
+    both = torch.isfinite(a) & torch.isfinite(b)
+    differ = (torch.isfinite(a) != torch.isfinite(b)).float().mean().item()
+    log(f"  {what}: {int(both.sum())} scores finite in both, cutoff disagrees on {differ:.4%}")
+    if differ > 0.01:
+        raise AssertionError(f"{what}: the plausibility cutoffs disagree on {differ:.2%} of the vocab")
+    return rel_check(a[both], b[both], f"{what}: max|diff| / max|ref|")
+
+
+def phase_vcd_reference(dev) -> None:
+    """VCD `generate` (use_cd, cd_alpha 1, cd_beta 0.1, noise step 500) on
+    the full-width 7B model cut to 2 decoder / 2 vision layers, int8: the
+    first-step fused scores on the card against the same params in fp32 on
+    the CPU, both given one eps (numpy, seeded) for the noised image, so
+    the noise is not what differs."""
+    from llava_align_tpu_torch.config import GenerationConfig, LlavaConfig
+    from llava_align_tpu_torch.decoding import engine as engine_mod
+    from llava_align_tpu_torch.ops import noise
+    from llava_align_tpu_torch.runners.common import MockTokenizer
+    from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
+
+    cfg = cut_config(LlavaConfig.llava_v15_7b())
+    cfg32 = cut_config(LlavaConfig.llava_v15_7b(), torch.float32)
+    params = build_random_llava_params(cfg, quant="int8", device=dev, seed=3)
+    params_cpu = to_cpu32(params)
+    ids, image = pope_requests(MockTokenizer(), cfg.vision.image_size)[0]
+    eps = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 3, 336, 336)).astype(np.float32))
+    gen = GenerationConfig(max_new_tokens=1, do_sample=False, use_cd=True, cd_alpha=1.0, cd_beta=0.1,
+                           noise_step=500, eos_token_id=10**9)
+    real = engine_mod.add_diffusion_noise
+    engine_mod.add_diffusion_noise = lambda x, t, generator=None: noise.add_diffusion_noise(x, t, eps=eps)
+    try:
+        with torch.inference_mode():
+            got = engine_mod.DecodeEngine(params, cfg, gen).submit_generate(ids, image)["first_scores"]
+            want = engine_mod.DecodeEngine(params_cpu, cfg32, gen).submit_generate(ids, image)["first_scores"]
+    finally:
+        engine_mod.add_diffusion_noise = real
+    finite_check(got.float().cpu(), want, "7B VCD reference: generate card vs cpu fp32, first-step fused scores")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+
+
+# the published liuhaotian/llava-v1.5-7b config.json, cut to 2 decoder layers
+CKPT_CONFIG = {
+    "architectures": ["LlavaLlamaForCausalLM"], "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu",
+    "hidden_size": 4096, "image_aspect_ratio": "pad", "intermediate_size": 11008, "max_length": 4096,
+    "max_position_embeddings": 4096, "mm_hidden_size": 1024, "mm_projector_type": "mlp2x_gelu",
+    "mm_use_im_patch_token": False, "mm_use_im_start_end": False, "mm_vision_select_feature": "patch",
+    "mm_vision_select_layer": -2, "mm_vision_tower": "openai/clip-vit-large-patch14-336",
+    "model_type": "llava", "num_attention_heads": 32, "num_hidden_layers": 2, "num_key_value_heads": 32,
+    "pad_token_id": 0, "rms_norm_eps": 1e-05, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "vocab_size": 32000,
+}
+CKPT_VISION = "model.vision_tower.vision_tower.vision_model."
+# port leaf -> HF key template (linears of the decoder [out, in] as stored)
+CKPT_LLAMA_LAYERS = {
+    "attn_norm": "input_layernorm", "q": "self_attn.q_proj", "k": "self_attn.k_proj",
+    "v": "self_attn.v_proj", "o": "self_attn.o_proj", "mlp_norm": "post_attention_layernorm",
+    "gate": "mlp.gate_proj", "up": "mlp.up_proj", "down": "mlp.down_proj",
+}
+CKPT_VISION_LINEARS = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+                       "o": "self_attn.out_proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def checkpoint_state_dict(dev, seed: int) -> dict:
+    """An HF-format llava-v1.5-7b state dict with CKPT_CONFIG's 2 decoder
+    layers and the whole ViT-L/336 tower, bf16, on the card, from a seed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D, F, V, L = 4096, 11008, 32000, CKPT_CONFIG["num_hidden_layers"]
+    vD, vF, vL, P, n_pos = 1024, 4096, 24, 14, 577
+
+    def w(*shape, one=False):
+        x = torch.randn(shape, generator=g, device=dev) * 0.02
+        return (x + 1 if one else x).to(torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": w(V, D), "model.norm.weight": w(D, one=True), "lm_head.weight": w(V, D)}
+    shapes = {"q": (D, D), "k": (D, D), "v": (D, D), "o": (D, D), "gate": (F, D), "up": (F, D), "down": (D, F)}
+    for i in range(L):
+        for leaf, name in CKPT_LLAMA_LAYERS.items():
+            key = f"model.layers.{i}.{name}.weight"
+            sd[key] = w(D, one=True) if leaf.endswith("norm") else w(*shapes[leaf])
+    sd[CKPT_VISION + "embeddings.class_embedding"] = w(vD)
+    sd[CKPT_VISION + "embeddings.patch_embedding.weight"] = w(vD, 3, P, P)
+    sd[CKPT_VISION + "embeddings.position_embedding.weight"] = w(n_pos, vD)
+    for name in ("pre_layrnorm", "post_layernorm"):
+        sd[CKPT_VISION + name + ".weight"], sd[CKPT_VISION + name + ".bias"] = w(vD, one=True), w(vD)
+    vshapes = {"q": (vD, vD), "k": (vD, vD), "v": (vD, vD), "o": (vD, vD), "fc1": (vF, vD), "fc2": (vD, vF)}
+    for i in range(vL):
+        p = CKPT_VISION + f"encoder.layers.{i}."
+        for leaf, name in CKPT_VISION_LINEARS.items():
+            sd[p + name + ".weight"], sd[p + name + ".bias"] = w(*vshapes[leaf]), w(vshapes[leaf][0])
+        for name in ("layer_norm1", "layer_norm2"):
+            sd[p + name + ".weight"], sd[p + name + ".bias"] = w(vD, one=True), w(vD)
+    sd["model.mm_projector.0.weight"], sd["model.mm_projector.0.bias"] = w(D, vD), w(D)
+    sd["model.mm_projector.2.weight"], sd["model.mm_projector.2.bias"] = w(D, D), w(D)
+    return sd
+
+
+def checkpoint_leaf_sources(params: dict, sd: dict):
+    """(what, loaded leaf, its source under the HF → port mapping) for
+    every leaf of the tree: decoder stacks per layer, CLIP kernels
+    transposed, the patch conv flattened to [3*P*P, D], projector kernels
+    transposed."""
+    llama, vision = params["llama"], params["vision"]
+    yield "embed", llama["embed"], sd["model.embed_tokens.weight"]
+    yield "final_norm", llama["final_norm"], sd["model.norm.weight"]
+    yield "lm_head", llama["lm_head"], sd["lm_head.weight"]
+    for leaf, name in CKPT_LLAMA_LAYERS.items():
+        for i in range(llama["layers"][leaf].shape[0]):
+            yield f"layers.{leaf}[{i}]", llama["layers"][leaf][i], sd[f"model.layers.{i}.{name}.weight"]
+    conv = sd[CKPT_VISION + "embeddings.patch_embedding.weight"]
+    yield "cls", vision["cls"], sd[CKPT_VISION + "embeddings.class_embedding"]
+    yield "patch_embed", vision["patch_embed"], conv.reshape(conv.shape[0], -1).t()
+    yield "pos_embed", vision["pos_embed"], sd[CKPT_VISION + "embeddings.position_embedding.weight"]
+    for leaf, name in (("pre_ln", "pre_layrnorm"), ("post_ln", "post_layernorm")):
+        yield f"{leaf}.scale", vision[leaf]["scale"], sd[CKPT_VISION + name + ".weight"]
+        yield f"{leaf}.bias", vision[leaf]["bias"], sd[CKPT_VISION + name + ".bias"]
+    layers = vision["layers"]
+    for i in range(layers["q"]["kernel"].shape[0]):
+        p = CKPT_VISION + f"encoder.layers.{i}."
+        for leaf, name in CKPT_VISION_LINEARS.items():
+            yield f"vision.{leaf}.kernel[{i}]", layers[leaf]["kernel"][i], sd[p + name + ".weight"].t()
+            yield f"vision.{leaf}.bias[{i}]", layers[leaf]["bias"][i], sd[p + name + ".bias"]
+        for leaf, name in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            yield f"vision.{leaf}.scale[{i}]", layers[leaf]["scale"][i], sd[p + name + ".weight"]
+            yield f"vision.{leaf}.bias[{i}]", layers[leaf]["bias"][i], sd[p + name + ".bias"]
+    for j, layer in enumerate(params["projector"]["layers"]):
+        yield f"projector[{j}].kernel", layer["kernel"], sd[f"model.mm_projector.{2 * j}.weight"].t()
+        yield f"projector[{j}].bias", layer["bias"], sd[f"model.mm_projector.{2 * j}.bias"]
+
+
+def phase_checkpoint(dev, smi: str) -> dict:
+    """Write a llava-v1.5-7b-shaped checkpoint dir (CKPT_CONFIG: 2 decoder
+    layers, the whole vision tower; weights from a seed, bf16, in two
+    pytorch_model-0000{1,2}-of-00002.bin shards under HF key names) to a
+    temporary dir; load it with utils.hf_convert.load_llava_checkpoint onto
+    the card; hold every leaf exactly against its source tensor; quantize
+    the decoder int8 and run one dual-VDD greedy `generate`, which must
+    launch K1, K2 and K3."""
+    import shutil
+    import tempfile
+
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.ops.quant import quantize_llama_params
+    from llava_align_tpu_torch.runners.common import MockTokenizer
+    from llava_align_tpu_torch.utils import hf_convert
+
+    root = Path(tempfile.mkdtemp(prefix="llava_ckpt_"))
+    try:
+        sd = checkpoint_state_dict(dev, seed=4)
+        n_params = sum(t.numel() for t in sd.values())
+        (root / "config.json").write_text(json.dumps(CKPT_CONFIG))
+        keys = sorted(sd)
+        t0 = time.perf_counter()
+        for n, part in enumerate((keys[: len(keys) // 2], keys[len(keys) // 2:]), 1):
+            torch.save({k: sd[k].cpu() for k in part}, root / f"pytorch_model-{n:05d}-of-00002.bin")
+        log(f"checkpoint: wrote {n_params / 1e9:.3f} G parameters (bf16) as two .bin shards in "
+            f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, cfg = hf_convert.load_llava_checkpoint(str(root), torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in root.glob("pytorch_model-*.bin"))
+        log(f"checkpoint load on {smi}: {nbytes / 1e9:.4f} GB of .bin shards in {secs:.4f} s, "
+            f"{nbytes / secs / 1e9:.4f} GB/s (files just written: read from the page cache)")
+        n_leaf = 0
+        for what, got, want in checkpoint_leaf_sources(params, sd):
+            if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"checkpoint leaf {what}: not its source tensor "
+                                     f"({got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)})")
+            n_leaf += 1
+        log(f"  {n_leaf} leaves (layers counted one by one) equal their source tensors exactly")
+        del sd
+        params = dict(params, llama=quantize_llama_params(params["llama"]))
+        engine = DecodeEngine(params, cfg, dual_vdd_config())
+        ids, image = pope_requests(MockTokenizer(), cfg.vision.image_size)[0]
+        reset_launches()
+        out = engine.generate(ids, image)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check_output(out, cfg.text.vocab_size, "checkpoint generate")
+        log(f"  int8 dual-VDD generate on the loaded checkpoint: tokens {out.token_ids}, "
+            f"{out.seconds_total:.4f} s; launches {launches}")
+        require_launches(launches, ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention"),
+                         "generate on the loaded checkpoint")
+        del engine, params
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+MME_CATEGORIES = {"existence": True, "count": False}  # category -> images/ + questions_answers_YN/ layout
+
+
+def write_mme_files(root) -> tuple:
+    """An MME question file (2 categories x 2 images x MME's 2 questions,
+    the image files absent) and its MME_Benchmark-shaped ground truth."""
+    from llava_align_tpu_torch.runners.common import POPE_OBJECTS
+
+    data = root / "MME_Benchmark"
+    lines = []
+    for ci, (cat, nested) in enumerate(MME_CATEGORIES.items()):
+        qa_dir = data / cat / "questions_answers_YN" if nested else data / cat
+        qa_dir.mkdir(parents=True, exist_ok=True)
+        if nested:
+            (data / cat / "images").mkdir(exist_ok=True)
+        for i in range(2):
+            name = f"{ci * 2 + i:06d}.png"
+            qs = [f"Is there a {POPE_OBJECTS[ci * 2 + i + j]} in this image? Please answer yes or no."
+                  for j in range(2)]
+            (qa_dir / name.replace(".png", ".txt")).write_text(f"{qs[0]}\tYes\n{qs[1]}\tNo\n")
+            lines += [{"question_id": f"{cat}/{name}", "image": f"{cat}/{name}", "text": q, "category": cat}
+                      for q in qs]
+    qf = root / "llava_mme.jsonl"
+    qf.write_text("".join(json.dumps(l) + "\n" for l in lines))
+    return qf, data, len(lines)
+
+
+def phase_mme(lm, root, smi: str) -> tuple:
+    """The MME runner (runners/mme.run: the POPE runner without the one-word
+    suffix, then the category files and the score) on the 7B int8 model,
+    dual VDD, greedy, 8 new tokens, grouped by image (MME's 2 questions per
+    image); K1, K2 and K3 must launch."""
+    import contextlib
+    import io
+
+    from llava_align_tpu_torch.evals.pope import load_jsonl
+    from llava_align_tpu_torch.runners import mme, pope
+
+    root.mkdir(parents=True, exist_ok=True)
+    qf, data, n_q = write_mme_files(root)
+    answers = root / "mme_answers.jsonl"
+    args = mme.build_parser().parse_args([
+        "--model-path", "random:7b", "--quant", "int8", "--question-file", str(qf), "--answers-file",
+        str(answers), "--mme-data-root", str(data), "--use_dd", "--use_dd_unk", "--cd_alpha", "1",
+        "--cd_beta", "0.1", "--max_new_tokens", str(NEW_TOKENS), "--temperature", "0", "--synthetic-images"])
+    load = pope.load_model
+    pope.load_model = lambda *a, **k: lm
+    k3, printed = K3Recorder(), io.StringIO()
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with k3, contextlib.redirect_stdout(printed):
+            report = mme.run(args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        pope.load_model = load
+    launches = read_launches()
+    recs = load_jsonl(str(answers))
+    log(f"MME runner (7B int8, dual VDD, grouped by image) on {smi}: {n_q} questions in {secs:.4f} s, "
+        f"{n_q / secs:.4f} questions/s; launches {launches}")
+    log(f"  answers: {[r['text'] for r in recs]}")
+    for line in printed.getvalue().splitlines():
+        log(f"  score: {line}")
+    if len(recs) != n_q or sorted(report.get("Perception", {}).get("tasks", {})) != sorted(MME_CATEGORIES):
+        raise AssertionError(f"MME: {len(recs)} answers, report {report}")
+    require_launches(launches, ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention"), "the MME runner")
+    torch.cuda.empty_cache()
+    return launches, k3.seen
+
+
+MMMU_SAMPLES = [
+    {"id": "validation_Math_1", "subject": "Math", "question_type": "multiple-choice", "answer": "B",
+     "all_choices": ["A", "B", "C", "D"], "index2ans": {"A": "1", "B": "2", "C": "3", "D": "4"},
+     "final_input_prompt": "<image 1> How many dots are there?\n(A) 1\n(B) 2\n(C) 3\n(D) 4\n"
+                           "Answer with the option's letter from the given choices directly.", "image": "m1.png"},
+    {"id": "validation_Math_2", "subject": "Math", "question_type": "open", "answer": "42",
+     "final_input_prompt": "<image 1> What is six times seven?\nAnswer the question using a single word "
+                           "or phrase.", "image": "m2.png"},
+    {"id": "validation_Art_1", "subject": "Art", "question_type": "multiple-choice", "answer": "C",
+     "all_choices": ["A", "B", "C"], "index2ans": {"A": "oil", "B": "ink", "C": "tempera"},
+     "final_input_prompt": "<image 1> Which medium was used?\n(A) oil\n(B) ink\n(C) tempera\n"
+                           "Answer with the option's letter from the given choices directly.", "image": "a1.png"},
+    {"id": "validation_Art_2", "subject": "Art", "question_type": "open", "answer": ["blue", "azure"],
+     "final_input_prompt": "<image 1> What colour is the sky?\nAnswer the question using a single word "
+                           "or phrase.", "image": "a2.png"},
+]
+
+
+def phase_mmmu(dev, root, smi: str) -> tuple:
+    """The MMMU runner's command line (runners/mmmu.main: run, then score
+    with the none_unk setting and print the table) on random:7b, which it
+    loads with no quant (bf16: the linears are torch.matmul, the attention
+    K3), 4 samples written here (multiple choice and open), dual VDD,
+    greedy, 8 new tokens, --calibrate; K3 must launch."""
+    import contextlib
+    import io
+
+    from llava_align_tpu_torch.evals.pope import load_jsonl
+    from llava_align_tpu_torch.runners import mmmu
+    from llava_align_tpu_torch.runners.common import load_model
+
+    root.mkdir(parents=True, exist_ok=True)
+    qf, answers = root / "mmmu_val.jsonl", root / "mmmu_answers.jsonl"
+    qf.write_text("".join(json.dumps(x) + "\n" for x in MMMU_SAMPLES))
+    t0 = time.perf_counter()
+    lm = load_model("random:7b", device=dev)  # what the runner's load_model(args.model_path) builds
+    torch.cuda.synchronize()
+    log(f"MMMU runner: built random LLaVA-v1.5-7B bf16 in {time.perf_counter() - t0:.2f} s")
+    load = mmmu.load_model
+    mmmu.load_model = lambda *a, **k: lm
+    k3, printed = K3Recorder(), io.StringIO()
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with k3, contextlib.redirect_stdout(printed):
+            rc = mmmu.main(["--model-path", "random:7b", "--question-file", str(qf), "--answers-file",
+                            str(answers), "--use_dd", "--use_dd_unk", "--cd_alpha", "1", "--cd_beta", "0.1",
+                            "--max_new_tokens", str(NEW_TOKENS), "--temperature", "0", "--synthetic-images",
+                            "--calibrate", "--score-setting", "none_unk", "--print-table"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        mmmu.load_model = load
+    launches = read_launches()
+    recs = load_jsonl(str(answers))
+    n_q = len(MMMU_SAMPLES)
+    log(f"MMMU runner (7B bf16, dual VDD, --calibrate) on {smi}: {n_q} questions in {secs:.4f} s (scoring "
+        f"included), {n_q / secs:.4f} questions/s; launches {launches}")
+    log(f"  answers: {[r['text'] for r in recs]}")
+    for line in printed.getvalue().splitlines():
+        log(f"  score: {line}")
+    probes = [r["question_id"] for r in recs if r["all_choices"] and not (r.get("none") and r.get("unk"))]
+    if rc != 0 or len(recs) != n_q or probes or "Overall" not in printed.getvalue():
+        raise AssertionError(f"MMMU: rc {rc}, {len(recs)} answers, records without probes {probes}")
+    require_launches(launches, ("flash_attention",), "the MMMU runner")
+    del lm
+    torch.cuda.empty_cache()
+    return launches, k3.seen
+
+
 def phase_grouped(dev, shapes) -> dict:
     """LLaVA-v1.5-13B int4, dual-branch VDD, through the grouped entry points."""
     from llava_align_tpu_torch.decoding.engine import DecodeEngine
@@ -1013,9 +1403,8 @@ def phase_grouped(dev, shapes) -> dict:
         f"{steady:.4f} s per call, {GROUPS * 6 / steady:.2f} questions/s; peak memory "
         f"{peak / 2**30:.2f} GiB")
     for what, counts in (("G = 1 call", at_g1), ("G = 4 calls", at_g4)):
-        dead = [n for n in ("int4_matmul_stacked", "int8_matmul_cuda", "flash_attention") if counts[n] <= 0]
-        if dead:
-            raise AssertionError(f"kernels not launched in the 13B grouped path's {what}: {dead}")
+        require_launches(counts, ("int4_matmul_stacked", "int8_matmul_cuda", "flash_attention"),
+                         f"the 13B grouped path's {what}")
     del engine, lm
     torch.cuda.empty_cache()
     return launches
@@ -1046,16 +1435,8 @@ def phase_grouped_reference(dev) -> None:
         single = card.submit_generate(prefix + suffixes[0], image)["first_scores"].float().cpu()
         want = DecodeEngine(params_cpu, cfg32, gen).submit_batch_groups(group)["first_scores"]
 
-    def finite_check(a, b, what):
-        both = torch.isfinite(a) & torch.isfinite(b)
-        differ = (torch.isfinite(a) != torch.isfinite(b)).float().mean().item()
-        log(f"  {what}: {int(both.sum())} scores finite in both, cutoff disagrees on {differ:.4%}")
-        if differ > 0.01:
-            raise AssertionError(f"{what}: the plausibility cutoffs disagree on {differ:.2%} of the vocab")
-        return rel_check(a[both], b[both], f"13B grouped reference {what}: max|diff| / max|ref|")
-
-    finite_check(got, want, "grouped card vs cpu fp32, first-step fused scores")
-    finite_check(got[0], single, "grouped vs generate on the card, question 0")
+    finite_check(got, want, "13B grouped reference: grouped card vs cpu fp32, first-step fused scores")
+    finite_check(got[0], single, "13B grouped reference: grouped vs generate on the card, question 0")
     del params, params_cpu
     torch.cuda.empty_cache()
 
@@ -1088,18 +1469,33 @@ def main() -> int:
     lm = load_7b(dev)
     by_path = {"7b_int8_generate": phase_main_path(lm)}
     torch.cuda.synchronize()
-    runner_launches, k3_seen = phase_runner(lm, Path(__file__).resolve().parent / "build" / "pope_smoke", smi)
+    smoke_dir = Path(__file__).resolve().parent / "build" / "pope_smoke"
+    runner_launches, vdd_rates, k3_seen = phase_runner(lm, smoke_dir, smi, "pope")
     by_path.update(runner_launches)
-    del lm  # the 7B tree goes before the 13B one is built
+    # VCD through the same runner, layouts and question file
+    vcd_launches, vcd_rates, k3_vcd = phase_runner(lm, smoke_dir, smi, "vcd")
+    by_path.update(vcd_launches)
+    for layout in RUNNER_LAYOUTS:
+        log(f"POPE runner {layout} on {smi}: VCD {vcd_rates[layout]:.4f} questions/s, dual VDD "
+            f"{vdd_rates[layout]:.4f} questions/s in this run ({vcd_rates[layout] / vdd_rates[layout]:.3f}x)")
+    by_path["7b_mme_runner"], k3_mme = phase_mme(lm, smoke_dir, smi)
+    del lm  # the 7B int8 tree goes before the bf16 one of the MMMU runner is built
     torch.cuda.empty_cache()
-    new_shapes = runner_attn_shapes(k3_seen, set(attn_shapes))
-    log(f"POPE runner: K3 took {sorted(q for q, _, _ in k3_seen)}; not checked yet: {new_shapes}")
+    by_path["7b_mmmu_runner"], k3_mmmu = phase_mmmu(dev, smoke_dir, smi)
+    seen = k3_seen | k3_vcd | k3_mme | k3_mmmu
+    new_shapes = runner_attn_shapes(seen, set(attn_shapes))
+    log(f"runner phases: K3 took {sorted({q for q, _, _ in seen})} (VCD runs: "
+        f"{sorted({q for q, _, _ in k3_vcd})}); not checked yet: {new_shapes}")
     if new_shapes:
         more = phase_kernel_flash(new_shapes)
         rec["K3"]["by_shape"] += more["by_shape"]
         for k in ("max_abs_err", "max_row_err"):
             rec["K3"][k] = max(rec["K3"][k], more[k])
     phase_reference(dev)
+    torch.cuda.synchronize()
+    phase_vcd_reference(dev)
+    torch.cuda.synchronize()
+    by_path["7b_checkpoint_generate"] = phase_checkpoint(dev, smi)
     torch.cuda.synchronize()
     by_path["13b_int4_grouped"] = phase_grouped(dev, shapes)
     torch.cuda.synchronize()

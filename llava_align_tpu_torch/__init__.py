@@ -7,8 +7,10 @@ Hopper (sm_90a) under csrc/, built with nvcc at first use
 (ops/_kernels.py); each kernel's wrapper runs a plain PyTorch version of the
 same math when its input tensor lies on the CPU.
 
-Ported so far: the LLaVA-v1.5 int8 dual-branch VDD decode path —
-DecodeEngine.generate / submit_generate / collect_generate.
+Ported so far: the LLaVA-v1.5 decode engine (VDD and VCD; generate, the
+lockstep batch and the grouped shared-prefix entry points) on float, int8
+and int4 trees, HF-format checkpoint loading, and the POPE, MME and MMMU
+runners and scorers (ROADMAP.md lists what is still to port).
 """
 
 __version__ = "0.1.0"

@@ -16,12 +16,16 @@ at their 128-bucket, the text-only rows at theirs, into disjoint rows of the
 cache. As in the JAX engine, the contrastive correction applies under greedy
 decoding too.
 
+With use_cd (VCD) the 'cd' branch reads the features of a diffusion-noised
+copy of the image (ops.noise), encoded in the same vision-tower call as the
+clean image: in `generate` its row reads feature source 1, in the lockstep
+batch the noised copies follow the clean ones, and in the grouped path each
+group gets a second shared prefix segment for its noised image.
+
 The decode loops are eager Python loops with one host read per step (the
 sampled tokens, which decide `done`); the JAX engine runs them on device in
 lax.while_loop. Unlike it, the loops skip the forward after the last token.
-Not ported yet: beam search, VCD (use_cd), mesh/act_quant/kv_quant, and in
-`generate` explicit per-branch ids, precomputed image features and anyres
-image stacks.
+Not ported yet: beam search, mesh/act_quant/kv_quant.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from llava_align_tpu_torch.decoding import sampler as S
 from llava_align_tpu_torch.decoding.adapters import LlavaAdapter
 from llava_align_tpu_torch.models import llava as llava_model
 from llava_align_tpu_torch.ops.image import normalize_device, normalize_host
+from llava_align_tpu_torch.ops.noise import add_diffusion_noise
 
 Params = Dict[str, Any]
 
@@ -114,8 +119,6 @@ class DecodeEngine:
         top_scores_k: int = 100,
         device: Optional[torch.device] = None,
     ):
-        if gen.use_cd:
-            raise NotImplementedError("VCD (use_cd) is not ported yet")
         self.params = params
         self.cfg = cfg
         self.gen = gen
@@ -137,8 +140,9 @@ class DecodeEngine:
         has_image: bool,
         branch_ids: Optional[Mapping[str, Sequence[int]]] = None,
         kinds: Optional[Sequence[str]] = None,
+        num_image_tokens: Optional[int] = None,
     ):
-        n_img = self.adapter.num_image_tokens if has_image else 0
+        n_img = (num_image_tokens or self.adapter.num_image_tokens) if has_image else 0
         branch_ids = branch_ids or {}
         per_branch = []
         for kind in (kinds if kinds is not None else self.kinds):
@@ -178,12 +182,15 @@ class DecodeEngine:
 
     def _assemble_images(self, imgs_np, count: int) -> np.ndarray:
         """Per-slot [3,H,W] images (or None) → one [count, 3, H, H] array.
-        Raw uint8 ships only when every present slot is uint8; otherwise
-        uint8 slots are normalized on the host. (The JAX engine's extra rule
-        for VCD's zero placeholders does not arise: VCD is not ported.)"""
+        Raw uint8 ships only when every present slot is uint8 AND no cd run
+        needs a normalized-space zero placeholder (a missing slot's zeros
+        must mean 'zero in normalized space'); otherwise uint8 slots are
+        normalized on the host."""
         H = self.adapter.image_size
-        use_u8 = any(i is not None for i in imgs_np) and all(
-            i is None or i.dtype == np.uint8 for i in imgs_np
+        use_u8 = (
+            any(i is not None for i in imgs_np)
+            and all(i is None or i.dtype == np.uint8 for i in imgs_np)
+            and not (self.gen.use_cd and any(i is None for i in imgs_np))
         )
         dtype = np.uint8 if use_u8 else np.float32
         images = np.zeros((count, 3, H, H), dtype)
@@ -208,13 +215,31 @@ class DecodeEngine:
     # device side
     # ------------------------------------------------------------------
 
-    def _image_features(self, image: np.ndarray) -> torch.Tensor:
-        """[1, N, D] features of the request's [3, H, W] image. uint8 pixels
-        go to the device raw and normalize there."""
-        img = torch.from_numpy(np.ascontiguousarray(image)[None]).to(self.device)
-        return self.adapter.encode_images(
-            self.params, normalize_device(img, self.adapter.vision_dtype)
-        )
+    def _encode(self, images: np.ndarray, generator: torch.Generator) -> torch.Tensor:
+        """[G, 3, H, W] pixels (uint8 raw, normalized on the device, or
+        normalized floats) → [G, N, D] features; with use_cd [2G, N, D]:
+        the clean images' then their diffusion-noised copies', the noise
+        drawn from `generator` in normalized pixel space, in one
+        vision-tower call."""
+        pixels = normalize_device(torch.from_numpy(np.ascontiguousarray(images)).to(self.device),
+                                  self.adapter.vision_dtype)
+        if self.gen.use_cd:
+            noised = add_diffusion_noise(pixels, self.gen.noise_step, generator=generator)
+            pixels = torch.cat([pixels, noised])
+        return self.adapter.encode_images(self.params, pixels)
+
+    def _request_features(self, image: np.ndarray, generator: torch.Generator) -> torch.Tensor:
+        """[n_srcs, N, D] feature sources of one request (row 0 the image,
+        row 1 its noised copy under use_cd): image [3, H, W], or an anyres
+        grid stack [G, 3, H, W] whose G grids' features concatenate into
+        one run of G * num_image_tokens."""
+        images = np.asarray(image)
+        if images.ndim == 3:
+            images = images[None]
+        G = images.shape[0]
+        grid_feats = self._encode(images, generator)
+        D = grid_feats.shape[2]
+        return grid_feats.reshape(grid_feats.shape[0] // G, -1, D)
 
     def _prefill(self, pack, pad: int, feats, cache, row_offset: int):
         """Splice + prefill one row group at its bucket; returns the group's
@@ -247,34 +272,54 @@ class DecodeEngine:
         image: Optional[np.ndarray] = None,
         *,
         generator: Optional[torch.Generator] = None,
+        branch_ids: Optional[Mapping[str, Sequence[int]]] = None,
+        precomputed_feats=None,
     ):
         """Pack on the host, encode, prefill and run the decode loop. The
         tokens end up on the host (the loop reads each one); the first-step
         scores (the warped fused logits, 'first_scores') and their summary
         stay on the device until collect_generate.
 
-        image: pixels [3, H, W] (uint8 raw, or float already normalized) or
-        None. generator: the sampling stream (default: seeded from gen.seed)."""
+        image: pixels [3, H, W] (uint8 raw, or float already normalized), an
+        anyres grid stack [G, 3, H, W] (each grid contributes
+        num_image_tokens features, concatenated), or None. branch_ids:
+        explicit token ids per branch kind. precomputed_feats: [n_srcs, N, D]
+        image features computed outside the engine (row 0 = main, row 1 =
+        cd), in place of the vision tower. generator: the noise and sampling
+        stream (default: seeded from gen.seed)."""
         t0 = time.perf_counter()
         gen, adapter, dev = self.gen, self.adapter, self.device
         n_sentinels = sum(1 for t in input_ids if t == IMAGE_TOKEN_INDEX)
-        has_image = image is not None and n_sentinels > 0
+        has_image = (image is not None or precomputed_feats is not None) and n_sentinels > 0
         if has_image and n_sentinels != 1:
             # a second sentinel would gather past the one image's features
             # (torch faults where JAX clamps)
             raise ValueError(f"one image per request, but the prompt holds {n_sentinels} <image>")
+        n_tok = None
+        if precomputed_feats is not None:
+            n_srcs, n_tok = int(np.shape(precomputed_feats)[0]), int(np.shape(precomputed_feats)[1])
+            if has_image and "cd" in self.kinds and n_srcs < 2:
+                raise ValueError("use_cd reads feature source 1: precomputed_feats needs 2 rows")
+        elif image is not None and np.ndim(image) == 4:
+            n_tok = adapter.num_image_tokens * int(np.shape(image)[0])
 
-        pad_img, *pi = self._pack(input_ids, has_image, kinds=self.img_kinds)
+        pad_img, *pi = self._pack(input_ids, has_image, branch_ids, kinds=self.img_kinds,
+                                  num_image_tokens=n_tok)
         pad_txt, pt = 0, None
         if self.txt_kinds:
-            pad_txt, *pt = self._pack(input_ids, has_image, kinds=self.txt_kinds)
+            pad_txt, *pt = self._pack(input_ids, has_image, branch_ids, kinds=self.txt_kinds,
+                                      num_image_tokens=n_tok)
         nb = len(self.kinds)
         T = gen.max_new_tokens
         cache_len = max(pad_img, pad_txt) + T
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(gen.seed)
 
-        feats = self._image_features(image) if has_image else None
+        feats = None
+        if has_image and precomputed_feats is not None:
+            feats = torch.as_tensor(precomputed_feats).to(dev)
+        elif has_image:
+            feats = self._request_features(image, generator)
         cache = adapter.init_cache(nb, cache_len, device=dev)
         logits = self._prefill(pi, pad_img, feats, cache, 0)
         lengths_host = pi[4].astype(np.int64)
@@ -333,9 +378,14 @@ class DecodeEngine:
         image: Optional[np.ndarray] = None,
         *,
         generator: Optional[torch.Generator] = None,
+        branch_ids: Optional[Mapping[str, Sequence[int]]] = None,
+        precomputed_feats=None,
     ) -> GenerationOutput:
-        """One request, end to end: submit_generate then collect_generate."""
-        return self.collect_generate(self.submit_generate(input_ids, image, generator=generator))
+        """One request, end to end: submit_generate then collect_generate
+        (which see for the inputs)."""
+        return self.collect_generate(self.submit_generate(
+            input_ids, image, generator=generator, branch_ids=branch_ids,
+            precomputed_feats=precomputed_feats))
 
     # ------------------------------------------------------------------
     # lockstep multi-question generation (unshared prompts)
@@ -347,10 +397,12 @@ class DecodeEngine:
         *,
         generator: Optional[torch.Generator] = None,
     ) -> List[GenerationOutput]:
-        """batch: list of (input_ids, image), image [3, H, W] or None. All
-        questions decode in lockstep on a [Q * nb] packed batch axis, and
-        each stops on its own done flag (EOS, a stop keyword, or
-        max_new_tokens); a finished question's later tokens are pad.
+        """batch: list of (input_ids, image), image [3, H, W] or None (with
+        use_cd, a question without an image has a cd row without image
+        positions). All questions decode in lockstep on a [Q * nb] packed
+        batch axis, and each stops on its own done flag (EOS, a stop
+        keyword, or max_new_tokens); a finished question's later tokens are
+        pad.
 
         Prefill is split-bucket, as in `generate`: the Q * n_img
         image-bearing rows prefill at the image bucket, the Q * n_txt
@@ -376,24 +428,33 @@ class DecodeEngine:
         Q = len(batch)
         if Q == 0:
             return []
-        img_packs, txt_packs, imgs_np = [], [], []
-        feats_src = np.full((Q * len(self.img_kinds),), -1, np.int32)
+        img_packs, txt_packs, slots, present = [], [], [], []
         for qi, (input_ids, image) in enumerate(batch):
             n_sentinels = sum(1 for t in input_ids if t == IMAGE_TOKEN_INDEX)
             has_image = image is not None and n_sentinels > 0
             if has_image and n_sentinels != 1:
                 raise ValueError(f"one image per question, but question {qi} holds {n_sentinels} <image>")
-            if has_image and np.asarray(image).ndim != 3:
-                raise ValueError(f"question {qi}: images are [3, H, W]; anyres stacks are not ported")
+            if image is not None and np.asarray(image).ndim != 3:
+                raise ValueError(f"question {qi}: images are [3, H, W]; decode anyres stacks "
+                                 "through engine.generate")
             img_packs.append(self._pack(input_ids, has_image, kinds=self.img_kinds))
             if self.txt_kinds:
                 txt_packs.append(self._pack(input_ids, has_image, kinds=self.txt_kinds))
-            if has_image:  # only the images a row takes are encoded
-                feats_src[qi * len(self.img_kinds) + self.img_kinds.index("main")] = len(imgs_np)
-                imgs_np.append(np.asarray(image))
+            slots.append(np.asarray(image) if image is not None else None)
+            if has_image:
+                present.append(qi)
+        # only the images a row takes are encoded: the main rows read the
+        # clean images in question order, the cd rows their noised copies,
+        # which follow them
+        n_img, P = len(self.img_kinds), len(present)
+        feats_src = np.full((Q * n_img,), -1, np.int32)
+        for k, qi in enumerate(present):
+            for i, kind in enumerate(self.img_kinds):
+                feats_src[qi * n_img + i] = k if kind == "main" else P + k
         pack_img = _stack_packs(img_packs)[:5] + (feats_src,)
         pack_txt = _stack_packs(txt_packs) if txt_packs else None
-        images = self._assemble_images(imgs_np, len(imgs_np)) if imgs_np else None
+        # every slot decides whether uint8 ships raw (the JAX engine's rule)
+        images = self._assemble_images(slots, Q)[present] if present else None
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(self.gen.seed)
         out = self._run_batch(Q, pack_img, pack_txt, images, generator)
@@ -425,10 +486,7 @@ class DecodeEngine:
         # cache row -> question, to broadcast each sampled token to its rows
         row_to_q = np.concatenate([np.repeat(np.arange(Q), n_img), np.repeat(np.arange(Q), n_txt)])
 
-        feats = None
-        if images is not None:
-            img = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
-            feats = adapter.encode_images(params, normalize_device(img, adapter.vision_dtype))
+        feats = self._encode(images, generator) if images is not None else None
         cache = adapter.init_cache(Q * nb, cache_len, device=dev)
         logits = self._prefill(pack_img, pad_img, feats, cache, 0)
         lengths_host = pack_img[4].astype(np.int64)
@@ -560,6 +618,11 @@ class DecodeEngine:
         dispatch): submitting call g+1 before collecting call g keeps the
         runner's call order but overlaps nothing here."""
         t0 = time.perf_counter()
+        if self.gen.use_cd and any(len(g) < 3 or g[2] is None for g in groups):
+            raise ValueError(
+                "use_cd groups need an image (the noised prefix segment); "
+                "use generate_batch for image-less cd prompts"
+            )
         if not getattr(self.adapter, "supports_shared_prefix", False):
             raise ValueError(f"adapter {self.adapter.name!r} has no shared-prefix forward")
         G = len(groups)
@@ -653,12 +716,14 @@ class DecodeEngine:
                     pack_tp, pack_txt, images, generator):
         """The device side of submit_batch_groups: encode, the three
         prefills, and the decode loop over the row layout
-        [G segment blocks of Qg image rows | G*n_sh blocks of Qg shared-text
-        rows | M*n_pl plain text rows (question-major)]."""
+        [G*n_img segment blocks of Qg image rows | G*n_sh blocks of Qg
+        shared-text rows | M*n_pl plain text rows (question-major)]. With
+        use_cd (n_img = 2) each group's noised image has its own prefix
+        segment: segments [g0 clean, g0 noised, g1 clean, ...]."""
         gen, adapter, params, dev = self.gen, self.adapter, self.params, self.device
         nb = len(self.kinds)
         n_sh, n_pl = len(sh_kinds), len(pl_kinds)
-        n_img = len(self.img_kinds)  # 1: VCD's noised segment is not ported
+        n_img = len(self.img_kinds)
         M = G * Qg
         M2, Msh = M * n_img, M * n_sh
         T = gen.max_new_tokens
@@ -699,11 +764,13 @@ class DecodeEngine:
             )
             return hidden, lengths
 
-        # ---- vision, then the shared prefix segments: G image rows
-        feats = adapter.encode_images(params, normalize_device(put(images), adapter.vision_dtype))
-        D = feats.shape[2]
+        # ---- vision ([clean; noised] under use_cd, into segment order),
+        # then the shared prefix segments: G * n_img rows
+        feats = self._encode(images, generator)
+        N, D = feats.shape[1], feats.shape[2]
+        feats = feats.reshape(n_img, G, N, D).transpose(0, 1).reshape(G * n_img, N, D)
         p_cache = adapter.init_cache(G * n_img, pack_prefix[1].shape[1], device=dev)
-        prefill(pack_prefix, feats, p_cache)
+        prefill(tuple(np.repeat(a, n_img, axis=0) for a in pack_prefix), feats, p_cache)
         shared = {"k": p_cache["k"], "v": p_cache["v"]}  # [L, G, P, K, Dh]
         sh_len_suf = np.repeat(np.repeat(pack_prefix[4], n_img), Qg)  # [M2]
         # ...and the shared text-branch segments: G * n_sh rows, own bucket

@@ -1,12 +1,11 @@
 """Runner plumbing for the port: copies of llava_align_tpu/runners/common.py
 (dataset chunking, question loading, the resumable jsonl AnswerFile and its
 per-rank merge, build_prompt, postprocess_answer, load_image_tensor,
-make_generation_config, MockTokenizer and load_model's random:* models),
-and pope_groups, POPE-style traffic split as the grouped entry points take
-it.
+make_generation_config, MockTokenizer and load_model: random:* models and
+HF-format checkpoint dirs), and pope_groups, POPE-style traffic split as
+the grouped entry points take it.
 
-Loading real checkpoints (hf_convert) and --dist auto (jax.distributed in
-the JAX package) are not ported yet.
+--dist auto (jax.distributed in the JAX package) is not ported yet.
 """
 
 from __future__ import annotations
@@ -302,25 +301,61 @@ class LoadedModel:
 
 def load_model(model_path: str, quant: str = "none", device=None, seed: int = 0) -> LoadedModel:
     """'random:tiny' | 'random:7b' | 'random:13b': a random-weight model at
-    that config's shapes with the mock tokenizer, built on `device` (default:
-    the GPU; raises without one unless device="cpu" is asked for).
-    For 7b and 13b, quant='int8' or 'int4' builds the quantized, fused tree
-    directly (quantizing beside a live bf16 tree would double the peak);
-    random:tiny stays in float whatever `quant` says, as in the JAX package,
-    and its caller quantizes it (ops.quant.quantize_llama_params)."""
-    if not model_path.startswith("random:"):
-        raise NotImplementedError("checkpoint loading (hf_convert) is not ported yet")
-    size = model_path.split(":", 1)[1]
-    if size == "tiny":
-        cfg = LlavaConfig.tiny(vocab_size=512)
-    elif size == "7b":
-        cfg = LlavaConfig.llava_v15_7b()
-    elif size == "13b":
-        cfg = LlavaConfig.llava_v15_13b()
-    else:
-        raise ValueError(size)
-    from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
+    that config's shapes with the mock tokenizer; anything else: an
+    HF-format llava-v1.5 checkpoint dir (utils.hf_convert, in bf16) with
+    its tokenizer (transformers' AutoTokenizer, slow then fast, as in the
+    JAX package). Built on `device` (default: the GPU; raises without one
+    unless device="cpu" is asked for).
+    quant='int8' or 'int4' quantizes the decoder (ops.quant
+    .quantize_llama_params, fused); for 7b and 13b the quantized, fused
+    tree is built directly (quantizing beside a live bf16 tree would double
+    the peak). random:tiny stays in float whatever `quant` says, as in the
+    JAX package, and its caller quantizes it."""
+    if model_path.startswith("random:"):
+        size = model_path.split(":", 1)[1]
+        if size == "tiny":
+            cfg = LlavaConfig.tiny(vocab_size=512)
+        elif size == "7b":
+            cfg = LlavaConfig.llava_v15_7b()
+        elif size == "13b":
+            cfg = LlavaConfig.llava_v15_13b()
+        else:
+            raise ValueError(size)
+        from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
 
-    params = build_random_llava_params(cfg, quant="none" if size == "tiny" else quant,
-                                       device=device, seed=seed)
-    return LoadedModel(MockTokenizer(), params, cfg, f"random-{size}")
+        params = build_random_llava_params(cfg, quant="none" if size == "tiny" else quant,
+                                           device=device, seed=seed)
+        return LoadedModel(MockTokenizer(), params, cfg, f"random-{size}")
+
+    import torch
+
+    from llava_align_tpu_torch.tokenization import get_model_name_from_path
+    from llava_align_tpu_torch.utils.hf_convert import load_llava_checkpoint
+
+    path = os.path.expanduser(model_path)
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"no checkpoint dir at {path}")
+    tokenizer = _load_tokenizer(path)
+    params, cfg = load_llava_checkpoint(path, torch.bfloat16, device=device)
+    if quant in ("int8", "int4"):
+        from llava_align_tpu_torch.ops.quant import quantize_llama_params
+
+        params = dict(params, llama=quantize_llama_params(params["llama"], bits=4 if quant == "int4" else 8))
+    elif quant != "none":
+        raise NotImplementedError(f"quant={quant!r}: only none/int8/int4 are ported")
+    return LoadedModel(tokenizer, params, cfg, get_model_name_from_path(model_path))
+
+
+def _load_tokenizer(path: str):
+    """The checkpoint's tokenizer: AutoTokenizer, slow (sentencepiece) when
+    it loads, fast otherwise, as the JAX package's load_model does."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            "loading a checkpoint's tokenizer needs the transformers package, which is not "
+            "installed; random:* models use the mock tokenizer") from e
+    try:
+        return AutoTokenizer.from_pretrained(path, use_fast=False)
+    except (OSError, ValueError, ImportError):  # no slow tokenizer files, class or sentencepiece
+        return AutoTokenizer.from_pretrained(path, use_fast=True)

@@ -1,4 +1,4 @@
-"""POPE answer-generation runner (VDD + Post-Hoc logit dumping), the port of
+"""POPE answer-generation runner (VDD/VCD + Post-Hoc logit dumping), the port of
 llava_align_tpu/runners/pope.py with the same knobs and the same jsonl
 records.
 
@@ -6,17 +6,21 @@ Capability parity: experiments/eval/llava_naive.py (plain answers) and
 experiments/eval/calibrate/llava_calibrate.py (answers + naive/none/unk top-k
 dicts for Post-Hoc calibration).
 
-Example (the GPU unless --device cpu is given; random:{tiny,7b,13b} build a
-random-weight model with the mock tokenizer, --synthetic-images stands in
-noise for missing image files):
+Example (the GPU unless --device cpu is given; --model-path is an HF-format
+llava-v1.5 checkpoint dir, whose tokenizer needs transformers, or
+random:{tiny,7b,13b}, a random-weight model with the mock tokenizer;
+--synthetic-images stands in noise for missing image files):
 
     python -m llava_align_tpu_torch.runners.pope --model-path random:7b \\
         --quant int8 --question-file questions.jsonl --answers-file answers.jsonl \\
         --use_dd --use_dd_unk --cd_alpha 1 --cd_beta 0.1 --calibrate --synthetic-images
     python -m llava_align_tpu_torch.evals.pope questions.jsonl answers.jsonl
 
-Not ported yet, and refused: --dist auto (use --num-chunks/--chunk-idx),
---image-aspect-ratio anyres, --use_cd, --quant w8a8, checkpoint directories.
+Routing as in the JAX runner: with --use_cd a group whose first question
+has no image leaves the shared-prefix path (it has no noised prefix
+segment), and anyres grid stacks decode one question at a time through
+`generate`. Not ported yet, and refused: --dist auto (use
+--num-chunks/--chunk-idx), --quant w8a8.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import argparse
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from llava_align_tpu_torch.calibrate.posthoc import calibrate_label_dict, get_prob_from_logits
@@ -86,10 +91,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--dist auto (multi-process sharding) is not ported yet (ROADMAP Queue 1 item 13); "
             "shard with --num-chunks/--chunk-idx")
-    if args.image_aspect_ratio == "anyres":
-        raise NotImplementedError(
-            "--image-aspect-ratio anyres: the port's engine does not take anyres image stacks yet "
-            "(ROADMAP Queue 1 item 10)")
     if args.quant == "w8a8":
         raise NotImplementedError("--quant w8a8 (activation quantization) is not ported yet")
 
@@ -98,12 +99,11 @@ def run(args) -> str:
     """Answer the question file into args.answers_file; returns its path."""
     _refuse_unported(args)
     device = torch.device(args.device) if args.device else None
-    # random:{7b,13b} + quant build the quantized tree directly; random:tiny
-    # loads in float and is quantized here, as in the JAX runner
+    # load_model quantizes checkpoints and builds random:{7b,13b} quantized;
+    # random:tiny loads in float and is quantized here, as in the JAX runner
     model = load_model(args.model_path, quant=args.quant, device=device)
     tokenizer, params, cfg = model.tokenizer, model.params, model.cfg
-    already_quant = args.model_path.startswith("random:") and not args.model_path.endswith(":tiny")
-    if args.quant in ("int8", "int4") and not already_quant:
+    if args.quant in ("int8", "int4") and args.model_path == "random:tiny":
         from llava_align_tpu_torch.ops.quant import quantize_llama_params
 
         params = dict(params, llama=quantize_llama_params(
@@ -240,6 +240,10 @@ def run(args) -> str:
 
     def split_prefix(prepped_group):
         (ids0, image0, _), rest = prepped_group
+        if args.use_cd and image0 is None:
+            return None  # cd needs a noised prefix segment
+        if image0 is not None and np.asarray(image0).ndim == 4:
+            return None  # anyres grid stacks decode per question
         ids_list = [ids0] + rest
         p = DecodeEngine.common_token_prefix(ids_list)
         prefix = ids_list[0][:p]
@@ -325,6 +329,9 @@ def run(args) -> str:
                 elif group_by_image and sp is not None:
                     prefix, suffixes, img0 = sp
                     outs.extend(engine.generate_batch_prefix(prefix, suffixes, img0, generator=rng(seed)))
+                elif group_by_image and image0 is not None and np.asarray(image0).ndim == 4:
+                    # anyres grid stacks are per-question engine inputs
+                    outs.extend(engine.generate(ids, image0, generator=rng(seed)) for ids in [ids0] + rest)
                 elif group_by_image:
                     outs.extend(engine.generate_batch([(ids, image0) for ids in [ids0] + rest],
                                                       generator=rng(seed)))

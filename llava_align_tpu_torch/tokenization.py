@@ -1,5 +1,6 @@
 """Tokenizer helpers (copy of llava_align_tpu/tokenization.py, with a torch
-tensor return in place of the jax one).
+tensor return in place of the jax one): tokenizer_image_token,
+get_model_name_from_path, keyword_token_ids.
 
 `tokenizer_image_token` reproduces reference experiments/llava/mm_utils.py:185-204:
 split the prompt on the literal "<image>", tokenize each chunk, and rejoin with
@@ -50,6 +51,17 @@ def tokenizer_image_token(
 
         return torch.tensor(ids, dtype=torch.long)
     raise ValueError(f"Unsupported tensor type: {return_tensors}")
+
+
+def get_model_name_from_path(model_path: str) -> str:
+    """The model's name from its checkpoint path (reference
+    mm_utils.py:207-213): the last path part, prefixed by its parent for a
+    `checkpoint-*` dir."""
+    model_path = model_path.strip("/")
+    parts = model_path.split("/")
+    if parts[-1].startswith("checkpoint-"):
+        return parts[-2] + "_" + parts[-1]
+    return parts[-1]
 
 
 def keyword_token_ids(keywords: Sequence[str], tokenizer) -> List[List[int]]:

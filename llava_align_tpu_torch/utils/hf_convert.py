@@ -1,0 +1,244 @@
+"""HF-format LLaVA checkpoint → the port's param tree (torch twin of the
+LLaVA part of llava_align_tpu/utils/hf_convert.py: convert_llama,
+convert_clip, convert_projector, load_state_dict, config_from_hf,
+load_llava_checkpoint).
+
+The tree is the JAX package's, so that loading a checkpoint here and
+`utils.jax_params.from_jax_params` of the JAX loader's tree give the same
+leaves: LLaMA linears keep torch's [out, in], stacked over layers; CLIP and
+projector kernels are transposed to [in, out]; the patch conv [D, 3, P, P]
+becomes [3*P*P, D]; the lm_head is the embedding table when the checkpoint
+has none.
+
+Weights are read without a copy on the host: `.safetensors` files through
+this module's own reader of the format (no `safetensors` package) and
+`pytorch_model*.bin` shards through torch.load(mmap=True), both as CPU
+tensors over a memory map of the file. Each leaf is built on the target
+device one source tensor at a time, cast straight from the source dtype
+(bf16 included) to the target dtype. The default device is the GPU, as for
+load_model: without one, loading raises unless device="cpu" is asked for.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+import sys
+from typing import Any, Callable, Dict, List, Mapping, Tuple
+
+import torch
+
+from llava_align_tpu_torch.config import ClipVisionConfig, LlamaConfig, LlavaConfig
+from llava_align_tpu_torch.models.projector import num_layers as projector_num_layers
+from llava_align_tpu_torch.utils.synthetic import resolve_device
+
+StateDict = Mapping[str, torch.Tensor]
+
+# safetensors dtype tags → torch dtypes
+SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of one .safetensors file, as CPU tensors over a private
+    read-only memory map of it. The format: an 8-byte little-endian header
+    length n, n bytes of JSON {name: {"dtype", "shape", "data_offsets":
+    [begin, end]}, "__metadata__": {...}}, then the raw little-endian data,
+    the offsets counted from its start. A tensor whose offset is not a
+    multiple of its element size is copied out of the map."""
+    if sys.byteorder != "little":
+        raise RuntimeError("the safetensors reader assumes a little-endian host")
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        if 8 + n > size:
+            raise ValueError(f"{path}: header length {n} past the end of the file")
+        header = json.loads(f.read(n))
+    data = torch.from_file(path, shared=False, size=size, dtype=torch.uint8)[8 + n:]
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which the reader does not take")
+        begin, end = info["data_offsets"]
+        shape = [int(d) for d in info["shape"]]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        numel = 1
+        for d in shape:
+            numel *= d
+        if end - begin != numel * itemsize or end > data.numel():
+            raise ValueError(f"{path}: {name} spans bytes [{begin}, {end}), not {numel} x {itemsize}")
+        raw = data[begin:end]
+        if (8 + n + begin) % itemsize:
+            raw = raw.clone()
+        out[name] = raw.view(dtype).reshape(shape)
+    return out
+
+
+def load_state_dict(model_path: str) -> Dict[str, torch.Tensor]:
+    """All weights under a checkpoint dir (safetensors preferred), as CPU
+    tensors over memory maps of the files, in their stored dtypes."""
+    names = sorted(os.listdir(model_path))
+    st_files = [f for f in names if f.endswith(".safetensors")]
+    sd: Dict[str, torch.Tensor] = {}
+    if st_files:
+        for f in st_files:
+            sd.update(read_safetensors(os.path.join(model_path, f)))
+        return sd
+    bin_files = [f for f in names if f.startswith("pytorch_model") and f.endswith(".bin")]
+    if not bin_files:
+        raise FileNotFoundError(f"no weights found under {model_path}")
+    for f in bin_files:
+        sd.update(torch.load(os.path.join(model_path, f), map_location="cpu", weights_only=True, mmap=True))
+    return sd
+
+
+def config_from_hf(hf_cfg: dict, dtype: torch.dtype = torch.bfloat16) -> LlavaConfig:
+    """LlavaConfig from a llava-v1.5 HF config.json dict (the vision tower
+    is CLIP ViT-L/14-336, as in the JAX package)."""
+    text = LlamaConfig(
+        vocab_size=hf_cfg["vocab_size"],
+        hidden_size=hf_cfg["hidden_size"],
+        intermediate_size=hf_cfg["intermediate_size"],
+        num_layers=hf_cfg["num_hidden_layers"],
+        num_heads=hf_cfg["num_attention_heads"],
+        num_kv_heads=hf_cfg.get("num_key_value_heads", hf_cfg["num_attention_heads"]),
+        head_dim=hf_cfg["hidden_size"] // hf_cfg["num_attention_heads"],
+        rope_theta=hf_cfg.get("rope_theta", 10000.0),
+        rms_norm_eps=hf_cfg.get("rms_norm_eps", 1e-5),
+        max_position_embeddings=hf_cfg.get("max_position_embeddings", 4096),
+        dtype=dtype,
+    )
+    vision = ClipVisionConfig(
+        select_layer=hf_cfg.get("mm_vision_select_layer", -2),
+        select_feature=hf_cfg.get("mm_vision_select_feature", "patch"),
+        dtype=dtype,
+    )
+    return LlavaConfig(
+        text=text,
+        vision=vision,
+        mm_projector_type=hf_cfg.get("mm_projector_type", "linear"),
+        image_aspect_ratio=hf_cfg.get("image_aspect_ratio", "pad"),
+        image_grid_pinpoints=hf_cfg.get("image_grid_pinpoints"),
+        mm_use_im_start_end=hf_cfg.get("mm_use_im_start_end", False),
+        mm_use_im_patch_token=hf_cfg.get("mm_use_im_patch_token", False),
+    )
+
+
+def _stack(sd: StateDict, template: str, num_layers: int, dtype, device,
+           transform: Callable[[torch.Tensor], torch.Tensor] = lambda w: w) -> torch.Tensor:
+    """[L, ...] from the per-layer tensors, filled on `device` one layer
+    at a time."""
+    first = transform(sd[template.format(i=0)])
+    out = torch.empty((num_layers,) + tuple(first.shape), dtype=dtype, device=device)
+    for i in range(num_layers):
+        out[i].copy_(transform(sd[template.format(i=i)]))
+    return out
+
+
+def convert_llama(sd: StateDict, cfg: LlamaConfig, prefix: str = "", device=None) -> Dict[str, Any]:
+    """HF LlamaForCausalLM state dict → the llama tree (linears [L, out, in])."""
+    device = resolve_device(device)
+    p, dt, L = prefix, cfg.dtype, cfg.num_layers
+
+    def st(template):
+        return _stack(sd, p + template, L, dt, device)
+
+    embed = sd[p + "model.embed_tokens.weight"]
+    lm_head = sd.get(p + "lm_head.weight", embed)  # tied embeddings when absent
+    return {
+        "embed": embed.to(device, dt),
+        "layers": {
+            "attn_norm": st("model.layers.{i}.input_layernorm.weight"),
+            "q": st("model.layers.{i}.self_attn.q_proj.weight"),
+            "k": st("model.layers.{i}.self_attn.k_proj.weight"),
+            "v": st("model.layers.{i}.self_attn.v_proj.weight"),
+            "o": st("model.layers.{i}.self_attn.o_proj.weight"),
+            "mlp_norm": st("model.layers.{i}.post_attention_layernorm.weight"),
+            "gate": st("model.layers.{i}.mlp.gate_proj.weight"),
+            "up": st("model.layers.{i}.mlp.up_proj.weight"),
+            "down": st("model.layers.{i}.mlp.down_proj.weight"),
+        },
+        "final_norm": sd[p + "model.norm.weight"].to(device, dt),
+        "lm_head": lm_head.to(device, dt),
+    }
+
+
+def convert_clip(sd: StateDict, cfg: ClipVisionConfig, prefix: str = "vision_model.",
+                 device=None) -> Dict[str, Any]:
+    """HF CLIPVisionModel state dict → the clip_vit tree (kernels [L, in, out])."""
+    device = resolve_device(device)
+    p, dt, L = prefix, cfg.dtype, cfg.num_layers
+
+    def st(template, transform=lambda w: w):
+        return _stack(sd, p + "encoder.layers.{i}." + template, L, dt, device, transform)
+
+    def linear(name):
+        return {"kernel": st(name + ".weight", lambda w: w.t()), "bias": st(name + ".bias")}
+
+    def lnorm(name):
+        return {"scale": st(name + ".weight"), "bias": st(name + ".bias")}
+
+    # conv kernel [D, 3, P, P] → [3*P*P, D] in (C, kh, kw)-major order,
+    # matching models/clip_vit.patchify's flattening
+    conv = sd[p + "embeddings.patch_embedding.weight"]
+    return {
+        "cls": sd[p + "embeddings.class_embedding"].reshape(-1).to(device, dt),
+        "patch_embed": conv.reshape(conv.shape[0], -1).t().to(device, dt).contiguous(),
+        "pos_embed": sd[p + "embeddings.position_embedding.weight"].to(device, dt),
+        "pre_ln": {"scale": sd[p + "pre_layrnorm.weight"].to(device, dt),
+                   "bias": sd[p + "pre_layrnorm.bias"].to(device, dt)},
+        "layers": {
+            "ln1": lnorm("layer_norm1"),
+            "q": linear("self_attn.q_proj"),
+            "k": linear("self_attn.k_proj"),
+            "v": linear("self_attn.v_proj"),
+            "o": linear("self_attn.out_proj"),
+            "ln2": lnorm("layer_norm2"),
+            "fc1": linear("mlp.fc1"),
+            "fc2": linear("mlp.fc2"),
+        },
+        "post_ln": {"scale": sd[p + "post_layernorm.weight"].to(device, dt),
+                    "bias": sd[p + "post_layernorm.bias"].to(device, dt)},
+    }
+
+
+def convert_projector(sd: StateDict, projector_type: str, dtype: torch.dtype,
+                      prefix: str = "model.mm_projector.", device=None) -> Dict[str, Any]:
+    """mm_projector.{0,2,4...}.{weight,bias} (the Sequential's odd indices
+    are its GELUs); a bare Linear for 'linear' without an index."""
+    device = resolve_device(device)
+    n = projector_num_layers(projector_type)
+    layers: List[Dict[str, torch.Tensor]] = []
+    for i in range(n):
+        key_w = f"{prefix}{2 * i}.weight"
+        if key_w not in sd and n == 1:
+            key_w = prefix.rstrip(".") + ".weight"
+        key_b = key_w.replace("weight", "bias")
+        layers.append({"kernel": sd[key_w].t().to(device, dtype).contiguous(), "bias": sd[key_b].to(device, dtype)})
+    return {"layers": layers}
+
+
+def load_llava_checkpoint(model_path: str, dtype: torch.dtype = torch.bfloat16,
+                          device=None) -> Tuple[Dict[str, Any], LlavaConfig]:
+    """liuhaotian/llava-v1.5-* checkpoint dir → (params, cfg), the params
+    built on `device` (the GPU unless another is named)."""
+    device = resolve_device(device)
+    with open(os.path.join(model_path, "config.json")) as f:
+        hf_cfg = json.load(f)
+    cfg = config_from_hf(hf_cfg, dtype)
+    sd = load_state_dict(model_path)
+    params = {
+        "llama": convert_llama(sd, cfg.text, device=device),
+        "vision": convert_clip(sd, cfg.vision, prefix="model.vision_tower.vision_tower.vision_model.",
+                               device=device),
+        "projector": convert_projector(sd, cfg.mm_projector_type, dtype, device=device),
+    }
+    return params, cfg
+

@@ -1,10 +1,14 @@
 """The port's copies of the JAX package's pure-Python pieces must behave
 identically: conversation prompts for every template, plan_splice,
-tokenizer_image_token, MockTokenizer, build_prompt, and the grouped
-engine's host logic (common_token_prefix, _txt_kind_prefix_bases). Exact
-equality."""
+tokenizer_image_token, get_model_name_from_path, MockTokenizer,
+build_prompt, the grouped engine's host logic (common_token_prefix,
+_txt_kind_prefix_bases), and VCD's diffusion schedule; and the verbatim
+copies (evals/mme, evals/mmmu, the schedule) must keep the originals'
+source, the package name aside. Exact equality."""
 
 import dataclasses
+import importlib
+import inspect
 import json
 
 import numpy as np
@@ -368,3 +372,53 @@ def test_answer_file_and_merge_identical(tmp_path):
             m.merge_chunk_files(str(root), 3)
         results.append((done, path.read_text(), root.read_text()))
     assert results[0] == results[1]
+
+
+# ---------------------------------------------------------------------------
+# the VCD / checkpoint / MME / MMMU slice's copies
+# ---------------------------------------------------------------------------
+
+VERBATIM_COPIES = [
+    ("ops.noise", "diffusion_schedule"),
+    *[("evals.mme", n) for n in (
+        "parse_pred_ans", "compute_metric", "score_task_lines", "score_results_dir", "score_sweep_dirs",
+        "calibrated_predictions", "convert_calibrated_answers_to_category_txt",
+        "convert_answers_to_category_txt")],
+    *[("evals.mmmu", n) for n in (
+        "parse_multi_choice_response", "check_is_number", "normalize_str", "extract_numbers",
+        "parse_open_response", "eval_multi_choice", "eval_open", "evaluate", "calculate_ins_level_acc",
+        "calibrate_choice_probs", "choice_label_dict", "sweep_predict", "settings_sweep", "results_table")],
+]
+
+
+@pytest.mark.parametrize("module,name", VERBATIM_COPIES, ids=[f"{m}.{n}" for m, n in VERBATIM_COPIES])
+def test_verbatim_copy_keeps_the_original_source(module, name):
+    """Each copied function's source is the original's, with
+    llava_align_tpu. imports read as llava_align_tpu_torch. ones."""
+    want = inspect.getsource(getattr(importlib.import_module("llava_align_tpu." + module), name))
+    got = inspect.getsource(getattr(importlib.import_module("llava_align_tpu_torch." + module), name))
+    assert got == want.replace("llava_align_tpu.", "llava_align_tpu_torch.")
+
+
+def test_copied_constants_identical():
+    from llava_align_tpu.evals import mme as jmme
+    from llava_align_tpu.evals import mmmu as jmmmu
+    from llava_align_tpu.ops import noise as jnoise
+    from llava_align_tpu_torch.evals import mme as tmme
+    from llava_align_tpu_torch.evals import mmmu as tmmmu
+    from llava_align_tpu_torch.ops import noise as tnoise
+
+    assert tmme.EVAL_TYPE_DICT == jmme.EVAL_TYPE_DICT and tmme.LABEL_MAP == jmme.LABEL_MAP
+    for name in ("SWEEP_SETTINGS", "_SWEEP_COMBOS", "DOMAIN_CAT2SUB_CAT", "CAT_SHORT2LONG"):
+        assert getattr(tmmmu, name) == getattr(jmmmu, name), name
+    # the parsers' random fallback: seeded as in the JAX package
+    assert "\n_rng = random.Random(42)\n" in inspect.getsource(tmmmu)
+    assert "\n_rng = random.Random(42)\n" in inspect.getsource(jmmmu)
+    for got, want in zip(tnoise.diffusion_schedule(), jnoise.diffusion_schedule()):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("path", ["liuhaotian/llava-v1.5-7b", "/ckpt/llava-v1.5-13b/", "llava-v1.5-7b",
+                                  "/runs/llava/checkpoint-1200", "/runs/llava/checkpoint-1200/", "x"])
+def test_get_model_name_from_path_identical(path):
+    assert ttok.get_model_name_from_path(path) == jtok.get_model_name_from_path(path)

@@ -12,7 +12,8 @@ prefill rows, split over D and not; the C regime rule against
 quant.int4_regime), and the kernels of the TPU microbenchmark scripts
 (ops/stream_probes: row-major int4 in both scale modes and bf16, on the
 same streaming kernel, at the same rows, the smallest D each takes and a
-ragged O; repeat2d, which is exact).
+ragged O; repeat2d, which is exact); K3 at the VCD runner's prefill shapes,
+and a VCD `generate` on the card against its plain fp32 run on the CPU.
 This file imports no jax, so on the machine with the card it runs without
 the repository's conftest (which imports jax):
 
@@ -171,6 +172,15 @@ def test_flash_kernel_matches_plain(dev, S, scale, H, K, Dh, B):
     if scale > 1:
         scores = torch.einsum("bqd,bkd->bqk", q[:, :, 0].float(), k[:, :, 0].float()) / Dh**0.5
         assert scores.abs().max().item() > 60
+    _assert_rows_close(attention.flash_attention(q, k, v), attention.flash_attention_plain(q, k, v))
+
+
+# the VCD POPE runner's prefills on LLaVA-v1.5-7B: 6 questions x (main, cd)
+# image rows at the 896 bucket (--no-group-by-image --batch-size 6), and 2
+# groups x (clean, noised) prefix segments at 768 (--group-by-image)
+@pytest.mark.parametrize("B,S", [(12, 896), (4, 768)])
+def test_flash_kernel_vcd_shapes_match_plain(dev, B, S):
+    q, k, v = _qkv(dev, B, S, 32, 32, 128, torch.bfloat16, seed=B + S)
     _assert_rows_close(attention.flash_attention(q, k, v), attention.flash_attention_plain(q, k, v))
 
 
@@ -605,6 +615,50 @@ def test_generate_batch_on_card_matches_cpu_fp32(dev):
     with torch.inference_mode():
         got = DecodeEngine(params, cut(), gen).submit_batch(batch)["first_scores"].float().cpu()
         want = DecodeEngine(params_cpu, cut(torch.float32), gen).submit_batch(batch)["first_scores"]
+    both = torch.isfinite(got) & torch.isfinite(want)
+    assert (torch.isfinite(got) != torch.isfinite(want)).float().mean().item() <= 0.01
+    err = (got[both] - want[both]).abs().max().item() / want[both].abs().max().item()
+    assert err <= 5e-2, err
+
+
+def test_vcd_generate_on_card_matches_cpu_fp32(dev, monkeypatch):
+    """VCD `generate` (use_cd, cd_alpha 1, cd_beta 0.1, noise step 500) on
+    LLaVA-v1.5-7B at full width cut to 2 decoder / 2 vision layers, int8:
+    the first-step fused scores on the card against the same params in
+    fp32 on the CPU, both given one eps (made with numpy) for the noised
+    image, within 5e-2 of the largest score where both are finite; the
+    plausibility cutoff may differ on at most 1% of the vocabulary."""
+    import dataclasses
+
+    import numpy as np
+
+    from llava_align_tpu_torch.config import GenerationConfig, LlavaConfig
+    from llava_align_tpu_torch.decoding import engine as engine_mod
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.ops import noise
+    from llava_align_tpu_torch.runners.common import MockTokenizer, build_prompt
+    from llava_align_tpu_torch.tokenization import tokenizer_image_token
+    from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
+
+    full = LlavaConfig.llava_v15_7b()
+
+    def cut(dtype=None):
+        text = dataclasses.replace(full.text, num_layers=2, **({"dtype": dtype} if dtype else {}))
+        vision = dataclasses.replace(full.vision, num_layers=3, **({"dtype": dtype} if dtype else {}))
+        return dataclasses.replace(full, text=text, vision=vision)
+
+    eps = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 3, 336, 336)).astype(np.float32))
+    monkeypatch.setattr(engine_mod, "add_diffusion_noise",
+                        lambda x, t, generator=None: noise.add_diffusion_noise(x, t, eps=eps))
+    params = build_random_llava_params(cut(), quant="int8", device=dev, seed=6)
+    params_cpu = _to_cpu32(params)
+    ids = tokenizer_image_token(build_prompt("Is there a dog in the image?", "llava_v1")[0], MockTokenizer())
+    image = np.random.default_rng(1).integers(0, 256, (3, 336, 336), dtype=np.uint8)
+    gen = GenerationConfig(max_new_tokens=1, do_sample=False, use_cd=True, cd_alpha=1.0, cd_beta=0.1,
+                           noise_step=500, eos_token_id=10**9)
+    with torch.inference_mode():
+        got = DecodeEngine(params, cut(), gen).submit_generate(ids, image)["first_scores"].float().cpu()
+        want = DecodeEngine(params_cpu, cut(torch.float32), gen).submit_generate(ids, image)["first_scores"]
     both = torch.isfinite(got) & torch.isfinite(want)
     assert (torch.isfinite(got) != torch.isfinite(want)).float().mean().item() <= 0.01
     err = (got[both] - want[both]).abs().max().item() / want[both].abs().max().item()

@@ -170,5 +170,5 @@ def test_batch_refusals_and_empty(trees):
         engine.generate_batch([([1, S, 5, S, 6], image)])
     with pytest.raises(ValueError, match="anyres"):
         engine.generate_batch([([1, S, 5], np.stack([image, image]))])
-    with pytest.raises(NotImplementedError):
-        TEngine(tp, TCFG, _gen(TGen, use_cd=True), bucket=8)
+    # VCD is ported: an engine with use_cd packs a cd row beside main
+    assert TEngine(tp, TCFG, _gen(TGen, use_cd=True), bucket=8).kinds == ["main", "cd"]

@@ -141,8 +141,8 @@ def test_eos_stops_rows_on_their_own(runs, images):
 
 def test_refusals(trees, images):
     """The refusals the JAX tests pin (tests/test_engine_prefix.py): a
-    sentinel in a suffix, and groups of different sizes. VCD is not ported,
-    so an engine with use_cd is refused at construction."""
+    sentinel in a suffix, and groups of different sizes; and, under use_cd,
+    a group without an image (it has no noised prefix segment)."""
     tp = trees["fp32"][1]
     engine = TEngine(tp, TCFG, _gen(TGen, use_dd=True, use_dd_unk=True), bucket=8)
     with pytest.raises(ValueError, match="sentinel"):
@@ -155,8 +155,9 @@ def test_refusals(trees, images):
     with pytest.raises(ValueError, match="anyres"):
         engine.generate_batch_prefix(PREFIXES[0], SUFFIXES[0], np.stack([images[0]] * 2))
     assert engine.generate_batch_groups([]) == []
-    with pytest.raises(NotImplementedError):
-        TEngine(tp, TCFG, _gen(TGen, use_cd=True), bucket=8)
+    with pytest.raises(ValueError, match="need an image"):
+        TEngine(tp, TCFG, _gen(TGen, use_cd=True), bucket=8).generate_batch_prefix(
+            PREFIXES[0], SUFFIXES[0], None)
 
 
 def test_explicit_branch_ids_keep_full_prompt_rows(trees, images):

@@ -1,8 +1,11 @@
 """llava_align_tpu_torch imports, and runs a tiny generate (int8), a tiny
 lockstep generate_batch, a tiny grouped shared-prefix decode (int4), the
-POPE runner and its scorer on a question file it writes, and every
-microbenchmark twin (at rehearsal size) on the CPU, with jax (and the JAX
-package) blocked — the machine with the card has no jax."""
+POPE runner and its scorer on a question file it writes, VCD through each
+entry point, a tiny checkpoint written here as .safetensors and loaded,
+the MME and MMMU runners and scorers, and every microbenchmark twin (at
+rehearsal size) on the CPU, with jax (and the JAX package) blocked — the
+machine with the card has no jax — and, for the slice's modules, with
+safetensors and transformers blocked too (the card machine has neither)."""
 
 import os
 import subprocess
@@ -12,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CODE = r"""
 import sys
-for blocked in ("jax", "jaxlib", "llava_align_tpu"):
+for blocked in ("jax", "jaxlib", "llava_align_tpu", "safetensors", "transformers"):
     sys.modules[blocked] = None  # any import of them now raises ImportError
 
 import importlib, pkgutil
@@ -77,8 +80,109 @@ report = io.StringIO()
 with contextlib.redirect_stdout(report):
     assert score_main([qf, af]) == 0
 assert report.getvalue().startswith("Precision:") and "[none_unk]" in report.getvalue()
+
+# VCD through each entry point (int8 tree)
+gen_cd = GenerationConfig(max_new_tokens=4, do_sample=False, use_cd=True, use_dd=True, use_dd_unk=True,
+                          cd_alpha=1.0, cd_beta=0.1, eos_token_id=10**9)
+engine_cd = DecodeEngine(lm.params, lm.cfg, gen_cd)
+assert engine_cd.kinds == ["main", "cd", "none"]
+assert engine_cd.generate(ids, image).num_generated == 4
+assert [o.num_generated for o in engine_cd.generate_batch([(ids, image), (ids, None)])] == [4, 4]
+outs = engine_cd.generate_batch_groups([(prompts[0][:p], [ids_[p:] for ids_ in prompts], image)] * 2)
+assert [o.num_generated for o in outs] == [4] * 4, outs
+
+# a tiny checkpoint, written here in the safetensors format by hand, loaded
+# with the port's own reader (the safetensors package is blocked)
+import dataclasses, struct, torch
+from llava_align_tpu_torch.config import ClipVisionConfig
+from llava_align_tpu_torch.runners.common import load_model as load
+from llava_align_tpu_torch.utils import hf_convert
+tree = load("random:tiny", device="cpu").params
+hf = {"model.embed_tokens.weight": tree["llama"]["embed"], "model.norm.weight": tree["llama"]["final_norm"],
+      "lm_head.weight": tree["llama"]["lm_head"]}
+names_l = {"attn_norm": "input_layernorm", "mlp_norm": "post_attention_layernorm", "q": "self_attn.q_proj",
+           "k": "self_attn.k_proj", "v": "self_attn.v_proj", "o": "self_attn.o_proj", "gate": "mlp.gate_proj",
+           "up": "mlp.up_proj", "down": "mlp.down_proj"}
+for k, n in names_l.items():
+    for i, w in enumerate(tree["llama"]["layers"][k]):
+        hf[f"model.layers.{i}.{n}.weight"] = w
+V = "model.vision_tower.vision_tower.vision_model."
+vt = tree["vision"]
+D = vt["cls"].shape[0]
+hf[V + "embeddings.class_embedding"] = vt["cls"]
+hf[V + "embeddings.patch_embedding.weight"] = vt["patch_embed"].t().reshape(D, 3, 14, 14)
+hf[V + "embeddings.position_embedding.weight"] = vt["pos_embed"]
+for ln, n in (("pre_ln", "pre_layrnorm"), ("post_ln", "post_layernorm")):
+    hf[V + n + ".weight"], hf[V + n + ".bias"] = vt[ln]["scale"], vt[ln]["bias"]
+names_v = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj", "o": "self_attn.out_proj",
+           "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+for i in range(vt["layers"]["q"]["kernel"].shape[0]):
+    for k, n in names_v.items():
+        hf[V + f"encoder.layers.{i}.{n}.weight"] = vt["layers"][k]["kernel"][i].t()
+        hf[V + f"encoder.layers.{i}.{n}.bias"] = vt["layers"][k]["bias"][i]
+    for k, n in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+        hf[V + f"encoder.layers.{i}.{n}.weight"] = vt["layers"][k]["scale"][i]
+        hf[V + f"encoder.layers.{i}.{n}.bias"] = vt["layers"][k]["bias"][i]
+for j, layer in enumerate(tree["projector"]["layers"]):
+    hf[f"model.mm_projector.{2 * j}.weight"] = layer["kernel"].t()
+    hf[f"model.mm_projector.{2 * j}.bias"] = layer["bias"]
+ck = os.path.join(d, "llava-tiny")
+os.makedirs(ck)
+header, blobs, off = {}, [], 0
+for k, t in hf.items():
+    b = t.to(torch.bfloat16).contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+    header[k] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [off, off + len(b)]}
+    blobs.append(b)
+    off += len(b)
+h = json.dumps(header).encode()
+with open(os.path.join(ck, "model.safetensors"), "wb") as f:
+    f.write(struct.pack("<Q", len(h)) + h + b"".join(blobs))
+with open(os.path.join(ck, "config.json"), "w") as f:
+    json.dump({"vocab_size": 512, "hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 2,
+               "num_attention_heads": 4, "num_key_value_heads": 2, "max_position_embeddings": 512,
+               "mm_projector_type": "mlp2x_gelu"}, f)
+hf_convert.ClipVisionConfig = lambda **kw: dataclasses.replace(ClipVisionConfig.tiny(), **kw)
+params, cfg = hf_convert.load_llava_checkpoint(ck, torch.float32, device="cpu")
+assert torch.equal(params["vision"]["patch_embed"], vt["patch_embed"].to(torch.bfloat16).float())
+assert torch.equal(params["llama"]["layers"]["down"], tree["llama"]["layers"]["down"].to(torch.bfloat16).float())
+assert DecodeEngine(params, cfg, gen).generate(ids, image).num_generated == 4
+try:
+    load(ck, device="cpu")
+    raise AssertionError("load_model loaded a tokenizer without transformers")
+except ImportError as e:
+    assert "transformers" in str(e)
+
+# the MME and MMMU runners and scorers
+from llava_align_tpu_torch.runners import mme, mmmu
+root = os.path.join(d, "MME_Benchmark", "existence")
+os.makedirs(root)
+mf = os.path.join(d, "mme.jsonl")
+with open(mf, "w") as f, open(os.path.join(root, "000.txt"), "w") as g:
+    for q, a in (("Is there a dog in this image? Please answer yes or no.", "Yes"),
+                 ("Is there a cat in this image? Please answer yes or no.", "No")):
+        f.write(json.dumps({"question_id": "existence/000.png", "image": "existence/000.png", "text": q}) + "\n")
+        g.write(q + "\t" + a + "\n")
+base = ["--model-path", "random:tiny", "--device", "cpu", "--synthetic-images", "--max_new_tokens", "2",
+        "--temperature", "0", "--use_dd", "--use_dd_unk"]
+with contextlib.redirect_stdout(io.StringIO()):
+    rep = mme.main(base + ["--question-file", mf, "--answers-file", os.path.join(d, "mme", "a.jsonl"),
+                           "--mme-data-root", os.path.join(d, "MME_Benchmark")])
+task = rep["Perception"]["tasks"]["existence"]  # random weights: mostly 'other'
+assert sum(task[k] for k in ("TP", "FN", "TN", "FP", "other_num")) == 2, rep
+uf = os.path.join(d, "mmmu.jsonl")
+with open(uf, "w") as f:
+    f.write(json.dumps({"id": "v_1", "question_type": "multiple-choice", "answer": "A", "all_choices": ["A", "B"],
+                        "index2ans": {"A": "x", "B": "y"}, "final_input_prompt": "<image 1> Pick (A) x (B) y",
+                        "image": "u.png"}) + "\n")
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    assert mmmu.main(base + ["--question-file", uf, "--answers-file", os.path.join(d, "mmmu.jsonl.out"),
+                             "--calibrate", "--score-setting", "none_unk", "--print-table"]) == 0
+assert "Overall" in printed.getvalue()
+
 loaded = [m for m, mod in sys.modules.items()
-          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "llava_align_tpu"))]
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "llava_align_tpu", "safetensors",
+                                                      "transformers"))]
 assert not loaded, loaded
 print("OK", len(names), out.token_ids)
 """

@@ -7,6 +7,12 @@ logits that differ by ~1e-7). Modes, as tests/test_runner.py runs the JAX
 runner: plain batched, --calibrate, --group-by-image, --group-by-image
 --calibrate (the pipelined submit path), and resume.
 
+VCD (--use_cd, alone and with dual VDD) in both layouts, with each
+engine's diffusion noise injected from one numpy eps per image-array shape
+(the one draw the two frameworks make differently); and
+--image-aspect-ratio anyres on image files the test writes (anyres grid
+stacks decode one question at a time through `generate`).
+
 Also: the port's scorer entry prints what scripts/pope/score.sh prints on
 the same files, and the runner refuses what the port does not take yet.
 """
@@ -17,13 +23,18 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
+import torch
 
 from llava_align_tpu.config import LlavaConfig as JCfg
+from llava_align_tpu.decoding import engine as jengine_mod
 from llava_align_tpu.models import llava as jllava
 from llava_align_tpu.runners import common as jcommon
 from llava_align_tpu.runners import pope as jpope
 from llava_align_tpu_torch.config import LlavaConfig as TCfg
+from llava_align_tpu_torch.decoding import engine as tengine_mod
 from llava_align_tpu_torch.evals.pope import load_jsonl
 from llava_align_tpu_torch.runners import common as tcommon
 from llava_align_tpu_torch.runners import pope as tpope
@@ -147,7 +158,78 @@ def test_scorer_entry_prints_what_score_sh_prints(models, monkeypatch, question_
 
 def test_runner_refuses_what_is_not_ported(question_file, tmp_path):
     out = str(tmp_path / "refused.jsonl")
-    for kw, match in (({"dist": "auto"}, "item 13"), ({"image_aspect_ratio": "anyres"}, "item 10"),
-                      ({"quant": "w8a8"}, "w8a8")):
+    for kw, match in (({"dist": "auto"}, "item 13"), ({"quant": "w8a8"}, "w8a8")):
         with pytest.raises(NotImplementedError, match=match):
             tpope.run(_args(tpope, question_file, out, device="cpu", **kw))
+
+
+def _shape_eps(shape):
+    """One standard-normal eps per image-array shape, the same for both
+    runners' engines."""
+    return np.random.default_rng(abs(hash(tuple(shape))) % 2**32).standard_normal(shape).astype(np.float32)
+
+
+@pytest.fixture
+def injected_noise(monkeypatch):
+    from llava_align_tpu.ops import noise as jnoise
+    from llava_align_tpu_torch.ops import noise as tnoise
+
+    def jax_noise(images, rng, noise_step):
+        sqrt_ab, sqrt_1m_ab = (jnp.asarray(a) for a in jnoise.diffusion_schedule())
+        t = jnp.asarray(noise_step, jnp.int32)
+        out = sqrt_ab[t] * images.astype(jnp.float32) + sqrt_1m_ab[t] * jnp.asarray(_shape_eps(images.shape))
+        return out.astype(images.dtype)
+
+    def port_noise(images, noise_step, generator=None):
+        return tnoise.add_diffusion_noise(images, noise_step,
+                                          eps=torch.from_numpy(_shape_eps(tuple(images.shape))))
+
+    monkeypatch.setattr(jengine_mod, "add_diffusion_noise", jax_noise)
+    monkeypatch.setattr(tengine_mod, "add_diffusion_noise", port_noise)
+
+
+VCD_MODES = {
+    "vcd_batched": {"use_cd": True, "use_dd": False, "use_dd_unk": False, "group_by_image": False,
+                    "batch_size": 4, "calibrate": True},
+    "vcd_grouped": {"use_cd": True, "use_dd": False, "use_dd_unk": False, "group_by_image": True},
+    "vcd_dual_grouped": {"use_cd": True, "group_by_image": True, "calibrate": True},
+    "vcd_dual_batched": {"use_cd": True, "group_by_image": False, "batch_size": 4},
+}
+
+
+@pytest.mark.parametrize("mode", list(VCD_MODES))
+def test_runner_vcd_records_equal_jax(models, monkeypatch, question_file, tmp_path, injected_noise, mode):
+    want, got = _run_both(models, monkeypatch, question_file, tmp_path, mode, runs=(VCD_MODES[mode],))
+    _assert_records_match(got, want)
+    assert len(got) == 6
+
+
+@pytest.fixture(scope="module")
+def anyres_files(tmp_path_factory):
+    """Two real image files (anyres grids come only from files) of
+    different aspect ratios, 3 questions each."""
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("anyres")
+    rng = np.random.default_rng(7)
+    for i, (w, h) in enumerate(((40, 23), (31, 57))):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(root / f"img_{i}.png")
+    qf = root / "anyres_POPE_questions.jsonl"
+    with open(qf, "w") as f:
+        for i in range(6):
+            f.write(json.dumps({"question_id": i, "image": f"img_{i // 3}.png",
+                                "text": f"Is there a {OBJECTS[i]} in the image?"}) + "\n")
+    return str(qf), str(root)
+
+
+@pytest.mark.parametrize("mode", ["grouped_calibrate", "single"])
+def test_runner_anyres_records_equal_jax(models, monkeypatch, anyres_files, tmp_path, mode):
+    qf, folder = anyres_files
+    stack = tcommon.load_image_tensor(folder, "img_0.png", image_size=28, image_aspect_ratio="anyres")
+    assert stack.ndim == 4 and stack.shape[1:] == (3, 28, 28) and stack.shape[0] > 1
+    kw = {"image_aspect_ratio": "anyres", "image_folder": folder}
+    kw.update({"group_by_image": True, "calibrate": True} if mode == "grouped_calibrate"
+              else {"group_by_image": False, "batch_size": 1})
+    want, got = _run_both(models, monkeypatch, qf, tmp_path, mode, runs=(kw,))
+    _assert_records_match(got, want)
+    assert len(got) == 6
