@@ -84,11 +84,40 @@ Phases, each fatal on failure (exit code != 0, no result line):
   9. 13B grouped reference: that model cut to 2 decoder / 2 vision layers at
      full width; the grouped path's first-step fused scores on the card
      against the same params in fp32 on the CPU, and against `generate` on
-     the card for the same question.
+     the card for the same question;
+ 10. Qwen-VL runners: Qwen-VL-7B at full width and depth (the 32-layer
+     decoder, the 48-layer ViT-bigG at 448 px, the 256-query Resampler), a
+     random bf16 tree from a seed, handed to runners/qwen_pope.run as its
+     load_qwen_model would, which quantizes the decoder int8
+     (quantize_qwen_params) itself: the POPE question file (2 images x 6
+     questions, --synthetic-images), dual VDD ('unk' = 'None {q} Answer:'),
+     greedy, 8 new tokens, EOS out of range, --calibrate, grouped by image
+     and --no-group-by-image --batch-size 6, each scored by evals.pope,
+     questions/s printed with and without the quantization (timed apart);
+     then MME and the MMMU command line with --model-family qwen --quant
+     int8 on the same tree and files as the LLaVA phases, through the same
+     phase functions as LLaVA's; K1, K2 and K3 must launch in each run;
+ 11. Qwen-VL reference: the model cut to 2 decoder / 2 vision layers at full
+     width, int8, a nonzero c_attn_b: an image prompt's prefill and decode
+     logits, and a 2100-token text prompt's (its cache past seq_length
+     2048: dynamic NTK and log-n active), on the card against the same
+     params in fp32 on the CPU;
+ 12. the model paths' own shapes: the 7B path, the LLaVA runner phases
+     and the Qwen ones run under recorders that note what reaches each
+     kernel; K1 at every row count they sent a 7B-shaped stack (Qwen-VL-7B's
+     decoder has LLaVA-v1.5-7B's stacks) that phase 3 did not check (the
+     Qwen prefills' tiled-regime rows among them), checked and timed as
+     phase 3 does under K1's path_rows, the rows each family sent under
+     rows_by_path; K2 at Qwen's [151936, 4096] lm_head (1187 x 128
+     channels, not a multiple of the tiled regime's 256) at every row count
+     the Qwen runs sent it, and at 65 and 640 rows (the tiled regime),
+     under by_path's qwen_int8_runner; every shape K3 took in those paths
+     that phase 3 did not check.
 
 Prints a JSON line with each kernel's record (launches: both main paths'
 counts, per path under launches_by_path; K1's and K4's prefill-row times
-under prefill, K1's and K4's per decode row count under by_rows, K2's times per path
+under prefill, K1's and K4's per decode row count under by_rows, K1's at
+the model paths' other row counts under path_rows, K2's times per path
 under by_path (each row count under its by_rows), K3's per shape under by_shape,
 with its CUDA-graph times as graph_ms / graph_library_ms and its row
 errors);
@@ -101,6 +130,7 @@ and power limit, then as the last line
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import re
@@ -133,6 +163,7 @@ GROUPS = 4          # image groups per grouped call: the POPE runner's cap
 GROUP_CALLS = 3     # G = 4 calls: one generate_batch_groups (warm-up), then submit/collect
 LM_HEAD_7B = (32000, 4096)
 LM_HEAD_13B = (32000, 5120)
+LM_HEAD_QWEN = (151936, 4096)
 STACKS_13B = {"qkv": (15360, 5120), "o": (5120, 5120), "gateup": (27648, 5120), "down": (5120, 13824)}
 L_13B = 40
 # the card's published peaks (H100 SXM data sheet), for the bounds
@@ -252,13 +283,72 @@ def ptxas_spill_stores(build_log: str) -> dict:
 K1_ROWS = (3, 12, 16, 18, 24, 36, 64)
 
 
+def k1_phase_rows(prefill_rows: int) -> dict:
+    """The row counts phase 3 checks K1 at, by SHAPES_7B stack: K1_ROWS on
+    every stack, and the text-branch prefill's rows on the O >= D stacks,
+    the only ones the JAX rule streams at that count."""
+    from llava_align_tpu_torch.ops import quant
+    from llava_align_tpu_torch.scripts._common import SHAPES_7B
+
+    return {name: K1_ROWS + ((prefill_rows,) if quant._stream_rows_ok(prefill_rows, O, D) else ())
+            for name, (O, D) in SHAPES_7B.items()}
+
+
+def k1_rows_record(rows_by_stack: dict, g, L: int = 32) -> tuple:
+    """K1 against its plain version on random int8 [L, O, D] stacks of
+    SHAPES_7B (LLaVA-v1.5-7B's, which Qwen-VL-7B's decoder shares) at each
+    row count of rows_by_stack[name], layers 0 and L-1; each row count timed
+    (the kernel with the layer rotated, so each call streams weights L2
+    does not hold; plain; torch.matmul on a bf16 weight dequantized
+    beforehand) and summed over the stacks that take it: ({rows: record
+    with its bound and its stacks}, the largest error)."""
+    from llava_align_tpu_torch.ops import quant
+    from llava_align_tpu_torch.scripts._common import SHAPES_7B, matmul_work
+
+    dev = torch.device("cuda:0")
+    per_rows, err = {}, 0.0
+    for name, (O, D) in SHAPES_7B.items():
+        if not rows_by_stack.get(name):
+            continue
+        q = torch.randint(-127, 128, (L, O, D), dtype=torch.int8, device=dev, generator=g)
+        s = (torch.rand((L, O), device=dev, generator=g) + 0.5) / (127.0 * D**0.5)
+        w_bf16 = [quant.dequantize({"q": q[i], "s": s[i]}, torch.bfloat16) for i in range(2)]
+        for B in rows_by_stack[name]:
+            h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
+            for li in (0, L - 1):
+                err = max(err, compare(
+                    quant.int8_matmul_stacked(h, q, s, li),
+                    quant.int8_matmul_stacked_plain(h, q, s, li),
+                    f"{name} [{L},{O},{D}] B={B} ({quant.stream_regime(h.dtype, B)}) li={li}",
+                ))
+            ms = cuda_ms(lambda i: quant.int8_matmul_stacked(h, q, s, i % L), 64)
+            plain_ms = cuda_ms(lambda i: quant.int8_matmul_stacked_plain(h, q, s, i % L), 16)
+            lib_ms = cuda_ms(lambda i: torch.matmul(h, w_bf16[i % 2].t()), 32)
+            nb, fl = matmul_work(B, O, D, O * D, 4 * O)
+            log(f"  {name} B={B}: kernel {ms:.4f} ms ({O * D / (ms * 1e-3) / 1e9:.0f} GB/s of int8 weights), "
+                f"plain {plain_ms:.4f} ms, library (torch.matmul, bf16 weight) {lib_ms:.4f} ms, "
+                f"bound {bound(nb, fl)['bound_ms']:.4f} ms")
+            r = per_rows.setdefault(B, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0, stacks=[]))
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms), ("bytes", nb),
+                             ("flops", fl)):
+                r[key] += val
+            r["stacks"].append(name)
+        del q, s, w_bf16
+        torch.cuda.empty_cache()
+    for B, r in per_rows.items():
+        r.update(bound(r.pop("bytes"), r.pop("flops")))
+        log(f"  one 7B layer's {'/'.join(r['stacks'])} at B={B}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    return per_rows, err
+
+
 def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
     """K1 and K2 against their plain versions at the 7B path's shapes (K1
     at K1_ROWS, each timed per layer under by_rows, and at its text-branch
     prefill's `prefill_rows` on the O >= D stacks; K2 at the 13B lm_head's
     grouped rows too, every row count timed under by_path's by_rows)."""
     from llava_align_tpu_torch.ops import quant
-    from llava_align_tpu_torch.scripts._common import SHAPES_7B, matmul_work
 
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -267,51 +357,12 @@ def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
     log("kernels: K1 int8_matmul_stacked (decoder linears) vs plain, bf16; tensor-core streaming up to "
         f"{quant.DECODE_MAX_ROWS} rows, tiled above (the O >= D stacks' {prefill_rows}-row "
         "text-branch prefill)")
-    k1_err = 0.0
-    by_rows = {B: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0) for B in K1_ROWS}
-    pre = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
-    for name, (O, D) in SHAPES_7B.items():
-        L = 32
-        q = torch.randint(-127, 128, (L, O, D), dtype=torch.int8, device=dev, generator=g)
-        s = (torch.rand((L, O), device=dev, generator=g) + 0.5) / (127.0 * D**0.5)
-        w_bf16 = [quant.dequantize({"q": q[i], "s": s[i]}, torch.bfloat16) for i in range(2)]
-        # the text-branch prefill's rows reach K1 only on the O >= D stacks (the JAX rule)
-        prefill = (prefill_rows,) if quant._stream_rows_ok(prefill_rows, O, D) else ()
-        for B in K1_ROWS + prefill:
-            h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
-            for li in (0, L - 1):
-                k1_err = max(k1_err, compare(
-                    quant.int8_matmul_stacked(h, q, s, li),
-                    quant.int8_matmul_stacked_plain(h, q, s, li),
-                    f"{name} [{L},{O},{D}] B={B} li={li}",
-                ))
-            # rotate layers so each call streams weights L2 does not hold
-            ms = cuda_ms(lambda i: quant.int8_matmul_stacked(h, q, s, i % L), 64)
-            plain_ms = cuda_ms(lambda i: quant.int8_matmul_stacked_plain(h, q, s, i % L), 16)
-            lib_ms = cuda_ms(lambda i: torch.matmul(h, w_bf16[i % 2].t()), 32)
-            gbs = O * D / (ms * 1e-3) / 1e9
-            log(f"  {name} B={B}: kernel {ms:.4f} ms ({gbs:.0f} GB/s of int8 weights), "
-                f"plain {plain_ms:.4f} ms, library (torch.matmul, bf16 weight) {lib_ms:.4f} ms, "
-                f"bound {bound(*matmul_work(B, O, D, O * D, 4 * O))['bound_ms']:.4f} ms")
-            nb, fl = matmul_work(B, O, D, O * D, 4 * O)
-            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                             ("bytes", nb), ("flops", fl)):
-                if B in by_rows:
-                    by_rows[B][key] += val
-                if B == prefill_rows:
-                    pre[key] += val
-        del q, s, w_bf16
-    for B, r in by_rows.items():
-        r.update(bound(r.pop("bytes"), r.pop("flops")))
-        log(f"  one 7B layer's four linears at B={B}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    per_rows, k1_err = k1_rows_record(k1_phase_rows(prefill_rows), g)
+    by_rows = {str(B): per_rows[B] for B in K1_ROWS}
     # top-level numbers: the 7B decode step (3 rows: dual-branch VDD)
-    rec["K1"] = dict(by_rows[3], max_abs_err=k1_err, by_rows={str(B): r for B, r in by_rows.items()})
-    b = bound(pre.pop("bytes"), pre.pop("flops"))
-    rec["K1"]["prefill"] = dict(pre, rows=prefill_rows, stacks=["qkv", "o", "gateup"], **b)
-    log(f"  one 7B layer's qkv, o and gate|up at B={prefill_rows} (text-branch prefill): kernel "
-        f"{pre['ms']:.4f} ms, plain {pre['plain_ms']:.4f} ms, library {pre['library_ms']:.4f} ms, "
-        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    top = {k: per_rows[3][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    rec["K1"] = dict(top, max_abs_err=k1_err, by_rows=by_rows,
+                     prefill=dict(per_rows[prefill_rows], rows=prefill_rows))
 
     log("kernels: K2 int8_matmul_cuda (lm_head) vs plain, bf16; streaming up to "
         f"{quant.DECODE_MAX_ROWS} rows, tiled above")
@@ -329,30 +380,45 @@ def phase_kernels_int8(grouped_decode_rows, prefill_rows: int) -> dict:
     }
     k2_err, k2_by_path = 0.0, {}
     for path, ((O, D), rows_list, head_rows) in k2_paths.items():
-        per_rows = {}
-        q = torch.randint(-127, 128, (O, D), dtype=torch.int8, device=dev, generator=g)
-        s = (torch.rand((O,), device=dev, generator=g) + 0.5) / (127.0 * D**0.5)
-        w_bf16 = quant.dequantize({"q": q, "s": s}, torch.bfloat16)
-        for B in rows_list:
-            h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
-            k2_err = max(k2_err, compare(
-                quant.int8_matmul_cuda(h, q, s), quant.int8_matmul_plain(h, q, s),
-                f"lm_head [{O},{D}] B={B}",
-            ))
-            ms = cuda_ms(lambda i: quant.int8_matmul_cuda(h, q, s), 32)
-            plain_ms = cuda_ms(lambda i: quant.int8_matmul_plain(h, q, s), 16)
-            lib_ms = cuda_ms(lambda i: torch.matmul(h, w_bf16.t()), 32)
-            b = bound(*matmul_work(B, O, D, O * D, 4 * O))
-            log(f"  lm_head [{O},{D}] B={B}: kernel {ms:.4f} ms ({O * D / (ms * 1e-3) / 1e9:.0f} GB/s of "
-                f"int8 weights), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-                f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-            per_rows[str(B)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
-        k2_by_path[path] = dict(shape=[O, D], rows=head_rows, **per_rows[str(head_rows)], by_rows=per_rows)
-        del q, s, w_bf16
+        k2_by_path[path], err = k2_path_record(O, D, rows_list, head_rows, g)
+        k2_err = max(k2_err, err)
     # top-level numbers: the 7B path's decode step, as in the K1 record
     top = {k: v for k, v in k2_by_path["7b_int8_generate"].items() if k not in ("shape", "rows", "by_rows")}
     rec["K2"] = dict(top, max_abs_err=k2_err, by_path=k2_by_path)
     return rec
+
+
+def k2_path_record(O: int, D: int, rows_list, head_rows: int, g) -> tuple:
+    """K2 on a random int8 [O, D] lm_head against its plain version at each
+    row count of rows_list, each timed (kernel, plain, torch.matmul on the
+    weight dequantized to bf16 beforehand) beside its bound: (the path's
+    record, with head_rows' numbers on top and every row count under
+    by_rows, and the largest error)."""
+    from llava_align_tpu_torch.ops import quant
+    from llava_align_tpu_torch.scripts._common import matmul_work
+
+    dev = torch.device("cuda:0")
+    per_rows, err = {}, 0.0
+    q = torch.randint(-127, 128, (O, D), dtype=torch.int8, device=dev, generator=g)
+    s = (torch.rand((O,), device=dev, generator=g) + 0.5) / (127.0 * D**0.5)
+    w_bf16 = quant.dequantize({"q": q, "s": s}, torch.bfloat16)
+    for B in rows_list:
+        h = torch.randn((B, D), device=dev, generator=g).to(torch.bfloat16)
+        err = max(err, compare(
+            quant.int8_matmul_cuda(h, q, s), quant.int8_matmul_plain(h, q, s),
+            f"lm_head [{O},{D}] B={B} ({quant.stream_regime(h.dtype, B)})",
+        ))
+        ms = cuda_ms(lambda i: quant.int8_matmul_cuda(h, q, s), 32)
+        plain_ms = cuda_ms(lambda i: quant.int8_matmul_plain(h, q, s), 16)
+        lib_ms = cuda_ms(lambda i: torch.matmul(h, w_bf16.t()), 32)
+        b = bound(*matmul_work(B, O, D, O * D, 4 * O))
+        log(f"  lm_head [{O},{D}] B={B}: kernel {ms:.4f} ms ({O * D / (ms * 1e-3) / 1e9:.0f} GB/s of "
+            f"int8 weights), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        per_rows[str(B)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+    del q, s, w_bf16
+    torch.cuda.empty_cache()
+    return dict(shape=[O, D], rows=head_rows, **per_rows[str(head_rows)], by_rows=per_rows), err
 
 
 K3_TILE = 64  # keys per tile of K3's tensor-core kernel
@@ -410,8 +476,9 @@ def flash_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fault: str | 
 def phase_kernel_flash(attn_shapes) -> dict:
     """K3 against its plain version and SDPA at the prefill shapes of both
     model paths, row by row (row_err) at KERNEL_TOL; the rule is shown to
-    sit between the control (flash_tiled) and each planted fault. The
-    record is the first shape's, with every shape under by_shape."""
+    sit between the control (flash_tiled) and each planted fault that the
+    shape can show (no_rescale needs more than one key tile). The record is
+    the first shape's, with every shape under by_shape."""
     from llava_align_tpu_torch.ops import attention
     from llava_align_tpu_torch.scripts._common import graph_ms
 
@@ -430,7 +497,8 @@ def phase_kernel_flash(attn_shapes) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         row = row_err(got, want)
         control = row_err(flash_tiled(*qkv), want)
-        planted = {f: flash_tiled(*qkv, fault=f) for f in K3_FAULTS}
+        # a fault in the running max's rescale needs a second key tile to show
+        planted = {f: flash_tiled(*qkv, fault=f) for f in K3_FAULTS if f != "no_rescale" or S > K3_TILE}
         faults = {f: row_err(x, want) for f, x in planted.items()}
         # the same faults under one bound for the whole tensor, for the record
         whole = {f: ((x.float() - want.float()).abs().max() / want.float().abs().max()).item()
@@ -702,15 +770,16 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
-def load_7b(dev):
-    """The 7B int8 model of the 7B path and the POPE runner phase, as the
-    runner's load_model("random:7b", quant="int8") builds it."""
+def load_7b(dev, quant: str = "int8"):
+    """Random LLaVA-v1.5-7B as the runners' load_model("random:7b", quant)
+    builds it: int8 for the 7B path, the POPE and MME runners; with no quant
+    (bf16) for the MMMU command line, which loads it so."""
     from llava_align_tpu_torch.runners.common import load_model
 
     t0 = time.perf_counter()
-    lm = load_model("random:7b", quant="int8", device=dev, seed=0)
+    lm = load_model("random:7b", quant=quant, device=dev, seed=0)
     torch.cuda.synchronize()
-    log(f"7B path: built random LLaVA-v1.5-7B int8 on {dev} in {time.perf_counter() - t0:.2f} s, "
+    log(f"built random LLaVA-v1.5-7B ({quant}) on {dev} in {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     return lm
 
@@ -808,33 +877,73 @@ def runner_shapes(tokenizer, cfg, bucket: int = 128) -> dict:
     return dict(pad_img=pad(len(ids) - 1 + cfg.num_image_tokens), pad_txt=pad(len(ids)))
 
 
-class K3Recorder:
-    """Within `with`, the decoder's causal prefill notes each (q shape, k
-    shape, dtype) it sends to K3 in `seen`."""
+@contextlib.contextmanager
+def patched(obj, attr: str, value):
+    """Within `with`, obj.attr is value."""
+    old = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield value
+    finally:
+        setattr(obj, attr, old)
+
+
+class PathRecorder:
+    """Within `with`, notes what a model path sends the kernels: each (q
+    shape, k shape, dtype) the decoders' causal prefill (models/llama's
+    causal_attention, which models/qwen runs too) routes to K3 in `k3`; by
+    weight [O, D], each row count that the dispatch of a stacked int8
+    linear (models/llama.int8_matmul_stacked_dispatch) routes to K1 in `k1`
+    and that of an int8 lm_head (models/llama.int8_matmul) routes to K2 in
+    `k2`; and the seconds of each quantize_qwen_params call (the Qwen
+    runners' --quant int8) in `quant_s`."""
 
     def __init__(self):
-        self.seen = set()
+        self.k3, self.k1, self.k2 = set(), collections.defaultdict(set), collections.defaultdict(set)
+        self.quant_s = []
 
     def __enter__(self):
         from llava_align_tpu_torch.models import llama
-        from llava_align_tpu_torch.ops import attention
+        from llava_align_tpu_torch.ops import attention, quant
 
-        self.causal = causal = llama.causal_attention
+        causal, stacked, lm_head = llama.causal_attention, llama.int8_matmul_stacked_dispatch, llama.int8_matmul
+        quantize = quant.quantize_qwen_params
 
         def k3_recording(q, k, v, *, impl="auto"):
             route = attention.causal_attention_impl(q.shape[3], q.shape[2], k.shape[2], q.dtype)
             if (route if impl == "auto" else impl) == "pallas":
-                self.seen.add((tuple(q.shape), tuple(k.shape), q.dtype))
+                self.k3.add((tuple(q.shape), tuple(k.shape), q.dtype))
             return causal(q, k, v, impl=impl)
 
-        llama.causal_attention = k3_recording
+        def k1_recording(h, wq, li, **kw):
+            rows, (O, D) = h.numel() // h.shape[-1], wq["q"].shape[1:]
+            if quant._stream_rows_ok(rows, O, D):
+                self.k1[(O, D)].add(rows)
+            return stacked(h, wq, li, **kw)
+
+        def k2_recording(h, wq):
+            rows, (O, D) = h.numel() // h.shape[-1], wq["q"].shape
+            if quant._stream_rows_ok(rows, O, D):
+                self.k2[(O, D)].add(rows)
+            return lm_head(h, wq)
+
+        def timed_quantize(params):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = quantize(params)
+            torch.cuda.synchronize()
+            self.quant_s.append(time.perf_counter() - t0)
+            return out
+
+        self.patches = contextlib.ExitStack()
+        for obj, attr, fn in ((llama, "causal_attention", k3_recording),
+                              (llama, "int8_matmul_stacked_dispatch", k1_recording),
+                              (llama, "int8_matmul", k2_recording), (quant, "quantize_qwen_params", timed_quantize)):
+            self.patches.enter_context(patched(obj, attr, fn))
         return self
 
     def __exit__(self, *exc):
-        from llava_align_tpu_torch.models import llama
-
-        llama.causal_attention = self.causal
-        return False
+        return self.patches.__exit__(*exc)
 
 
 def require_launches(launches: dict, names, what: str) -> None:
@@ -843,69 +952,103 @@ def require_launches(launches: dict, names, what: str) -> None:
         raise AssertionError(f"kernels not launched by {what}: {dead}")
 
 
-def phase_runner(lm, root, smi: str, mode: str) -> tuple:
-    """The POPE runner on the card in one decoding mode (RUNNER_MODES: dual
-    VDD, or VCD): run() on the 7B int8 model (its load_model returns `lm`,
-    the tree load_model("random:7b", quant="int8") builds), once per
-    RUNNER_LAYOUTS entry, each with the launch counts reset before it and
-    read after it; then the port's scorer on each answers file. Returns the
-    launches by layout, the questions/s by layout and the set of (q shape,
-    k shape, dtype) K3 took in the runs."""
-    import contextlib
+K123 = ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention")
+
+
+@dataclasses.dataclass
+class RunnerModel:
+    """A model the runner phases hand the runners: within patch(), the
+    runners' loader (`loader`: module, attribute name) returns `model`.
+    `tag` prefixes the phases' path names, `what` names the model in the
+    log, `args` are the flags that name it to every runner and `family`
+    those the MME and MMMU runners add; `pope` is the POPE runner module
+    that serves it, `kernels` those each run must launch."""
+
+    tag: str
+    what: str
+    loader: tuple
+    model: object
+    args: tuple
+    family: tuple = ()
+    pope: object = None
+    kernels: tuple = K123
+
+    def patch(self):
+        module, attr = self.loader
+        return patched(module, attr, lambda *a, **k: self.model)
+
+
+def timed_run(model: RunnerModel, rec: PathRecorder, fn) -> tuple:
+    """fn() with model's loader patched and rec recording, the launch
+    counts reset before it and read after it: (its result, seconds,
+    launches, seconds of quantize_qwen_params in it)."""
+    q0 = len(rec.quant_s)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with model.patch(), rec:
+        out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, read_launches(), sum(rec.quant_s[q0:])
+
+
+def rate_text(n_q: int, secs: float, quant_s: float) -> str:
+    text = f"{n_q} questions in {secs:.4f} s, {n_q / secs:.4f} questions/s"
+    if quant_s:
+        text += (f" (quantize_qwen_params {quant_s:.4f} s of it; without it {secs - quant_s:.4f} s, "
+                 f"{n_q / (secs - quant_s):.4f} questions/s)")
+    return text
+
+
+def phase_runner(model: RunnerModel, root, smi: str, mode: str, rec: PathRecorder) -> tuple:
+    """model's POPE runner (runners/pope for LLaVA, runners/qwen_pope for
+    Qwen-VL) on the card in one decoding mode (RUNNER_MODES: dual VDD, or
+    VCD), once per RUNNER_LAYOUTS entry, each with the launch counts reset
+    before it and read after it, --calibrate; every record with its
+    naive/none/unk dumps; then the port's scorer on each answers file.
+    Returns the launches by layout and the questions/s by layout (without
+    the quantization a run may include)."""
     import io
 
     from llava_align_tpu_torch.evals import pope as pope_eval
-    from llava_align_tpu_torch.runners import pope
 
     qf, gt = write_pope_files(root)
     n_q = 6 * RUNNER_IMAGES
-    load = pope.load_model
-    pope.load_model = lambda *a, **k: lm
-    by_layout, rates, k3 = {}, {}, K3Recorder()
-    try:
-        for layout, flags in RUNNER_LAYOUTS.items():
-            name = f"7b_{mode}_runner_{layout}"
-            answers = root / f"{name}.jsonl"
-            args = pope.build_parser().parse_args([
-                "--model-path", "random:7b", "--quant", "int8", "--question-file", str(qf),
-                "--answers-file", str(answers), *RUNNER_MODES[mode], "--cd_alpha", "1",
-                "--cd_beta", "0.1", "--max_new_tokens", str(NEW_TOKENS), "--temperature", "0",
-                "--synthetic-images", "--calibrate", *flags])
-            reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with k3:
-                pope.run(args)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches = read_launches()
-            recs = pope_eval.load_jsonl(str(answers))
-            rates[layout] = n_q / secs
-            log(f"POPE runner {name} ({' '.join(RUNNER_MODES[mode] + flags)}) on {smi}: {n_q} questions in "
-                f"{secs:.4f} s, {n_q / secs:.4f} questions/s; launches {launches}")
-            log(f"  launches of K1 {launches['int8_matmul_stacked']}, K2 {launches['int8_matmul_cuda']}, "
-                f"K3 {launches['flash_attention']}")
-            log(f"  answers: {[r['text'] for r in recs]}")
-            if [r["question_id"] for r in recs] != list(range(n_q)):
-                raise AssertionError(f"{name}: answers for {[r['question_id'] for r in recs]}")
-            bad = [r["question_id"] for r in recs
-                   if not all(isinstance(r.get(k), dict) and r[k] for k in ("naive", "none", "unk"))]
-            if bad:
-                raise AssertionError(f"{name}: records without naive/none/unk dumps: {bad}")
-            require_launches(launches, ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention"),
-                             f"the POPE runner, {name}")
-            report = io.StringIO()
-            with contextlib.redirect_stdout(report):
-                rc = pope_eval.main([str(gt), str(answers)])
-            for line in report.getvalue().splitlines():
-                log(f"  score: {line}")
-            if rc != 0 or "[none_unk]" not in report.getvalue():
-                raise AssertionError(f"{name}: the POPE scorer failed (rc {rc}) or gave no calibrated report")
-            by_layout[name] = launches
-    finally:
-        pope.load_model = load
+    by_layout, rates = {}, {}
+    for layout, flags in RUNNER_LAYOUTS.items():
+        name = f"{model.tag}_{mode}_runner_{layout}"
+        answers = root / f"{name}.jsonl"
+        args = model.pope.build_parser().parse_args([
+            *model.args, "--question-file", str(qf), "--answers-file", str(answers), *RUNNER_MODES[mode],
+            "--cd_alpha", "1", "--cd_beta", "0.1", "--max_new_tokens", str(NEW_TOKENS), "--temperature", "0",
+            "--synthetic-images", "--calibrate", *flags])
+        _, secs, launches, quant_s = timed_run(model, rec, lambda: model.pope.run(args))
+        recs = pope_eval.load_jsonl(str(answers))
+        rates[layout] = n_q / (secs - quant_s)
+        log(f"POPE runner {name} ({model.what}, {' '.join(RUNNER_MODES[mode] + flags)}, --calibrate) on {smi}: "
+            f"{rate_text(n_q, secs, quant_s)}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"  launches of K1 {launches['int8_matmul_stacked']}, K2 {launches['int8_matmul_cuda']}, "
+            f"K3 {launches['flash_attention']}")
+        log(f"  answers: {[r['text'] for r in recs]}")
+        if [r["question_id"] for r in recs] != list(range(n_q)):
+            raise AssertionError(f"{name}: answers for {[r['question_id'] for r in recs]}")
+        bad = [r["question_id"] for r in recs
+               if not all(isinstance(r.get(k), dict) and r[k] for k in ("naive", "none", "unk"))]
+        if bad:
+            raise AssertionError(f"{name}: records without naive/none/unk dumps: {bad}")
+        require_launches(launches, model.kernels, f"the POPE runner, {name}")
+        report = io.StringIO()
+        with contextlib.redirect_stdout(report):
+            rc = pope_eval.main([str(gt), str(answers)])
+        for line in report.getvalue().splitlines():
+            log(f"  score: {line}")
+        if rc != 0 or "[none_unk]" not in report.getvalue():
+            raise AssertionError(f"{name}: the POPE scorer failed (rc {rc}) or gave no calibrated report")
+        by_layout[name] = launches
     torch.cuda.empty_cache()
-    return by_layout, rates, k3.seen
+    return by_layout, rates
 
 
 def runner_attn_shapes(k3_seen, checked) -> list:
@@ -920,6 +1063,23 @@ def runner_attn_shapes(k3_seen, checked) -> list:
                                  "not a shape its check makes")
         if q_shape not in checked and q_shape not in new:
             new.append(q_shape)
+    return new
+
+
+def path_k1_rows(k1_seen: dict, checked: dict) -> dict:
+    """The row counts K1 took on each SHAPES_7B stack in the recorded model
+    paths (k1_seen: {(O, D): rows}) that `checked` ({stack: rows}) does not
+    hold, by stack; each [O, D] must be a SHAPES_7B stack."""
+    from llava_align_tpu_torch.scripts._common import SHAPES_7B
+
+    names = {shape: name for name, shape in SHAPES_7B.items()}
+    new = {}
+    for shape, rows in sorted(k1_seen.items()):
+        if shape not in names:
+            raise AssertionError(f"K1 took a [{shape}] stack in a model path: not a shape its check makes")
+        extra = sorted(set(rows) - set(checked[names[shape]]))
+        if extra:
+            new[names[shape]] = extra
     return new
 
 
@@ -1220,49 +1380,38 @@ def write_mme_files(root) -> tuple:
     return qf, data, len(lines)
 
 
-def phase_mme(lm, root, smi: str) -> tuple:
+def phase_mme(model: RunnerModel, root, smi: str, rec: PathRecorder) -> dict:
     """The MME runner (runners/mme.run: the POPE runner without the one-word
-    suffix, then the category files and the score) on the 7B int8 model,
-    dual VDD, greedy, 8 new tokens, grouped by image (MME's 2 questions per
-    image); K1, K2 and K3 must launch."""
-    import contextlib
+    suffix, then the category files and the score; --model-family routes
+    Qwen-VL to runners/qwen_pope) on `model`, dual VDD, greedy, 8 new
+    tokens, grouped by image (MME's 2 questions per image); model.kernels
+    must launch."""
     import io
 
     from llava_align_tpu_torch.evals.pope import load_jsonl
-    from llava_align_tpu_torch.runners import mme, pope
+    from llava_align_tpu_torch.runners import mme
 
     root.mkdir(parents=True, exist_ok=True)
     qf, data, n_q = write_mme_files(root)
-    answers = root / "mme_answers.jsonl"
+    answers = root / f"{model.tag}_mme" / "answers.jsonl"
     args = mme.build_parser().parse_args([
-        "--model-path", "random:7b", "--quant", "int8", "--question-file", str(qf), "--answers-file",
-        str(answers), "--mme-data-root", str(data), "--use_dd", "--use_dd_unk", "--cd_alpha", "1",
-        "--cd_beta", "0.1", "--max_new_tokens", str(NEW_TOKENS), "--temperature", "0", "--synthetic-images"])
-    load = pope.load_model
-    pope.load_model = lambda *a, **k: lm
-    k3, printed = K3Recorder(), io.StringIO()
-    try:
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with k3, contextlib.redirect_stdout(printed):
-            report = mme.run(args)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    finally:
-        pope.load_model = load
-    launches = read_launches()
+        *model.args, *model.family, "--question-file", str(qf), "--answers-file", str(answers),
+        "--mme-data-root", str(data), *RUNNER_MODES["pope"], "--cd_alpha", "1", "--cd_beta", "0.1",
+        "--max_new_tokens", str(NEW_TOKENS), "--temperature", "0", "--synthetic-images"])
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        report, secs, launches, quant_s = timed_run(model, rec, lambda: mme.run(args))
     recs = load_jsonl(str(answers))
-    log(f"MME runner (7B int8, dual VDD, grouped by image) on {smi}: {n_q} questions in {secs:.4f} s, "
-        f"{n_q / secs:.4f} questions/s; launches {launches}")
+    log(f"MME runner {' '.join(model.family)} ({model.what}, dual VDD, grouped by image) on {smi}: "
+        f"{rate_text(n_q, secs, quant_s)}; launches {launches}")
     log(f"  answers: {[r['text'] for r in recs]}")
     for line in printed.getvalue().splitlines():
         log(f"  score: {line}")
     if len(recs) != n_q or sorted(report.get("Perception", {}).get("tasks", {})) != sorted(MME_CATEGORIES):
-        raise AssertionError(f"MME: {len(recs)} answers, report {report}")
-    require_launches(launches, ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention"), "the MME runner")
+        raise AssertionError(f"MME {model.tag}: {len(recs)} answers, report {report}")
+    require_launches(launches, model.kernels, f"the MME runner, {model.tag}")
     torch.cuda.empty_cache()
-    return launches, k3.seen
+    return launches
 
 
 MMMU_SAMPLES = [
@@ -1283,57 +1432,40 @@ MMMU_SAMPLES = [
 ]
 
 
-def phase_mmmu(dev, root, smi: str) -> tuple:
+def phase_mmmu(model: RunnerModel, root, smi: str, rec: PathRecorder) -> dict:
     """The MMMU runner's command line (runners/mmmu.main: run, then score
-    with the none_unk setting and print the table) on random:7b, which it
-    loads with no quant (bf16: the linears are torch.matmul, the attention
-    K3), 4 samples written here (multiple choice and open), dual VDD,
-    greedy, 8 new tokens, --calibrate; K3 must launch."""
-    import contextlib
+    with the none_unk setting and print the table; --model-family routes
+    Qwen-VL to its run_qwen) on `model`, 4 samples written here (multiple
+    choice and open), dual VDD, greedy, 8 new tokens, --calibrate;
+    model.kernels must launch."""
     import io
 
     from llava_align_tpu_torch.evals.pope import load_jsonl
     from llava_align_tpu_torch.runners import mmmu
-    from llava_align_tpu_torch.runners.common import load_model
 
     root.mkdir(parents=True, exist_ok=True)
-    qf, answers = root / "mmmu_val.jsonl", root / "mmmu_answers.jsonl"
+    qf, answers = root / "mmmu_val.jsonl", root / f"{model.tag}_mmmu_answers.jsonl"
     qf.write_text("".join(json.dumps(x) + "\n" for x in MMMU_SAMPLES))
-    t0 = time.perf_counter()
-    lm = load_model("random:7b", device=dev)  # what the runner's load_model(args.model_path) builds
-    torch.cuda.synchronize()
-    log(f"MMMU runner: built random LLaVA-v1.5-7B bf16 in {time.perf_counter() - t0:.2f} s")
-    load = mmmu.load_model
-    mmmu.load_model = lambda *a, **k: lm
-    k3, printed = K3Recorder(), io.StringIO()
-    try:
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with k3, contextlib.redirect_stdout(printed):
-            rc = mmmu.main(["--model-path", "random:7b", "--question-file", str(qf), "--answers-file",
-                            str(answers), "--use_dd", "--use_dd_unk", "--cd_alpha", "1", "--cd_beta", "0.1",
-                            "--max_new_tokens", str(NEW_TOKENS), "--temperature", "0", "--synthetic-images",
-                            "--calibrate", "--score-setting", "none_unk", "--print-table"])
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    finally:
-        mmmu.load_model = load
-    launches = read_launches()
+    argv = [*model.args, *model.family, "--question-file", str(qf), "--answers-file", str(answers),
+            *RUNNER_MODES["pope"], "--cd_alpha", "1", "--cd_beta", "0.1", "--max_new_tokens", str(NEW_TOKENS),
+            "--temperature", "0", "--synthetic-images", "--calibrate", "--score-setting", "none_unk",
+            "--print-table"]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc, secs, launches, quant_s = timed_run(model, rec, lambda: mmmu.main(argv))
     recs = load_jsonl(str(answers))
     n_q = len(MMMU_SAMPLES)
-    log(f"MMMU runner (7B bf16, dual VDD, --calibrate) on {smi}: {n_q} questions in {secs:.4f} s (scoring "
-        f"included), {n_q / secs:.4f} questions/s; launches {launches}")
+    log(f"MMMU runner {' '.join(model.family)} ({model.what}, dual VDD, --calibrate) on {smi}: "
+        f"{rate_text(n_q, secs, quant_s)}, scoring included; launches {launches}")
     log(f"  answers: {[r['text'] for r in recs]}")
     for line in printed.getvalue().splitlines():
         log(f"  score: {line}")
     probes = [r["question_id"] for r in recs if r["all_choices"] and not (r.get("none") and r.get("unk"))]
     if rc != 0 or len(recs) != n_q or probes or "Overall" not in printed.getvalue():
-        raise AssertionError(f"MMMU: rc {rc}, {len(recs)} answers, records without probes {probes}")
-    require_launches(launches, ("flash_attention",), "the MMMU runner")
-    del lm
+        raise AssertionError(f"MMMU {model.tag}: rc {rc}, {len(recs)} answers, records without probes {probes}")
+    require_launches(launches, model.kernels, f"the MMMU runner, {model.tag}")
     torch.cuda.empty_cache()
-    return launches, k3.seen
+    return launches
 
 
 def phase_grouped(dev, shapes) -> dict:
@@ -1441,6 +1573,105 @@ def phase_grouped_reference(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def load_qwen_7b(dev):
+    """Random Qwen-VL-7B in bf16 at full width and depth, as the Qwen
+    runners' load_qwen_model would hand a checkpoint's tree over."""
+    from llava_align_tpu_torch.models.qwen_vl import QwenVLConfig
+    from llava_align_tpu_torch.runners.pope import _tensors
+    from llava_align_tpu_torch.utils.synthetic import build_random_qwen_vl_params
+
+    cfg = QwenVLConfig.qwen_vl_7b()
+    t0 = time.perf_counter()
+    params = build_random_qwen_vl_params(cfg, quant="none", device=dev, seed=0)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _tensors(params))
+    log(f"Qwen-VL path: built random Qwen-VL-7B bf16 ({n / 1e9:.3f} G parameters: 32 decoder layers, "
+        f"48 ViT layers at {cfg.vision.image_size} px, {cfg.vision.n_queries} queries) on {dev} in "
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return params, cfg
+
+
+def qwen_runner_model(params, cfg) -> tuple:
+    """What the Qwen runners' load_qwen_model returns for the given tree:
+    the mock tokenizer, its EOS id out of the vocabulary (every answer runs
+    its full length)."""
+    from llava_align_tpu_torch.runners.qwen_pope import QwenMockTokenizer
+
+    class Tokenizer(QwenMockTokenizer):
+        eod_id = 10**9
+
+    return Tokenizer(), params, cfg, "random-qwen-vl-7b"
+
+
+QWEN_LONG_TOKENS = 2100  # a text prompt whose cache (2112 + 2) passes seq_length 2048
+
+
+def phase_qwen_reference(dev) -> None:
+    """Qwen-VL-7B at full width cut to 2 decoder / 2 vision layers, int8, a
+    nonzero c_attn_b: the prefill and two decode steps' logits of an image
+    prompt, and of a QWEN_LONG_TOKENS-token text prompt at the NTK alpha of
+    its cache length (past seq_length: alpha > 1, log-n above 1 past
+    position 2048), on the card against the same params in fp32 on the CPU."""
+    from llava_align_tpu_torch.models import qwen, qwen_vl
+    from llava_align_tpu_torch.models.llava import plan_splice, splice
+    from llava_align_tpu_torch.utils.synthetic import build_random_qwen_vl_params
+
+    full = qwen_vl.QwenVLConfig.qwen_vl_7b()
+
+    def cut(dtype=None):
+        kw = {"dtype": dtype} if dtype else {}
+        return dataclasses.replace(full, text=dataclasses.replace(full.text, num_layers=2, **kw),
+                                   vision=dataclasses.replace(full.vision, num_layers=2, **kw))
+
+    params = build_random_qwen_vl_params(cut(), quant="int8", device=dev, seed=5)
+    b = params["qwen"]["layers"]["c_attn_b"]
+    b.copy_(torch.randn(b.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(6)) * 0.5)
+    params_cpu = to_cpu32(params)
+    rng = np.random.default_rng(8)
+    span, _ = qwen_vl.sentinelize_span(qwen_vl.make_image_span_ids(full), full)
+    H = full.vision.image_size
+    image = rng.standard_normal((1, 3, H, H)).astype(np.float32)
+    prompts = {"image prompt": span + [int(t) for t in rng.integers(3, 150000, 12)],
+               f"{QWEN_LONG_TOKENS}-token text prompt": [int(t) for t in rng.integers(3, 150000, QWEN_LONG_TOKENS)]}
+    steps = (1234, 98765)  # fixed next tokens, so both sides decode the same sequence
+
+    @torch.inference_mode()
+    def run(p, c, ids, device):
+        n_img = c.vision.n_queries if any(t < 0 for t in ids) else 0
+        plan = plan_splice(ids, n_img, -(-(len(ids) - 1 + n_img) // 64) * 64)
+        feats = (qwen_vl.encode_images(p, c, torch.from_numpy(image).to(device)) if n_img
+                 else torch.zeros((1, 1, c.text.hidden_size), dtype=c.text.dtype, device=device))
+        t = {k: torch.from_numpy(np.asarray(getattr(plan, k)))[None].to(device)
+             for k in ("tokens", "tok_gather", "img_gather", "is_image")}
+        embeds = splice(qwen.embed_tokens(p["qwen"], t["tokens"]), t["tok_gather"], t["img_gather"],
+                        t["is_image"], feats)
+        S = embeds.shape[1]
+        cache_len = S + len(steps)
+        alpha = qwen.ntk_alpha_for_len(c.text, cache_len)
+        cache = qwen.init_cache(c.text, 1, cache_len, device=device)
+        zero = torch.zeros((1,), dtype=torch.long, device=device)
+        hidden, _ = qwen.forward(p["qwen"], c.text, embeds, torch.arange(S, device=device)[None], cache, zero,
+                                 ntk_alpha=alpha)
+        out = [qwen.logits_from_hidden(p["qwen"], hidden[:, plan.length - 1])]
+        for i, tok in enumerate(steps):
+            pos = zero + plan.length + i
+            emb = qwen.embed_tokens(p["qwen"], torch.full((1, 1), tok, device=device))
+            hidden, _ = qwen.forward(p["qwen"], c.text, emb, pos[:, None], cache, pos, ntk_alpha=alpha)
+            out.append(qwen.logits_from_hidden(p["qwen"], hidden[:, 0]))
+        return alpha, [o.float().cpu() for o in out]
+
+    for what, ids in prompts.items():
+        alpha, got = run(params, cut(), ids, dev)
+        _, ref = run(params_cpu, cut(torch.float32), ids, torch.device("cpu"))
+        log(f"Qwen-VL reference, {what}: {len(ids)} ids, NTK alpha {alpha}")
+        if ("text" in what) != (alpha > 1):
+            raise AssertionError(f"{what}: NTK alpha {alpha} (the long prompt must pass seq_length)")
+        for name, g, r in zip(("prefill", "decode 1", "decode 2"), got, ref):
+            rel_check(g, r, f"Qwen-VL reference, {what}, {name}: max|card - cpu fp32| / max|cpu|")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda:0")
@@ -1461,36 +1692,39 @@ def main() -> int:
                    # the POPE runner at --batch-size 6: 6 image rows, 12 text rows
                    (6, runner["pad_img"], 32, 128), (12, runner["pad_txt"], 32, 128)]
     # the text-branch rows (unk, none) prefill together at their bucket
-    rec = phase_kernels_int8(shapes["decode_rows"], 2 * main_lens[1])
+    prefill_rows = 2 * main_lens[1]
+    rec = phase_kernels_int8(shapes["decode_rows"], prefill_rows)
     rec["K3"] = phase_kernel_flash(attn_shapes)
     rec["K4"] = phase_kernels_int4(shapes["decode_rows"], shapes["prefill_rows"])
     torch.cuda.synchronize()
     probes = phase_probes()
+    from llava_align_tpu_torch.runners import mmmu, pope, qwen_pope
+
+    # what the LLaVA model paths and the Qwen-VL ones send K1, K2 and K3
+    rec_llava, rec_qwen = PathRecorder(), PathRecorder()
     lm = load_7b(dev)
-    by_path = {"7b_int8_generate": phase_main_path(lm)}
+    with rec_llava:
+        by_path = {"7b_int8_generate": phase_main_path(lm)}
     torch.cuda.synchronize()
     smoke_dir = Path(__file__).resolve().parent / "build" / "pope_smoke"
-    runner_launches, vdd_rates, k3_seen = phase_runner(lm, smoke_dir, smi, "pope")
+    llava = RunnerModel("7b", "LLaVA-v1.5-7B int8", (pope, "load_model"), lm,
+                        ("--model-path", "random:7b", "--quant", "int8"), pope=pope)
+    runner_launches, vdd_rates = phase_runner(llava, smoke_dir, smi, "pope", rec_llava)
     by_path.update(runner_launches)
     # VCD through the same runner, layouts and question file
-    vcd_launches, vcd_rates, k3_vcd = phase_runner(lm, smoke_dir, smi, "vcd")
+    vcd_launches, vcd_rates = phase_runner(llava, smoke_dir, smi, "vcd", rec_llava)
     by_path.update(vcd_launches)
     for layout in RUNNER_LAYOUTS:
         log(f"POPE runner {layout} on {smi}: VCD {vcd_rates[layout]:.4f} questions/s, dual VDD "
             f"{vdd_rates[layout]:.4f} questions/s in this run ({vcd_rates[layout] / vdd_rates[layout]:.3f}x)")
-    by_path["7b_mme_runner"], k3_mme = phase_mme(lm, smoke_dir, smi)
-    del lm  # the 7B int8 tree goes before the bf16 one of the MMMU runner is built
+    by_path["7b_mme_runner"] = phase_mme(llava, smoke_dir, smi, rec_llava)
+    del lm, llava  # the 7B int8 tree goes before the bf16 one of the MMMU runner is built
     torch.cuda.empty_cache()
-    by_path["7b_mmmu_runner"], k3_mmmu = phase_mmmu(dev, smoke_dir, smi)
-    seen = k3_seen | k3_vcd | k3_mme | k3_mmmu
-    new_shapes = runner_attn_shapes(seen, set(attn_shapes))
-    log(f"runner phases: K3 took {sorted({q for q, _, _ in seen})} (VCD runs: "
-        f"{sorted({q for q, _, _ in k3_vcd})}); not checked yet: {new_shapes}")
-    if new_shapes:
-        more = phase_kernel_flash(new_shapes)
-        rec["K3"]["by_shape"] += more["by_shape"]
-        for k in ("max_abs_err", "max_row_err"):
-            rec["K3"][k] = max(rec["K3"][k], more[k])
+    llava_bf16 = RunnerModel("7b", "LLaVA-v1.5-7B bf16", (mmmu, "load_model"), load_7b(dev, "none"),
+                             ("--model-path", "random:7b"), kernels=("flash_attention",))
+    by_path["7b_mmmu_runner"] = phase_mmmu(llava_bf16, smoke_dir, smi, rec_llava)
+    del llava_bf16
+    torch.cuda.empty_cache()
     phase_reference(dev)
     torch.cuda.synchronize()
     phase_vcd_reference(dev)
@@ -1502,6 +1736,72 @@ def main() -> int:
     phase_grouped_reference(dev)
     torch.cuda.synchronize()
 
+    # the Qwen-VL paths, on a bf16 tree built after every LLaVA tree is
+    # freed; each run quantizes it (--quant int8), timed apart
+    qwen_params, qwen_cfg = load_qwen_7b(dev)
+    qwen = RunnerModel("qwen", "Qwen-VL-7B int8", (qwen_pope, "load_qwen_model"),
+                       qwen_runner_model(qwen_params, qwen_cfg),
+                       ("--model-path", "random:qwen-vl-7b", "--quant", "int8"),
+                       family=("--model-family", "qwen"), pope=qwen_pope)
+    qwen_launches, qwen_rates = phase_runner(qwen, smoke_dir, smi, "pope", rec_qwen)
+    by_path.update(qwen_launches)
+    by_path["qwen_mme_runner"] = phase_mme(qwen, smoke_dir, smi, rec_qwen)
+    by_path["qwen_mmmu_runner"] = phase_mmmu(qwen, smoke_dir, smi, rec_qwen)
+    log(f"POPE runner on {smi}, without the quantization: Qwen-VL-7B int8 "
+        + ", ".join(f"{k} {v:.4f}" for k, v in qwen_rates.items())
+        + " questions/s; LLaVA-v1.5-7B int8 dual VDD in this run: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in vdd_rates.items()) + " questions/s")
+    log(f"quantize_qwen_params of the bf16 Qwen-VL-7B tree on {smi}: "
+        + ", ".join(f"{t:.4f}" for t in rec_qwen.quant_s) + " s")
+    del qwen, qwen_params
+    torch.cuda.empty_cache()
+    phase_qwen_reference(dev)
+    torch.cuda.synchronize()
+
+    # K1 at every row count the model paths (LLaVA and Qwen) sent it that
+    # phase 3 did not check: the Qwen prefills' tiled-regime rows
+    k1_seen = collections.defaultdict(set)
+    for r in (rec_llava, rec_qwen):
+        for shape, rows in r.k1.items():
+            k1_seen[shape] |= rows
+    k1_new = path_k1_rows(k1_seen, k1_phase_rows(prefill_rows))
+    rows_by_path = {fam: {f"{O}x{D}": sorted(rows) for (O, D), rows in sorted(r.k1.items())}
+                    for fam, r in (("llava", rec_llava), ("qwen", rec_qwen))}
+    log(f"model paths: K1 took, by [O, D] stack, {rows_by_path}; not checked yet: {k1_new}")
+    if not rec_qwen.k1:
+        raise AssertionError("the Qwen runs sent K1 no call")
+    rec["K1"]["rows_by_path"] = rows_by_path
+    if k1_new:
+        per_rows, err = k1_rows_record(k1_new, torch.Generator(device=dev).manual_seed(9))
+        rec["K1"]["path_rows"] = {str(B): r for B, r in sorted(per_rows.items())}
+        rec["K1"]["max_abs_err"] = max(rec["K1"]["max_abs_err"], err)
+
+    # K2 at the Qwen lm_head: every row count the Qwen runs sent it, and the
+    # tiled regime's first and last row counts
+    from llava_align_tpu_torch.ops.quant import STREAM_MAX_ROWS
+
+    k2_rows = rec_qwen.k2[LM_HEAD_QWEN]
+    log(f"kernels: K2 at the Qwen lm_head {list(LM_HEAD_QWEN)}, the Qwen runs' row counts "
+        f"{sorted(k2_rows)} and the tiled regime's 65 and {STREAM_MAX_ROWS}")
+    if not k2_rows:
+        raise AssertionError("the Qwen runs sent K2 no call at the Qwen lm_head")
+    qwen_k2, err = k2_path_record(*LM_HEAD_QWEN, sorted(k2_rows | {65, STREAM_MAX_ROWS}),
+                                  max(r for r in k2_rows if r <= 64), torch.Generator(device=dev).manual_seed(7))
+    rec["K2"]["by_path"]["qwen_int8_runner"] = qwen_k2
+    rec["K2"]["max_abs_err"] = max(rec["K2"]["max_abs_err"], err)
+
+    # every shape the model paths (LLaVA and Qwen) sent K3 that the K3
+    # phase did not check
+    seen = rec_llava.k3 | rec_qwen.k3
+    new_shapes = runner_attn_shapes(seen, set(attn_shapes))
+    log(f"model paths: K3 took {sorted({q for q, _, _ in seen})} (Qwen runs: "
+        f"{sorted({q for q, _, _ in rec_qwen.k3})}); not checked yet: {new_shapes}")
+    if new_shapes:
+        more = phase_kernel_flash(new_shapes)
+        rec["K3"]["by_shape"] += more["by_shape"]
+        for k in ("max_abs_err", "max_row_err"):
+            rec["K3"][k] = max(rec["K3"][k], more[k])
+
     sources = {
         "int8_matmul_stacked": ("K1", "llava_align_tpu_torch/csrc/int8_mm.cu", "llava_align_tpu/ops/quant.py:242"),
         "int8_matmul_cuda": ("K2", "llava_align_tpu_torch/csrc/int8_mm.cu", "llava_align_tpu/ops/quant.py:177"),
@@ -1509,7 +1809,8 @@ def main() -> int:
         "int4_matmul_stacked": ("K4", "llava_align_tpu_torch/csrc/int4_mm.cu", "llava_align_tpu/ops/quant.py:541"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("by_rows", "by_path", "prefill", "graph_ms", "graph_library_ms", "max_row_err", "by_shape")
+    extra = ("by_rows", "by_path", "prefill", "rows_by_path", "path_rows", "graph_ms", "graph_library_ms",
+             "max_row_err", "by_shape")
     kernels = [
         dict(name=n, route="cuda", source=src, replaces=rep,
              launches=sum(p[n] for p in by_path.values()),

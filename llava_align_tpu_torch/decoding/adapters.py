@@ -1,8 +1,10 @@
 """Model adapters: the decode engine's interface to each VLM family (torch
-twin of llava_align_tpu/decoding/adapters.py; LLaVA only so far).
+twin of llava_align_tpu/decoding/adapters.py: LLaVA and Qwen-VL).
 
 Branch degradation for llava: 'unk' → IMAGE_TOKEN_INDEX→token 0; 'none' →
-sentinel removed (reference vcd_sample.py:153-160).
+sentinel removed (reference vcd_sample.py:153-160). For qwen: 'none' drops
+the sentinel and the <img>/</img> framing ids; 'unk' needs the tokenizer's
+text ('None {q} Answer:') and is passed as explicit branch ids.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 
 from llava_align_tpu_torch.config import LlavaConfig
 from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
-from llava_align_tpu_torch.models import llama, llava
+from llava_align_tpu_torch.models import llama, llava, qwen, qwen_vl
 
 Params = Dict[str, Any]
 
@@ -57,12 +59,17 @@ class LlavaAdapter:
     def embed_tokens(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
         return llama.embed_tokens(params["llama"], ids)
 
+    def params_device(self, params: Params) -> torch.device:
+        return params["llama"]["embed"].device
+
     def init_cache(self, batch: int, max_len: int, device=None):
         return llama.init_cache(self.cfg.text, batch, max_len, device=device)
 
     def forward(self, params, embeds, positions, cache, offsets, *, attn_impl="auto",
-                cache_row_offset=0, shared_kv=None, shared_len=None, shared_rows_per_prefix=None,
-                shared_rows_per_prefix2=0):
+                max_seq_len: int, cache_row_offset=0, shared_kv=None, shared_len=None,
+                shared_rows_per_prefix=None, shared_rows_per_prefix2=0):
+        """llama.forward; max_seq_len (the call's cache length) is taken and
+        ignored, as in the JAX adapter: LLaMA's rotary base is fixed."""
         return llama.forward(
             params["llama"], self.cfg.text, embeds, positions, cache, offsets,
             attn_impl=attn_impl, cache_row_offset=cache_row_offset, shared_kv=shared_kv,
@@ -77,3 +84,77 @@ class LlavaAdapter:
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         return llama.logits_from_hidden(params["llama"], hidden)
+
+
+class QwenVLAdapter:
+    """Qwen-VL: in-band image spans. Callers mark the 256-token image span
+    with one IMAGE_TOKEN_INDEX sentinel (models/qwen_vl.sentinelize_span);
+    the splice plan expands it to n_queries feature slots framed by the
+    real img_start/img_end tokens."""
+
+    name = "qwen_vl"
+    supports_shared_prefix = True
+
+    def __init__(self, cfg: qwen_vl.QwenVLConfig):
+        self.cfg = cfg
+
+    @property
+    def num_image_tokens(self) -> int:
+        return self.cfg.vision.n_queries
+
+    @property
+    def image_size(self) -> int:
+        return self.cfg.vision.image_size
+
+    @property
+    def vision_dtype(self) -> torch.dtype:
+        return self.cfg.vision.dtype
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.cfg.text.num_heads  # MHA: as many kv heads as heads
+
+    def branch_token_ids(self, input_ids: Sequence[int], kind: str) -> List[int]:
+        ids = [int(t) for t in input_ids]
+        if kind in ("main", "cd"):
+            return ids
+        if kind == "none":
+            # drop the whole <img>…</img> block: the sentinel and the framing tokens
+            framing = (IMAGE_TOKEN_INDEX, self.cfg.image_start_id, self.cfg.image_end_id)
+            return [t for t in ids if t not in framing]
+        raise ValueError(
+            f"qwen branch '{kind}' requires tokenizer text; pass explicit "
+            "branch ids via generate(..., branch_ids={...})"
+        )
+
+    def encode_images(self, params: Params, images: torch.Tensor) -> torch.Tensor:
+        return qwen_vl.encode_images(params, self.cfg, images)
+
+    def splice_embeds(self, params, tokens, tok_g, img_g, is_img, feats):
+        return llava.splice(qwen.embed_tokens(params["qwen"], tokens), tok_g, img_g, is_img, feats)
+
+    def embed_tokens(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
+        return qwen.embed_tokens(params["qwen"], ids)
+
+    def params_device(self, params: Params) -> torch.device:
+        return params["qwen"]["wte"].device
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        return qwen.init_cache(self.cfg.text, batch, max_len, device=device)
+
+    def forward(self, params, embeds, positions, cache, offsets, *, attn_impl="auto",
+                max_seq_len: int, cache_row_offset=0, shared_kv=None, shared_len=None,
+                shared_rows_per_prefix=None, shared_rows_per_prefix2=0):
+        """qwen.forward at the dynamic-NTK alpha of max_seq_len, the call's
+        cache length (the same in every phase of one call)."""
+        return qwen.forward(
+            params["qwen"], self.cfg.text, embeds, positions, cache, offsets,
+            ntk_alpha=qwen.ntk_alpha_for_len(self.cfg.text, max_seq_len),
+            attn_impl=attn_impl, cache_row_offset=cache_row_offset,
+            shared_kv=shared_kv, shared_len=shared_len,
+            shared_rows_per_prefix=shared_rows_per_prefix,
+            shared_rows_per_prefix2=shared_rows_per_prefix2,
+        )
+
+    def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+        return qwen.logits_from_hidden(params["qwen"], hidden)

@@ -37,7 +37,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from llava_align_tpu_torch.config import GenerationConfig, LlavaConfig
+from llava_align_tpu_torch.config import GenerationConfig
 from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from llava_align_tpu_torch.decoding import sampler as S
 from llava_align_tpu_torch.decoding.adapters import LlavaAdapter
@@ -102,14 +102,17 @@ class GenerationOutput:
 class DecodeEngine:
     """Runs debiased generation for one (model, GenerationConfig).
 
-    Prefill lengths are bucketed to multiples of `bucket`, as in the JAX
-    engine (here it fixes the kernels' shapes rather than compiled
+    The adapter (decoding/adapters) is the model family: LlavaAdapter(cfg)
+    by default, or QwenVLAdapter with a QwenVLConfig. Every forward of one
+    call passes the call's cache length as max_seq_len (Qwen's dynamic NTK
+    reads it). Prefill lengths are bucketed to multiples of `bucket`, as in
+    the JAX engine (here it fixes the kernels' shapes rather than compiled
     programs). `device` defaults to the device of the params."""
 
     def __init__(
         self,
         params: Params,
-        cfg: LlavaConfig,
+        cfg,
         gen: GenerationConfig,
         *,
         adapter=None,
@@ -128,7 +131,7 @@ class DecodeEngine:
         self.attn_impl = attn_impl  # the causal prefill's route (ops.attention.causal_attention)
         self.bucket = bucket
         self.top_scores_k = top_scores_k
-        self.device = torch.device(device) if device is not None else params["llama"]["embed"].device
+        self.device = torch.device(device) if device is not None else self.adapter.params_device(params)
 
     # ------------------------------------------------------------------
     # host-side packing (identical to the JAX engine's _pack)
@@ -241,9 +244,10 @@ class DecodeEngine:
         D = grid_feats.shape[2]
         return grid_feats.reshape(grid_feats.shape[0] // G, -1, D)
 
-    def _prefill(self, pack, pad: int, feats, cache, row_offset: int):
+    def _prefill(self, pack, pad: int, feats, cache, row_offset: int, max_seq_len: int):
         """Splice + prefill one row group at its bucket; returns the group's
-        last-token logits [rows, V]."""
+        last-token logits [rows, V]. max_seq_len: the call's cache length,
+        which every forward of a call passes (Qwen's dynamic NTK reads it)."""
         dev = self.device
         tokens, tok_g, img_g, is_img, lengths, feats_src = (
             torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in pack
@@ -260,7 +264,7 @@ class DecodeEngine:
         hidden, _ = self.adapter.forward(
             self.params, embeds, positions, cache,
             torch.zeros((rows,), dtype=torch.long, device=dev), cache_row_offset=row_offset,
-            attn_impl=self.attn_impl,
+            attn_impl=self.attn_impl, max_seq_len=max_seq_len,
         )
         last = hidden[torch.arange(rows, device=dev), lengths.long() - 1]
         return self.adapter.logits(self.params, last)
@@ -321,10 +325,11 @@ class DecodeEngine:
         elif has_image:
             feats = self._request_features(image, generator)
         cache = adapter.init_cache(nb, cache_len, device=dev)
-        logits = self._prefill(pi, pad_img, feats, cache, 0)
+        logits = self._prefill(pi, pad_img, feats, cache, 0, cache_len)
         lengths_host = pi[4].astype(np.int64)
         if pt is not None:
-            logits = torch.cat([logits, self._prefill(pt, pad_txt, None, cache, len(self.img_kinds))])
+            logits = torch.cat([logits, self._prefill(pt, pad_txt, None, cache, len(self.img_kinds),
+                                                      cache_len)])
             lengths_host = np.concatenate([lengths_host, pt[4].astype(np.int64)])
         lengths = torch.from_numpy(lengths_host).to(dev)
 
@@ -347,7 +352,7 @@ class DecodeEngine:
                 raise RuntimeError(f"cache write at {lengths_host} past cache_len={cache_len}")
             emb = adapter.embed_tokens(self.params, tok.reshape(1, 1).expand(nb, 1))
             hidden, cache = adapter.forward(self.params, emb, lengths[:, None], cache, lengths,
-                                            attn_impl=self.attn_impl)
+                                            attn_impl=self.attn_impl, max_seq_len=cache_len)
             logits = adapter.logits(self.params, hidden[:, 0])
             lengths = lengths + 1
             lengths_host = lengths_host + 1
@@ -488,10 +493,10 @@ class DecodeEngine:
 
         feats = self._encode(images, generator) if images is not None else None
         cache = adapter.init_cache(Q * nb, cache_len, device=dev)
-        logits = self._prefill(pack_img, pad_img, feats, cache, 0)
+        logits = self._prefill(pack_img, pad_img, feats, cache, 0, cache_len)
         lengths_host = pack_img[4].astype(np.int64)
         if n_txt:
-            logits = torch.cat([logits, self._prefill(pack_txt, pad_txt, None, cache, Q * n_img)])
+            logits = torch.cat([logits, self._prefill(pack_txt, pad_txt, None, cache, Q * n_img, cache_len)])
             lengths_host = np.concatenate([lengths_host, pack_txt[4].astype(np.int64)])
         lengths = torch.from_numpy(lengths_host).to(dev)
 
@@ -499,7 +504,7 @@ class DecodeEngine:
             nonlocal cache, lengths
             emb = adapter.embed_tokens(params, tok_rows[:, None])
             hidden, cache = adapter.forward(params, emb, lengths[:, None], cache, lengths,
-                                            attn_impl=self.attn_impl)
+                                            attn_impl=self.attn_impl, max_seq_len=cache_len)
             lengths = lengths + 1
             return adapter.logits(params, hidden[:, 0])
 
@@ -705,21 +710,27 @@ class DecodeEngine:
         images = self._assemble_images(imgs_np, G)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(self.gen.seed)
+        # the bucketed full-prompt length the unshared paths would take
+        # (their cache_len less T), so that Qwen's dynamic NTK is the same in
+        # both layouts
+        max_full = max(int(pack_prefix[4][row // Qg]) + int(suf_lens[row]) for row in range(M))
+        ntk_pad = _round_up(max(max_full, self.bucket), self.bucket)
         out = self._run_groups(G, Qg, sh_kinds, pl_kinds, pack_prefix, suf_tokens, suf_lens,
-                               pack_tp, pack_txt, images, generator)
+                               pack_tp, pack_txt, images, generator, ntk_pad)
         out.update(p_lens=pack_prefix[4], suf_lens=suf_lens, Qg=Qg, M=M,
                    seconds_to_first_token=out["t_first"] - t0,
                    seconds_total=time.perf_counter() - t0)
         return out
 
     def _run_groups(self, G, Qg, sh_kinds, pl_kinds, pack_prefix, suf_tokens, suf_lens,
-                    pack_tp, pack_txt, images, generator):
+                    pack_tp, pack_txt, images, generator, ntk_pad):
         """The device side of submit_batch_groups: encode, the three
         prefills, and the decode loop over the row layout
         [G*n_img segment blocks of Qg image rows | G*n_sh blocks of Qg
         shared-text rows | M*n_pl plain text rows (question-major)]. With
         use_cd (n_img = 2) each group's noised image has its own prefix
-        segment: segments [g0 clean, g0 noised, g1 clean, ...]."""
+        segment: segments [g0 clean, g0 noised, g1 clean, ...]. Every forward
+        passes max_seq_len = ntk_pad + T, what the unshared paths would pass."""
         gen, adapter, params, dev = self.gen, self.adapter, self.params, self.device
         nb = len(self.kinds)
         n_sh, n_pl = len(sh_kinds), len(pl_kinds)
@@ -729,6 +740,7 @@ class DecodeEngine:
         T = gen.max_new_tokens
         pad_suf = suf_tokens.shape[1]
         cache_len = max(pad_suf, pack_txt[0].shape[1] if n_pl else 0) + T
+        total_len = ntk_pad + T
 
         # branch b of question qq sits at cache row perm[qq * nb + b]
         perm = np.zeros((M * nb,), np.int64)
@@ -760,7 +772,7 @@ class DecodeEngine:
             positions = torch.arange(pad, device=dev).expand(rows, pad)
             hidden, _ = adapter.forward(
                 params, embeds, positions, cache, torch.zeros((rows,), dtype=torch.long, device=dev),
-                cache_row_offset=row_offset, attn_impl=self.attn_impl, **shared,
+                cache_row_offset=row_offset, attn_impl=self.attn_impl, max_seq_len=total_len, **shared,
             )
             return hidden, lengths
 
@@ -796,7 +808,7 @@ class DecodeEngine:
             params, adapter.embed_tokens(params, put(tokens2)), positions, cache,
             torch.zeros((M2 + Msh,), dtype=torch.long, device=dev),
             shared_kv=shared, shared_len=sh_len, shared_rows_per_prefix=Qg,
-            shared_rows_per_prefix2=Qg, attn_impl=self.attn_impl,
+            shared_rows_per_prefix2=Qg, attn_impl=self.attn_impl, max_seq_len=total_len,
         )
         rows = torch.arange(M2 + Msh, device=dev)
         logits = adapter.logits(params, hidden[rows, put(lens2).long() - 1])
@@ -819,7 +831,7 @@ class DecodeEngine:
             hidden, cache = adapter.forward(
                 params, adapter.embed_tokens(params, tok_rows[:, None]), (sh_len_all + lengths)[:, None],
                 cache, lengths, shared_kv=shared, shared_len=sh_len_all, shared_rows_per_prefix=Qg,
-                shared_rows_per_prefix2=Qg, attn_impl=self.attn_impl,
+                shared_rows_per_prefix2=Qg, attn_impl=self.attn_impl, max_seq_len=total_len,
             )
             lengths = lengths + 1
             return adapter.logits(params, hidden[:, 0])

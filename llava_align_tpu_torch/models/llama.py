@@ -88,6 +88,57 @@ def _write_cache(
         cache_full[li, row_offset : row_offset + B, :S] = new
 
 
+def linear(h: torch.Tensor, w: Any, li: int) -> torch.Tensor:
+    """h [B, S, in] x layer li of a stacked linear [L, out, in] → [B, S,
+    out]: int4 stacks through K4's dispatch, int8 ones through K1's, float
+    ones through torch.matmul."""
+    if is_quantized_int4(w):
+        return int4_matmul_stacked_dispatch(h, w, li)
+    if is_quantized(w):
+        return int8_matmul_stacked_dispatch(h, w, li)
+    return h @ w[li].t()
+
+
+def attend(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: int, cache: Optional[KVCache],
+    cache_offset: torch.Tensor, is_decode: bool, cache_row_offset: int, attn_impl: str,
+    shared_kv: Optional[KVCache] = None, shared_len: Optional[torch.Tensor] = None,
+    shared_rows_per_prefix: Optional[int] = None, shared_rows_per_prefix2: int = 0,
+) -> torch.Tensor:
+    """One layer's attention, as `forward` (which see for the arguments)
+    runs it: k and v [B, S, K, Dh] are written into the cache first (if
+    any); then a decode step attends over the cache rows, a prefill
+    causally within its block (K3 or mha by attn_impl), and either one
+    against the shared prefix segment too when shared_kv is given."""
+    B = q.shape[0]
+    if cache is not None:
+        _write_cache(cache["k"], k, li, cache_offset, is_decode, cache_row_offset)
+        _write_cache(cache["v"], v, li, cache_offset, is_decode, cache_row_offset)
+    rows = slice(cache_row_offset, cache_row_offset + B)
+    if shared_kv is None:
+        if is_decode:
+            return decode_attention(q, cache["k"][li, rows], cache["v"][li, rows], cache_offset)
+        return causal_attention(q, k, v, impl=attn_impl)
+    k_sh, v_sh = shared_kv["k"][li], shared_kv["v"][li]
+    grouped = k_sh.dim() == 4  # [G, P, K, Dh]: one prefix per row group
+    two = {}
+    if "k2" in shared_kv:  # second (text-branch) segment table
+        two = dict(k_sh2=shared_kv["k2"][li], v_sh2=shared_kv["v2"][li],
+                   rows_per_prefix2=shared_rows_per_prefix2)
+    if is_decode:
+        kc, vc = cache["k"][li, rows], cache["v"][li, rows]
+        if grouped:
+            return decode_attention_shared_grouped(
+                q, kc, vc, cache_offset, k_sh, v_sh, shared_len, shared_rows_per_prefix, **two
+            )
+        return decode_attention_shared(q, kc, vc, cache_offset, k_sh, v_sh, shared_len)
+    if grouped:
+        return chunk_attention_shared_grouped(
+            q, k, v, k_sh, v_sh, shared_len, shared_rows_per_prefix, **two
+        )
+    return chunk_attention_shared(q, k, v, k_sh, v_sh, shared_len)
+
+
 def forward(
     params: Params,
     cfg: LlamaConfig,
@@ -146,34 +197,12 @@ def forward(
     QD, KD = cfg.q_dim, cfg.kv_dim
     Hn, Kn, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    def lin(h, name, li):  # h [B, S, in] → [B, S, out]
-        w = layers[name]
-        if is_quantized_int4(w):
-            return int4_matmul_stacked_dispatch(h, w, li)
-        if is_quantized(w):
-            return int8_matmul_stacked_dispatch(h, w, li)
-        return h @ w[li].t()
+    def lin(h, name, li):
+        return linear(h, layers[name], li)
 
-    def shared_attention(q, k, v, li):
-        k_sh, v_sh = shared_kv["k"][li], shared_kv["v"][li]
-        grouped = k_sh.dim() == 4  # [G, P, K, Dh]: one prefix per row group
-        two = {}
-        if "k2" in shared_kv:  # second (text-branch) segment table
-            two = dict(k_sh2=shared_kv["k2"][li], v_sh2=shared_kv["v2"][li],
-                       rows_per_prefix2=shared_rows_per_prefix2)
-        if is_decode:
-            rows = slice(cache_row_offset, cache_row_offset + B)
-            kc, vc = cache["k"][li, rows], cache["v"][li, rows]
-            if grouped:
-                return decode_attention_shared_grouped(
-                    q, kc, vc, cache_offset, k_sh, v_sh, shared_len, shared_rows_per_prefix, **two
-                )
-            return decode_attention_shared(q, kc, vc, cache_offset, k_sh, v_sh, shared_len)
-        if grouped:
-            return chunk_attention_shared_grouped(
-                q, k, v, k_sh, v_sh, shared_len, shared_rows_per_prefix, **two
-            )
-        return chunk_attention_shared(q, k, v, k_sh, v_sh, shared_len)
+    def attn_fn(q, k, v, li):
+        return attend(q, k, v, li, cache, cache_offset, is_decode, cache_row_offset, attn_impl,
+                      shared_kv, shared_len, shared_rows_per_prefix, shared_rows_per_prefix2)
 
     x = embeds
     for li in range(cfg.num_layers):
@@ -189,20 +218,7 @@ def forward(
             v = lin(h, "v", li).reshape(B, S, Kn, Dh)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        v = v.contiguous()
-
-        if cache is not None:
-            _write_cache(cache["k"], k, li, cache_offset, is_decode, cache_row_offset)
-            _write_cache(cache["v"], v, li, cache_offset, is_decode, cache_row_offset)
-
-        if shared_kv is not None:
-            attn = shared_attention(q, k, v, li)
-        elif is_decode:
-            rows = slice(cache_row_offset, cache_row_offset + B)
-            attn = decode_attention(q, cache["k"][li, rows], cache["v"][li, rows], cache_offset)
-        else:
-            attn = causal_attention(q, k, v, impl=attn_impl)
-
+        attn = attn_fn(q, k, v.contiguous(), li)
         x = x + lin(attn.reshape(B, S, QD), "o", li)
 
         h = rms_norm(x, layers["mlp_norm"][li], cfg.rms_norm_eps)

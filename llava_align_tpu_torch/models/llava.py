@@ -93,9 +93,17 @@ def splice_embeds(
     is_image: torch.Tensor,        # [B, S] bool
     image_features: torch.Tensor,  # [B, N_img_slots, D]
 ) -> torch.Tensor:
-    """Device-side splice → [B, S, D]. The plans index inside their arrays
-    by construction (torch gathers do not clamp as JAX's do)."""
+    """Device-side splice → [B, S, D]."""
     text_emb = llama.embed_tokens(params["llama"], tokens)  # [B, T, D]
+    return splice(text_emb, tok_gather, img_gather, is_image, image_features)
+
+
+def splice(text_emb: torch.Tensor, tok_gather: torch.Tensor, img_gather: torch.Tensor,
+           is_image: torch.Tensor, image_features: torch.Tensor) -> torch.Tensor:
+    """Gather the token rows of text_emb [B, T, D] and the feature rows of
+    image_features, select by is_image → [B, S, D] in text_emb's dtype. The
+    plans index inside their arrays by construction (torch gathers do not
+    clamp as JAX's do)."""
     D = text_emb.shape[-1]
     gathered_text = torch.gather(text_emb, 1, tok_gather.long()[..., None].expand(-1, -1, D))
     gathered_img = torch.gather(

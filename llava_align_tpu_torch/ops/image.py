@@ -13,9 +13,10 @@
 * `synthetic_image_uint8`: the POPE runner's deterministic noise image for a
   missing file, built without PIL.
 
+* `qwen_preprocess_pil`: Qwen-VL's transform, a copy of the JAX one.
+
 `expand2square` implements the 'pad' aspect-ratio mode (reference
-experiments/llava/mm_utils.py:152-163). Qwen-VL's preprocessing waits for
-the Qwen family.
+experiments/llava/mm_utils.py:152-163).
 """
 
 from __future__ import annotations
@@ -93,6 +94,23 @@ def clip_resize_pil_uint8(
     the device than normalized fp32, the same math."""
     img = _resize_crop_pil(pil_img, image_size, image_aspect_ratio, mean)
     return np.asarray(img, dtype=np.uint8).transpose(2, 0, 1)
+
+
+def qwen_preprocess_pil(
+    pil_img,
+    image_size: int = 448,
+    mean: Sequence[float] = OPENAI_CLIP_MEAN,
+    std: Sequence[float] = OPENAI_CLIP_STD,
+) -> np.ndarray:
+    """Qwen-VL's image transform: direct (aspect-destroying) bicubic resize to
+    image_size x image_size + CLIP normalize (reference Qwen_VL/visual.py:352-361).
+    Returns CHW float32."""
+    from PIL import Image
+
+    img = pil_img.convert("RGB").resize((image_size, image_size), resample=Image.BICUBIC)
+    arr = np.asarray(img, dtype=np.float32) / 255.0
+    arr = (arr - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+    return arr.transpose(2, 0, 1)
 
 
 def synthetic_image_uint8(image_file: str, image_size: int = 336) -> np.ndarray:

@@ -463,3 +463,40 @@ def quantize_llama_params(
     out["layers"] = layers
     out["lm_head"] = quantize_weight(params["lm_head"])
     return out
+
+
+def quantize_qwen_params(params: Dict[str, Any], fuse: bool = True) -> Dict[str, Any]:
+    """int8 weight-only for the Qwen decoder (models/qwen layout), the JAX
+    package's quantize_qwen_params: c_attn_w is already the packed q|k|v
+    stack; fuse=True also packs w1|w2 into one 'w12' stack along the output
+    axis (per-output-channel scales make that bit-identical to the parts);
+    c_attn_b stays dense (added after the matmul); the lm_head int8, the
+    embedding table as it is. Each stack is quantized one layer at a time
+    (the same result: scales are per channel), so the peak beyond the
+    float tree is the int8 copy and one layer in fp32."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    names = ["c_attn_w", "attn_proj", "mlp_proj"]
+    if fuse:
+        layers["w12"] = _quantize_stacks([layers.pop("w1"), layers.pop("w2")])
+    else:
+        names += ["w1", "w2"]
+    for name in names:
+        layers[name] = _quantize_stacks([layers[name]])
+    out["layers"] = layers
+    out["lm_head"] = quantize_weight(params["lm_head"])
+    return out
+
+
+def _quantize_stacks(parts) -> Dict[str, torch.Tensor]:
+    """quantize_weight of the [L, O_i, D] stacks concatenated along O, built
+    layer by layer into int8 [L, sum O_i, D] and fp32 [L, sum O_i]."""
+    L, D = parts[0].shape[0], parts[0].shape[2]
+    O = sum(p.shape[1] for p in parts)
+    dev = parts[0].device
+    wq = {"q": torch.empty((L, O, D), dtype=torch.int8, device=dev),
+          "s": torch.empty((L, O), dtype=torch.float32, device=dev)}
+    for li in range(L):
+        layer = quantize_weight(torch.cat([p[li] for p in parts]))
+        wq["q"][li], wq["s"][li] = layer["q"], layer["s"]
+    return wq

@@ -4,7 +4,9 @@ the port's POPE runner, with the same knobs and records).
 
 Capability parity: experiments/eval/MME/run_llava.py (generation; the
 prompt has no 'one word' suffix: the MME questions carry 'Please answer yes
-or no.'), convert_answer_to_mme.py, eval_tool/calculation.py (+ the
+or no.'), run_qwen.py (--model-family qwen: '<img>{path}</img>{q} Answer:'
+prompts through the qwen_pope runner, run_qwen.py:69,104-108),
+convert_answer_to_mme.py, eval_tool/calculation.py (+ the
 calculation_sampling.py / _calibrate.py multi-setting aggregation mains via
 evals.mme.score_sweep_dirs).
 
@@ -16,8 +18,8 @@ evals.mme.score_sweep_dirs).
         --mme-data-root /data/MME_Benchmark [--use_dd --use_dd_unk ...]
     python -m llava_align_tpu_torch.runners.mme --score-sweep out/ --sweep-prefix mme_
 
-The GPU unless --device cpu is given. Not ported yet, and refused:
---model-family qwen (the Qwen-VL family), and what the POPE runner refuses.
+The GPU unless --device cpu is given. Refused: what the POPE runner (and,
+with --model-family qwen, the qwen_pope runner) refuses.
 """
 
 from __future__ import annotations
@@ -66,13 +68,18 @@ def run(args) -> dict:
             print(setting, json.dumps(scores))
         return results
 
-    if getattr(args, "model_family", "llava") == "qwen":
-        raise NotImplementedError(
-            "--model-family qwen: the Qwen-VL family is not ported yet (ROADMAP Queue 1 item 10)")
     args.one_word = False  # MME questions already instruct yes/no
-    if args.image_aspect_ratio is None:
-        args.image_aspect_ratio = "pad"  # llava-v1.5 config default
-    answers_file = pope.run(args)
+    if getattr(args, "model_family", "llava") == "qwen":
+        # reference MME/run_qwen.py: the same flow with the qwen prompt
+        # format; the qwen runner groups MME's 2 questions per image onto
+        # the shared-prefix path
+        from llava_align_tpu_torch.runners import qwen_pope
+
+        answers_file = qwen_pope.run(args)
+    else:
+        if args.image_aspect_ratio is None:
+            args.image_aspect_ratio = "pad"  # llava-v1.5 config default
+        answers_file = pope.run(args)
 
     if not args.mme_data_root or not os.path.isdir(args.mme_data_root):
         print(f"--mme-data-root {args.mme_data_root!r} missing or not a directory; "
@@ -92,7 +99,7 @@ def build_parser():
     p = pope.build_parser()
     p.add_argument("--mme-data-root", type=str, default="")
     p.add_argument("--model-family", default="llava", choices=["llava", "qwen"],
-                   help="qwen (reference MME/run_qwen.py) is not ported yet (refused)")
+                   help="qwen = reference MME/run_qwen.py counterpart")
     p.add_argument("--score-sweep", type=str, default="",
                    help="scoring-only: folder of {prefix}{setting} results dirs")
     p.add_argument("--sweep-prefix", type=str, default="")

@@ -1,6 +1,6 @@
-"""MMMU benchmark runner (the LLaVA engine) + calibrated N-way Post-Hoc
-scoring: the port of llava_align_tpu/runners/mmmu.py (`run` for the LLaVA
-family, `score`, `score_sweep`, `score_sweep_files`, `print_results`,
+"""MMMU benchmark runner (LLaVA + Qwen-VL engines) + calibrated N-way
+Post-Hoc scoring: the port of llava_align_tpu/runners/mmmu.py (`run`,
+`run_qwen`, `score`, `score_sweep`, `score_sweep_files`, `print_results`,
 `build_parser`), with the same knobs and records.
 
 Capability parity: experiments/eval/MMMU/run_llava.py (generation over val
@@ -8,7 +8,8 @@ samples), run_llava_calibrate.py (per-question dynamic choice LABEL_DICT,
 content-free none/unk dumps, N-way affine calibration :82-135),
 run_llava_calibrate_best.py (--calibrate-best: the degraded-image probes and
 the 9-setting sweep), main_eval_only.py (parse + evaluate + instruction-level
-accuracy).
+accuracy), run_qwen_sampling.py:24-66 (--model-family qwen:
+'<img>…</img>{q} Answer:' prompts with '<image 1>' stripped, eod stopping).
 
 Input format: jsonl samples with
     {id, subject?, question_type, answer, final_input_prompt,
@@ -21,7 +22,7 @@ Input format: jsonl samples with
 Each question's sampling stream (and --calibrate-best's noise) is a
 torch.Generator seeded args.seed + crc32(id) % 65536, where the JAX runner
 seeds a PRNGKey so. The GPU unless --device cpu is given. Not ported yet,
-and refused: --model-family qwen (the Qwen-VL family), --dist auto.
+and refused: --dist auto.
 """
 
 from __future__ import annotations
@@ -57,14 +58,112 @@ from llava_align_tpu_torch.runners.common import (
 from llava_align_tpu_torch.tokenization import keyword_token_ids, tokenizer_image_token
 
 
-def run(args) -> str:
-    if getattr(args, "model_family", "llava") == "qwen":
-        raise NotImplementedError(
-            "--model-family qwen: the Qwen-VL family is not ported yet (ROADMAP Queue 1 item 10)")
+def _refuse_dist_auto(args) -> None:
     if getattr(args, "dist", "none") == "auto":
         raise NotImplementedError(
-            "--dist auto (multi-process sharding) is not ported yet (ROADMAP Queue 1 item 13); "
+            "--dist auto (multi-process sharding) is not ported yet (ROADMAP Queue 1 item 8, parallelism); "
             "shard with --num-chunks/--chunk-idx")
+
+
+def _question_stream(device, seed: int, sid) -> torch.Generator:
+    """A question's sampling stream, seeded seed + crc32(id) % 65536 (the
+    JAX runner's PRNGKey seed)."""
+    return torch.Generator(device=device).manual_seed(seed + (zlib.crc32(str(sid).encode()) % 65536))
+
+
+def run_qwen(args) -> str:
+    """MMMU over the Qwen-VL engine (reference run_qwen_sampling.py:24-66):
+    prompt = image span + '{final_input_prompt minus <image 1>} Answer:',
+    eod stopping. Records carry the llava path's fields, so every scorer
+    (score, score_sweep, print_results) applies unchanged. --quant int8
+    quantizes the decoder (as the JAX runner, only int8 acts)."""
+    from llava_align_tpu_torch.decoding.adapters import QwenVLAdapter
+    from llava_align_tpu_torch.models import qwen_vl as qwen_vl_model
+    from llava_align_tpu_torch.runners.qwen_pope import _load_image, load_qwen_model
+
+    _refuse_dist_auto(args)
+    device = torch.device(args.device) if getattr(args, "device", None) else None
+    tokenizer, params, cfg, model_name = load_qwen_model(args.model_path, device=device)
+    if getattr(args, "quant", "none") == "int8":
+        from llava_align_tpu_torch.ops.quant import quantize_qwen_params
+
+        params = dict(params, qwen=quantize_qwen_params(params["qwen"]))
+    eod = getattr(tokenizer, "eod_id", getattr(tokenizer, "eos_token_id", 2))
+    samples = load_questions_for(args)
+    if args.max_questions:
+        samples = samples[: args.max_questions]
+    ans = AnswerFile(args.answers_file, resume=args.resume)
+
+    gen = make_generation_config(args, eos_token_id=eod, max_new_tokens=args.max_new_tokens)
+    adapter = QwenVLAdapter(cfg)
+    engine = DecodeEngine(params, cfg, gen, adapter=adapter, bucket=64)
+    score_engine = None
+    if getattr(args, "calibrate", False):
+        score_gen = make_generation_config(
+            args, eos_token_id=eod, use_cd=False, use_dd=False, use_dd_unk=False, max_new_tokens=1,
+        )
+        score_engine = DecodeEngine(params, cfg, score_gen, adapter=adapter, bucket=64)
+
+    span = qwen_vl_model.make_image_span_ids(cfg)
+
+    def _ids(text: str):
+        return list(tokenizer(text).input_ids)
+
+    def rng(sid) -> torch.Generator:
+        return _question_stream(engine.device, args.seed, sid)
+
+    def _finish(s, sid, out):
+        q = s["final_input_prompt"].replace("<image 1>", "").strip()
+        record = {
+            "question_id": sid,
+            "subject": s.get("subject", "all"),
+            "question_type": s.get("question_type", "multiple-choice"),
+            "answer": s.get("answer"),
+            "all_choices": s.get("all_choices"),
+            "index2ans": s.get("index2ans"),
+            "text": tokenizer.decode(out.token_ids, skip_special_tokens=True).strip(),
+            "model_id": model_name,
+            "naive": calibrate_label_dict(out.first_scores_top_probs, out.first_scores_top_ids, tokenizer),
+        }
+        if score_engine is not None and s.get("all_choices"):
+            # content-free probes as qwen_calibrate.py:36-41
+            o = score_engine.generate(_ids(f"{q} Answer:"), None, generator=rng(sid))
+            record["none"] = calibrate_label_dict(o.first_scores_top_probs, o.first_scores_top_ids, tokenizer)
+            o = score_engine.generate(_ids(f"None {q} Answer:"), None, generator=rng(sid))
+            record["unk"] = calibrate_label_dict(o.first_scores_top_probs, o.first_scores_top_ids, tokenizer)
+        ans.write(record)
+
+    # one question in flight without --calibrate: submit q+1 before
+    # collecting q, in the JAX runner's order (the port's submit runs the
+    # whole call, so nothing overlaps)
+    in_flight = None
+    for s in samples:
+        sid = s.get("id", s.get("question_id"))
+        if ans.is_done(sid):
+            continue
+        q = s["final_input_prompt"].replace("<image 1>", "").strip()
+        sent_ids, _ = qwen_vl_model.sentinelize_span(span + _ids(f"{q} Answer:"), cfg)
+        # the qwen 'unk' branch is a retokenized prompt ('None {q} Answer:',
+        # qwen_calibrate.py:36-41): explicit ids, as in the qwen POPE runner
+        branch_ids = {"unk": _ids(f"None {q} Answer:")} if gen.use_dd_unk else None
+        image = _load_image(args, s.get("image", ""), cfg)
+        if score_engine is None:
+            handle = engine.submit_generate(sent_ids, image, generator=rng(sid), branch_ids=branch_ids)
+            if in_flight is not None:
+                _finish(*in_flight[:2], engine.collect_generate(in_flight[2]))
+            in_flight = (s, sid, handle)
+            continue
+        _finish(s, sid, engine.generate(sent_ids, image, generator=rng(sid), branch_ids=branch_ids))
+    if in_flight is not None:
+        _finish(*in_flight[:2], engine.collect_generate(in_flight[2]))
+    ans.close()
+    return args.answers_file
+
+
+def run(args) -> str:
+    if getattr(args, "model_family", "llava") == "qwen":
+        return run_qwen(args)
+    _refuse_dist_auto(args)
     device = torch.device(args.device) if getattr(args, "device", None) else None
     model = load_model(args.model_path, device=device)
     tokenizer, params, cfg = model.tokenizer, model.params, model.cfg
@@ -85,8 +184,7 @@ def run(args) -> str:
         score_engine = DecodeEngine(params, cfg, score_gen, stop_keyword_ids=stop_ids)
 
     def rng(sid) -> torch.Generator:
-        return torch.Generator(device=engine.device).manual_seed(
-            args.seed + (zlib.crc32(str(sid).encode()) % 65536))
+        return _question_stream(engine.device, args.seed, sid)
 
     # one question in flight on the no-calibrate path: submit q+1 before
     # collecting q, in the JAX runner's order (the port's submit runs the
@@ -327,7 +425,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print the domain/subject accuracy table "
                    "(reference print_results.py)")
     p.add_argument("--model-family", default="llava", choices=["llava", "qwen"],
-                   help="qwen (reference MMMU run_qwen_sampling.py) is not ported yet (refused)")
+                   help="qwen = reference MMMU run_qwen_sampling.py engine")
     return p
 
 

@@ -89,7 +89,7 @@ def _auto_group_batch(engine, Qg: int, max_new: int) -> int:
 def _refuse_unported(args) -> None:
     if getattr(args, "dist", "none") == "auto":
         raise NotImplementedError(
-            "--dist auto (multi-process sharding) is not ported yet (ROADMAP Queue 1 item 13); "
+            "--dist auto (multi-process sharding) is not ported yet (ROADMAP Queue 1 item 8, parallelism); "
             "shard with --num-chunks/--chunk-idx")
     if args.quant == "w8a8":
         raise NotImplementedError("--quant w8a8 (activation quantization) is not ported yet")

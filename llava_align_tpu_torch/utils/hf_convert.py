@@ -1,14 +1,17 @@
-"""HF-format LLaVA checkpoint → the port's param tree (torch twin of the
-LLaVA part of llava_align_tpu/utils/hf_convert.py: convert_llama,
-convert_clip, convert_projector, load_state_dict, config_from_hf,
-load_llava_checkpoint).
+"""HF-format LLaVA and Qwen-VL checkpoints → the port's param trees (torch
+twin of the LLaVA and Qwen-VL parts of llava_align_tpu/utils/hf_convert.py:
+convert_llama, convert_clip, convert_projector, load_state_dict,
+config_from_hf, load_llava_checkpoint; convert_qwen, convert_qwen_visual,
+load_qwen_vl_checkpoint).
 
 The tree is the JAX package's, so that loading a checkpoint here and
 `utils.jax_params.from_jax_params` of the JAX loader's tree give the same
 leaves: LLaMA linears keep torch's [out, in], stacked over layers; CLIP and
 projector kernels are transposed to [in, out]; the patch conv [D, 3, P, P]
 becomes [3*P*P, D]; the lm_head is the embedding table when the checkpoint
-has none.
+has none. Qwen-VL's linears all stay [out, in], its conv [W, 3, P, P]
+becomes [W, 3*P*P], and its position tables are bicubic-interpolated to the
+patch grid here, on the host in fp32, as the JAX converter does.
 
 Weights are read without a copy on the host: `.safetensors` files through
 this module's own reader of the format (no `safetensors` package) and
@@ -29,7 +32,12 @@ from typing import Any, Callable, Dict, List, Mapping, Tuple
 
 import torch
 
+import numpy as np
+
 from llava_align_tpu_torch.config import ClipVisionConfig, LlamaConfig, LlavaConfig
+from llava_align_tpu_torch.models.qwen import QwenConfig
+from llava_align_tpu_torch.models.qwen_vit import QwenVisionConfig, interpolate_pos_embed
+from llava_align_tpu_torch.models.qwen_vl import QwenVLConfig
 from llava_align_tpu_torch.models.projector import num_layers as projector_num_layers
 from llava_align_tpu_torch.utils.synthetic import resolve_device
 
@@ -242,3 +250,136 @@ def load_llava_checkpoint(model_path: str, dtype: torch.dtype = torch.bfloat16,
     }
     return params, cfg
 
+
+
+# ---------------------------------------------------------------------------
+# Qwen-VL
+# ---------------------------------------------------------------------------
+
+
+def convert_qwen(sd: StateDict, cfg: QwenConfig, prefix: str = "", device=None) -> Dict[str, Any]:
+    """Qwen decoder state dict (transformer.h.{i}.* keys) → the models/qwen
+    tree; every linear stays torch's [out, in]."""
+    device = resolve_device(device)
+    p, dt, L = prefix, cfg.dtype, cfg.num_layers
+
+    def st(template):
+        return _stack(sd, p + "transformer.h.{i}." + template, L, dt, device)
+
+    return {
+        "wte": sd[p + "transformer.wte.weight"].to(device, dt),
+        "layers": {
+            "ln_1": st("ln_1.weight"),
+            "c_attn_w": st("attn.c_attn.weight"),
+            "c_attn_b": st("attn.c_attn.bias"),
+            "attn_proj": st("attn.c_proj.weight"),
+            "ln_2": st("ln_2.weight"),
+            "w1": st("mlp.w1.weight"),
+            "w2": st("mlp.w2.weight"),
+            "mlp_proj": st("mlp.c_proj.weight"),
+        },
+        "ln_f": sd[p + "transformer.ln_f.weight"].to(device, dt),
+        "lm_head": sd[p + "lm_head.weight"].to(device, dt),
+    }
+
+
+def convert_qwen_visual(sd: StateDict, cfg: QwenVisionConfig, prefix: str = "transformer.visual.",
+                        device=None) -> Dict[str, Any]:
+    """Qwen-VL ViT + Resampler state dict → the models/qwen_vit tree. The
+    position tables are interpolated to the patch grid here (the reference
+    interpolates per forward, visual.py:23-39,141,402)."""
+    device = resolve_device(device)
+    p, dt, L, N = prefix, cfg.dtype, cfg.num_layers, cfg.num_patches
+
+    def st(template):
+        return _stack(sd, p + "transformer.resblocks.{i}." + template, L, dt, device)
+
+    def dev(key):
+        return sd[p + key].to(device, dt)
+
+    def table(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+    def ln(key):
+        return {"scale": dev(key + ".weight"), "bias": dev(key + ".bias")}
+
+    def ln_stacked(name):
+        return {"scale": st(name + ".weight"), "bias": st(name + ".bias")}
+
+    def lin_stacked(name):
+        return {"w": st(name + ".weight"), "b": st(name + ".bias")}
+
+    conv = sd[p + "conv1.weight"]  # [W, 3, P, P], bias-free
+    pos_q = sd[p + "attn_pool.pos_embed"].float().numpy()
+    return {
+        "conv": conv.reshape(conv.shape[0], -1).to(device, dt),
+        "pos_embed": table(interpolate_pos_embed(sd[p + "positional_embedding"].float().numpy(), N)),
+        "ln_pre": ln("ln_pre"),
+        "layers": {
+            "ln_1": ln_stacked("ln_1"),
+            "in_proj": lin_stacked("attn.in_proj"),
+            "out_proj": lin_stacked("attn.out_proj"),
+            "ln_2": ln_stacked("ln_2"),
+            "c_fc": lin_stacked("mlp.c_fc"),
+            "c_proj": lin_stacked("mlp.c_proj"),
+        },
+        "resampler": {
+            "query": dev("attn_pool.query"),
+            "pos_q": table(pos_q),
+            "pos_kv": table(interpolate_pos_embed(pos_q, N)),
+            "kv_proj": dev("attn_pool.kv_proj.weight"),
+            "ln_q": ln("attn_pool.ln_q"),
+            "ln_kv": ln("attn_pool.ln_kv"),
+            "in_proj": {"w": dev("attn_pool.attn.in_proj_weight"), "b": dev("attn_pool.attn.in_proj_bias")},
+            "out_proj": {"w": dev("attn_pool.attn.out_proj.weight"), "b": dev("attn_pool.attn.out_proj.bias")},
+        },
+        "ln_post": ln("ln_post"),
+        "proj": dev("proj"),
+    }
+
+
+def qwen_vl_config_from_hf(hf: dict, dtype: torch.dtype = torch.bfloat16) -> QwenVLConfig:
+    """QwenVLConfig from a Qwen-VL config.json dict, with the JAX loader's
+    defaults for absent keys."""
+    vis = hf.get("visual", {})
+    text = QwenConfig(
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"],
+        head_dim=hf.get("kv_channels", hf["hidden_size"] // hf["num_attention_heads"]),
+        intermediate_size=hf["intermediate_size"],
+        layer_norm_eps=hf.get("layer_norm_epsilon", 1e-6),
+        rotary_emb_base=hf.get("rotary_emb_base", 10000),
+        seq_length=hf.get("seq_length", 2048),
+        use_dynamic_ntk=hf.get("use_dynamic_ntk", True),
+        use_logn_attn=hf.get("use_logn_attn", True),
+        dtype=dtype,
+    )
+    vision = QwenVisionConfig(
+        image_size=vis.get("image_size", 448),
+        patch_size=vis.get("patch_size", 14),
+        width=vis.get("width", 1664),
+        num_layers=vis.get("layers", 48),
+        num_heads=vis.get("heads", 16),
+        mlp_ratio=vis.get("mlp_ratio", 4.9231),
+        n_queries=vis.get("n_queries", 256),
+        output_dim=vis.get("output_dim", 4096),
+        dtype=dtype,
+    )
+    return QwenVLConfig(text=text, vision=vision, image_start_id=vis.get("image_start_id", 151857))
+
+
+def load_qwen_vl_checkpoint(model_path: str, dtype: torch.dtype = torch.bfloat16,
+                            device=None) -> Tuple[Dict[str, Any], QwenVLConfig]:
+    """Qwen-VL checkpoint dir → (params, QwenVLConfig), the params built on
+    `device` (the GPU unless another is named)."""
+    device = resolve_device(device)
+    with open(os.path.join(model_path, "config.json")) as f:
+        cfg = qwen_vl_config_from_hf(json.load(f), dtype)
+    sd = load_state_dict(model_path)
+    params = {
+        "qwen": convert_qwen(sd, cfg.text, device=device),
+        "visual": convert_qwen_visual(sd, cfg.vision, device=device),
+    }
+    return params, cfg

@@ -1,8 +1,8 @@
 """Carry a JAX param tree (as numpy) over to the port's tensors.
 
-Both packages keep the same tree: LLaMA linears are [out, in] in both, and
-CLIP/projector kernels stay [in, out] (used as y @ kernel) — nothing is
-transposed. int8 dicts {'q', 's'} become int8 and fp32 tensors, int4 dicts
+Both packages keep the same tree: LLaMA and Qwen linears are [out, in] in
+both (the Qwen ViT's nested {w, b} dicts too), and CLIP/projector kernels
+stay [in, out] (used as y @ kernel) — nothing is transposed. int8 dicts {'q', 's'} become int8 and fp32 tensors, int4 dicts
 {'q4', 'gs'} packed int8 and fp32 tensors (the same layout in both
 packages, so the carry-over is a copy). Takes numpy
 leaves (jax.device_get of a param tree), so this module imports no jax.

@@ -1,5 +1,6 @@
-"""Random-weight LLaVA params at real shapes (torch twin of
-llava_align_tpu/utils/synthetic.py build_random_llava_params).
+"""Random-weight LLaVA and Qwen-VL params at real shapes (torch twin of
+llava_align_tpu/utils/synthetic.py build_random_llava_params and
+build_random_qwen_vl_params).
 
 The tree and the init scales are those of the JAX package's llava.init (+
 quantize_llama_params(fuse=True) for quant="int8", + bits=4 for "int4"); the
@@ -11,16 +12,21 @@ in float. int4 stacks use the largest group that packs every contraction
 dim (128 at real widths); the lm_head stays int8.
 
 The default device is the GPU: without one, building raises unless
-device="cpu" is asked for.
+device="cpu" is asked for. Qwen-VL follows qwen_vl.init the same way
+(int8 quantizes the decoder as quantize_qwen_params(fuse=True) does, layer
+by layer; the vision tower stays in its float dtype).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from llava_align_tpu_torch.models import projector
+from llava_align_tpu_torch.models.qwen_vit import interpolate_pos_embed, sincos_2d_pos_embed
 from llava_align_tpu_torch.ops.quant import (
     int4_auto_group,
     quantize_weight,
@@ -117,3 +123,88 @@ def build_random_llava_params(cfg, quant: str = "none", device=None, seed: int =
         fan_in = vD if i == 0 else D
         proj_layers.append({"kernel": w((fan_in, D), fan_in, dt), "bias": zeros((D,), dt)})
     return {"llama": llama, "vision": vision, "projector": {"layers": proj_layers}}
+
+
+def build_random_qwen_vl_params(cfg, quant: str = "none", device=None, seed: int = 0) -> Dict[str, Any]:
+    """{'qwen': decoder, 'visual': ViT + Resampler} at cfg's shapes
+    (models/qwen_vl.QwenVLConfig), qwen_vl.init's tree and init scales:
+    linears N(0, 1/fan_in) in the config's dtype, norms ones, biases zeros,
+    the ViT's 256-entry position table and the Resampler's sin-cos tables
+    interpolated to the patch grid. quant="int8" builds the fused int8
+    decoder stacks (c_attn_w, attn_proj, w12 = w1 | w2, mlp_proj) and lm_head
+    directly, one layer in float at a time; the vision tower stays float."""
+    if quant not in ("none", "int8"):
+        raise ValueError(f"build_random_qwen_vl_params takes quant none or int8, got {quant!r}")
+    device = resolve_device(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def w(shape, fan_in, dtype):
+        x = torch.randn(shape, generator=g, device=device, dtype=torch.float32)
+        return (x / fan_in**0.5).to(dtype)
+
+    def const(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    t = cfg.text
+    D, F2, L, V, QD, dt = t.hidden_size, t.ff_dim, t.num_layers, t.vocab_size, t.q_dim, t.dtype
+    # name -> fused parts as (rows, fan_in); every part contracts over `cols`
+    stacks = {
+        "c_attn_w": ([(3 * QD, D)], D),
+        "attn_proj": ([(D, QD)], QD),
+        "w12": ([(F2, D), (F2, D)], D),
+        "mlp_proj": ([(D, F2)], F2),
+    }
+    layers: Dict[str, Any] = {"ln_1": const((L, D), 1, dt), "c_attn_b": const((L, 3 * QD), 0, dt),
+                              "ln_2": const((L, D), 1, dt)}
+    for name, (parts, cols) in stacks.items():
+        if quant == "int8":
+            O = sum(r for r, _ in parts)
+            wq = {"q": torch.empty((L, O, cols), dtype=torch.int8, device=device),
+                  "s": torch.empty((L, O), dtype=torch.float32, device=device)}
+            for li in range(L):
+                layer = quantize_weight(torch.cat([w((r, cols), f, dt) for r, f in parts]))
+                wq["q"][li], wq["s"][li] = layer["q"], layer["s"]
+            layers[name] = wq
+        elif name == "w12":
+            layers["w1"], layers["w2"] = (w((L, r, cols), f, dt) for r, f in parts)
+        else:
+            (r, f), = parts
+            layers[name] = w((L, r, cols), f, dt)
+    lm_head = w((V, D), D, dt)
+    qwen = {"wte": w((V, D), D, dt), "layers": layers, "ln_f": const((D,), 1, dt),
+            "lm_head": quantize_weight(lm_head) if quant == "int8" else lm_head}
+    del lm_head
+
+    vc = cfg.vision
+    W, Fv, vL, E, P, N, Q, vdt = (vc.width, vc.mlp_width, vc.num_layers, vc.output_dim, vc.patch_size,
+                                  vc.num_patches, vc.n_queries, vc.dtype)
+
+    def ln(shape):
+        return {"scale": const(shape, 1, vdt), "bias": const(shape, 0, vdt)}
+
+    def lin(out, fan_in, stacked=True):
+        lead = (vL,) if stacked else ()
+        return {"w": w(lead + (out, fan_in), fan_in, vdt), "b": const(lead + (out,), 0, vdt)}
+
+    pos_vit = interpolate_pos_embed(w((256, W), W, torch.float32).cpu().numpy(), N)
+    sincos = sincos_2d_pos_embed(E, int(math.sqrt(Q)))
+    pos_kv = interpolate_pos_embed(sincos, N)
+
+    def table(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(device=device, dtype=vdt)
+
+    visual = {
+        "conv": w((W, 3 * P * P), 3 * P * P, vdt),
+        "pos_embed": table(pos_vit),
+        "ln_pre": ln((W,)),
+        "layers": {"ln_1": ln((vL, W)), "in_proj": lin(3 * W, W), "out_proj": lin(W, W),
+                   "ln_2": ln((vL, W)), "c_fc": lin(Fv, W), "c_proj": lin(W, Fv)},
+        "resampler": {
+            "query": w((Q, E), E, vdt), "pos_q": table(sincos), "pos_kv": table(pos_kv),
+            "kv_proj": w((E, W), W, vdt), "ln_q": ln((E,)), "ln_kv": ln((E,)),
+            "in_proj": lin(3 * E, E, stacked=False), "out_proj": lin(E, E, stacked=False),
+        },
+        "ln_post": ln((E,)),
+        "proj": w((E, E), E, vdt),
+    }
+    return {"qwen": qwen, "visual": visual}

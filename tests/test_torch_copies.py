@@ -388,6 +388,11 @@ VERBATIM_COPIES = [
         "parse_multi_choice_response", "check_is_number", "normalize_str", "extract_numbers",
         "parse_open_response", "eval_multi_choice", "eval_open", "evaluate", "calculate_ins_level_acc",
         "calibrate_choice_probs", "choice_label_dict", "sweep_predict", "settings_sweep", "results_table")],
+    # the Qwen-VL slice
+    ("ops.image", "qwen_preprocess_pil"),
+    *[("models.qwen_generation_utils", n) for n in (
+        "_encode", "make_context", "decode_tokens", "stop_words_ids", "pad_batch")],
+    *[("models.qwen_tokenizer", n) for n in ("load_tiktoken_bpe", "bpe_encode")],
 ]
 
 
@@ -422,3 +427,124 @@ def test_copied_constants_identical():
                                   "/runs/llava/checkpoint-1200", "/runs/llava/checkpoint-1200/", "x"])
 def test_get_model_name_from_path_identical(path):
     assert ttok.get_model_name_from_path(path) == jtok.get_model_name_from_path(path)
+
+
+# ---------------------------------------------------------------------------
+# the Qwen-VL slice's copies: the tokenizer (behaviour, on a rank table built
+# here), make_context and the stop-word helpers, qwen_preprocess_pil
+# ---------------------------------------------------------------------------
+
+QWEN_CORPUS = [
+    "Is there a dog in the image? Answer:",
+    "None Is there a dog in the image? Answer:",
+    "the theater is in there, and the thing",
+    "  leading   spaces\n\nand newlines\n",
+    "don't it's we're I'll they'd I'm you've",
+    "numbers 123 456789 3.14 unicode: café naïve 你好世界 ☃",
+    "<img>COCO_val2014_000000000042.jpg</img>Is there a car in the image? Answer:",
+    "<|im_start|>user\n<img>a/b.png</img>hi<|im_end|>\n<|extra_7|>",
+    "",
+]
+
+
+@pytest.fixture(scope="module")
+def qwen_tokenizers(tmp_path_factory):
+    """The JAX package's QwenTokenizer and the port's copy, both from one
+    qwen.tiktoken-format rank file written here (every byte plus a few
+    stacked merges, as in a trained BPE)."""
+    import base64
+
+    from llava_align_tpu.models.qwen_tokenizer import QwenTokenizer as JTok
+    from llava_align_tpu_torch.models.qwen_tokenizer import QwenTokenizer as TTok
+
+    ranks = {bytes([i]): i for i in range(256)}
+    for m in (b"th", b"he", b"in", b"er", b"an", b" t", b" a", b"re", b"the", b" th", b" the", b"ing",
+              b"is", b" is", b"An", b"swer", b"Answer", b" Answer", b"im", b"age", b" image", b"jp", b"jpg"):
+        ranks.setdefault(m, len(ranks))
+    path = tmp_path_factory.mktemp("qwen_tok") / "qwen.tiktoken"
+    path.write_bytes(b"".join(base64.b64encode(k) + b" " + str(v).encode() + b"\n" for k, v in ranks.items()))
+    return JTok(str(path)), TTok(str(path))
+
+
+def test_qwen_tokenizer_identical(qwen_tokenizers):
+    j, t = qwen_tokenizers
+    for attr in ("eod_id", "im_start_id", "im_end_id", "img_start_id", "img_end_id", "img_pad_id",
+                 "eos_token_id", "vocab_size", "special_tokens", "IMAGE_ST"):
+        assert getattr(t, attr) == getattr(j, attr), attr
+    for text in QWEN_CORPUS:
+        ids = j.encode(text)
+        assert t.encode(text) == ids and t(text).input_ids == j(text).input_ids, text
+        for skip in (False, True):
+            assert t.decode(ids, skip_special_tokens=skip) == j.decode(ids, skip_special_tokens=skip), text
+        assert t.encode(text, allowed_special=set()) == j.encode(text, allowed_special=set()), text
+        assert t.convert_ids_to_tokens(ids) == j.convert_ids_to_tokens(ids)
+    span = t.encode("<img>x.png</img>")
+    assert len(span) == 258 and span[0] == t.img_start_id and span[-1] == t.img_end_id
+    for m in (j, t):
+        with pytest.raises(ValueError, match="disallowed"):
+            m.encode("<|endoftext|>", allowed_special=set(), disallowed_special="all")
+
+
+def test_qwen_tokenizer_names_missing_regex(qwen_tokenizers, monkeypatch):
+    """The port's module imports without `regex` (the card machine has
+    none); constructing a tokenizer then raises a clear ImportError."""
+    import sys
+
+    from llava_align_tpu_torch.models.qwen_tokenizer import QwenTokenizer
+
+    monkeypatch.setitem(sys.modules, "regex", None)
+    with pytest.raises(ImportError, match="regex"):
+        QwenTokenizer(mergeable_ranks=qwen_tokenizers[1].mergeable_ranks)
+
+
+@pytest.mark.parametrize("history", [None, [("What is it?", "A dog."), ("And?", None)]], ids=["single", "history"])
+def test_qwen_make_context_identical(qwen_tokenizers, history):
+    from llava_align_tpu.models import qwen_generation_utils as jgu
+    from llava_align_tpu_torch.models import qwen_generation_utils as tgu
+
+    j, t = qwen_tokenizers
+    query = "<img>img/0.jpg</img>Is there a dog in the image?"
+    for fmt in ("chatml", "raw"):
+        want = jgu.make_context(j, query, history=history, system="You are a helpful assistant.",
+                                chat_format=fmt)
+        assert tgu.make_context(t, query, history=history, system="You are a helpful assistant.",
+                                chat_format=fmt) == want
+    assert tgu.stop_words_ids(t) == jgu.stop_words_ids(j)
+    ids = j.encode("Yes, a dog.<|im_end|>trailing")
+    assert tgu.decode_tokens(ids, t, stop_words=["dog"]) == jgu.decode_tokens(ids, j, stop_words=["dog"])
+    assert tgu.pad_batch([[1, 2], [3]], 0) == jgu.pad_batch([[1, 2], [3]], 0)
+    assert tgu.pad_batch([[1, 2], [3]], 9, "right") == jgu.pad_batch([[1, 2], [3]], 9, "right")
+
+
+@pytest.mark.parametrize("size", [(448, 448), (500, 333), (120, 260)])
+def test_qwen_preprocess_pil_identical(size):
+    from PIL import Image
+
+    from llava_align_tpu.ops.image import qwen_preprocess_pil as jpre
+    from llava_align_tpu_torch.ops.image import qwen_preprocess_pil as tpre
+
+    raw = np.random.default_rng(size[0]).integers(0, 256, (size[1], size[0], 3), dtype=np.uint8)
+    for image_size in (448, 56):
+        got, want = tpre(Image.fromarray(raw), image_size), jpre(Image.fromarray(raw), image_size)
+        assert got.dtype == want.dtype == np.float32 and got.shape == (3, image_size, image_size)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_qwen_runner_synthetic_image_identical(tmp_path):
+    """The port's --synthetic-images stand-in (normalized without PIL) is
+    the JAX runner's (through qwen_preprocess_pil) exactly; an image file
+    goes through qwen_preprocess_pil on both sides."""
+    import argparse
+
+    from PIL import Image
+
+    from llava_align_tpu.models.qwen_vl import QwenVLConfig as JCfgQ
+    from llava_align_tpu.runners import qwen_pope as jqp
+    from llava_align_tpu_torch.models.qwen_vl import QwenVLConfig as TCfgQ
+    from llava_align_tpu_torch.runners import qwen_pope as tqp
+
+    Image.fromarray(np.random.default_rng(3).integers(0, 256, (90, 70, 3), dtype=np.uint8)).save(tmp_path / "f.png")
+    args = argparse.Namespace(image_folder=str(tmp_path), synthetic_images=True)
+    for jc, tc in ((JCfgQ(), TCfgQ()), (JCfgQ.tiny(), TCfgQ.tiny())):
+        for name in ("COCO_val2014_000000000042.jpg", "f.png"):
+            np.testing.assert_array_equal(tqp._load_image(args, name, tc), jqp._load_image(args, name, jc))

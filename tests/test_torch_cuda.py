@@ -13,7 +13,10 @@ quant.int4_regime), and the kernels of the TPU microbenchmark scripts
 (ops/stream_probes: row-major int4 in both scale modes and bf16, on the
 same streaming kernel, at the same rows, the smallest D each takes and a
 ragged O; repeat2d, which is exact); K3 at the VCD runner's prefill shapes,
-and a VCD `generate` on the card against its plain fp32 run on the CPU.
+and a VCD `generate` on the card against its plain fp32 run on the CPU;
+K2 at Qwen-VL's [151936, 4096] lm_head in both regimes, and the
+QwenVLAdapter's `generate` on a 2-layer full-width Qwen-VL against its fp32
+run on the CPU.
 This file imports no jax, so on the machine with the card it runs without
 the repository's conftest (which imports jax):
 
@@ -659,6 +662,87 @@ def test_vcd_generate_on_card_matches_cpu_fp32(dev, monkeypatch):
     with torch.inference_mode():
         got = DecodeEngine(params, cut(), gen).submit_generate(ids, image)["first_scores"].float().cpu()
         want = DecodeEngine(params_cpu, cut(torch.float32), gen).submit_generate(ids, image)["first_scores"]
+    both = torch.isfinite(got) & torch.isfinite(want)
+    assert (torch.isfinite(got) != torch.isfinite(want)).float().mean().item() <= 0.01
+    err = (got[both] - want[both]).abs().max().item() / want[both].abs().max().item()
+    assert err <= 5e-2, err
+
+
+# K2 at Qwen-VL's lm_head: 151936 channels is 1187 x 128, not a multiple of
+# the tiled regime's 256-channel tiles; the Qwen paths' decode and prefill
+# rows in the streaming regime, and two row counts in the tiled one
+QWEN_LM_HEAD = (151936, 4096)
+QWEN_LM_HEAD_ROWS = [1, 3, 12, 18, 64, 65, 640]
+
+
+@pytest.fixture(scope="module")
+def qwen_lm_head():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda:0").manual_seed(12)
+    O, D = QWEN_LM_HEAD
+    q = torch.randint(-127, 128, (O, D), dtype=torch.int8, device="cuda:0", generator=g)
+    s = (torch.rand((O,), device="cuda:0", generator=g) + 0.5) / (127.0 * D**0.5)
+    return q, s, g
+
+
+@pytest.mark.parametrize("B", QWEN_LM_HEAD_ROWS)
+def test_int8_lm_head_qwen_width_matches_plain(dev, qwen_lm_head, B):
+    q, s, g = qwen_lm_head
+    h = torch.randn((B, q.shape[1]), device=dev, generator=g).to(torch.bfloat16)
+    assert quant.stream_regime(h.dtype, B) == ("mma" if B <= quant.DECODE_MAX_ROWS else "tiled")
+    before = quant.int8_matmul_cuda.launches
+    got = quant.int8_matmul(h, {"q": q, "s": s})
+    assert quant.int8_matmul_cuda.launches == before + 1
+    want = quant.int8_matmul_plain(h, q, s)
+    _assert_close(got, want)
+    # the last channels (the ragged tail past the last 256-channel tile) too
+    _assert_close(got[:, -200:], want[:, -200:])
+
+
+def test_qwen_adapter_generate_on_card_matches_cpu_fp32(dev):
+    """DecodeEngine with the QwenVLAdapter on Qwen-VL-7B at full width cut
+    to 2 decoder / 2 vision layers, int8 (a nonzero c_attn_b), dual VDD with
+    explicit 'unk' ids: the first-step fused scores on the card (K1, K2, K3,
+    bf16) against the same params in fp32 on the CPU (the plain versions),
+    within 5e-2 of the largest score where both are finite; the
+    plausibility cutoff may differ on at most 1% of the vocabulary."""
+    import dataclasses
+
+    import numpy as np
+
+    from llava_align_tpu_torch.config import GenerationConfig
+    from llava_align_tpu_torch.decoding.adapters import QwenVLAdapter
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.models import qwen_vl
+    from llava_align_tpu_torch.utils.synthetic import build_random_qwen_vl_params
+
+    full = qwen_vl.QwenVLConfig.qwen_vl_7b()
+
+    def cut(dtype=None):
+        text = dataclasses.replace(full.text, num_layers=2, **({"dtype": dtype} if dtype else {}))
+        vision = dataclasses.replace(full.vision, num_layers=2, **({"dtype": dtype} if dtype else {}))
+        return dataclasses.replace(full, text=text, vision=vision)
+
+    params = build_random_qwen_vl_params(cut(), quant="int8", device=dev, seed=7)
+    b = params["qwen"]["layers"]["c_attn_b"]
+    b.copy_(torch.randn(b.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(8)) * 0.5)
+    params_cpu = _to_cpu32(params)
+    rng = np.random.default_rng(2)
+    span, _ = qwen_vl.sentinelize_span(qwen_vl.make_image_span_ids(full), full)
+    text = [int(t) for t in rng.integers(3, 150000, 12)]
+    image = rng.standard_normal((3, 448, 448)).astype(np.float32)
+    gen = GenerationConfig(max_new_tokens=1, do_sample=False, use_dd=True, use_dd_unk=True,
+                           cd_alpha=1.0, cd_beta=0.1, eos_token_id=10**9)
+    launches = quant.int8_matmul_stacked.launches, quant.int8_matmul_cuda.launches, attention.flash_attention.launches
+    with torch.inference_mode():
+        got = DecodeEngine(params, cut(), gen, adapter=QwenVLAdapter(cut()), bucket=64).submit_generate(
+            span + text, image, branch_ids={"unk": [7] + text})["first_scores"].float().cpu()
+        assert quant.int8_matmul_stacked.launches > launches[0] and quant.int8_matmul_cuda.launches > launches[1]
+        assert attention.flash_attention.launches > launches[2]
+        want = DecodeEngine(params_cpu, cut(torch.float32), gen, adapter=QwenVLAdapter(cut(torch.float32)),
+                            bucket=64).submit_generate(span + text, image, branch_ids={"unk": [7] + text})[
+                                "first_scores"]
     both = torch.isfinite(got) & torch.isfinite(want)
     assert (torch.isfinite(got) != torch.isfinite(want)).float().mean().item() <= 0.01
     err = (got[both] - want[both]).abs().max().item() / want[both].abs().max().item()

@@ -208,6 +208,11 @@ def test_mme_scorer_functions_identical(case):
 
 
 def test_mme_runner_refuses_qwen(mme_data, tmp_path):
+    """--model-family qwen is ported: MME routes it to the qwen_pope runner
+    (tests/test_torch_qwen_runners.py holds its records against the JAX
+    runner's), which refuses --quant int4 with the JAX runner's reason
+    before any model is loaded."""
     qf, data_root = mme_data
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmme.run(_args(tmme, qf, str(tmp_path / "a.jsonl"), data_root, device="cpu", model_family="qwen"))
+    with pytest.raises(ValueError, match="qwen int4 is unsupported"):
+        tmme.run(_args(tmme, qf, str(tmp_path / "a.jsonl"), data_root, device="cpu", model_family="qwen",
+                       quant="int4"))

@@ -232,5 +232,9 @@ def test_mmmu_parsers_identical(case):
 
 
 def test_mmmu_runner_refuses_qwen(sample_file, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmmmu.run(_args(tmmmu, sample_file, str(tmp_path / "a.jsonl"), device="cpu", model_family="qwen"))
+    """--model-family qwen is ported (tests/test_torch_qwen_runners.py holds
+    its records against the JAX runner's); what its path still refuses is
+    --dist auto, as the LLaVA path does, before any model is loaded."""
+    with pytest.raises(NotImplementedError, match="--dist auto"):
+        tmmmu.run(_args(tmmmu, sample_file, str(tmp_path / "a.jsonl"), device="cpu", model_family="qwen",
+                        dist="auto"))

@@ -207,6 +207,77 @@ print("OK", TWINS)
 """
 
 
+QWEN_CODE = r"""
+import sys
+for blocked in ("jax", "jaxlib", "llava_align_tpu", "safetensors", "transformers", "regex"):
+    sys.modules[blocked] = None  # any import of them now raises ImportError
+
+import contextlib, io, json, os, tempfile
+from llava_align_tpu_torch.evals.pope import load_jsonl, main as score_main
+from llava_align_tpu_torch.models import qwen_generation_utils, qwen_tokenizer  # import without regex
+from llava_align_tpu_torch.runners import mme, mmmu, qwen_pope
+
+d = tempfile.mkdtemp()
+qf = os.path.join(d, "q_POPE.jsonl")
+with open(qf, "w") as f:
+    for i in range(4):
+        f.write(json.dumps({"question_id": i, "image": f"img_{i // 2}.jpg", "label": ["yes", "no"][i % 2],
+                            "text": f"Is there a {['dog', 'cat'][i % 2]} in the image?"}) + "\n")
+base = ["--model-path", "random:tiny", "--device", "cpu", "--synthetic-images", "--max_new_tokens", "3",
+        "--temperature", "0", "--use_dd", "--use_dd_unk"]
+for layout in (["--group-by-image"], ["--no-group-by-image", "--batch-size", "2"]):
+    af = os.path.join(d, f"qwen_{len(layout)}.jsonl")
+    qwen_pope.run(qwen_pope.build_parser().parse_args(
+        base + ["--question-file", qf, "--answers-file", af, "--quant", "int8", "--calibrate"] + layout))
+    recs = load_jsonl(af)
+    assert [r["question_id"] for r in recs] == [0, 1, 2, 3] and all("none" in r and "unk" in r for r in recs)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert score_main([qf, af]) == 0
+try:
+    qwen_pope.run(qwen_pope.build_parser().parse_args(
+        base + ["--question-file", qf, "--answers-file", af, "--quant", "int4"]))
+    raise AssertionError("qwen int4 was not refused")
+except ValueError as e:
+    assert "qwen int4 is unsupported" in str(e)
+try:
+    qwen_tokenizer.QwenTokenizer(mergeable_ranks={bytes([i]): i for i in range(256)})
+    raise AssertionError("the tokenizer built without regex")
+except ImportError as e:
+    assert "regex" in str(e)
+
+root = os.path.join(d, "MME_Benchmark", "existence")
+os.makedirs(root)
+mf = os.path.join(d, "mme.jsonl")
+with open(mf, "w") as f, open(os.path.join(root, "000.txt"), "w") as g:
+    for q, a in (("Is there a dog in this image? Please answer yes or no.", "Yes"),
+                 ("Is there a cat in this image? Please answer yes or no.", "No")):
+        f.write(json.dumps({"question_id": "existence/000.png", "image": "existence/000.png", "text": q}) + "\n")
+        g.write(q + "\t" + a + "\n")
+with contextlib.redirect_stdout(io.StringIO()):
+    rep = mme.main(base + ["--model-family", "qwen", "--question-file", mf, "--answers-file",
+                           os.path.join(d, "mme", "a.jsonl"), "--mme-data-root", os.path.join(d, "MME_Benchmark")])
+task = rep["Perception"]["tasks"]["existence"]
+assert sum(task[k] for k in ("TP", "FN", "TN", "FP", "other_num")) == 2, rep
+uf = os.path.join(d, "mmmu.jsonl")
+with open(uf, "w") as f:
+    f.write(json.dumps({"id": "v_1", "question_type": "multiple-choice", "answer": "A", "all_choices": ["A", "B"],
+                        "index2ans": {"A": "x", "B": "y"}, "final_input_prompt": "<image 1> Pick (A) x (B) y",
+                        "image": "u.png"}) + "\n")
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    assert mmmu.main(base + ["--model-family", "qwen", "--quant", "int8", "--question-file", uf,
+                             "--answers-file", os.path.join(d, "mmmu.out.jsonl"), "--calibrate",
+                             "--score-setting", "none_unk", "--print-table"]) == 0
+assert "Overall" in printed.getvalue()
+
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "llava_align_tpu", "safetensors",
+                                                      "transformers", "regex"))]
+assert not loaded, loaded
+print("OK")
+"""
+
+
 def _run(code: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.run(
@@ -227,3 +298,11 @@ def test_microbenchmark_twins_run_with_jax_blocked():
     proc = _run(TWINS_CODE)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1].startswith("OK"), proc.stdout[-2000:]
+
+
+def test_qwen_slice_runs_with_jax_and_regex_blocked():
+    """The Qwen-VL runners on random:tiny with jax, the JAX package,
+    safetensors, transformers and regex all unimportable."""
+    proc = _run(QWEN_CODE)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]

@@ -158,7 +158,7 @@ def test_scorer_entry_prints_what_score_sh_prints(models, monkeypatch, question_
 
 def test_runner_refuses_what_is_not_ported(question_file, tmp_path):
     out = str(tmp_path / "refused.jsonl")
-    for kw, match in (({"dist": "auto"}, "item 13"), ({"quant": "w8a8"}, "w8a8")):
+    for kw, match in (({"dist": "auto"}, "item 8"), ({"quant": "w8a8"}, "w8a8")):
         with pytest.raises(NotImplementedError, match=match):
             tpope.run(_args(tpope, question_file, out, device="cpu", **kw))
 
