@@ -102,9 +102,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
      logits, and a 2100-token text prompt's (its cache past seq_length
      2048: dynamic NTK and log-n active), on the card against the same
      params in fp32 on the CPU;
- 12. the model paths' own shapes: the 7B path, the LLaVA runner phases
-     and the Qwen ones run under recorders that note what reaches each
-     kernel; K1 at every row count they sent a 7B-shaped stack (Qwen-VL-7B's
+ 12. InstructBLIP runners: InstructBLIP-Vicuna-7B at full width and depth
+     (EVA-ViT-g, 39 layers at 224 px; the 12-layer Q-Former, 32 queries;
+     the 32-layer Vicuna-7B), a random bf16 tree built by instructblip.init
+     on the card and handed to the BLIP runners as their load_blip_model
+     would (the mock tokenizer on both sides, EOS 2): runners/blip_pope.run
+     on the POPE question file with --use_cd (noise step 500, cd_alpha 1,
+     cd_beta 0.1), --calibrate, greedy, 8 new tokens, every record with its
+     naive/none/noise dumps, scored by evals.pope (the calibrated
+     none/noise settings included); then runners/caption.run at its
+     defaults (5 beams, max_len 30, min_len 8) on 4 synthetic images, one
+     non-empty caption per image; K3 must launch in each; questions/s,
+     captions/s and tokens per answer printed; then the split of an
+     answer's time (EVA-ViT-g, Q-Former, encode, decode steps at 2 and 5
+     rows, the beam's sort and cache reorder);
+ 13. InstructBLIP reference: the model cut to 2 EVA / 2 Q-Former / 2
+     decoder layers at full width: encode's output, a prompt's prefill and
+     two decode steps' logits on the card (bf16) against the same params in
+     fp32 on the CPU; then a 5-beam generate_beam of 8 tokens in fp32 on
+     the card and on the CPU: whether the tokens agree, and where they
+     part, the log-probability gap of the two prefixes;
+ 14. the model paths' own shapes: the 7B path, the LLaVA runner phases,
+     the Qwen ones and the InstructBLIP ones run under recorders that note
+     what reaches each kernel; K1 at every row count they sent a 7B-shaped stack (Qwen-VL-7B's
      decoder has LLaVA-v1.5-7B's stacks) that phase 3 did not check (the
      Qwen prefills' tiled-regime rows among them), checked and timed as
      phase 3 does under K1's path_rows, the rows each family sent under
@@ -124,7 +144,8 @@ errors);
 S1-S7: launches, errors and times from the run of the twin that runs
 each, S7's graph times as graph_ms / graph_library_ms), the card's name
 and power limit, then as the last line
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+{"ok": true, "device": {...}}. Each InstructBLIP phase's wall time, and
+the whole run's, are printed. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -962,7 +983,9 @@ class RunnerModel:
     `tag` prefixes the phases' path names, `what` names the model in the
     log, `args` are the flags that name it to every runner and `family`
     those the MME and MMMU runners add; `pope` is the POPE runner module
-    that serves it, `kernels` those each run must launch."""
+    that serves it, `kernels` those each run must launch. The POPE phase
+    runs it once per entry of `layouts` (runner flags by name), requires
+    the `dumps` of every record, and scores the calibrated `settings`."""
 
     tag: str
     what: str
@@ -972,6 +995,9 @@ class RunnerModel:
     family: tuple = ()
     pope: object = None
     kernels: tuple = K123
+    layouts: dict = dataclasses.field(default_factory=lambda: dict(RUNNER_LAYOUTS))
+    dumps: tuple = ("naive", "none", "unk")
+    settings: tuple = ("naive", "none", "unk", "none_unk")  # evals.pope main's calibrated report
 
     def patch(self):
         module, attr = self.loader
@@ -1004,12 +1030,15 @@ def rate_text(n_q: int, secs: float, quant_s: float) -> str:
 
 def phase_runner(model: RunnerModel, root, smi: str, mode: str, rec: PathRecorder) -> tuple:
     """model's POPE runner (runners/pope for LLaVA, runners/qwen_pope for
-    Qwen-VL) on the card in one decoding mode (RUNNER_MODES: dual VDD, or
-    VCD), once per RUNNER_LAYOUTS entry, each with the launch counts reset
-    before it and read after it, --calibrate; every record with its
-    naive/none/unk dumps; then the port's scorer on each answers file.
-    Returns the launches by layout and the questions/s by layout (without
-    the quantization a run may include)."""
+    Qwen-VL, runners/blip_pope for InstructBLIP) on the card in one decoding
+    mode (RUNNER_MODES: dual VDD, or VCD), once per entry of model.layouts,
+    each with the launch counts reset before it and read after it,
+    --calibrate; every record with its model.dumps; then the port's scorer
+    on each answers file (its command line: the plain report, and the
+    calibrated one where the records carry 'unk'; else the calibrated
+    model.settings through its functions). Returns the launches by layout
+    and the questions/s by layout (without the quantization a run may
+    include)."""
     import io
 
     from llava_align_tpu_torch.evals import pope as pope_eval
@@ -1017,7 +1046,7 @@ def phase_runner(model: RunnerModel, root, smi: str, mode: str, rec: PathRecorde
     qf, gt = write_pope_files(root)
     n_q = 6 * RUNNER_IMAGES
     by_layout, rates = {}, {}
-    for layout, flags in RUNNER_LAYOUTS.items():
+    for layout, flags in model.layouts.items():
         name = f"{model.tag}_{mode}_runner_{layout}"
         answers = root / f"{name}.jsonl"
         args = model.pope.build_parser().parse_args([
@@ -1035,16 +1064,19 @@ def phase_runner(model: RunnerModel, root, smi: str, mode: str, rec: PathRecorde
         if [r["question_id"] for r in recs] != list(range(n_q)):
             raise AssertionError(f"{name}: answers for {[r['question_id'] for r in recs]}")
         bad = [r["question_id"] for r in recs
-               if not all(isinstance(r.get(k), dict) and r[k] for k in ("naive", "none", "unk"))]
+               if not all(isinstance(r.get(k), dict) and r[k] for k in model.dumps)]
         if bad:
-            raise AssertionError(f"{name}: records without naive/none/unk dumps: {bad}")
+            raise AssertionError(f"{name}: records without {'/'.join(model.dumps)} dumps: {bad}")
         require_launches(launches, model.kernels, f"the POPE runner, {name}")
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
             rc = pope_eval.main([str(gt), str(answers)])
+            if "unk" not in model.dumps:
+                print(pope_eval.format_calibrated_report(pope_eval.score_pope_calibrated(
+                    pope_eval.load_jsonl(str(gt)), recs, settings=model.settings)))
         for line in report.getvalue().splitlines():
             log(f"  score: {line}")
-        if rc != 0 or "[none_unk]" not in report.getvalue():
+        if rc != 0 or any(f"[{x}]" not in report.getvalue() for x in model.settings):
             raise AssertionError(f"{name}: the POPE scorer failed (rc {rc}) or gave no calibrated report")
         by_layout[name] = launches
     torch.cuda.empty_cache()
@@ -1083,12 +1115,13 @@ def path_k1_rows(k1_seen: dict, checked: dict) -> dict:
     return new
 
 
-def to_cpu32(node):
+def to_fp32(node, device="cpu"):
+    """The tree on `device`, its float leaves in fp32."""
     if isinstance(node, dict):
-        return {k: to_cpu32(v) for k, v in node.items()}
+        return {k: to_fp32(v, device) for k, v in node.items()}
     if isinstance(node, list):
-        return [to_cpu32(v) for v in node]
-    return node.cpu().float() if node.is_floating_point() else node.cpu()
+        return [to_fp32(v, device) for v in node]
+    return node.to(device, torch.float32) if node.is_floating_point() else node.to(device)
 
 
 def cut_config(full, dtype=None):
@@ -1105,11 +1138,30 @@ def cut_config(full, dtype=None):
     return cfg
 
 
+def llama_logits_steps(p_llama, c_text, embeds, length: int, steps, device) -> list:
+    """The LLaMA decoder's logits at the last real position (`length`) of
+    one prompt's `embeds` [1, S, D], then at one decode step per token of
+    `steps`, as fp32 CPU tensors."""
+    from llava_align_tpu_torch.models import llama
+
+    S = embeds.shape[1]
+    cache = llama.init_cache(c_text, 1, S + len(steps), device=device)
+    zero = torch.zeros((1,), dtype=torch.long, device=device)
+    hidden, _ = llama.forward(p_llama, c_text, embeds, torch.arange(S, device=device)[None], cache, zero)
+    out = [llama.last_token_logits(p_llama, hidden, zero + length - 1)]
+    for i, tok in enumerate(steps):
+        pos = zero + length + i
+        emb = llama.embed_tokens(p_llama, torch.full((1, 1), tok, device=device))
+        hidden, _ = llama.forward(p_llama, c_text, emb, pos[:, None], cache, pos)
+        out.append(llama.logits_from_hidden(p_llama, hidden[:, 0]))
+    return [o.float().cpu() for o in out]
+
+
 def phase_reference(dev) -> None:
     """Full-width 7B model cut to 2 decoder / 2 vision layers: prefill and
     decode logits on the card (kernels) against fp32 on the CPU (plain)."""
     from llava_align_tpu_torch.config import LlavaConfig
-    from llava_align_tpu_torch.models import llama, llava
+    from llava_align_tpu_torch.models import llava
     from llava_align_tpu_torch.ops.image import normalize_device
     from llava_align_tpu_torch.runners.common import MockTokenizer
     from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
@@ -1117,7 +1169,7 @@ def phase_reference(dev) -> None:
     cfg = cut_config(LlavaConfig.llava_v15_7b())
     cfg32 = cut_config(LlavaConfig.llava_v15_7b(), torch.float32)
     params = build_random_llava_params(cfg, quant="int8", device=dev, seed=1)
-    params_cpu = to_cpu32(params)
+    params_cpu = to_fp32(params)
     ids, image = pope_requests(MockTokenizer(), cfg.vision.image_size)[0]
     plan = llava.plan_splice(ids, cfg.num_image_tokens, -(-(len(ids) - 1 + cfg.num_image_tokens) // 128) * 128)
     steps = (29871, 3869)  # fixed next tokens, so both sides decode the same sequence
@@ -1129,17 +1181,7 @@ def phase_reference(dev) -> None:
         t = {k: torch.from_numpy(np.asarray(getattr(plan, k)))[None].to(device)
              for k in ("tokens", "tok_gather", "img_gather", "is_image")}
         embeds = llava.splice_embeds(p, c, t["tokens"], t["tok_gather"], t["img_gather"], t["is_image"], feats)
-        S = embeds.shape[1]
-        cache = llama.init_cache(c.text, 1, S + len(steps), device=device)
-        zero = torch.zeros((1,), dtype=torch.long, device=device)
-        hidden, _ = llama.forward(p["llama"], c.text, embeds, torch.arange(S, device=device)[None], cache, zero)
-        out = [llama.last_token_logits(p["llama"], hidden, zero + plan.length - 1)]
-        for i, tok in enumerate(steps):
-            pos = zero + plan.length + i
-            emb = llama.embed_tokens(p["llama"], torch.full((1, 1), tok, device=device))
-            hidden, _ = llama.forward(p["llama"], c.text, emb, pos[:, None], cache, pos)
-            out.append(llama.logits_from_hidden(p["llama"], hidden[:, 0]))
-        return [o.float().cpu() for o in out]
+        return llama_logits_steps(p["llama"], c.text, embeds, plan.length, steps, device)
 
     got, ref = run(params, cfg, dev), run(params_cpu, cfg32, torch.device("cpu"))
     for name, g, r in zip(("prefill", "decode 1", "decode 2"), got, ref):
@@ -1184,7 +1226,7 @@ def phase_vcd_reference(dev) -> None:
     cfg = cut_config(LlavaConfig.llava_v15_7b())
     cfg32 = cut_config(LlavaConfig.llava_v15_7b(), torch.float32)
     params = build_random_llava_params(cfg, quant="int8", device=dev, seed=3)
-    params_cpu = to_cpu32(params)
+    params_cpu = to_fp32(params)
     ids, image = pope_requests(MockTokenizer(), cfg.vision.image_size)[0]
     eps = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 3, 336, 336)).astype(np.float32))
     gen = GenerationConfig(max_new_tokens=1, do_sample=False, use_cd=True, cd_alpha=1.0, cd_beta=0.1,
@@ -1556,7 +1598,7 @@ def phase_grouped_reference(dev) -> None:
     cfg = cut_config(LlavaConfig.llava_v15_13b())
     cfg32 = cut_config(LlavaConfig.llava_v15_13b(), torch.float32)
     params = build_random_llava_params(cfg, quant="int4", device=dev, seed=2)
-    params_cpu = to_cpu32(params)
+    params_cpu = to_fp32(params)
     prefix, suffixes, image = pope_groups(MockTokenizer(), cfg.vision.image_size, 1, seed=7)[0]
     group = [(prefix, suffixes[:2], image)]
     gen = dataclasses.replace(dual_vdd_config(), max_new_tokens=1)
@@ -1626,7 +1668,7 @@ def phase_qwen_reference(dev) -> None:
     params = build_random_qwen_vl_params(cut(), quant="int8", device=dev, seed=5)
     b = params["qwen"]["layers"]["c_attn_b"]
     b.copy_(torch.randn(b.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(6)) * 0.5)
-    params_cpu = to_cpu32(params)
+    params_cpu = to_fp32(params)
     rng = np.random.default_rng(8)
     span, _ = qwen_vl.sentinelize_span(qwen_vl.make_image_span_ids(full), full)
     H = full.vision.image_size
@@ -1672,7 +1714,249 @@ def phase_qwen_reference(dev) -> None:
     torch.cuda.empty_cache()
 
 
+BLIP_CAPTION_IMAGES = 4  # synthetic images of the caption phase
+
+
+def load_blip_7b(dev):
+    """Random InstructBLIP-Vicuna-7B in bf16 at full width and depth
+    (EVA-ViT-g: 39 layers at 224 px; the 12-layer Q-Former, 32 queries;
+    Vicuna-7B: 32 layers), built by instructblip.init on the card, as the
+    BLIP runners' load_blip_model would hand a checkpoint's tree over."""
+    from llava_align_tpu_torch.models import instructblip
+    from llava_align_tpu_torch.runners.pope import _tensors
+
+    cfg = instructblip.InstructBlipConfig.vicuna7b()
+    t0 = time.perf_counter()
+    params = instructblip.init(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n = {part: sum(t.numel() for t in _tensors(params[part])) for part in params}
+    log(f"InstructBLIP path: built random InstructBLIP-Vicuna-7B bf16 ({sum(n.values()) / 1e9:.3f} G parameters: "
+        f"EVA-ViT-g {n['visual'] / 1e9:.3f} G ({cfg.vision.num_layers} layers at {cfg.vision.image_size} px), "
+        f"Q-Former {n['qformer'] / 1e9:.3f} G ({cfg.qformer.num_layers} layers, {cfg.num_query_tokens} queries), "
+        f"Vicuna-7B {n['llama'] / 1e9:.3f} G ({cfg.text.num_layers} layers)) on {dev} in "
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return params, cfg
+
+
+def blip_runner_models(params, cfg) -> tuple:
+    """RunnerModels of the BLIP runners for the given tree, with the mock
+    tokenizer on the Vicuna and the BERT side (EOS 2, the runners' own: a
+    random tree may stop early): the POPE runner's (one layout, the
+    naive/none/noise dumps) and the caption runner's (its own loader)."""
+    from llava_align_tpu_torch.runners import blip_pope, caption
+    from llava_align_tpu_torch.runners.common import MockTokenizer
+
+    pope_model = RunnerModel(
+        "blip", "InstructBLIP-Vicuna-7B bf16", (blip_pope, "load_blip_model"),
+        (MockTokenizer(), MockTokenizer(), params, cfg, "random-instructblip-vicuna7b"),
+        ("--model-path", "random:instructblip-vicuna7b"), pope=blip_pope, kernels=("flash_attention",),
+        layouts={"single": []}, dumps=("naive", "none", "noise"), settings=("naive", "none", "noise", "none_noise"))
+    return pope_model, dataclasses.replace(pope_model, loader=(caption, "load_blip_model"))
+
+
+@contextlib.contextmanager
+def generated_tokens():
+    """Within `with`, the list of the tokens each answer generated: every
+    DecodeEngine.collect_generate of an engine that decodes more than one
+    token (the scoring calls decode one), every generate_beam."""
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+
+    counts = []
+    collect, beam = DecodeEngine.collect_generate, DecodeEngine.generate_beam
+
+    def counted_collect(self, handle):
+        out = collect(self, handle)
+        if self.gen.max_new_tokens > 1:
+            counts.append(out.num_generated)
+        return out
+
+    def counted_beam(self, *a, **k):
+        out = beam(self, *a, **k)
+        counts.append(out.num_generated)
+        return out
+
+    with patched(DecodeEngine, "collect_generate", counted_collect), \
+            patched(DecodeEngine, "generate_beam", counted_beam):
+        yield counts
+
+
+def phase_caption(model: RunnerModel, root, smi: str, rec: PathRecorder) -> dict:
+    """The caption runner (runners/caption.run: CaptionTask, 5-beam
+    generate_beam) at its defaults (5 beams, max_len 30, min_len 8) on
+    BLIP_CAPTION_IMAGES synthetic images; val_epoch0.json must hold one
+    non-empty caption per image, and K3 must launch."""
+    import io
+
+    from llava_align_tpu_torch.runners import caption
+
+    root.mkdir(parents=True, exist_ok=True)
+    qf, result_dir = root / "smoke_captions.jsonl", root / "blip_captions"
+    qf.write_text("".join(json.dumps({"image": f"COCO_val2014_{100 + i:012d}.jpg", "image_id": i + 1}) + "\n"
+                          for i in range(BLIP_CAPTION_IMAGES)))
+    args = caption.build_parser().parse_args([*model.args, "--question-file", str(qf), "--result-dir",
+                                              str(result_dir), "--synthetic-images"])
+    with contextlib.redirect_stdout(io.StringIO()), generated_tokens() as counts:
+        _, secs, launches, _ = timed_run(model, rec, lambda: caption.run(args))
+    caps = json.loads((result_dir / "val_epoch0.json").read_text())
+    n = BLIP_CAPTION_IMAGES
+    log(f"caption runner ({model.what}, {args.num_beams} beams, max_len {args.max_len}, min_len {args.min_len}) "
+        f"on {smi}: {n} captions in {secs:.4f} s, {n / secs:.4f} captions/s; tokens per caption {counts}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
+    log(f"  captions: {[c['caption'] for c in caps]}")
+    if [c["image_id"] for c in caps] != list(range(1, n + 1)) or not all(c["caption"] for c in caps):
+        raise AssertionError(f"caption runner: {caps}")
+    require_launches(launches, model.kernels, "the caption runner")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_blip_split(params, cfg, dev, smi: str) -> None:
+    """Where an InstructBLIP answer's time goes, on the bf16 tree: the
+    EVA-ViT-g forward of one 224-px image, the Q-Former's (32 queries, a
+    96-id instruction: the POPE prompts' bucket), a whole encode, one decode
+    step (llama.forward of one token and the lm_head) at the POPE runner's
+    2 rows (main, cd; cache 136) and the caption runner's 5 beams (cache
+    94), and the beam's own work a step (the top 2K of 5 x 32000 scores by
+    a stable sort; the cache rows' reorder). Each the mean of 5 calls by
+    CUDA events, eager, so the host's launch gaps count as they do in the
+    runners. The decode step's bound: its bf16 weights read once."""
+    from llava_align_tpu_torch.decoding import beam
+    from llava_align_tpu_torch.models import eva_vit, instructblip, llama, qformer
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    image = torch.randn((1, 3, cfg.vision.image_size, cfg.vision.image_size), generator=g, device=dev)
+    tid = torch.randint(3, 259, (1, 96), generator=g, device=dev)
+    tmask = torch.ones_like(tid)
+    times = {}
+    with torch.inference_mode():
+        feats = eva_vit.forward(params["visual"], cfg.vision, image).to(cfg.qformer.dtype)
+        queries = params["query_tokens"][None]
+        times["EVA-ViT-g forward"] = cuda_ms(lambda _: eva_vit.forward(params["visual"], cfg.vision, image), 5)
+        times["Q-Former forward"] = cuda_ms(
+            lambda _: qformer.forward(params["qformer"], cfg.qformer, queries, feats, tid, tmask), 5)
+        times["encode (both, ln_vision, llm_proj)"] = cuda_ms(
+            lambda _: instructblip.encode(params, cfg, image, tid, tmask), 5)
+        for rows, S in ((2, 136), (5, 94)):
+            cache = llama.init_cache(cfg.text, rows, S, device=dev)
+            pos = torch.full((rows,), S - 2, device=dev)
+            emb = llama.embed_tokens(params["llama"], torch.full((rows, 1), 100, device=dev))
+
+            def step(_):
+                hidden, _ = llama.forward(params["llama"], cfg.text, emb, pos[:, None], cache, pos)
+                return llama.logits_from_hidden(params["llama"], hidden[:, 0])
+
+            times[f"decode step, {rows} rows"] = cuda_ms(step, 5)
+        scores = torch.randn((5 * cfg.text.vocab_size,), generator=g, device=dev)
+        times["beam top 2K (a stable sort of 5 x 32000)"] = cuda_ms(lambda _: beam._top(scores, 10), 5)
+        parents = torch.tensor([0, 0, 1, 2, 4], device=dev)
+        times["beam cache reorder (5 rows x 94 positions)"] = cuda_ms(lambda _: beam._gather_cache(cache, parents), 5)
+    layer_bytes = sum(t.numel() * t.element_size() for t in params["llama"]["layers"].values())
+    step_bound = (layer_bytes + params["llama"]["lm_head"].numel() * 2) / PEAK_BYTES_PER_S * 1e3
+    log(f"InstructBLIP split on {smi} (ms per call, CUDA events over 5 eager calls): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        + f"; a decode step's bound {step_bound:.4f} ms (bytes: the bf16 decoder weights and lm_head read once)")
+    torch.cuda.empty_cache()
+
+
+def blip_cut(full, dtype=None):
+    """full width, 2 EVA layers, 2 Q-Former layers (one with
+    cross-attention), 2 decoder layers."""
+    kw = {"dtype": dtype} if dtype else {}
+    return dataclasses.replace(full, **{part: dataclasses.replace(getattr(full, part), num_layers=2, **kw)
+                                        for part in ("vision", "qformer", "text")})
+
+
+def blip_seq_logprob(p, c, ids, feats, toks, device) -> float:
+    """The summed log-probability of `toks` after the prompt `ids` (with
+    features `feats`) under the model: one teacher-forced prefill."""
+    from llava_align_tpu_torch.decoding.adapters import InstructBlipAdapter
+    from llava_align_tpu_torch.models import llama
+    from llava_align_tpu_torch.models.llava import plan_splice
+
+    adapter = InstructBlipAdapter(c)
+    plan = plan_splice(list(ids) + list(toks), c.num_query_tokens, len(ids) + len(toks) - 1 + c.num_query_tokens)
+    t = [torch.from_numpy(np.asarray(getattr(plan, k)))[None].to(device)
+         for k in ("tokens", "tok_gather", "img_gather", "is_image")]
+    embeds = adapter.splice_embeds(p, *t, feats)
+    hidden, _ = llama.forward(p["llama"], c.text, embeds, torch.arange(embeds.shape[1], device=device)[None])
+    first = plan.length - len(toks) - 1  # the position whose logits give toks[0]
+    logp = torch.log_softmax(adapter.logits(p, hidden[0, first: plan.length - 1]), dim=-1)
+    return logp[torch.arange(len(toks)), torch.tensor(toks)].sum().item()
+
+
+def phase_blip_reference(dev) -> None:
+    """InstructBLIP-Vicuna-7B at full width cut by blip_cut, bf16: encode's
+    output (a padded instruction), a prompt's prefill logits and two decode
+    steps' logits on the card against the same params in fp32 on the CPU,
+    at REFERENCE_TOL; then a 5-beam generate_beam of 8 tokens with the cut
+    in fp32 on the card and on the CPU: whether the tokens agree, and where
+    they part, the gap between the two prefixes' log-probabilities under
+    the fp32 CPU model (how near a tie the card broke the other way)."""
+    from llava_align_tpu_torch.config import GenerationConfig
+    from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
+    from llava_align_tpu_torch.decoding.adapters import InstructBlipAdapter
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.models import instructblip
+    from llava_align_tpu_torch.models.llava import plan_splice
+    from llava_align_tpu_torch.runners.blip_pope import qformer_text
+    from llava_align_tpu_torch.runners.common import MockTokenizer
+
+    full = instructblip.InstructBlipConfig.vicuna7b()
+    cpu = torch.device("cpu")
+    params = instructblip.init(blip_cut(full), device=dev, seed=11)
+    params_cpu = to_fp32(params)
+    rng = np.random.default_rng(12)
+    H = full.vision.image_size
+    image = torch.from_numpy(rng.standard_normal((1, 3, H, H)).astype(np.float32))
+    prompt = "Is there a dining table in the image? Please answer this question with one word."
+    tid, tmask = (torch.from_numpy(a) for a in qformer_text(MockTokenizer(), prompt, full))
+    ids = [IMAGE_TOKEN_INDEX] + MockTokenizer()(prompt).input_ids
+    Q = full.num_query_tokens
+    plan = plan_splice(ids, Q, -(-(len(ids) - 1 + Q) // 32) * 32)
+    steps = (29871, 3869)  # fixed next tokens, so both sides decode the same sequence
+
+    @torch.inference_mode()
+    def run(p, c, device):
+        feats = instructblip.encode(p, c, image.to(device, c.vision.dtype), tid.to(device), tmask.to(device))
+        t = [torch.from_numpy(np.asarray(getattr(plan, k)))[None].to(device)
+             for k in ("tokens", "tok_gather", "img_gather", "is_image")]
+        embeds = InstructBlipAdapter(c).splice_embeds(p, *t, feats)
+        return [feats.float().cpu()] + llama_logits_steps(p["llama"], c.text, embeds, plan.length, steps, device)
+
+    launches = read_launches()["flash_attention"]
+    got, ref = run(params, blip_cut(full), dev), run(params_cpu, blip_cut(full, torch.float32), cpu)
+    if read_launches()["flash_attention"] <= launches:
+        raise AssertionError("the InstructBLIP reference's prefill did not launch K3")
+    for name, g, r in zip(("encode", "prefill", "decode 1", "decode 2"), got, ref):
+        rel_check(g, r, f"InstructBLIP reference {name}: max|card - cpu fp32| / max|cpu|")
+
+    # the beams in fp32 on both sides (K3 fp32 on the card's CUDA cores)
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = blip_cut(full, torch.float32)
+    gen = GenerationConfig(max_new_tokens=8, do_sample=False, eos_token_id=2, pad_token_id=0)
+    beams, feats = {}, {}
+    with torch.inference_mode():
+        for side, p, device in (("card", to_fp32(params_cpu, dev), dev), ("cpu", params_cpu, cpu)):
+            feats[side] = instructblip.encode(p, cfg32, image.to(device), tid.to(device), tmask.to(device))
+            engine = DecodeEngine(p, cfg32, gen, adapter=InstructBlipAdapter(cfg32), bucket=32)
+            beams[side] = engine.generate_beam(ids, num_beams=5, precomputed_feats=feats[side]).token_ids
+        a, b = beams["card"], beams["cpu"]
+        log(f"InstructBLIP reference, 5-beam generate_beam of 8 tokens, fp32: card {a}, cpu {b}")
+        if a == b:
+            log("  the card's and the CPU's beams agree token for token")
+        else:
+            k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            lp = {side: blip_seq_logprob(params_cpu, cfg32, ids, feats["cpu"], seq[: k + 1], cpu)
+                  for side, seq in (("card", a), ("cpu", b))}
+            log(f"  the beams part at step {k}: log-probabilities of the prefixes to it under the fp32 CPU model "
+                f"card {lp['card']:.6f}, cpu {lp['cpu']:.6f}, gap {lp['cpu'] - lp['card']:.3g}")
+    del params_cpu
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     name, smi = phase_device()
     dev = torch.device("cuda:0")
     phase_build()
@@ -1758,6 +2042,30 @@ def main() -> int:
     phase_qwen_reference(dev)
     torch.cuda.synchronize()
 
+    # the InstructBLIP paths (bf16, as the BLIP runners load it: no quant),
+    # on a tree built after the Qwen one is freed
+    rec_blip = PathRecorder()
+    t0 = time.perf_counter()
+    blip_params, blip_cfg = load_blip_7b(dev)
+    blip, blip_caption = blip_runner_models(blip_params, blip_cfg)
+    with generated_tokens() as counts:
+        blip_launches, blip_rates = phase_runner(blip, smoke_dir, smi, "vcd", rec_blip)
+    by_path.update(blip_launches)
+    log(f"InstructBLIP POPE runner (VCD, --calibrate) on {smi}: {blip_rates['single']:.4f} questions/s; tokens "
+        f"per answer {counts}; phase wall {time.perf_counter() - t0:.2f} s (the tree's build included)")
+    t0 = time.perf_counter()
+    by_path["blip_caption_runner"] = phase_caption(blip_caption, smoke_dir, smi, rec_blip)
+    log(f"caption phase wall {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_blip_split(blip_params, blip_cfg, dev, smi)
+    log(f"InstructBLIP split phase wall {time.perf_counter() - t0:.2f} s")
+    del blip, blip_caption, blip_params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_blip_reference(dev)
+    torch.cuda.synchronize()
+    log(f"InstructBLIP reference phase wall {time.perf_counter() - t0:.2f} s")
+
     # K1 at every row count the model paths (LLaVA and Qwen) sent it that
     # phase 3 did not check: the Qwen prefills' tiled-regime rows
     k1_seen = collections.defaultdict(set)
@@ -1792,10 +2100,13 @@ def main() -> int:
 
     # every shape the model paths (LLaVA and Qwen) sent K3 that the K3
     # phase did not check
-    seen = rec_llava.k3 | rec_qwen.k3
+    seen = rec_llava.k3 | rec_qwen.k3 | rec_blip.k3
     new_shapes = runner_attn_shapes(seen, set(attn_shapes))
     log(f"model paths: K3 took {sorted({q for q, _, _ in seen})} (Qwen runs: "
-        f"{sorted({q for q, _, _ in rec_qwen.k3})}); not checked yet: {new_shapes}")
+        f"{sorted({q for q, _, _ in rec_qwen.k3})}; InstructBLIP runs: {sorted({q for q, _, _ in rec_blip.k3})}); "
+        f"not checked yet: {new_shapes}")
+    if not rec_blip.k3:
+        raise AssertionError("the InstructBLIP runs sent K3 no call")
     if new_shapes:
         more = phase_kernel_flash(new_shapes)
         rec["K3"]["by_shape"] += more["by_shape"]
@@ -1825,6 +2136,7 @@ def main() -> int:
              **{k: probes[sid][k] for k in ("graph_ms", "graph_library_ms") if k in probes[sid]})
         for sid, (twin, _, w, src, rep) in PROBE_KERNELS.items()
     ]
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

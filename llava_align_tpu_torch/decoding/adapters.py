@@ -1,10 +1,12 @@
 """Model adapters: the decode engine's interface to each VLM family (torch
-twin of llava_align_tpu/decoding/adapters.py: LLaVA and Qwen-VL).
+twin of llava_align_tpu/decoding/adapters.py: LLaVA, Qwen-VL and
+InstructBLIP).
 
 Branch degradation for llava: 'unk' → IMAGE_TOKEN_INDEX→token 0; 'none' →
 sentinel removed (reference vcd_sample.py:153-160). For qwen: 'none' drops
 the sentinel and the <img>/</img> framing ids; 'unk' needs the tokenizer's
-text ('None {q} Answer:') and is passed as explicit branch ids.
+text ('None {q} Answer:') and is passed as explicit branch ids. For
+instructblip: 'none' drops the sentinel; there is no 'unk'.
 """
 
 from __future__ import annotations
@@ -158,3 +160,35 @@ class QwenVLAdapter:
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         return qwen.logits_from_hidden(params["qwen"], hidden)
+
+
+class InstructBlipAdapter(LlavaAdapter):
+    """InstructBLIP: the 32 projected Q-Former query embeddings are the
+    "image features"; prompts are [sentinel] + Vicuna token ids. The
+    Q-Former is conditioned on the instruction, so the features are encoded
+    OUTSIDE the engine (models/instructblip.encode) and passed as
+    generate(..., precomputed_feats=...), as the reference computes
+    inputs_llm / inputs_llm_cd once per question before llm.generate. The
+    decoder side (splice, embeddings, cache, forward, logits) is LLaVA's
+    LLaMA."""
+
+    name = "instructblip"  # cfg: models.instructblip.InstructBlipConfig
+
+    @property
+    def num_image_tokens(self) -> int:
+        return self.cfg.num_query_tokens
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.cfg.text.num_kv_heads
+
+    def branch_token_ids(self, input_ids: Sequence[int], kind: str) -> List[int]:
+        if kind not in ("main", "cd", "none"):  # 'none' = use_image=False: no query embeddings
+            raise ValueError(f"instructblip does not define branch '{kind}'")
+        return super().branch_token_ids(input_ids, kind)
+
+    def encode_images(self, params: Params, images: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(
+            "InstructBLIP features are text-conditioned; encode with "
+            "models.instructblip.encode and pass precomputed_feats to generate()"
+        )

@@ -1,8 +1,9 @@
 """Debiased decode engine (torch twin of llava_align_tpu/decoding/engine.py:
 `generate`, `submit_generate`, `collect_generate`, the lockstep batch
-`generate_batch`, `submit_batch`, `collect_batch`, and the grouped
+`generate_batch`, `submit_batch`, `collect_batch`, the grouped
 shared-prefix entry points `generate_batch_prefix`, `generate_batch_groups`,
-`submit_batch_groups`, `collect_batch_groups`).
+`submit_batch_groups`, `collect_batch_groups`, and the single-branch beam
+search `generate_beam`).
 
 All branches of one request live on the batch axis of one forward and one
 packed KV cache (row 0 = main):
@@ -25,7 +26,7 @@ group gets a second shared prefix segment for its noised image.
 The decode loops are eager Python loops with one host read per step (the
 sampled tokens, which decide `done`); the JAX engine runs them on device in
 lax.while_loop. Unlike it, the loops skip the forward after the last token.
-Not ported yet: beam search, mesh/act_quant/kv_quant.
+Not ported yet: mesh/act_quant/kv_quant.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from llava_align_tpu_torch.config import GenerationConfig
 from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from llava_align_tpu_torch.decoding import sampler as S
 from llava_align_tpu_torch.decoding.adapters import LlavaAdapter
+from llava_align_tpu_torch.decoding.beam import make_beam_fn
 from llava_align_tpu_torch.models import llava as llava_model
 from llava_align_tpu_torch.ops.image import normalize_device, normalize_host
 from llava_align_tpu_torch.ops.noise import add_diffusion_noise
@@ -391,6 +393,66 @@ class DecodeEngine:
         return self.collect_generate(self.submit_generate(
             input_ids, image, generator=generator, branch_ids=branch_ids,
             precomputed_feats=precomputed_feats))
+
+    # ------------------------------------------------------------------
+    # beam search (single branch; the reference's BLIP-2 generate,
+    # num_beams=5; the reference sampler never combines CD with beams)
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def generate_beam(
+        self,
+        input_ids: Sequence[int],
+        image: Optional[np.ndarray] = None,
+        *,
+        num_beams: int = 5,
+        length_penalty: float = 1.0,
+        min_new_tokens: int = 0,
+        precomputed_feats=None,
+    ) -> GenerationOutput:
+        """HF-semantics beam search (do_sample=False, early_stopping=False;
+        decoding/beam.py) over one packed 'main' row: its prefill (K3 on the
+        card), then the beams. image / precomputed_feats as for `generate`.
+        The returned token_ids exclude the finishing eos; the first-step
+        scores are empty, as in the JAX engine."""
+        if len(self.kinds) != 1:
+            raise ValueError(
+                "beam search is single-branch; the reference never combines "
+                "CD/DD with beams (vcd_sample patches `sample` only)"
+            )
+        gen, adapter, dev = self.gen, self.adapter, self.device
+        n_sentinels = sum(1 for t in input_ids if t == IMAGE_TOKEN_INDEX)
+        has_image = (image is not None or precomputed_feats is not None) and n_sentinels > 0
+        if has_image and n_sentinels != 1:
+            raise ValueError(f"one image per request, but the prompt holds {n_sentinels} <image>")
+        n_tok = None
+        if precomputed_feats is not None:
+            n_tok = int(np.shape(precomputed_feats)[1])
+        elif image is not None and np.ndim(image) == 4:
+            n_tok = adapter.num_image_tokens * int(np.shape(image)[0])
+        pad, *pi = self._pack(input_ids, has_image, num_image_tokens=n_tok, kinds=["main"])
+        cache_len = pad + gen.max_new_tokens
+        feats = None
+        if has_image and precomputed_feats is not None:
+            feats = torch.as_tensor(precomputed_feats).to(dev)
+        elif has_image:
+            feats = self._request_features(image, None)
+        cache = adapter.init_cache(1, cache_len, device=dev)
+        first_logits = self._prefill(pi, pad, feats, cache, 0, cache_len)
+        beam = make_beam_fn(
+            adapter, num_beams=num_beams, max_new_tokens=gen.max_new_tokens,
+            eos_token_id=gen.eos_token_id, pad_token_id=gen.pad_token_id,
+            length_penalty=length_penalty, min_new_tokens=min_new_tokens,
+            attn_impl=self.attn_impl, cache_len=cache_len,
+        )
+        seq, n, _ = beam(self.params, cache, first_logits, torch.from_numpy(pi[4]).to(dev))
+        return GenerationOutput(
+            token_ids=seq[:n].tolist(),
+            num_generated=n,
+            first_scores_top_probs=np.zeros((0,), np.float32),
+            first_scores_top_ids=np.zeros((0,), np.int64),
+            prompt_length=int(pi[4][0]),
+        )
 
     # ------------------------------------------------------------------
     # lockstep multi-question generation (unshared prompts)

@@ -34,10 +34,13 @@ def mha(
     v: torch.Tensor,
     *,
     causal: bool = True,
+    bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain attention (twin of mha_xla). q [B,Sq,H,Dh], k/v [B,Sk,K,Dh] →
     [B,Sq,H,Dh]. Logits and softmax in fp32; the probabilities are rounded to
-    v's dtype before PV, as mha_xla does."""
+    v's dtype before PV, as mha_xla does. bias: added to the fp32 logits
+    [B, K, H/K, Sq, Sk] (after the causal mask, before the softmax), or
+    anything that broadcasts to them."""
     B, Sq, H, Dh = q.shape
     K = k.shape[2]
     scale = 1.0 / (Dh**0.5)
@@ -45,6 +48,8 @@ def mha(
     logits = torch.einsum("bqkgd,bskd->bkgqs", qr.float(), k.float()) * scale
     if causal:
         logits = logits.masked_fill(~_causal_mask(Sq, k.shape[1], q.device), NEG_INF)
+    if bias is not None:
+        logits = logits + bias
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).float(), v.float())
     return out.reshape(B, Sq, H, Dh).to(q.dtype)

@@ -1,8 +1,9 @@
-"""HF-format LLaVA and Qwen-VL checkpoints → the port's param trees (torch
-twin of the LLaVA and Qwen-VL parts of llava_align_tpu/utils/hf_convert.py:
-convert_llama, convert_clip, convert_projector, load_state_dict,
-config_from_hf, load_llava_checkpoint; convert_qwen, convert_qwen_visual,
-load_qwen_vl_checkpoint).
+"""HF-format LLaVA and Qwen-VL checkpoints and LAVIS InstructBLIP ones →
+the port's param trees (torch twin of the LLaVA, Qwen-VL and InstructBLIP
+parts of llava_align_tpu/utils/hf_convert.py: convert_llama, convert_clip,
+convert_projector, load_state_dict, config_from_hf, load_llava_checkpoint;
+convert_qwen, convert_qwen_visual, load_qwen_vl_checkpoint;
+convert_eva_vit, convert_qformer, convert_instructblip).
 
 The tree is the JAX package's, so that loading a checkpoint here and
 `utils.jax_params.from_jax_params` of the JAX loader's tree give the same
@@ -12,6 +13,9 @@ becomes [3*P*P, D]; the lm_head is the embedding table when the checkpoint
 has none. Qwen-VL's linears all stay [out, in], its conv [W, 3, P, P]
 becomes [W, 3*P*P], and its position tables are bicubic-interpolated to the
 patch grid here, on the host in fp32, as the JAX converter does.
+InstructBLIP's linears stay [out, in] too (the EVA conv [W, 3, P, P]
+becomes [W, 3*P*P]); a Q-Former whose text branch was pruned from the
+checkpoint (BLIP-2 OPT/T5) gets zeros for it, and unit norms.
 
 Weights are read without a copy on the host: `.safetensors` files through
 this module's own reader of the format (no `safetensors` package) and
@@ -28,13 +32,15 @@ import json
 import os
 import struct
 import sys
-from typing import Any, Callable, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 import numpy as np
 
 from llava_align_tpu_torch.config import ClipVisionConfig, LlamaConfig, LlavaConfig
+from llava_align_tpu_torch.models.eva_vit import EvaVitConfig
+from llava_align_tpu_torch.models.qformer import QFormerConfig, has_cross_attention
 from llava_align_tpu_torch.models.qwen import QwenConfig
 from llava_align_tpu_torch.models.qwen_vit import QwenVisionConfig, interpolate_pos_embed
 from llava_align_tpu_torch.models.qwen_vl import QwenVLConfig
@@ -383,3 +389,132 @@ def load_qwen_vl_checkpoint(model_path: str, dtype: torch.dtype = torch.bfloat16
         "visual": convert_qwen_visual(sd, cfg.vision, device=device),
     }
     return params, cfg
+
+
+# ---------------------------------------------------------------------------
+# InstructBLIP (EVA-ViT + Q-Former + Vicuna)
+# ---------------------------------------------------------------------------
+
+
+def convert_eva_vit(sd: StateDict, cfg: EvaVitConfig, prefix: str = "visual_encoder.",
+                    device=None) -> Dict[str, Any]:
+    """LAVIS eva_vit state dict → the models/eva_vit tree."""
+    device = resolve_device(device)
+    p, dt, L = prefix, cfg.dtype, cfg.num_layers
+
+    def st(template):
+        return _stack(sd, p + "blocks.{i}." + template, L, dt, device)
+
+    def dev(key):
+        return sd[p + key].to(device, dt)
+
+    conv = sd[p + "patch_embed.proj.weight"]
+    return {
+        "patch_embed": {"w": conv.reshape(conv.shape[0], -1).to(device, dt), "b": dev("patch_embed.proj.bias")},
+        "cls": dev("cls_token").reshape(-1),
+        "pos_embed": dev("pos_embed").reshape(-1, cfg.width),
+        "layers": {
+            "norm1": {"scale": st("norm1.weight"), "bias": st("norm1.bias")},
+            "qkv_w": st("attn.qkv.weight"),
+            "q_bias": st("attn.q_bias"),
+            "v_bias": st("attn.v_bias"),
+            "proj": {"w": st("attn.proj.weight"), "b": st("attn.proj.bias")},
+            "norm2": {"scale": st("norm2.weight"), "bias": st("norm2.bias")},
+            "fc1": {"w": st("mlp.fc1.weight"), "b": st("mlp.fc1.bias")},
+            "fc2": {"w": st("mlp.fc2.weight"), "b": st("mlp.fc2.bias")},
+        },
+    }
+
+
+def convert_qformer(sd: StateDict, cfg: QFormerConfig, prefix: str = "Qformer.bert.",
+                    head_prefix: Optional[str] = None, device=None) -> Dict[str, Any]:
+    """LAVIS Qformer BertModel state dict → the models/qformer tree.
+
+    head_prefix: where the BertOnlyMLMHead lives when converting a
+    BertLMHeadModel (stage-1 BLIP-2), e.g. "Qformer.cls." for a LAVIS
+    checkpoint or "cls." for a raw BertLMHeadModel state dict; the result
+    then carries a "head" subtree. Blip2-OPT / Blip2-T5 checkpoints prune
+    the text branches before saving (cls, word/position embeddings and each
+    layer's text feed-forward): those keys are absent, and convert to zeros
+    (unit scales for their norms), which the query-only paths never read."""
+    device = resolve_device(device)
+    p, dt = prefix, cfg.dtype
+    D, F_ = cfg.hidden_size, cfg.intermediate_size
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def dev(key):
+        return sd[key].to(device, dt)
+
+    def dense(key, fallback_shape=None):
+        wk = p + key + ".weight"
+        if fallback_shape is not None and wk not in sd:
+            return {"w": zeros(*fallback_shape), "b": zeros(fallback_shape[0])}
+        return {"w": dev(wk), "b": dev(p + key + ".bias")}
+
+    def lnorm(key, width=None):
+        wk = p + key + ".weight"
+        if width is not None and wk not in sd:
+            return {"scale": torch.ones((width,), dtype=dt, device=device), "bias": zeros(width)}
+        return {"scale": dev(wk), "bias": dev(p + key + ".bias")}
+
+    def attn(base):
+        return {
+            "query": dense(base + ".self.query"),
+            "key": dense(base + ".self.key"),
+            "value": dense(base + ".self.value"),
+            "out": dense(base + ".output.dense"),
+            "ln": lnorm(base + ".output.LayerNorm"),
+        }
+
+    layers = []
+    for i in range(cfg.num_layers):
+        b = f"encoder.layer.{i}"
+        lp = {
+            "self_attn": attn(b + ".attention"),
+            "intermediate": dense(b + ".intermediate.dense", (F_, D)),
+            "output": dense(b + ".output.dense", (D, F_)),
+            "output_ln": lnorm(b + ".output.LayerNorm", D),
+            "intermediate_query": dense(b + ".intermediate_query.dense"),
+            "output_query": dense(b + ".output_query.dense"),
+            "output_query_ln": lnorm(b + ".output_query.LayerNorm"),
+        }
+        if has_cross_attention(cfg, i):
+            lp["cross_attn"] = attn(b + ".crossattention")
+        layers.append(lp)
+
+    wkey, pkey = p + "embeddings.word_embeddings.weight", p + "embeddings.position_embeddings.weight"
+    out: Dict[str, Any] = {
+        "embeddings": {
+            "word": dev(wkey) if wkey in sd else zeros(cfg.vocab_size, D),
+            "position": dev(pkey) if pkey in sd else zeros(cfg.max_position_embeddings, D),
+            "ln": lnorm("embeddings.LayerNorm"),
+        },
+        "layers": layers,
+    }
+    if head_prefix is not None:
+        h = head_prefix + "predictions."
+        out["head"] = {
+            "transform": {"w": dev(h + "transform.dense.weight"), "b": dev(h + "transform.dense.bias")},
+            "ln": {"scale": dev(h + "transform.LayerNorm.weight"), "bias": dev(h + "transform.LayerNorm.bias")},
+            "decoder": dev(h + "decoder.weight"),
+            "bias": dev(h + "bias"),
+        }
+    return out
+
+
+def convert_instructblip(sd: StateDict, cfg, device=None) -> Dict[str, Any]:
+    """A whole blip2_vicuna_instruct state dict → the models/instructblip
+    tree (cfg: InstructBlipConfig), built on `device` (the GPU unless
+    another is named)."""
+    device = resolve_device(device)
+    vdt, tdt = cfg.vision.dtype, cfg.text.dtype
+    return {
+        "visual": convert_eva_vit(sd, cfg.vision, device=device),
+        "ln_vision": {"scale": sd["ln_vision.weight"].to(device, vdt), "bias": sd["ln_vision.bias"].to(device, vdt)},
+        "query_tokens": sd["query_tokens"].reshape(cfg.num_query_tokens, -1).to(device, cfg.qformer.dtype),
+        "qformer": convert_qformer(sd, cfg.qformer, device=device),
+        "llm_proj": {"w": sd["llm_proj.weight"].to(device, tdt), "b": sd["llm_proj.bias"].to(device, tdt)},
+        "llama": convert_llama(sd, cfg.text, prefix="llm_model.", device=device),
+    }

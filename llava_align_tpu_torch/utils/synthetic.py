@@ -1,6 +1,7 @@
 """Random-weight LLaVA and Qwen-VL params at real shapes (torch twin of
 llava_align_tpu/utils/synthetic.py build_random_llava_params and
-build_random_qwen_vl_params).
+build_random_qwen_vl_params), and the LLaMA decoder's tree alone
+(build_random_llama_params, which models/instructblip.init builds on).
 
 The tree and the init scales are those of the JAX package's llava.init (+
 quantize_llama_params(fuse=True) for quant="int8", + bits=4 for "int4"); the
@@ -43,23 +44,31 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def build_random_llava_params(cfg, quant: str = "none", device=None, seed: int = 0) -> Dict[str, Any]:
-    if quant not in ("none", "int8", "int4"):
-        raise NotImplementedError(f"quant={quant!r}: only none/int8/int4 are ported")
-    device = resolve_device(device)
-    g = torch.Generator(device=device).manual_seed(seed)
+def normal_init(generator: torch.Generator, device):
+    """w(shape, fan_in, dtype): N(0, 1/fan_in) draws from `generator` on
+    `device` (in fp32, then cast), the JAX inits' weight scale."""
 
     def w(shape, fan_in, dtype):
-        x = torch.randn(shape, generator=g, device=device, dtype=torch.float32)
+        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return (x / fan_in**0.5).to(dtype)
+
+    return w
+
+
+def build_random_llama_params(t, quant: str = "none", device=None, seed: int = 0) -> Dict[str, Any]:
+    """The LLaMA decoder's tree alone (LlamaConfig `t`), as
+    build_random_llava_params builds its 'llama' subtree."""
+    device = resolve_device(device)
+    return _random_llama(t, quant, device, normal_init(torch.Generator(device=device).manual_seed(seed), device))
+
+
+def _random_llama(t, quant: str, device, w) -> Dict[str, Any]:
+    if quant not in ("none", "int8", "int4"):
+        raise NotImplementedError(f"quant={quant!r}: only none/int8/int4 are ported")
 
     def ones(shape, dtype):
         return torch.ones(shape, dtype=dtype, device=device)
 
-    def zeros(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
-    t = cfg.text
     D, F, L, V, QD, KD, dt = (
         t.hidden_size, t.intermediate_size, t.num_layers, t.vocab_size, t.q_dim, t.kv_dim, t.dtype,
     )
@@ -95,9 +104,21 @@ def build_random_llava_params(cfg, quant: str = "none", device=None, seed: int =
             down=w((L, D, F), F, dt),
         )
         lm_head = w((V, D), D, dt)
-    llama = {"embed": w((V, D), D, dt), "layers": layers, "final_norm": ones((D,), dt),
-             "lm_head": lm_head}
+    return {"embed": w((V, D), D, dt), "layers": layers, "final_norm": ones((D,), dt), "lm_head": lm_head}
 
+
+def build_random_llava_params(cfg, quant: str = "none", device=None, seed: int = 0) -> Dict[str, Any]:
+    device = resolve_device(device)
+    w = normal_init(torch.Generator(device=device).manual_seed(seed), device)
+
+    def ones(shape, dtype):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    llama = _random_llama(cfg.text, quant, device, w)
+    D, dt = cfg.text.hidden_size, cfg.text.dtype
     vc = cfg.vision
     vD, vF, vL, P, vdt = vc.hidden_size, vc.intermediate_size, vc.num_layers, vc.patch_size, vc.dtype
 

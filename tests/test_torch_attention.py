@@ -86,6 +86,20 @@ def test_mha_matches_mha_xla(causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_mha_bias_matches_mha_xla(causal):
+    """An additive fp32 bias [B, K, H/K, Sq, Sk]: the Q-Former's padding mask
+    (0 or -1e30 on the padded keys) plus random values, with and without
+    the causal mask."""
+    q, k, v = _qkv(8, 2, 7, 11, 4, 2, 16)
+    rng = np.random.default_rng(9)
+    bias = rng.normal(size=(2, 2, 2, 7, 11)).astype(np.float32)
+    bias[1, ..., 8:] = -1e30
+    want = ja.mha_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, bias=jnp.asarray(bias))
+    got = ta.mha(*(torch.from_numpy(x) for x in (q, k, v)), causal=causal, bias=torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
 def test_decode_attention_per_row_lengths():
     q, kc, vc = _qkv(5, 3, 1, 24, 4, 2, 16)
     rng = np.random.default_rng(6)

@@ -393,6 +393,10 @@ VERBATIM_COPIES = [
     *[("models.qwen_generation_utils", n) for n in (
         "_encode", "make_context", "decode_tokens", "stop_words_ids", "pad_batch")],
     *[("models.qwen_tokenizer", n) for n in ("load_tiktoken_bpe", "bpe_encode")],
+    # the InstructBLIP slice: the caption task and what it imports
+    *[("framework.tasks", n) for n in ("save_result", "BaseTask", "CaptionTask", "_coerce_id")],
+    *[("framework.logger", n) for n in ("SmoothedValue", "MetricLogger")],
+    ("framework.registry", "Registry"),
 ]
 
 
@@ -548,3 +552,40 @@ def test_qwen_runner_synthetic_image_identical(tmp_path):
     for jc, tc in ((JCfgQ(), TCfgQ()), (JCfgQ.tiny(), TCfgQ.tiny())):
         for name in ("COCO_val2014_000000000042.jpg", "f.png"):
             np.testing.assert_array_equal(tqp._load_image(args, name, tc), jqp._load_image(args, name, jc))
+
+
+def test_caption_task_copy_behaves_as_jax(tmp_path):
+    """CaptionTask's evaluation loop and after_evaluation (save_result,
+    deduplicated on image_id, ids coerced) write the same file in both
+    packages; both registries name the same tasks; MetricLogger averages
+    alike."""
+    from llava_align_tpu.framework import logger as jlog
+    from llava_align_tpu.framework import tasks as jtasks
+    from llava_align_tpu.framework.registry import registry as jreg
+    from llava_align_tpu_torch.framework import logger as tlog
+    from llava_align_tpu_torch.framework import tasks as ttasks
+    from llava_align_tpu_torch.framework.registry import registry as treg
+
+    def generate_fn(params, sample, **kw):
+        return [f"{sample['image']} b{kw['num_beams']} {kw['max_length']}-{kw['min_length']}"]
+
+    samples = [{"image_id": ["7"], "image": "a"}, {"image_id": "cat_1", "image": "b"},
+               {"image_id": ["7"], "image": "c"}]
+    texts = []
+    for tasks, d in ((jtasks, tmp_path / "j"), (ttasks, tmp_path / "t")):
+        task = tasks.CaptionTask(generate_fn=generate_fn, num_beams=5, max_len=30, min_len=8, result_dir=str(d))
+        results = task.evaluation(None, samples, log_freq=1)
+        metrics = task.after_evaluation(results, split_name="val", epoch=0)
+        texts.append((results, metrics, (d / "val_epoch0.json").read_text()))
+        assert tasks.BaseTask.setup_task({"task_args": {"x": 1}}).cfg == {"x": 1}
+    assert texts[0] == texts[1]
+    assert '"image_id": 7' in texts[1][2] and texts[1][2].count('"image_id": 7') == 1
+    assert treg.list("task") == ["base", "captioning"] and treg is not jreg
+    assert treg.get_task_class("captioning") is ttasks.CaptionTask
+    avgs = []
+    for log in (jlog, tlog):
+        m = log.MetricLogger()
+        for v in (1.0, 2.0, 6.0):
+            m.update(loss=v)
+        avgs.append((m.global_avg(), m.loss.median, m.loss.avg, str(m)))
+    assert avgs[0] == avgs[1] and avgs[1][0] == {"loss": 3.0}

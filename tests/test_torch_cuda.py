@@ -16,7 +16,8 @@ ragged O; repeat2d, which is exact); K3 at the VCD runner's prefill shapes,
 and a VCD `generate` on the card against its plain fp32 run on the CPU;
 K2 at Qwen-VL's [151936, 4096] lm_head in both regimes, and the
 QwenVLAdapter's `generate` on a 2-layer full-width Qwen-VL against its fp32
-run on the CPU.
+run on the CPU; a 5-beam InstructBLIP `generate_beam` (fp32, its prefill on
+K3) against the same on the CPU.
 This file imports no jax, so on the machine with the card it runs without
 the repository's conftest (which imports jax):
 
@@ -747,3 +748,41 @@ def test_qwen_adapter_generate_on_card_matches_cpu_fp32(dev):
     assert (torch.isfinite(got) != torch.isfinite(want)).float().mean().item() <= 0.01
     err = (got[both] - want[both]).abs().max().item() / want[both].abs().max().item()
     assert err <= 5e-2, err
+
+
+def test_instructblip_generate_beam_on_card_matches_cpu_fp32(dev):
+    """A 5-beam generate_beam (8 tokens, EOS 2, min_new_tokens 3) on a tiny
+    fp32 InstructBLIP tree whose decoder has Dh 64, so that its prefill runs
+    K3 (fp32, on the CUDA cores): the features from instructblip.encode on
+    each side, the tokens of the card run equal to those of the CPU run."""
+    import dataclasses
+
+    import numpy as np
+
+    from llava_align_tpu_torch.config import GenerationConfig
+    from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
+    from llava_align_tpu_torch.decoding.adapters import InstructBlipAdapter
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.models import instructblip
+
+    tiny = instructblip.InstructBlipConfig.tiny()
+    cfg = dataclasses.replace(tiny, text=dataclasses.replace(tiny.text, hidden_size=128, num_heads=2,
+                                                             num_kv_heads=2, head_dim=64))
+    params = instructblip.init(cfg, device=dev, seed=4)
+    params_cpu = _to_cpu32(params)
+    rng = np.random.default_rng(5)
+    image = rng.standard_normal((1, 3, 28, 28)).astype(np.float32)
+    qtext = rng.integers(3, 128, (1, 6)).astype(np.int32)
+    ids = [IMAGE_TOKEN_INDEX, 1] + [int(t) for t in rng.integers(3, 256, 9)]
+    gen = GenerationConfig(max_new_tokens=8, do_sample=False, eos_token_id=2, pad_token_id=0)
+    out = {}
+    launches = attention.flash_attention.launches
+    with torch.inference_mode():
+        for name, p, device in (("card", params, dev), ("cpu", params_cpu, torch.device("cpu"))):
+            feats = instructblip.encode(p, cfg, torch.from_numpy(image).to(device), torch.from_numpy(qtext).to(device))
+            eng = DecodeEngine(p, cfg, gen, adapter=InstructBlipAdapter(cfg), bucket=32)
+            out[name] = eng.generate_beam(ids, num_beams=5, min_new_tokens=3, precomputed_feats=feats)
+            if name == "card":
+                assert attention.flash_attention.launches > launches
+    assert out["card"].token_ids == out["cpu"].token_ids
+    assert len(out["card"].token_ids) >= 3

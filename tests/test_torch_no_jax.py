@@ -2,10 +2,11 @@
 lockstep generate_batch, a tiny grouped shared-prefix decode (int4), the
 POPE runner and its scorer on a question file it writes, VCD through each
 entry point, a tiny checkpoint written here as .safetensors and loaded,
-the MME and MMMU runners and scorers, and every microbenchmark twin (at
-rehearsal size) on the CPU, with jax (and the JAX package) blocked — the
-machine with the card has no jax — and, for the slice's modules, with
-safetensors and transformers blocked too (the card machine has neither)."""
+the MME and MMMU runners and scorers, the Qwen-VL and InstructBLIP
+runners, and every microbenchmark twin (at rehearsal size) on the CPU,
+with jax (and the JAX package) blocked — the machine with the card has no
+jax — and, for the slice's modules, with safetensors and transformers
+blocked too (the card machine has neither)."""
 
 import os
 import subprocess
@@ -278,6 +279,46 @@ print("OK")
 """
 
 
+BLIP_CODE = r"""
+import sys
+for blocked in ("jax", "jaxlib", "llava_align_tpu", "safetensors", "transformers", "PIL"):
+    sys.modules[blocked] = None  # any import of them now raises ImportError
+
+import contextlib, io, json, os, tempfile
+from llava_align_tpu_torch.evals.pope import load_jsonl, main as score_main
+from llava_align_tpu_torch.runners import blip_pope, caption
+
+d = tempfile.mkdtemp()
+qf = os.path.join(d, "q_POPE.jsonl")
+with open(qf, "w") as f:
+    for i in range(4):
+        f.write(json.dumps({"question_id": i, "image": f"img_{i // 2}.jpg", "label": ["yes", "no"][i % 2],
+                            "text": f"Is there a {['dog', 'cat'][i % 2]} in the image?"}) + "\n")
+base = ["--model-path", "random:tiny", "--device", "cpu", "--synthetic-images", "--max_new_tokens", "3",
+        "--temperature", "0", "--question-file", qf, "--calibrate"]
+for flags in ([], ["--use_cd", "--noise_step", "500"]):
+    af = os.path.join(d, f"blip_{len(flags)}.jsonl")
+    blip_pope.run(blip_pope.build_parser().parse_args(base + ["--answers-file", af] + flags))
+    recs = load_jsonl(af)
+    assert [r["question_id"] for r in recs] == [0, 1, 2, 3] and all("none" in r and "noise" in r for r in recs)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert score_main([qf, af]) == 0
+rd = os.path.join(d, "captions")
+with contextlib.redirect_stdout(io.StringIO()):
+    caption.run(caption.build_parser().parse_args(
+        ["--model-path", "random:tiny", "--device", "cpu", "--synthetic-images", "--question-file", qf,
+         "--result-dir", rd, "--num-beams", "3", "--max-len", "6", "--min-len", "2"]))
+caps = json.load(open(os.path.join(rd, "val_epoch0.json")))
+assert [c["image_id"] for c in caps] == [0, 1, 2, 3] and all(c["caption"] for c in caps), caps
+
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "llava_align_tpu", "safetensors",
+                                                      "transformers", "PIL"))]
+assert not loaded, loaded
+print("OK")
+"""
+
+
 def _run(code: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.run(
@@ -304,5 +345,15 @@ def test_qwen_slice_runs_with_jax_and_regex_blocked():
     """The Qwen-VL runners on random:tiny with jax, the JAX package,
     safetensors, transformers and regex all unimportable."""
     proc = _run(QWEN_CODE)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
+
+
+def test_blip_slice_runs_with_jax_and_pil_blocked():
+    """The InstructBLIP POPE runner (plain and VCD, --calibrate, scored) and
+    the caption runner on random:tiny with jax, the JAX package,
+    safetensors, transformers and PIL all unimportable (synthetic images
+    need no PIL)."""
+    proc = _run(BLIP_CODE)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
