@@ -120,8 +120,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
      decoder layers at full width: encode's output, a prompt's prefill and
      two decode steps' logits on the card (bf16) against the same params in
      fp32 on the CPU; then a 5-beam generate_beam of 8 tokens in fp32 on
-     the card and on the CPU: whether the tokens agree, and where they
-     part, the log-probability gap of the two prefixes;
+     the card and on the CPU, over the fp32 cache and over the int8 one:
+     whether the tokens agree, and where they part, the log-probability
+     gap of the two prefixes;
+ 13b. the opt-in serving modes and LLaVA's last runners (new phases, all
+     fatal): the W8A8 product (ops/quant.int8_matmul_w8a8: torch._int_mm,
+     as the JAX package computes it outside Pallas) on one 7B layer's
+     stacks at 128, 256, 640 and 3072 rows, its codes and output on the
+     card against the CPU's, timed beside the dispatch without act_quant
+     (K1 tiled or the dequant path), the dequant path and cuBLAS bf16
+     (the card's own crossover; printed as a `w8a8_product` JSON line); the
+     7B int8 POPE runner with --quant w8a8 grouped (dual VDD,
+     --calibrate) on phase 6's file, its questions/s beside phase 6's int8
+     grouped rate and its answers against phase 6's, a recorder showing
+     every stacked call of >= 256 rows on the W8A8 product and none on the
+     dequant path; generate_batch_groups at G = 4 with the int8 KV cache
+     and the bf16 one (answers/s, peak memory, answers that agree; one
+     layer's grouped decode attention timed with each) and one `generate`
+     with kv_quant="int8"; runners/sampling.run_sweep --grid smoke twice
+     under one seed (the sampled answers must be equal); runners/
+     bias_probe.run on 4 questions (every record with its none, unk, zero,
+     one, noise and naive dumps); the 2-layer 7B cut's W8A8 prefill logits
+     and its int8-cache prefill and decode logits on the card against fp32
+     on the CPU; runners/qwen_pope.run --quant w8a8 grouped on phase 10's
+     tree (every stacked call of >= 256 rows on W8A8); K1, K2 and K3 must
+     launch in every runner phase;
  14. the model paths' own shapes: the 7B path, the LLaVA runner phases,
      the Qwen ones and the InstructBLIP ones run under recorders that note
      what reaches each kernel; K1 at every row count they sent a 7B-shaped stack (Qwen-VL-7B's
@@ -917,18 +940,22 @@ class PathRecorder:
     linear (models/llama.int8_matmul_stacked_dispatch) routes to K1 in `k1`
     and that of an int8 lm_head (models/llama.int8_matmul) routes to K2 in
     `k2`; and the seconds of each quantize_qwen_params call (the Qwen
-    runners' --quant int8) in `quant_s`."""
+    runners' --quant int8) in `quant_s`. Under act_quant (--quant w8a8) a
+    stacked call of W8A8_MIN_ROWS rows or more is noted by rows in `w8a8`
+    if it took the W8A8 product and in `w8a8_missed` if not; every call of
+    the dequant path is counted by (rows, O, D) in `dequant`."""
 
     def __init__(self):
         self.k3, self.k1, self.k2 = set(), collections.defaultdict(set), collections.defaultdict(set)
         self.quant_s = []
+        self.w8a8, self.w8a8_missed, self.dequant = (collections.Counter() for _ in range(3))
 
     def __enter__(self):
         from llava_align_tpu_torch.models import llama
         from llava_align_tpu_torch.ops import attention, quant
 
         causal, stacked, lm_head = llama.causal_attention, llama.int8_matmul_stacked_dispatch, llama.int8_matmul
-        quantize = quant.quantize_qwen_params
+        quantize, dequant = quant.quantize_qwen_params, quant.int8_matmul_dequant
 
         def k3_recording(q, k, v, *, impl="auto"):
             route = attention.causal_attention_impl(q.shape[3], q.shape[2], k.shape[2], q.dtype)
@@ -938,9 +965,18 @@ class PathRecorder:
 
         def k1_recording(h, wq, li, **kw):
             rows, (O, D) = h.numel() // h.shape[-1], wq["q"].shape[1:]
-            if quant._stream_rows_ok(rows, O, D):
+            w8a8_due = kw.get("act_quant") and rows >= quant.W8A8_MIN_ROWS
+            if quant._stream_rows_ok(rows, O, D) and not w8a8_due:
                 self.k1[(O, D)].add(rows)
-            return stacked(h, wq, li, **kw)
+            n0 = quant.int8_matmul_w8a8.launches
+            out = stacked(h, wq, li, **kw)
+            if w8a8_due:
+                (self.w8a8 if quant.int8_matmul_w8a8.launches > n0 else self.w8a8_missed)[rows] += 1
+            return out
+
+        def dequant_counted(h, q, s):
+            self.dequant[(h.numel() // h.shape[-1], q.shape[0], q.shape[1])] += 1
+            return dequant(h, q, s)
 
         def k2_recording(h, wq):
             rows, (O, D) = h.numel() // h.shape[-1], wq["q"].shape
@@ -959,7 +995,8 @@ class PathRecorder:
         self.patches = contextlib.ExitStack()
         for obj, attr, fn in ((llama, "causal_attention", k3_recording),
                               (llama, "int8_matmul_stacked_dispatch", k1_recording),
-                              (llama, "int8_matmul", k2_recording), (quant, "quantize_qwen_params", timed_quantize)):
+                              (llama, "int8_matmul", k2_recording), (quant, "quantize_qwen_params", timed_quantize),
+                              (quant, "int8_matmul_dequant", dequant_counted)):
             self.patches.enter_context(patched(obj, attr, fn))
         return self
 
@@ -1138,21 +1175,24 @@ def cut_config(full, dtype=None):
     return cfg
 
 
-def llama_logits_steps(p_llama, c_text, embeds, length: int, steps, device) -> list:
+def llama_logits_steps(p_llama, c_text, embeds, length: int, steps, device, act_quant: bool = False,
+                       kv_quant: bool = False) -> list:
     """The LLaMA decoder's logits at the last real position (`length`) of
     one prompt's `embeds` [1, S, D], then at one decode step per token of
-    `steps`, as fp32 CPU tensors."""
+    `steps`, as fp32 CPU tensors; act_quant (W8A8) and kv_quant (the int8
+    cache) as the engine passes them."""
     from llava_align_tpu_torch.models import llama
 
     S = embeds.shape[1]
-    cache = llama.init_cache(c_text, 1, S + len(steps), device=device)
+    cache = llama.init_cache(c_text, 1, S + len(steps), device=device, kv_quant=kv_quant)
     zero = torch.zeros((1,), dtype=torch.long, device=device)
-    hidden, _ = llama.forward(p_llama, c_text, embeds, torch.arange(S, device=device)[None], cache, zero)
+    hidden, _ = llama.forward(p_llama, c_text, embeds, torch.arange(S, device=device)[None], cache, zero,
+                              act_quant=act_quant)
     out = [llama.last_token_logits(p_llama, hidden, zero + length - 1)]
     for i, tok in enumerate(steps):
         pos = zero + length + i
         emb = llama.embed_tokens(p_llama, torch.full((1, 1), tok, device=device))
-        hidden, _ = llama.forward(p_llama, c_text, emb, pos[:, None], cache, pos)
+        hidden, _ = llama.forward(p_llama, c_text, emb, pos[:, None], cache, pos, act_quant=act_quant)
         out.append(llama.logits_from_hidden(p_llama, hidden[:, 0]))
     return [o.float().cpu() for o in out]
 
@@ -1889,9 +1929,10 @@ def phase_blip_reference(dev) -> None:
     output (a padded instruction), a prompt's prefill logits and two decode
     steps' logits on the card against the same params in fp32 on the CPU,
     at REFERENCE_TOL; then a 5-beam generate_beam of 8 tokens with the cut
-    in fp32 on the card and on the CPU: whether the tokens agree, and where
-    they part, the gap between the two prefixes' log-probabilities under
-    the fp32 CPU model (how near a tie the card broke the other way)."""
+    in fp32 on the card and on the CPU, over the fp32 cache and over the
+    int8 one: whether the tokens agree, and where they part, the gap
+    between the two prefixes' log-probabilities under the fp32 CPU model
+    (how near a tie the card broke the other way)."""
     from llava_align_tpu_torch.config import GenerationConfig
     from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
     from llava_align_tpu_torch.decoding.adapters import InstructBlipAdapter
@@ -1930,29 +1971,334 @@ def phase_blip_reference(dev) -> None:
     for name, g, r in zip(("encode", "prefill", "decode 1", "decode 2"), got, ref):
         rel_check(g, r, f"InstructBLIP reference {name}: max|card - cpu fp32| / max|cpu|")
 
-    # the beams in fp32 on both sides (K3 fp32 on the card's CUDA cores)
+    # the beams in fp32 on both sides (K3 fp32 on the card's CUDA cores),
+    # over the fp32 cache and over the int8 one (the beams reorder its
+    # scale planes with the values)
     del params
     torch.cuda.empty_cache()
     cfg32 = blip_cut(full, torch.float32)
     gen = GenerationConfig(max_new_tokens=8, do_sample=False, eos_token_id=2, pad_token_id=0)
-    beams, feats = {}, {}
-    with torch.inference_mode():
-        for side, p, device in (("card", to_fp32(params_cpu, dev), dev), ("cpu", params_cpu, cpu)):
-            feats[side] = instructblip.encode(p, cfg32, image.to(device), tid.to(device), tmask.to(device))
-            engine = DecodeEngine(p, cfg32, gen, adapter=InstructBlipAdapter(cfg32), bucket=32)
-            beams[side] = engine.generate_beam(ids, num_beams=5, precomputed_feats=feats[side]).token_ids
+    params_card = to_fp32(params_cpu, dev)
+    for cache, kv_quant in (("fp32", None), ("int8", "int8")):
+        beams, feats = {}, {}
+        with torch.inference_mode():
+            for side, p, device in (("card", params_card, dev), ("cpu", params_cpu, cpu)):
+                feats[side] = instructblip.encode(p, cfg32, image.to(device), tid.to(device), tmask.to(device))
+                engine = DecodeEngine(p, cfg32, gen, adapter=InstructBlipAdapter(cfg32), bucket=32,
+                                      kv_quant=kv_quant)
+                beams[side] = engine.generate_beam(ids, num_beams=5, precomputed_feats=feats[side]).token_ids
         a, b = beams["card"], beams["cpu"]
-        log(f"InstructBLIP reference, 5-beam generate_beam of 8 tokens, fp32: card {a}, cpu {b}")
+        log(f"InstructBLIP reference, 5-beam generate_beam of 8 tokens, fp32, {cache} cache: card {a}, cpu {b}")
         if a == b:
-            log("  the card's and the CPU's beams agree token for token")
+            log(f"  the card's and the CPU's beams over the {cache} cache agree token for token")
         else:
             k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
             lp = {side: blip_seq_logprob(params_cpu, cfg32, ids, feats["cpu"], seq[: k + 1], cpu)
                   for side, seq in (("card", a), ("cpu", b))}
             log(f"  the beams part at step {k}: log-probabilities of the prefixes to it under the fp32 CPU model "
                 f"card {lp['card']:.6f}, cpu {lp['cpu']:.6f}, gap {lp['cpu'] - lp['card']:.3g}")
-    del params_cpu
+    del params_cpu, params_card
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the opt-in serving modes (W8A8 and the int8 KV cache) and LLaVA's last
+# runners (the sampling sweep, the bias probe)
+# ---------------------------------------------------------------------------
+
+W8A8_ROWS = (128, 256, 640, 3072)  # the JAX rule's crossover (256) on both sides, a prefill's 640 and 3072
+
+
+def phase_w8a8_product(smi: str) -> dict:
+    """The W8A8 product (ops/quant.int8_matmul_w8a8: the activations'
+    quantization and the fp32 epilogue in PyTorch around torch._int_mm, no
+    TPU kernel behind it) on one 7B layer's four int8 stacks, bf16 rows,
+    at W8A8_ROWS: its codes and its output on the card against the same
+    call on the CPU (the o stack at 256 rows; exact codes, the product
+    within KERNEL_TOL), then timed beside what the dispatch runs there
+    without act_quant (K1's tiled regime on the O >= D stacks up to 640
+    rows, else the dequant path), the dequant path alone and cuBLAS bf16
+    (torch.matmul on a weight dequantized beforehand). Returns the layer's
+    sums by rows."""
+    from llava_align_tpu_torch.ops import quant
+    from llava_align_tpu_torch.scripts._common import SHAPES_7B, matmul_work
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(13)
+    stacks = {}
+    for name, (O, D) in SHAPES_7B.items():
+        q = torch.randint(-127, 128, (2, O, D), dtype=torch.int8, device=dev, generator=g)
+        s = (torch.rand((2, O), device=dev, generator=g) + 0.5) / (127.0 * D**0.5)
+        stacks[name] = (q, s, quant.dequantize({"q": q[1], "s": s[1]}, torch.bfloat16))
+    q, s, _ = stacks["o"]
+    h = torch.randn((256, q.shape[2]), device=dev, generator=g).to(torch.bfloat16)
+    hf = h.float()
+    a_dev = quant.w8a8_row_scale(hf.abs().amax(-1, keepdim=True))
+    a_cpu = quant.w8a8_row_scale(hf.cpu().abs().amax(-1, keepdim=True))
+    if not (torch.equal(a_dev.cpu(), a_cpu) and torch.equal(quant.w8a8_quantize(hf, a_dev).cpu(),
+                                                            quant.w8a8_quantize(hf.cpu(), a_cpu))):
+        raise AssertionError("W8A8: the card's row scales or int8 codes differ from the CPU's")
+    compare(quant.int8_matmul_w8a8(h, q[1], s[1]).cpu(),
+            quant.int8_matmul_w8a8(h.cpu(), q[1].cpu(), s[1].cpu()), "W8A8 o [4096, 4096] B=256, card vs CPU")
+    log(f"W8A8 product vs the dispatch's path without act_quant, K1 tiled, dequant and cuBLAS bf16, "
+        f"one 7B layer, on {smi}")
+    table = {}
+    for B in W8A8_ROWS:
+        h = torch.randn((B, 11008), device=dev, generator=g).to(torch.bfloat16)
+        row = dict(w8a8_ms=0.0, default_ms=0.0, k1_ms=0.0, dequant_ms=0.0, cublas_ms=0.0, bytes=0.0, flops=0.0)
+        for name, (q, s, w_bf16) in stacks.items():
+            O, D = q.shape[1:]
+            x = h[:, :D].contiguous()
+            w8 = cuda_ms(lambda i: quant.int8_matmul_w8a8(x, q[1], s[1]), 20)
+            deq = cuda_ms(lambda i: quant.int8_matmul_dequant(x, q[1], s[1]), 20)
+            cub = cuda_ms(lambda i: torch.matmul(x, w_bf16.t()), 20)
+            k1 = cuda_ms(lambda i: quant.int8_matmul_stacked(x, q, s, 1), 20) if quant._stream_rows_ok(B, O, D) else None
+            nb, fl = matmul_work(B, O, D, O * D, 4 * O)
+            log(f"  {name} [{O},{D}] B={B}: W8A8 {w8:.4f} ms, K1 tiled "
+                f"{'n/a' if k1 is None else f'{k1:.4f} ms'}, dequant {deq:.4f} ms, cuBLAS bf16 {cub:.4f} ms")
+            for key, val in (("w8a8_ms", w8), ("dequant_ms", deq), ("cublas_ms", cub), ("bytes", nb),
+                             ("flops", fl), ("default_ms", deq if k1 is None else k1), ("k1_ms", k1 or 0.0)):
+                row[key] += val
+        row.update(bound(row.pop("bytes"), row.pop("flops")))
+        table[str(B)] = row
+        log(f"  one 7B layer at B={B}: W8A8 {row['w8a8_ms']:.4f} ms, the dispatch without act_quant "
+            f"{row['default_ms']:.4f} ms (K1 tiled {row['k1_ms']:.4f} ms of it), dequant alone "
+            f"{row['dequant_ms']:.4f} ms, cuBLAS bf16 {row['cublas_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); W8A8 / default {row['w8a8_ms'] / row['default_ms']:.3f}x")
+    del stacks
+    torch.cuda.empty_cache()
+    log("w8a8_product " + json.dumps({"smi": smi, "by_rows": table}))
+    return table
+
+
+def check_w8a8_path(rec: PathRecorder, what: str, dequant_below_ok: bool = False) -> None:
+    """Every stacked call of W8A8_MIN_ROWS rows or more that `rec` saw took
+    the W8A8 product, and some did; no call took the dequant path, or with
+    dequant_below_ok none of W8A8_MIN_ROWS rows or more (below them the
+    JAX rule sends an O < D stack there, act_quant or not)."""
+    from llava_align_tpu_torch.ops import quant
+
+    log(f"  {what}: stacked calls on the W8A8 product by rows {dict(sorted(rec.w8a8.items()))}; "
+        f"W8A8-due calls elsewhere {dict(rec.w8a8_missed)}; dequant-path calls (rows, O, D) {dict(rec.dequant)}")
+    bad_dequant = [c for c in rec.dequant if c[0] >= quant.W8A8_MIN_ROWS or not dequant_below_ok]
+    if not rec.w8a8 or rec.w8a8_missed or bad_dequant:
+        raise AssertionError(f"{what}: not every stacked call of >= 256 rows took W8A8, or these took the "
+                             f"dequant path: {bad_dequant}")
+
+
+def agreement(root, a: str, b: str) -> str:
+    """How many answers of answers file b agree with a's (same question)."""
+    from llava_align_tpu_torch.evals import pope as pope_eval
+
+    ra, rb = (pope_eval.load_jsonl(str(root / f"{n}.jsonl")) for n in (a, b))
+    same = sum(x["text"] == y["text"] for x, y in zip(ra, rb))
+    return f"{same} of {len(ra)} answers agree with {a}"
+
+
+def phase_w8a8_runner(model: RunnerModel, root, smi: str, rates: dict, dequant_below_ok: bool = False) -> tuple:
+    """model's POPE runner with --quant w8a8, grouped, dual VDD,
+    --calibrate, on the POPE phase's question file (through phase_runner:
+    K1, K2 and K3 must launch, every record with its dumps, scored), under
+    its own recorder: every stacked call of >= 256 rows on the W8A8
+    product, none on the dequant path (check_w8a8_path). Its questions/s
+    beside the int8 grouped rate of the same run (`rates`), and its
+    answers against the int8 grouped run's. Returns (launches by path, the
+    recorder)."""
+    rec = PathRecorder()
+    launches, w8 = phase_runner(model, root, smi, "pope", rec)
+    check_w8a8_path(rec, f"{model.tag} --quant w8a8", dequant_below_ok)
+    base = model.tag.replace("_w8a8", "")
+    log(f"POPE runner {model.what} --quant w8a8 grouped on {smi}: {w8['grouped']:.4f} questions/s; --quant int8 "
+        f"grouped in this run {rates['grouped']:.4f} questions/s ({w8['grouped'] / rates['grouped']:.3f}x); "
+        + agreement(root, f"{base}_pope_runner_grouped", f"{model.tag}_pope_runner_grouped"))
+    return launches, rec
+
+
+def phase_kv_cache(lm, smi: str) -> dict:
+    """The int8 KV cache on the 7B int8 tree, greedy dual VDD, EOS out of
+    range: generate_batch_groups at G = GROUPS image groups x 6 questions
+    (as bench.py's _kvq side bench runs it), with kv_quant="int8" and with
+    the bf16 cache, each a warm-up call then GROUP_CALLS - 1 timed calls:
+    answers/s and peak memory of each, and how many answers agree; one
+    layer's grouped decode attention at this path's shapes, timed with
+    each cache; then one `generate` with kv_quant="int8". K1, K2 and K3
+    must launch in each."""
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.runners.common import pope_groups
+
+    V = lm.cfg.text.vocab_size
+    calls = [pope_groups(lm.tokenizer, lm.cfg.vision.image_size, GROUPS, seed=20 + c) for c in range(GROUP_CALLS)]
+    reset_launches()
+    answers, result = {}, {}
+    for cache in ("bf16", "int8"):
+        engine = DecodeEngine(lm.params, lm.cfg, dual_vdd_config(), kv_quant="int8" if cache == "int8" else None)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        outs = engine.generate_batch_groups(calls[0])  # warm-up
+        t0 = time.perf_counter()
+        for c in range(1, GROUP_CALLS):
+            outs += engine.generate_batch_groups(calls[c])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = (GROUP_CALLS - 1) * GROUPS * 6
+        for i, out in enumerate(outs):
+            check_output(out, V, f"kv cache {cache} question {i}")
+        answers[cache] = [o.token_ids for o in outs]
+        result[cache] = dict(answers_per_s=n / secs, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"int8 KV cache phase, {cache} cache, generate_batch_groups G={GROUPS} x 6 questions, dual VDD, "
+            f"greedy, {NEW_TOKENS} tokens, on {smi}: {n} answers in {secs:.4f} s, "
+            f"{result[cache]['answers_per_s']:.4f} answers/s; peak memory {result[cache]['peak_gib']:.2f} GiB")
+        del engine
+    same = sum(a == b for a, b in zip(answers["bf16"], answers["int8"]))
+    log(f"  int8 against bf16 cache: {result['int8']['answers_per_s'] / result['bf16']['answers_per_s']:.3f}x "
+        f"answers/s, peak memory {result['int8']['peak_gib']:.2f} vs {result['bf16']['peak_gib']:.2f} GiB; "
+        f"{same} of {len(answers['bf16'])} answers (all {NEW_TOKENS} tokens) agree")
+    phase_kv_attention(smi)
+    out = DecodeEngine(lm.params, lm.cfg, dual_vdd_config(), kv_quant="int8").generate(
+        *pope_requests(lm.tokenizer, lm.cfg.vision.image_size)[1])
+    check_output(out, V, "generate with kv_quant=int8")
+    log(f"  generate with kv_quant=int8: tokens {out.token_ids}, total {out.seconds_total:.4f} s")
+    launches = read_launches()
+    require_launches(launches, K123, "the int8 KV cache phase")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_kv_attention(smi: str) -> None:
+    """One layer's decode_attention_shared_grouped at the G = 4 grouped
+    path's shapes (72 rows: 4 groups x 6 questions x [main | unk, none];
+    a 640-position image segment per group, a 128-position text segment
+    per (group, kind), a 40-position local cache), bf16 operands against
+    int8 (values, scales) ones: plain PyTorch, which widens the int8
+    values to fp32 as the JAX package's einsums do; held to each other at
+    REFERENCE_TOL (the cache's quantization error)."""
+    from llava_align_tpu_torch.ops import attention, quant
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(17)
+    G, Qg, P, P2, S, H, Dh = GROUPS, 6, 640, 128, 40, 32, 128
+
+    def rnd(*shape):
+        return torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+
+    q, kc, vc = rnd(3 * G * Qg, 1, H, Dh), rnd(3 * G * Qg, S, H, Dh), rnd(3 * G * Qg, S, H, Dh)
+    seg = dict(k_sh=rnd(G, P, H, Dh), v_sh=rnd(G, P, H, Dh), k_sh2=rnd(2 * G, P2, H, Dh), v_sh2=rnd(2 * G, P2, H, Dh))
+    lengths = torch.full((3 * G * Qg,), S - 1, device=dev)
+    sh_len = torch.cat([torch.full((G * Qg,), P - 7, device=dev), torch.full((2 * G * Qg,), P2 - 9, device=dev)])
+
+    def call(kc_, vc_, seg_):
+        return attention.decode_attention_shared_grouped(q, kc_, vc_, lengths, seg_["k_sh"], seg_["v_sh"], sh_len,
+                                                         Qg, seg_["k_sh2"], seg_["v_sh2"], Qg)
+
+    q8 = {k: quant.kv_quantize_block(v) for k, v in seg.items()}
+    kc8, vc8 = quant.kv_quantize_block(kc), quant.kv_quantize_block(vc)
+    rel_check(call(kc8, vc8, q8).float(), call(kc, vc, seg).float(),
+              "grouped decode attention, int8 against bf16 operands")
+    bf16_ms = cuda_ms(lambda i: call(kc, vc, seg), 10)
+    int8_ms = cuda_ms(lambda i: call(kc8, vc8, q8), 10)
+    log(f"  one layer's grouped decode attention (72 rows, segments {G}x{P} + {2 * G}x{P2}, local {S}) on {smi}: "
+        f"bf16 operands {bf16_ms:.4f} ms, int8 operands {int8_ms:.4f} ms ({int8_ms / bf16_ms:.3f}x)")
+
+
+def phase_quant_reference(dev) -> None:
+    """The full-width 7B model cut to 2 decoder / 2 vision layers, int8:
+    the W8A8 prefill's logits (act_quant: its 640 rows take the W8A8
+    product) and, over the int8 KV cache, the prefill and two decode
+    steps' logits, on the card against the same params and code in fp32 on
+    the CPU, at REFERENCE_TOL."""
+    from llava_align_tpu_torch.config import LlavaConfig
+    from llava_align_tpu_torch.models import llava
+    from llava_align_tpu_torch.ops import quant
+    from llava_align_tpu_torch.ops.image import normalize_device
+    from llava_align_tpu_torch.runners.common import MockTokenizer
+    from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
+
+    cfg = cut_config(LlavaConfig.llava_v15_7b())
+    cfg32 = cut_config(LlavaConfig.llava_v15_7b(), torch.float32)
+    params = build_random_llava_params(cfg, quant="int8", device=dev, seed=1)
+    params_cpu = to_fp32(params)
+    ids, image = pope_requests(MockTokenizer(), cfg.vision.image_size)[0]
+    plan = llava.plan_splice(ids, cfg.num_image_tokens, -(-(len(ids) - 1 + cfg.num_image_tokens) // 128) * 128)
+    steps = (29871, 3869)
+
+    @torch.inference_mode()
+    def run(p, c, device, **mode):
+        pixels = normalize_device(torch.from_numpy(image)[None].to(device), c.vision.dtype)
+        feats = llava.encode_images(p, c, pixels)
+        t = {k: torch.from_numpy(np.asarray(getattr(plan, k)))[None].to(device)
+             for k in ("tokens", "tok_gather", "img_gather", "is_image")}
+        embeds = llava.splice_embeds(p, c, t["tokens"], t["tok_gather"], t["img_gather"], t["is_image"], feats)
+        return llama_logits_steps(p["llama"], c.text, embeds, plan.length, steps, device, **mode)
+
+    cpu = torch.device("cpu")
+    n0 = quant.int8_matmul_w8a8.launches
+    got, ref = run(params, cfg, dev, act_quant=True), run(params_cpu, cfg32, cpu, act_quant=True)
+    if quant.int8_matmul_w8a8.launches == n0:
+        raise AssertionError("the W8A8 reference's prefill did not take the W8A8 product")
+    rel_check(got[0], ref[0], "7B W8A8 reference prefill: max|card - cpu fp32| / max|cpu|")
+    got, ref = run(params, cfg, dev, kv_quant=True), run(params_cpu, cfg32, cpu, kv_quant=True)
+    for name, g_, r_ in zip(("prefill", "decode 1", "decode 2"), got, ref):
+        rel_check(g_, r_, f"7B int8-cache reference {name}: max|card - cpu fp32| / max|cpu|")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+
+
+def phase_sampling_sweep(model: RunnerModel, root, smi: str, rec: PathRecorder) -> dict:
+    """runners/sampling.run_sweep --grid smoke (default, temp_0.5,
+    top_p_0.5, top_k_5) on the POPE question file, dual VDD, sampled,
+    grouped by image, twice with one --seed: the two sweeps' sampled tokens
+    must be equal, answer by answer. K1, K2 and K3 must launch in each."""
+    from llava_align_tpu_torch.evals import pope as pope_eval
+    from llava_align_tpu_torch.runners import sampling
+
+    qf, _ = write_pope_files(root)
+    runs, launches = [], {}
+    for r in range(2):
+        args = sampling.build_parser().parse_args([
+            *model.args, "--question-file", str(qf), "--answers-file", str(root / f"sweep{r}_setting.jsonl"),
+            "--use_dd", "--use_dd_unk", "--cd_alpha", "1", "--cd_beta", "0.1", "--max_new_tokens",
+            str(NEW_TOKENS), "--synthetic-images", "--seed", "7", "--grid", "smoke"])
+        files, secs, launches, _ = timed_run(model, rec, lambda: sampling.run_sweep(args))
+        recs = [pope_eval.load_jsonl(f) for f in files]
+        n_q = sum(len(x) for x in recs)
+        log(f"sampling sweep {r} (--grid smoke: {[Path(f).stem for f in files]}, {model.what}) on {smi}: "
+            f"{n_q} answers in {secs:.4f} s, {n_q / secs:.4f} questions/s; K1 {launches['int8_matmul_stacked']}, "
+            f"K2 {launches['int8_matmul_cuda']}, K3 {launches['flash_attention']}")
+        if [len(x) for x in recs] != [6 * RUNNER_IMAGES] * 4:
+            raise AssertionError(f"sampling sweep {r}: answers per point {[len(x) for x in recs]}")
+        require_launches(launches, model.kernels, f"sampling sweep {r}")
+        runs.append([[x["text"] for x in point] for point in recs])
+    same = sum(a == b for pa, pb in zip(*runs) for a, b in zip(pa, pb))
+    log(f"  the two sweeps under --seed 7: {same} of {sum(len(p) for p in runs[0])} sampled answers equal; "
+        f"answers at the points {[p[:2] for p in runs[0]]}")
+    if runs[0] != runs[1]:
+        raise AssertionError("the sampling sweep is not reproducible under one seed")
+    return launches
+
+
+def phase_bias_probe(model: RunnerModel, root, smi: str, rec: PathRecorder) -> dict:
+    """runners/bias_probe.run on 4 POPE questions (images absent:
+    --synthetic-images): every record must carry the none, unk, zero, one
+    and noise dumps and naive. K1, K2 and K3 must launch."""
+    from llava_align_tpu_torch.evals import pope as pope_eval
+    from llava_align_tpu_torch.runners import bias_probe
+
+    qf, _ = write_pope_files(root)
+    answers = root / "bias_probe.jsonl"
+    args = bias_probe.build_parser().parse_args([*model.args, "--question-file", str(qf), "--answers-file",
+                                                 str(answers), "--synthetic-images", "--max-questions", "4",
+                                                 "--temperature", "0"])
+    _, secs, launches, _ = timed_run(model, rec, lambda: bias_probe.run(args))
+    recs = pope_eval.load_jsonl(str(answers))
+    log(f"bias probe ({model.what}, 4 questions x 6 probes) on {smi}: {secs:.4f} s, {4 / secs:.4f} questions/s; "
+        f"K1 {launches['int8_matmul_stacked']}, K2 {launches['int8_matmul_cuda']}, K3 {launches['flash_attention']}; "
+        f"first record {json.dumps({k: dict(list(v.items())[:3]) for k, v in recs[0].items() if isinstance(v, dict)})}")
+    dumps = ("none", "unk", "zero", "one", "noise", "naive")
+    if len(recs) != 4 or not all(all(isinstance(r.get(k), dict) and r[k] for k in dumps) for r in recs):
+        raise AssertionError(f"bias probe: records without the {dumps} dumps")
+    require_launches(launches, K123, "the bias probe")
+    return launches
+
 
 
 def main() -> int:
@@ -1982,7 +2328,8 @@ def main() -> int:
     rec["K4"] = phase_kernels_int4(shapes["decode_rows"], shapes["prefill_rows"])
     torch.cuda.synchronize()
     probes = phase_probes()
-    from llava_align_tpu_torch.runners import mmmu, pope, qwen_pope
+    phase_w8a8_product(smi)
+    from llava_align_tpu_torch.runners import bias_probe, mmmu, pope, qwen_pope
 
     # what the LLaVA model paths and the Qwen-VL ones send K1, K2 and K3
     rec_llava, rec_qwen = PathRecorder(), PathRecorder()
@@ -2002,7 +2349,20 @@ def main() -> int:
         log(f"POPE runner {layout} on {smi}: VCD {vcd_rates[layout]:.4f} questions/s, dual VDD "
             f"{vdd_rates[layout]:.4f} questions/s in this run ({vcd_rates[layout] / vdd_rates[layout]:.3f}x)")
     by_path["7b_mme_runner"] = phase_mme(llava, smoke_dir, smi, rec_llava)
-    del lm, llava  # the 7B int8 tree goes before the bf16 one of the MMMU runner is built
+    # the opt-in serving modes and LLaVA's last runners, on the same 7B int8 tree
+    t0 = time.perf_counter()
+    llava_w8a8 = dataclasses.replace(llava, tag="7b_w8a8", what="LLaVA-v1.5-7B int8 + W8A8",
+                                     args=("--model-path", "random:7b", "--quant", "w8a8"),
+                                     layouts={"grouped": RUNNER_LAYOUTS["grouped"]})
+    w8a8_launches, rec_llava_w8a8 = phase_w8a8_runner(llava_w8a8, smoke_dir, smi, vdd_rates)
+    by_path.update(w8a8_launches)
+    with rec_llava:
+        by_path["7b_int8_kv_cache"] = phase_kv_cache(lm, smi)
+    by_path["7b_sampling_sweep"] = phase_sampling_sweep(llava, smoke_dir, smi, rec_llava)
+    by_path["7b_bias_probe"] = phase_bias_probe(dataclasses.replace(llava, loader=(bias_probe, "load_model")),
+                                                smoke_dir, smi, rec_llava)
+    log(f"W8A8 runner, int8 KV cache, sampling sweep and bias probe phases wall {time.perf_counter() - t0:.2f} s")
+    del lm, llava, llava_w8a8  # the 7B int8 tree goes before the bf16 one of the MMMU runner is built
     torch.cuda.empty_cache()
     llava_bf16 = RunnerModel("7b", "LLaVA-v1.5-7B bf16", (mmmu, "load_model"), load_7b(dev, "none"),
                              ("--model-path", "random:7b"), kernels=("flash_attention",))
@@ -2012,6 +2372,8 @@ def main() -> int:
     phase_reference(dev)
     torch.cuda.synchronize()
     phase_vcd_reference(dev)
+    torch.cuda.synchronize()
+    phase_quant_reference(dev)
     torch.cuda.synchronize()
     by_path["7b_checkpoint_generate"] = phase_checkpoint(dev, smi)
     torch.cuda.synchronize()
@@ -2031,13 +2393,18 @@ def main() -> int:
     by_path.update(qwen_launches)
     by_path["qwen_mme_runner"] = phase_mme(qwen, smoke_dir, smi, rec_qwen)
     by_path["qwen_mmmu_runner"] = phase_mmmu(qwen, smoke_dir, smi, rec_qwen)
+    qwen_w8a8 = dataclasses.replace(qwen, tag="qwen_w8a8", what="Qwen-VL-7B int8 + W8A8",
+                                    args=("--model-path", "random:qwen-vl-7b", "--quant", "w8a8"),
+                                    layouts={"grouped": RUNNER_LAYOUTS["grouped"]})
+    w8a8_launches, rec_qwen_w8a8 = phase_w8a8_runner(qwen_w8a8, smoke_dir, smi, qwen_rates, dequant_below_ok=True)
+    by_path.update(w8a8_launches)
     log(f"POPE runner on {smi}, without the quantization: Qwen-VL-7B int8 "
         + ", ".join(f"{k} {v:.4f}" for k, v in qwen_rates.items())
         + " questions/s; LLaVA-v1.5-7B int8 dual VDD in this run: "
         + ", ".join(f"{k} {v:.4f}" for k, v in vdd_rates.items()) + " questions/s")
     log(f"quantize_qwen_params of the bf16 Qwen-VL-7B tree on {smi}: "
         + ", ".join(f"{t:.4f}" for t in rec_qwen.quant_s) + " s")
-    del qwen, qwen_params
+    del qwen, qwen_w8a8, qwen_params
     torch.cuda.empty_cache()
     phase_qwen_reference(dev)
     torch.cuda.synchronize()
@@ -2069,12 +2436,13 @@ def main() -> int:
     # K1 at every row count the model paths (LLaVA and Qwen) sent it that
     # phase 3 did not check: the Qwen prefills' tiled-regime rows
     k1_seen = collections.defaultdict(set)
-    for r in (rec_llava, rec_qwen):
+    for r in (rec_llava, rec_qwen, rec_llava_w8a8, rec_qwen_w8a8):
         for shape, rows in r.k1.items():
             k1_seen[shape] |= rows
     k1_new = path_k1_rows(k1_seen, k1_phase_rows(prefill_rows))
     rows_by_path = {fam: {f"{O}x{D}": sorted(rows) for (O, D), rows in sorted(r.k1.items())}
-                    for fam, r in (("llava", rec_llava), ("qwen", rec_qwen))}
+                    for fam, r in (("llava", rec_llava), ("qwen", rec_qwen), ("llava_w8a8", rec_llava_w8a8),
+                                   ("qwen_w8a8", rec_qwen_w8a8))}
     log(f"model paths: K1 took, by [O, D] stack, {rows_by_path}; not checked yet: {k1_new}")
     if not rec_qwen.k1:
         raise AssertionError("the Qwen runs sent K1 no call")
@@ -2088,7 +2456,7 @@ def main() -> int:
     # tiled regime's first and last row counts
     from llava_align_tpu_torch.ops.quant import STREAM_MAX_ROWS
 
-    k2_rows = rec_qwen.k2[LM_HEAD_QWEN]
+    k2_rows = rec_qwen.k2[LM_HEAD_QWEN] | rec_qwen_w8a8.k2[LM_HEAD_QWEN]
     log(f"kernels: K2 at the Qwen lm_head {list(LM_HEAD_QWEN)}, the Qwen runs' row counts "
         f"{sorted(k2_rows)} and the tiled regime's 65 and {STREAM_MAX_ROWS}")
     if not k2_rows:
@@ -2100,7 +2468,7 @@ def main() -> int:
 
     # every shape the model paths (LLaVA and Qwen) sent K3 that the K3
     # phase did not check
-    seen = rec_llava.k3 | rec_qwen.k3 | rec_blip.k3
+    seen = rec_llava.k3 | rec_qwen.k3 | rec_blip.k3 | rec_llava_w8a8.k3 | rec_qwen_w8a8.k3
     new_shapes = runner_attn_shapes(seen, set(attn_shapes))
     log(f"model paths: K3 took {sorted({q for q, _, _ in seen})} (Qwen runs: "
         f"{sorted({q for q, _, _ in rec_qwen.k3})}; InstructBLIP runs: {sorted({q for q, _, _ in rec_blip.k3})}); "

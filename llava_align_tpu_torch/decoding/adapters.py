@@ -7,6 +7,11 @@ sentinel removed (reference vcd_sample.py:153-160). For qwen: 'none' drops
 the sentinel and the <img>/</img> framing ids; 'unk' needs the tokenizer's
 text ('None {q} Answer:') and is passed as explicit branch ids. For
 instructblip: 'none' drops the sentinel; there is no 'unk'.
+
+All three take the two opt-in serving modes of the JAX adapters, which
+DecodeEngine(act_quant=..., kv_quant=...) sets on a copy of the adapter:
+act_quant (W8A8 at prefill row counts, ops/quant.int8_matmul_w8a8) and
+kv_quant (the int8 KV cache, ops/quant.kv_quantize_block).
 """
 
 from __future__ import annotations
@@ -26,6 +31,16 @@ UNK_TOKEN_ID = 0  # reference vcd_sample.py:155
 
 class LlavaAdapter:
     name = "llava"
+
+    # Opt-in W8A8 (set by DecodeEngine(act_quant=True)): int8 stacks take
+    # the W8A8 product at W8A8_MIN_ROWS rows and more; decode rows keep K1.
+    act_quant = False
+    supports_act_quant = True
+    # Opt-in int8 KV cache (set by DecodeEngine(kv_quant="int8")): int8
+    # values with per-(position, head) fp32 scales; shared prefix segments
+    # quantize too.
+    kv_quant = False
+    supports_kv_quant = True
 
     def __init__(self, cfg: LlavaConfig):
         self.cfg = cfg
@@ -65,7 +80,7 @@ class LlavaAdapter:
         return params["llama"]["embed"].device
 
     def init_cache(self, batch: int, max_len: int, device=None):
-        return llama.init_cache(self.cfg.text, batch, max_len, device=device)
+        return llama.init_cache(self.cfg.text, batch, max_len, kv_quant=self.kv_quant, device=device)
 
     def forward(self, params, embeds, positions, cache, offsets, *, attn_impl="auto",
                 max_seq_len: int, cache_row_offset=0, shared_kv=None, shared_len=None,
@@ -77,7 +92,7 @@ class LlavaAdapter:
             attn_impl=attn_impl, cache_row_offset=cache_row_offset, shared_kv=shared_kv,
             shared_len=shared_len,
             shared_rows_per_prefix=shared_rows_per_prefix,
-            shared_rows_per_prefix2=shared_rows_per_prefix2,
+            shared_rows_per_prefix2=shared_rows_per_prefix2, act_quant=self.act_quant,
         )
 
     # Shared-prefix decoding (engine.generate_batch_groups) needs the model
@@ -96,6 +111,10 @@ class QwenVLAdapter:
 
     name = "qwen_vl"
     supports_shared_prefix = True
+    act_quant = False  # see LlavaAdapter.act_quant
+    supports_act_quant = True
+    kv_quant = False  # see LlavaAdapter.kv_quant
+    supports_kv_quant = True
 
     def __init__(self, cfg: qwen_vl.QwenVLConfig):
         self.cfg = cfg
@@ -142,7 +161,7 @@ class QwenVLAdapter:
         return params["qwen"]["wte"].device
 
     def init_cache(self, batch: int, max_len: int, device=None):
-        return qwen.init_cache(self.cfg.text, batch, max_len, device=device)
+        return qwen.init_cache(self.cfg.text, batch, max_len, kv_quant=self.kv_quant, device=device)
 
     def forward(self, params, embeds, positions, cache, offsets, *, attn_impl="auto",
                 max_seq_len: int, cache_row_offset=0, shared_kv=None, shared_len=None,
@@ -155,7 +174,7 @@ class QwenVLAdapter:
             attn_impl=attn_impl, cache_row_offset=cache_row_offset,
             shared_kv=shared_kv, shared_len=shared_len,
             shared_rows_per_prefix=shared_rows_per_prefix,
-            shared_rows_per_prefix2=shared_rows_per_prefix2,
+            shared_rows_per_prefix2=shared_rows_per_prefix2, act_quant=self.act_quant,
         )
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
@@ -170,7 +189,7 @@ class InstructBlipAdapter(LlavaAdapter):
     generate(..., precomputed_feats=...), as the reference computes
     inputs_llm / inputs_llm_cd once per question before llm.generate. The
     decoder side (splice, embeddings, cache, forward, logits) is LLaVA's
-    LLaMA."""
+    LLaMA, with LlavaAdapter's act_quant and kv_quant."""
 
     name = "instructblip"  # cfg: models.instructblip.InstructBlipConfig
 

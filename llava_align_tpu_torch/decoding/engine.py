@@ -26,12 +26,19 @@ group gets a second shared prefix segment for its noised image.
 The decode loops are eager Python loops with one host read per step (the
 sampled tokens, which decide `done`); the JAX engine runs them on device in
 lax.while_loop. Unlike it, the loops skip the forward after the last token.
-Not ported yet: mesh/act_quant/kv_quant.
+
+The JAX engine's two opt-in serving modes are taken as it takes them:
+act_quant=True (W8A8: int8 stacks take the W8A8 product at prefill row
+counts, ops/quant.int8_matmul_w8a8) and kv_quant="int8" (the int8 KV cache,
+shared prefix segments included). Neither is bit-exact with the default
+path, by design. Not ported yet: mesh.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import logging
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
@@ -48,6 +55,8 @@ from llava_align_tpu_torch.ops.image import normalize_device, normalize_host
 from llava_align_tpu_torch.ops.noise import add_diffusion_noise
 
 Params = Dict[str, Any]
+
+logger = logging.getLogger("llava_align_tpu_torch.engine")
 
 
 def branch_kinds(gen: GenerationConfig) -> List[str]:
@@ -109,7 +118,13 @@ class DecodeEngine:
     call passes the call's cache length as max_seq_len (Qwen's dynamic NTK
     reads it). Prefill lengths are bucketed to multiples of `bucket`, as in
     the JAX engine (here it fixes the kernels' shapes rather than compiled
-    programs). `device` defaults to the device of the params."""
+    programs). `device` defaults to the device of the params.
+
+    act_quant: opt-in W8A8 (decode rows keep the exact K1). kv_quant:
+    "int8" for the int8 KV cache; other modes raise. Each is set on a copy
+    of the adapter (the caller's adapter may serve engines without it); an
+    adapter without the mode logs a warning and the flag is ignored, as in
+    the JAX engine."""
 
     def __init__(
         self,
@@ -123,11 +138,24 @@ class DecodeEngine:
         bucket: int = 128,
         top_scores_k: int = 100,
         device: Optional[torch.device] = None,
+        act_quant: bool = False,
+        kv_quant: Optional[str] = None,
     ):
         self.params = params
         self.cfg = cfg
         self.gen = gen
         self.adapter = adapter if adapter is not None else LlavaAdapter(cfg)
+        if kv_quant and kv_quant != "int8":
+            raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
+        for flag, on, what in (("kv_quant", bool(kv_quant), "int8 cache"), ("act_quant", act_quant, "W8A8")):
+            if not on:
+                continue
+            if not getattr(type(self.adapter), f"supports_{flag}", False):
+                logger.warning("%s requested but adapter %s has no %s path; ignoring.",
+                               flag, getattr(self.adapter, "name", "?"), what)
+            else:
+                self.adapter = copy.copy(self.adapter)
+                setattr(self.adapter, flag, True)
         self.kinds = branch_kinds(gen)
         self.stop_keyword_ids = [list(map(int, k)) for k in (stop_keyword_ids or [])]
         self.attn_impl = attn_impl  # the causal prefill's route (ops.attention.causal_attention)
@@ -359,10 +387,9 @@ class DecodeEngine:
             lengths = lengths + 1
             lengths_host = lengths_host + 1
 
-        probs = torch.softmax(first_scores, dim=-1)
-        top = torch.topk(probs, min(self.top_scores_k, probs.shape[-1]))
+        top_probs, top_ids = _top_scores(first_scores, self.top_scores_k)
         return dict(
-            tokens=out, top_probs=top.values, top_ids=top.indices, first_scores=first_scores,
+            tokens=out, top_probs=top_probs, top_ids=top_ids, first_scores=first_scores,
             prompt_length=int(pi[4][0]),
             seconds_to_first_token=t_first - t0, seconds_total=time.perf_counter() - t0,
         )
@@ -618,9 +645,8 @@ class DecodeEngine:
                 break
             logits = step(torch.from_numpy(toks[row_to_q]).to(self.device))
 
-        probs = torch.softmax(first_scores, dim=-1)
-        top = torch.topk(probs, min(self.top_scores_k, V))
-        return dict(out_buf=out_buf, n_done=n_done, top_probs=top.values, top_ids=top.indices,
+        top_probs, top_ids = _top_scores(first_scores, self.top_scores_k)
+        return dict(out_buf=out_buf, n_done=n_done, top_probs=top_probs, top_ids=top_ids,
                     first_scores=first_scores, t_first=t_first)
 
     # ------------------------------------------------------------------
@@ -845,7 +871,7 @@ class DecodeEngine:
         feats = feats.reshape(n_img, G, N, D).transpose(0, 1).reshape(G * n_img, N, D)
         p_cache = adapter.init_cache(G * n_img, pack_prefix[1].shape[1], device=dev)
         prefill(tuple(np.repeat(a, n_img, axis=0) for a in pack_prefix), feats, p_cache)
-        shared = {"k": p_cache["k"], "v": p_cache["v"]}  # [L, G, P, K, Dh]
+        shared = dict(p_cache)  # [L, G, P, K, Dh] (+ 'ks'/'vs' scale planes, int8)
         sh_len_suf = np.repeat(np.repeat(pack_prefix[4], n_img), Qg)  # [M2]
         # ...and the shared text-branch segments: G * n_sh rows, own bucket
         if n_sh:
@@ -853,6 +879,8 @@ class DecodeEngine:
             zero = torch.zeros((G * n_sh, 1, D), dtype=feats.dtype, device=dev)
             prefill(pack_tp, zero, t_cache)
             shared["k2"], shared["v2"] = t_cache["k"], t_cache["v"]
+            if "ks" in t_cache:  # int8 cache: the second table's scale planes
+                shared["k2s"], shared["v2s"] = t_cache["ks"], t_cache["vs"]
             sh_len_suf = np.concatenate([sh_len_suf, np.repeat(pack_tp[4], Qg)])
 
         # ---- per-question suffixes of the image rows and the shared-text
@@ -946,6 +974,16 @@ class DecodeEngine:
         while p < lo - 1 and all(t[p] == first[p] for t in token_lists):
             p += 1
         return p
+
+
+def _top_scores(first_scores: torch.Tensor, k: int):
+    """The softmax of the first-step scores [..., V] and its k largest
+    (values, ids), equal values in jax.lax.top_k's order, the lower id
+    first (a stable descending sort: torch.topk promises no order among
+    equal values, and top-k / top-p warping leaves many zeros tied)."""
+    vals, ids = torch.sort(torch.softmax(first_scores, dim=-1), dim=-1, descending=True, stable=True)
+    k = min(k, vals.shape[-1])
+    return vals[..., :k], ids[..., :k]
 
 
 def _collect(handle, prompt_lengths: Sequence[int]) -> List[GenerationOutput]:

@@ -17,9 +17,12 @@ an int4 one a {'q4': int8 [L, D/2, O], 'gs': fp32 [L, D/128, O]} dict
 takes the layer index.
 
 The KV cache is one {'k', 'v'} pair of [L, B, Smax, K, Dh] tensors holding
-every decode branch on the batch axis. Unlike the JAX version, which is
-functional and returns a new cache, `forward` UPDATES THE CACHE IN PLACE
-(and also returns it, so call sites read the same in both packages).
+every decode branch on the batch axis; the int8 cache (init_cache
+kv_quant=True) holds int8 'k'/'v' and fp32 'ks'/'vs' scale planes [L, B,
+Smax, K, 1] (ops/quant.kv_quantize_block per position and head). Unlike
+the JAX version, which is functional and returns a new cache, `forward`
+UPDATES THE CACHE IN PLACE (and also returns it, so call sites read the
+same in both packages).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from llava_align_tpu_torch.ops.quant import (
     int8_matmul_stacked_dispatch,
     is_quantized,
     is_quantized_int4,
+    kv_quantize_block,
 )
 
 Params = Dict[str, Any]
@@ -54,13 +58,29 @@ def init_cache(
     cfg: LlamaConfig, batch: int, max_len: int, dtype: Optional[torch.dtype] = None,
     kv_quant: bool = False, device=None,
 ) -> KVCache:
-    if kv_quant:
-        raise NotImplementedError("int8 KV cache (kv_quant) is not ported yet")
+    """{'k', 'v'}: [L, batch, max_len, K, Dh] zeros on `device`; with
+    kv_quant int8 values plus fp32 'ks'/'vs' scale planes [L, batch,
+    max_len, K, 1] (the trailing singleton as in the JAX package)."""
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    if kv_quant:
+        return quantized_cache(shape, device)
     dtype = dtype or cfg.dtype
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def quantized_cache(shape, device=None) -> KVCache:
+    """The int8 cache of value shape [L, B, Smax, K, Dh]: int8 'k'/'v', fp32
+    'ks'/'vs' [L, B, Smax, K, 1], all zeros (a zero scale keeps an unwritten
+    slot inert)."""
+    sshape = tuple(shape[:-1]) + (1,)
+    return {
+        "k": torch.zeros(shape, dtype=torch.int8, device=device),
+        "ks": torch.zeros(sshape, dtype=torch.float32, device=device),
+        "v": torch.zeros(shape, dtype=torch.int8, device=device),
+        "vs": torch.zeros(sshape, dtype=torch.float32, device=device),
     }
 
 
@@ -88,15 +108,45 @@ def _write_cache(
         cache_full[li, row_offset : row_offset + B, :S] = new
 
 
-def linear(h: torch.Tensor, w: Any, li: int) -> torch.Tensor:
+def linear(h: torch.Tensor, w: Any, li: int, act_quant: bool = False) -> torch.Tensor:
     """h [B, S, in] x layer li of a stacked linear [L, out, in] → [B, S,
-    out]: int4 stacks through K4's dispatch, int8 ones through K1's, float
-    ones through torch.matmul."""
+    out]: int4 stacks through K4's dispatch, int8 ones through K1's (with
+    act_quant, W8A8 from W8A8_MIN_ROWS rows on), float ones through
+    torch.matmul."""
     if is_quantized_int4(w):
         return int4_matmul_stacked_dispatch(h, w, li)
     if is_quantized(w):
-        return int8_matmul_stacked_dispatch(h, w, li)
+        return int8_matmul_stacked_dispatch(h, w, li, act_quant=act_quant)
     return h @ w[li].t()
+
+
+def _write_kv(cache: KVCache, k: torch.Tensor, v: torch.Tensor, li: int, offsets: torch.Tensor,
+              is_decode: bool, row_offset: int) -> None:
+    """Write k and v [B, S, K, Dh] into the cache at layer li; an int8 cache
+    stores their kv_quantize_block codes and scales."""
+    if "ks" in cache:
+        (k, ks), (v, vs) = kv_quantize_block(k), kv_quantize_block(v)
+        _write_cache(cache["ks"], ks, li, offsets, is_decode, row_offset)
+        _write_cache(cache["vs"], vs, li, offsets, is_decode, row_offset)
+    _write_cache(cache["k"], k, li, offsets, is_decode, row_offset)
+    _write_cache(cache["v"], v, li, offsets, is_decode, row_offset)
+
+
+def _read_kv(cache: KVCache, li: int, rows: slice):
+    """Layer li's rows of the cache: (k, v), each an int8 (values, scales)
+    tuple for an int8 cache (the attention ops fold the scales)."""
+    if "ks" in cache:
+        return ((cache["k"][li, rows], cache["ks"][li, rows]),
+                (cache["v"][li, rows], cache["vs"][li, rows]))
+    return cache["k"][li, rows], cache["v"][li, rows]
+
+
+def _read_shared(shared_kv: KVCache, li: int, name: str, scales: str):
+    """Layer li of a shared segment table, with its scale plane when the
+    segment is int8."""
+    if scales in shared_kv:
+        return shared_kv[name][li], shared_kv[scales][li]
+    return shared_kv[name][li]
 
 
 def attend(
@@ -112,21 +162,21 @@ def attend(
     against the shared prefix segment too when shared_kv is given."""
     B = q.shape[0]
     if cache is not None:
-        _write_cache(cache["k"], k, li, cache_offset, is_decode, cache_row_offset)
-        _write_cache(cache["v"], v, li, cache_offset, is_decode, cache_row_offset)
+        _write_kv(cache, k, v, li, cache_offset, is_decode, cache_row_offset)
     rows = slice(cache_row_offset, cache_row_offset + B)
     if shared_kv is None:
         if is_decode:
-            return decode_attention(q, cache["k"][li, rows], cache["v"][li, rows], cache_offset)
+            return decode_attention(q, *_read_kv(cache, li, rows), cache_offset)
         return causal_attention(q, k, v, impl=attn_impl)
-    k_sh, v_sh = shared_kv["k"][li], shared_kv["v"][li]
-    grouped = k_sh.dim() == 4  # [G, P, K, Dh]: one prefix per row group
+    k_sh, v_sh = _read_shared(shared_kv, li, "k", "ks"), _read_shared(shared_kv, li, "v", "vs")
+    grouped = shared_kv["k"].dim() == 5  # [L, G, P, K, Dh]: one prefix per row group
     two = {}
     if "k2" in shared_kv:  # second (text-branch) segment table
-        two = dict(k_sh2=shared_kv["k2"][li], v_sh2=shared_kv["v2"][li],
+        two = dict(k_sh2=_read_shared(shared_kv, li, "k2", "k2s"),
+                   v_sh2=_read_shared(shared_kv, li, "v2", "v2s"),
                    rows_per_prefix2=shared_rows_per_prefix2)
     if is_decode:
-        kc, vc = cache["k"][li, rows], cache["v"][li, rows]
+        kc, vc = _read_kv(cache, li, rows)
         if grouped:
             return decode_attention_shared_grouped(
                 q, kc, vc, cache_offset, k_sh, v_sh, shared_len, shared_rows_per_prefix, **two
@@ -177,15 +227,18 @@ def forward(
                  valid prefix length (0 = none). With a segment, `positions`
                  are absolute (shared_len[b] + local index) while
                  `cache_offset` stays LOCAL; prefill blocks are the first
-                 local content.
+                 local content. An int8 cache (init_cache kv_quant) stores
+                 each written block quantized; int8 segments carry their
+                 scale planes ('ks'/'vs', 'k2s'/'v2s').
+    act_quant    opt-in W8A8: int8 stacks take the W8A8 product at
+                 W8A8_MIN_ROWS rows and more (prefills); decode rows keep
+                 K1. Not bit-exact with the weight-only path, by design.
 
     Returns (hidden [B, S, D] after the final norm, cache).
-    Not ported yet: tp_mesh, act_quant, the int8 KV cache and int8 segments.
+    Not ported yet: tp_mesh.
     """
-    if tp_mesh is not None or act_quant:
-        raise NotImplementedError("tp_mesh / act_quant are not ported yet")
-    if (cache is not None and "ks" in cache) or (shared_kv is not None and "ks" in shared_kv):
-        raise NotImplementedError("int8 KV cache (kv_quant) is not ported yet")
+    if tp_mesh is not None:
+        raise NotImplementedError("tp_mesh is not ported yet")
     B, S, _ = embeds.shape
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     if cache_offset is None:
@@ -198,7 +251,7 @@ def forward(
     Hn, Kn, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def lin(h, name, li):
-        return linear(h, layers[name], li)
+        return linear(h, layers[name], li, act_quant)
 
     def attn_fn(q, k, v, li):
         return attend(q, k, v, li, cache, cache_offset, is_decode, cache_row_offset, attn_impl,

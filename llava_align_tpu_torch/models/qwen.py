@@ -82,10 +82,11 @@ def init_cache(
     cfg: QwenConfig, batch: int, max_len: int, kv_quant: bool = False, device=None,
 ) -> KVCache:
     """{'k', 'v'}: [L, batch, max_len, H, Dh] zeros on `device` ('meta'
-    sizes a cache without allocating it)."""
-    if kv_quant:
-        raise NotImplementedError("int8 KV cache (kv_quant) is not ported yet")
+    sizes a cache without allocating it); with kv_quant the int8 cache
+    (llama.quantized_cache: int8 values, fp32 'ks'/'vs' scale planes)."""
     shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
+    if kv_quant:
+        return llama.quantized_cache(shape, device)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -136,12 +137,8 @@ def forward(
     """Run the decoder stack; the arguments are llama.forward's (positions
     absolute, cache_offset local, the same shared-segment contract), plus
     ntk_alpha (ntk_alpha_for_len of the call's cache length), which scales
-    the rotary base. Returns (hidden after ln_f, cache). Not ported yet:
-    act_quant, the int8 KV cache."""
-    if act_quant:
-        raise NotImplementedError("W8A8 (act_quant) is not ported yet")
-    if (cache is not None and "ks" in cache) or (shared_kv is not None and "ks" in shared_kv):
-        raise NotImplementedError("int8 KV cache (kv_quant) is not ported yet")
+    the rotary base. act_quant and the int8 cache as in llama.forward.
+    Returns (hidden after ln_f, cache)."""
     B, S, _ = embeds.shape
     H, Dh = cfg.num_heads, cfg.head_dim
     base = cfg.rotary_emb_base * ntk_alpha ** (Dh / (Dh - 2))
@@ -155,7 +152,7 @@ def forward(
     layers = params["layers"]
 
     def lin(h, name, li):
-        return llama.linear(h, layers[name], li)
+        return llama.linear(h, layers[name], li, act_quant)
 
     x = embeds
     for li in range(cfg.num_layers):

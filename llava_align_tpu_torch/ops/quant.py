@@ -1,5 +1,6 @@
-"""Weight-only int8 and int4 quantization for serving (torch twin of
-llava_align_tpu/ops/quant.py: the int8 part and the group-wise int4 part).
+"""int8 and int4 quantization for serving (torch twin of
+llava_align_tpu/ops/quant.py: the int8 weight-only part, the opt-in W8A8
+product, the group-wise int4 part and the int8 KV-cache blocks).
 
 int8 weights are stored with per-output-channel absmax scales. Two matmul
 paths, which round differently:
@@ -63,7 +64,7 @@ def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """[..., O, D] float → {'q': int8 [..., O, D], 's': fp32 [..., O]}."""
     wf = w.float()
     absmax = wf.abs().amax(dim=-1)
-    s = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    s = torch.where(absmax == 0, torch.ones_like(absmax), _div127(absmax))
     q = torch.clamp(torch.round(wf / s[..., None]), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
 
@@ -210,11 +211,13 @@ def int8_matmul_stacked_dispatch(
     """h [..., D] x stacked quantized [L, O, D] at layer_idx → [..., O].
     Row counts the JAX package streams (_stream_rows_ok: every stack up to
     DECODE_MAX_ROWS, output-major ones up to STREAM_MAX_ROWS) take K1; the
-    rest the dequant path. act_quant (W8A8) is not ported yet."""
-    if act_quant:
-        raise NotImplementedError("W8A8 (act_quant) is not ported yet")
+    rest the dequant path. act_quant=True first sends row counts of
+    W8A8_MIN_ROWS and more to the W8A8 product (int8_matmul_w8a8), as the
+    JAX dispatch does; decode rows keep K1."""
     q, s = wq["q"], wq["s"]
     lead = h.shape[:-1]
+    if act_quant and _rows(h) >= W8A8_MIN_ROWS:
+        return int8_matmul_w8a8(h, q[layer_idx], s[layer_idx])
     if _stream_rows_ok(_rows(h), q.shape[1], q.shape[2]):
         out = int8_matmul_stacked(h.reshape(-1, h.shape[-1]).contiguous(), q, s, layer_idx)
         return out.reshape(*lead, q.shape[1])
@@ -231,6 +234,81 @@ def int8_matmul(h: torch.Tensor, wq: Dict[str, torch.Tensor]) -> torch.Tensor:
         out = int8_matmul_cuda(h.reshape(-1, h.shape[-1]).contiguous(), q, s)
         return out.reshape(*lead, q.shape[0])
     return int8_matmul_dequant(h, q, s)
+
+
+# ---------------------------------------------------------------------------
+# W8A8: dynamic per-row activation quantization, int8 x int8 → int32, the
+# JAX package's opt-in throughput mode (act_quant; engine and runner
+# `--quant w8a8`). Activations quantize per row (absmax over D), weights
+# keep their per-output-channel scales, the accumulation is exact int32 and
+# the scale epilogue fp32. Not bit-exact with the weight-only paths, by
+# design. The JAX package computes the product with XLA's int8 dot_general,
+# outside Pallas, so the port takes torch._int_mm (cuBLASLt on the card;
+# int8 x int8 → int32 on the CPU too): no TPU kernel stands behind it.
+# The quantization and the epilogue are plain torch, op for op the JAX
+# package's (division by the row scale, round half to even, then
+# (acc * a_scale) * s), so the codes are equal. W8A8_MIN_ROWS is the JAX
+# package's crossover, measured on a TPU and kept as its rule; the card's
+# own crossover is timed by chip_smoke.py.
+# ---------------------------------------------------------------------------
+
+W8A8_MIN_ROWS = 256
+
+
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127, correctly rounded on every device: PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal instead, which rounds
+    differently from the JAX package's division (and the CPU's)."""
+    return x / torch.full_like(x, 127.0)
+
+
+def w8a8_row_scale(amax: torch.Tensor) -> torch.Tensor:
+    """Per-row activation scale from the rows' absmax [..., 1] (fp32)."""
+    return _div127(torch.clamp(amax, min=1e-30))
+
+
+def w8a8_quantize(hf: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
+    """fp32 rows over their scales → int8 codes (round half to even)."""
+    return torch.clamp(torch.round(hf / a_scale), -127.0, 127.0).to(torch.int8)
+
+
+def int8_matmul_w8a8(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """h [..., D] x int8 q [O, D] (scales s [O]) → [..., O] in h's dtype:
+    per-row dynamic activation quantization, int32 accumulation
+    (torch._int_mm: on the card more than 16 rows, D and O multiples of 8),
+    fp32 epilogue a_scale[row] * s[col]."""
+    lead, D = h.shape[:-1], h.shape[-1]
+    hf = h.reshape(-1, D).float()
+    a_scale = w8a8_row_scale(hf.abs().amax(dim=-1, keepdim=True))
+    acc = torch._int_mm(w8a8_quantize(hf, a_scale), q.t())
+    int8_matmul_w8a8.launches += 1
+    return (acc.float() * a_scale * s).to(h.dtype).reshape(*lead, q.shape[0])
+
+
+int8_matmul_w8a8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 KV cache blocks (the JAX package's kv_quantize_block layout): int8
+# values with one fp32 absmax scale per (row, position, head), a trailing
+# singleton over Dh. Exact zeros stay exact; a zero vector quantizes to
+# zeros with scale 0, so padded cache slots stay inert.
+# ---------------------------------------------------------------------------
+
+
+def kv_quantize_block(x: torch.Tensor):
+    """[..., Dh] float → (int8 [..., Dh], fp32 scale [..., 1])."""
+    xf = x.float()
+    scale = _div127(xf.abs().amax(dim=-1, keepdim=True))
+    pos = scale > 0
+    inv = torch.where(pos, 1.0 / torch.where(pos, scale, torch.ones_like(scale)), torch.zeros_like(scale))
+    q = torch.clamp(torch.round(xf * inv), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """(int8 [..., Dh], fp32 [..., 1]) → [..., Dh] in `dtype`."""
+    return (q.float() * scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------

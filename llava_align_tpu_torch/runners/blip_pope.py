@@ -16,8 +16,9 @@ branch reads embeddings), and the content-free scoring runs for the
 the mock tokenizer for both the Vicuna and the BERT side, as in the JAX
 runner) or a LAVIS blip2_vicuna_instruct checkpoint dir (weights, with
 llm_tokenizer/ and bert_tokenizer/ beside them, read by transformers). The
-GPU unless --device cpu is given. Refused as the POPE runner refuses them:
---dist auto, --quant w8a8.
+GPU unless --device cpu is given. --quant is read by nothing, as in the
+JAX runner (the tree stays in its float dtype). Refused as the POPE runner
+refuses it: --dist auto.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from llava_align_tpu_torch.runners.common import (
     load_questions_for,
     make_generation_config,
 )
-from llava_align_tpu_torch.runners.pope import _refuse_unported
+from llava_align_tpu_torch.runners.pope import _refuse_dist_auto
 
 
 def load_blip_model(model_path: str, device=None):
@@ -93,7 +94,7 @@ def qformer_text(bert_tok, prompt_text: str, cfg) -> tuple:
 
 def run(args) -> str:
     """Answer the question file into args.answers_file; returns its path."""
-    _refuse_unported(args)
+    _refuse_dist_auto(args)
     device = torch.device(args.device) if getattr(args, "device", None) else None
     llm_tok, bert_tok, params, cfg, model_name = load_blip_model(args.model_path, device=device)
     questions = load_questions_for(args)

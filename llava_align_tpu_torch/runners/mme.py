@@ -18,8 +18,9 @@ evals.mme.score_sweep_dirs).
         --mme-data-root /data/MME_Benchmark [--use_dd --use_dd_unk ...]
     python -m llava_align_tpu_torch.runners.mme --score-sweep out/ --sweep-prefix mme_
 
-The GPU unless --device cpu is given. Refused: what the POPE runner (and,
-with --model-family qwen, the qwen_pope runner) refuses.
+The GPU unless --device cpu is given. --quant (w8a8 included) passes
+through to the POPE runner (with --model-family qwen, the qwen_pope
+runner), as in the JAX package. Refused: what those runners refuse.
 """
 
 from __future__ import annotations

@@ -55,14 +55,8 @@ from llava_align_tpu_torch.runners.common import (
     make_generation_config,
     postprocess_answer,
 )
+from llava_align_tpu_torch.runners.pope import _refuse_dist_auto
 from llava_align_tpu_torch.tokenization import keyword_token_ids, tokenizer_image_token
-
-
-def _refuse_dist_auto(args) -> None:
-    if getattr(args, "dist", "none") == "auto":
-        raise NotImplementedError(
-            "--dist auto (multi-process sharding) is not ported yet (ROADMAP Queue 1 item 8, parallelism); "
-            "shard with --num-chunks/--chunk-idx")
 
 
 def _question_stream(device, seed: int, sid) -> torch.Generator:

@@ -19,8 +19,10 @@ random:{tiny,7b,13b}, a random-weight model with the mock tokenizer;
 Routing as in the JAX runner: with --use_cd a group whose first question
 has no image leaves the shared-prefix path (it has no noised prefix
 segment), and anyres grid stacks decode one question at a time through
-`generate`. Not ported yet, and refused: --dist auto (use
---num-chunks/--chunk-idx), --quant w8a8.
+`generate`. --quant w8a8 is the JAX runner's opt-in throughput mode: int8
+weights plus W8A8 at prefill row counts (DecodeEngine act_quant), not
+bit-exact with --quant int8. Not ported yet, and refused: --dist auto (use
+--num-chunks/--chunk-idx).
 """
 
 from __future__ import annotations
@@ -86,28 +88,30 @@ def _auto_group_batch(engine, Qg: int, max_new: int) -> int:
     return max(1, min(4, fit))
 
 
-def _refuse_unported(args) -> None:
+def _refuse_dist_auto(args) -> None:
     if getattr(args, "dist", "none") == "auto":
         raise NotImplementedError(
             "--dist auto (multi-process sharding) is not ported yet (ROADMAP Queue 1 item 8, parallelism); "
             "shard with --num-chunks/--chunk-idx")
-    if args.quant == "w8a8":
-        raise NotImplementedError("--quant w8a8 (activation quantization) is not ported yet")
 
 
 def run(args) -> str:
     """Answer the question file into args.answers_file; returns its path."""
-    _refuse_unported(args)
+    _refuse_dist_auto(args)
     device = torch.device(args.device) if args.device else None
+    # w8a8 = int8 weights + opt-in W8A8 at prefill row counts (not
+    # bit-exact with int8; ops/quant W8A8 note)
+    act_quant = args.quant == "w8a8"
+    quant = "int8" if act_quant else args.quant
     # load_model quantizes checkpoints and builds random:{7b,13b} quantized;
     # random:tiny loads in float and is quantized here, as in the JAX runner
-    model = load_model(args.model_path, quant=args.quant, device=device)
+    model = load_model(args.model_path, quant=quant, device=device)
     tokenizer, params, cfg = model.tokenizer, model.params, model.cfg
-    if args.quant in ("int8", "int4") and args.model_path == "random:tiny":
+    if quant in ("int8", "int4") and args.model_path == "random:tiny":
         from llava_align_tpu_torch.ops.quant import quantize_llama_params
 
         params = dict(params, llama=quantize_llama_params(
-            params["llama"], bits=4 if args.quant == "int4" else 8))
+            params["llama"], bits=4 if quant == "int4" else 8))
 
     questions = load_questions_for(args)
     if args.max_questions:
@@ -117,7 +121,7 @@ def run(args) -> str:
     gen = make_generation_config(args)
     _, stop_str = build_prompt("x", args.conv_mode)
     stop_ids = keyword_token_ids([stop_str], tokenizer)
-    engine = DecodeEngine(params, cfg, gen, stop_keyword_ids=stop_ids)
+    engine = DecodeEngine(params, cfg, gen, stop_keyword_ids=stop_ids, act_quant=act_quant)
     score_engine: Optional[DecodeEngine] = None
     if args.calibrate:
         # content-free scoring runs use the plain decoding path (reference
@@ -125,7 +129,8 @@ def run(args) -> str:
         score_gen = make_generation_config(
             args, use_cd=False, use_dd=False, use_dd_unk=False, max_new_tokens=1
         )
-        score_engine = DecodeEngine(params, cfg, score_gen, stop_keyword_ids=stop_ids)
+        score_engine = DecodeEngine(params, cfg, score_gen, stop_keyword_ids=stop_ids,
+                                    act_quant=act_quant)
 
     def rng(seed: int) -> torch.Generator:
         """A fresh sampling stream per engine call, as the JAX runner hands
@@ -387,8 +392,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "prefix KV prefill (POPE has 6 per image)")
     p.add_argument("--verbose", action="store_true", default=True)
     p.add_argument("--quant", default="none", choices=["none", "int8", "int4", "w8a8"],
-                   help="weight-only decoder serving: int8 or int4 (group 128); w8a8 is not "
-                   "ported yet (refused)")
+                   help="decoder serving: int8 or int4 (group 128) weight-only; w8a8 = int8 "
+                   "weights + dynamic activation quantization at prefill row counts, an opt-in "
+                   "throughput mode, not bit-exact with int8. qwen supports int8/w8a8 only")
     p.add_argument("--device", default=None,
                    help="torch device for the model (default: the GPU; 'cpu' runs the kernels' "
                    "plain versions)")

@@ -15,8 +15,10 @@ max_new_tokens=20 (:47,115).
 the JAX runner) or a Qwen-VL checkpoint dir (config.json, weights, and
 qwen.tiktoken for the native tokenizer, which needs `regex`; without
 qwen.tiktoken the tokenizer needs transformers). The GPU unless --device cpu
-is given. Refused: --quant int4 (the JAX runner's reason), and what the
-POPE runner refuses (--dist auto, --quant w8a8).
+is given. --quant int8 quantizes the decoder; --quant w8a8 does too and
+adds W8A8 at prefill row counts (DecodeEngine act_quant). Refused: --quant
+int4 (the JAX runner's reason), and what the POPE runner refuses (--dist
+auto).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from llava_align_tpu_torch.runners.common import (
     load_questions_for,
     make_generation_config,
 )
-from llava_align_tpu_torch.runners.pope import _refuse_unported
+from llava_align_tpu_torch.runners.pope import _refuse_dist_auto
 
 
 class QwenMockTokenizer(MockTokenizer):
@@ -89,8 +91,11 @@ def _text_ids(tokenizer, text: str):
 
 def run(args) -> str:
     """Answer the question file into args.answers_file; returns its path."""
-    _refuse_unported(args)
+    _refuse_dist_auto(args)
     quant = getattr(args, "quant", "none")
+    act_quant = quant == "w8a8"  # int8 weights + W8A8 at prefill row counts
+    if act_quant:
+        quant = "int8"
     if quant == "int4":
         raise ValueError(
             "qwen int4 is unsupported: the 13696-wide FFN is not 256-aligned "
@@ -112,13 +117,14 @@ def run(args) -> str:
 
     gen = make_generation_config(args, eos_token_id=eod, max_new_tokens=args.max_new_tokens)
     adapter = QwenVLAdapter(cfg)
-    engine = DecodeEngine(params, cfg, gen, adapter=adapter, bucket=64)
+    engine = DecodeEngine(params, cfg, gen, adapter=adapter, bucket=64, act_quant=act_quant)
     score_engine = None
     if args.calibrate:
         score_gen = make_generation_config(
             args, eos_token_id=eod, use_cd=False, use_dd=False, use_dd_unk=False, max_new_tokens=1,
         )
-        score_engine = DecodeEngine(params, cfg, score_gen, adapter=adapter, bucket=64)
+        score_engine = DecodeEngine(params, cfg, score_gen, adapter=adapter, bucket=64,
+                                    act_quant=act_quant)
 
     def rng(seed: int) -> torch.Generator:
         """A fresh sampling stream per call, as the JAX runner hands each
@@ -189,10 +195,10 @@ def run(args) -> str:
         return (prefix, [ids[p:] for ids in ids_list], image, [b for _, b in prepped]), prepped
 
     # GB uniform-size image groups per grouped call (the JAX runner's
-    # default: 1, its int8 pick; 2 was its W8A8 pick, not ported), submitted
-    # before the previous call is collected, in the JAX runner's order (the
-    # port's submit runs the whole call, so nothing overlaps)
-    GB = max(1, getattr(args, "group_batch", 0) or 1)
+    # default: 1, its int8 pick, and 2 under W8A8, its picks on a TPU),
+    # submitted before the previous call is collected, in the JAX runner's
+    # order (the port's submit runs the whole call, so nothing overlaps)
+    GB = max(1, getattr(args, "group_batch", 0) or (2 if act_quant else 1))
     batches, cur = [], []
     for g in groups:
         if cur and (len(g) != len(cur[0]) or len(cur) >= GB):

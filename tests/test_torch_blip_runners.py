@@ -10,8 +10,8 @@ both sides and image files absent (--synthetic-images):
   torch.Generator), so both are given one eps per noise step, made with
   numpy;
 - runners/caption.run at 2 and 5 beams: val_epoch0.json equals JAX's;
-- --dist auto and --quant w8a8 refused as the POPE runner refuses them;
-  load_blip_model's random:* tree, and a checkpoint dir whose tokenizers
+- --dist auto refused as the POPE runner refuses it; --quant w8a8 (once
+  refused) read by nothing, as in the JAX runner; load_blip_model's random:* tree, and a checkpoint dir whose tokenizers
   need transformers when it is absent.
 """
 
@@ -152,12 +152,24 @@ def test_caption_results_equal_jax(patched, files, tmp_path, beams):
     assert [r["image_id"] for r in saved["port"]] == [1, 2]
 
 
-def test_blip_pope_refusals(files, tmp_path):
+@pytest.mark.parametrize("case", ["dist_auto", "w8a8"])
+def test_blip_pope_refusals(patched, files, tmp_path, case):
+    """--dist auto is refused; --quant w8a8, once refused, is now read by
+    nothing, as in the JAX runner: the records equal the JAX runner's with
+    the flag and the port's own without it."""
     answers = str(tmp_path / "a.jsonl")
-    with pytest.raises(NotImplementedError, match="--dist auto"):
-        tbp.run(_pope_args(tbp, files["pope"], answers, device="cpu", dist="auto"))
-    with pytest.raises(NotImplementedError, match="w8a8"):
-        tbp.run(_pope_args(tbp, files["pope"], answers, device="cpu", quant="w8a8"))
+    if case == "dist_auto":
+        with pytest.raises(NotImplementedError, match="--dist auto"):
+            tbp.run(_pope_args(tbp, files["pope"], answers, device="cpu", dist="auto"))
+        return
+    paths = {}
+    for name, mod, extra in (("jax", jbp, {"quant": "w8a8"}), ("port", tbp, {"device": "cpu", "quant": "w8a8"}),
+                             ("plain", tbp, {"device": "cpu"})):
+        paths[name] = str(tmp_path / f"{name}.jsonl")
+        mod.run(_pope_args(mod, files["pope"], paths[name], calibrate=True, **extra))
+    got = load_jsonl(paths["port"])
+    _assert_records_match(got, load_jsonl(paths["jax"]), 6)
+    assert got == load_jsonl(paths["plain"])
 
 
 def test_load_blip_model(tmp_path, monkeypatch):

@@ -397,6 +397,9 @@ VERBATIM_COPIES = [
     *[("framework.tasks", n) for n in ("save_result", "BaseTask", "CaptionTask", "_coerce_id")],
     *[("framework.logger", n) for n in ("SmoothedValue", "MetricLogger")],
     ("framework.registry", "Registry"),
+    # LLaVA's last runners: the judge pipeline
+    *[("evals.gpt_review", n) for n in (
+        "openai_judge", "parse_score", "build_review_content", "run_review", "summarize_reviews")],
 ]
 
 

@@ -17,7 +17,9 @@ and a VCD `generate` on the card against its plain fp32 run on the CPU;
 K2 at Qwen-VL's [151936, 4096] lm_head in both regimes, and the
 QwenVLAdapter's `generate` on a 2-layer full-width Qwen-VL against its fp32
 run on the CPU; a 5-beam InstructBLIP `generate_beam` (fp32, its prefill on
-K3) against the same on the CPU.
+K3) against the same on the CPU; W8A8 (codes and product) at 256 and 640
+rows and the int8-cache decode attention against the CPU, and a sampled
+`generate` (W8A8 and the int8 cache on, and off) reproduced under one seed.
 This file imports no jax, so on the machine with the card it runs without
 the repository's conftest (which imports jax):
 
@@ -786,3 +788,76 @@ def test_instructblip_generate_beam_on_card_matches_cpu_fp32(dev):
                 assert attention.flash_attention.launches > launches
     assert out["card"].token_ids == out["cpu"].token_ids
     assert len(out["card"].token_ids) >= 3
+
+
+# ---------------------------------------------------------------------------
+# the opt-in serving modes: W8A8 (torch._int_mm, cuBLASLt's int8 GEMM: the
+# JAX package computes this product outside Pallas) and the int8 KV cache
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B", [256, 640])
+def test_w8a8_on_card_matches_cpu(dev, B):
+    """int8_matmul_w8a8 at one 7B o stack [4096, 4096] on bf16 rows: the
+    row scales and int8 codes on the card equal the CPU's (IEEE division,
+    round half to even on both), and so the product: exact int32 sums, the
+    same fp32 epilogue; held to TOL of the largest output."""
+    g = torch.Generator().manual_seed(B)
+    h = torch.randn((B, 4096), generator=g).to(torch.bfloat16)
+    wq = quant.quantize_weight(torch.randn((4096, 4096), generator=g) * 0.02)
+    hf = h.float()
+    scale = quant.w8a8_row_scale(hf.abs().amax(-1, keepdim=True))
+    scale_dev = quant.w8a8_row_scale(hf.to(dev).abs().amax(-1, keepdim=True))
+    assert torch.equal(scale_dev.cpu(), scale)
+    assert torch.equal(quant.w8a8_quantize(hf.to(dev), scale_dev).cpu(), quant.w8a8_quantize(hf, scale))
+    got = quant.int8_matmul_w8a8(h.to(dev), wq["q"].to(dev), wq["s"].to(dev))
+    want = quant.int8_matmul_w8a8(h, wq["q"], wq["s"])
+    assert got.dtype == torch.bfloat16
+    _assert_close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_decode_attention_on_card_matches_cpu(dev, dtype):
+    """decode_attention over an int8 (values, scales) cache at a 7B layer's
+    heads (32 x 128, 12 rows, 1024 positions, unequal lengths): the card
+    against the same operands in fp32 on the CPU, each output row within
+    TOL of its own largest element."""
+    g = torch.Generator().manual_seed(3)
+    B, Smax, H, Dh = 12, 1024, 32, 128
+    q = torch.randn((B, 1, H, Dh), generator=g).to(dtype)
+    k, ks = quant.kv_quantize_block(torch.randn((B, Smax, H, Dh), generator=g))
+    v, vs = quant.kv_quantize_block(torch.randn((B, Smax, H, Dh), generator=g))
+    lengths = torch.randint(0, Smax, (B,), generator=g)
+    got = attention.decode_attention(q.to(dev), (k.to(dev), ks.to(dev)), (v.to(dev), vs.to(dev)), lengths.to(dev))
+    want = attention.decode_attention(q.float(), (k, ks), (v, vs), lengths)
+    _assert_rows_close(got.cpu(), want)
+
+
+def test_sampled_generate_reproduced_under_one_seed_on_card(dev):
+    """A sampled `generate` (temperature 0.9, top-k 20, dual VDD) on a tiny
+    int8 LLaVA on the card, with W8A8 and the int8 KV cache on: one
+    generator seed gives one answer and one set of first-step scores."""
+    import dataclasses
+
+    import numpy as np
+
+    from llava_align_tpu_torch.config import GenerationConfig, LlavaConfig
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
+
+    tiny = LlavaConfig.tiny()  # in bf16: K1's tiled regime (65-640 rows) takes bf16 only
+    cfg = dataclasses.replace(tiny, text=dataclasses.replace(tiny.text, dtype=torch.bfloat16),
+                              vision=dataclasses.replace(tiny.vision, dtype=torch.bfloat16))
+    params = build_random_llava_params(cfg, quant="int8", device=dev, seed=2)
+    gen = GenerationConfig(max_new_tokens=8, do_sample=True, temperature=0.9, top_k=20, use_dd=True,
+                           use_dd_unk=True, cd_alpha=1.0, cd_beta=0.1, eos_token_id=10**9)
+    image = np.random.default_rng(0).integers(0, 256, (3, 28, 28), dtype=np.uint8)
+    ids = [1] + list(range(3, 300)) + [-200, 5, 6]  # a 384-position prefill: W8A8 takes it
+    for act_quant, kv_quant in ((False, None), (True, "int8")):
+        engine = DecodeEngine(params, cfg, gen, act_quant=act_quant, kv_quant=kv_quant)
+        n0 = quant.int8_matmul_w8a8.launches
+        runs = [engine.generate(ids, image, generator=torch.Generator(device=dev).manual_seed(7))
+                for _ in range(2)]
+        assert (quant.int8_matmul_w8a8.launches > n0) == act_quant
+        assert runs[0].token_ids == runs[1].token_ids and len(runs[0].token_ids) == 8
+        np.testing.assert_array_equal(runs[0].first_scores_top_probs, runs[1].first_scores_top_probs)

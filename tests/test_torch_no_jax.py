@@ -3,7 +3,8 @@ lockstep generate_batch, a tiny grouped shared-prefix decode (int4), the
 POPE runner and its scorer on a question file it writes, VCD through each
 entry point, a tiny checkpoint written here as .safetensors and loaded,
 the MME and MMMU runners and scorers, the Qwen-VL and InstructBLIP
-runners, and every microbenchmark twin (at rehearsal size) on the CPU,
+runners, the W8A8 and int8 KV-cache modes, the sampling sweep, the bias
+probe and the judge pipeline, and every microbenchmark twin (at rehearsal size) on the CPU,
 with jax (and the JAX package) blocked — the machine with the card has no
 jax — and, for the slice's modules, with safetensors and transformers
 blocked too (the card machine has neither)."""
@@ -319,6 +320,83 @@ print("OK")
 """
 
 
+QUANT_CODE = r"""
+import sys
+for blocked in ("jax", "jaxlib", "llava_align_tpu", "safetensors", "transformers", "openai"):
+    sys.modules[blocked] = None  # any import of them now raises ImportError
+
+import json, os, tempfile
+import numpy as np
+from llava_align_tpu_torch.config import GenerationConfig
+from llava_align_tpu_torch.decoding.adapters import InstructBlipAdapter
+from llava_align_tpu_torch.decoding.engine import DecodeEngine
+from llava_align_tpu_torch.evals import gpt_review
+from llava_align_tpu_torch.evals.pope import load_jsonl
+from llava_align_tpu_torch.models import instructblip
+from llava_align_tpu_torch.models.instructblip import InstructBlipConfig
+from llava_align_tpu_torch.ops import quant
+from llava_align_tpu_torch.runners import bias_probe, pope, qwen_pope, sampling
+from llava_align_tpu_torch.runners.common import load_model
+
+d = tempfile.mkdtemp()
+qf = os.path.join(d, "q_POPE.jsonl")
+with open(qf, "w") as f:
+    for i in range(6):
+        f.write(json.dumps({"question_id": i, "image": f"img_{i // 3}.jpg", "label": ["yes", "no"][i % 2],
+                            "text": f"Is there a {['dog', 'cat'][i % 2]} in the image?"}) + "\n")
+base = ["--model-path", "random:tiny", "--device", "cpu", "--synthetic-images", "--max_new_tokens", "3",
+        "--question-file", qf]
+# --quant w8a8: 6 questions x a 128-bucket prompt = 768 rows, so W8A8 takes the prefills
+n0 = quant.int8_matmul_w8a8.launches
+af = os.path.join(d, "w8a8.jsonl")
+pope.run(pope.build_parser().parse_args(base + ["--answers-file", af, "--quant", "w8a8", "--use_dd", "--use_dd_unk",
+                                                "--temperature", "0", "--no-group-by-image", "--batch-size", "6"]))
+assert len(load_jsonl(af)) == 6 and quant.int8_matmul_w8a8.launches > n0
+qwen_pope.run(qwen_pope.build_parser().parse_args(
+    base + ["--answers-file", os.path.join(d, "qwen_w8a8.jsonl"), "--quant", "w8a8", "--temperature", "0"]))
+# the int8 KV cache through generate, the lockstep batch, the grouped path and beams
+lm = load_model("random:tiny", device="cpu")
+lm.params["llama"] = quant.quantize_llama_params(lm.params["llama"])
+gen = GenerationConfig(max_new_tokens=3, do_sample=False, use_dd=True, use_dd_unk=True, eos_token_id=10**9)
+eng = DecodeEngine(lm.params, lm.cfg, gen, kv_quant="int8", act_quant=True)
+ids = [1, 5, -200, 6, 7]
+image = np.random.default_rng(0).integers(0, 256, (3, 28, 28), dtype=np.uint8)
+assert eng.generate(ids, image).num_generated == 3
+assert [o.num_generated for o in eng.generate_batch([(ids, image), (ids, None)])] == [3, 3]
+assert [o.num_generated for o in eng.generate_batch_groups([(ids[:3], [[6, 7], [8]], image)] * 2)] == [3] * 4
+bcfg = InstructBlipConfig.tiny()
+bp = instructblip.init(bcfg, device="cpu")
+beng = DecodeEngine(bp, bcfg, GenerationConfig(max_new_tokens=4, do_sample=False, eos_token_id=10**9),
+                    adapter=InstructBlipAdapter(bcfg), kv_quant="int8")
+feats = np.zeros((1, 1, bcfg.text.hidden_size), np.float32)
+assert beng.generate_beam([1, 5, 6], precomputed_feats=feats, num_beams=3).num_generated == 4
+# the sweep (smoke grid), the bias probe and the judge pipeline
+files = sampling.run_sweep(sampling.build_parser().parse_args(
+    base + ["--answers-file", os.path.join(d, "sw_setting.jsonl"), "--grid", "smoke", "--use_dd"]))
+assert [os.path.basename(f) for f in files] == ["sw_default.jsonl", "sw_temp_0.5.jsonl", "sw_top_p_0.5.jsonl",
+                                                "sw_top_k_5.jsonl"]
+pf = bias_probe.run(bias_probe.build_parser().parse_args(base + ["--answers-file", os.path.join(d, "probe.jsonl")]))
+assert all({"none", "unk", "zero", "one", "noise", "naive"} <= set(r) for r in load_jsonl(pf))
+q = [{"question_id": 0, "image": "i.jpg", "text": "q", "category": "conv"}]
+res = gpt_review.run_review(q, [{"question_id": 0, "text": "a"}], [{"question_id": 0, "text": "b"}],
+                            [{"image": "i.jpg", "captions": ["c"], "instances": []}],
+                            {"conv": {"role": "Assistant", "prompt": "rate"}}, lambda c, n: "7 8\nok",
+                            os.path.join(d, "review.jsonl"))
+assert gpt_review.summarize_reviews(res)["all"]["score_2"] == 8.0
+try:
+    gpt_review.openai_judge()
+    raise AssertionError("openai_judge built without the openai package")
+except ImportError:
+    pass
+
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "llava_align_tpu", "safetensors",
+                                                      "transformers", "openai"))]
+assert not loaded, loaded
+print("OK")
+"""
+
+
 def _run(code: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.run(
@@ -355,5 +433,16 @@ def test_blip_slice_runs_with_jax_and_pil_blocked():
     safetensors, transformers and PIL all unimportable (synthetic images
     need no PIL)."""
     proc = _run(BLIP_CODE)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
+
+
+def test_quant_modes_and_last_runners_run_with_jax_blocked():
+    """--quant w8a8 through the POPE and Qwen runners, the int8 KV cache
+    (with W8A8) through every engine entry point and beams, the sampling
+    sweep's smoke grid, the bias probe and the judge pipeline (an injected
+    judge; openai_judge needs the openai package) on random:tiny with jax,
+    the JAX package, safetensors, transformers and openai unimportable."""
+    proc = _run(QUANT_CODE)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]

@@ -5,7 +5,9 @@ orders).
 
 Covered: one shared prefix (chunk and decode), grouped prefixes with G > 1,
 the second segment table, plain rows after both spans, and rows with no
-shared segment (sh_len = 0).
+shared segment (sh_len = 0); and int8 (values, scales) segments, which the
+port once refused and now takes as the JAX package does (the int8 KV
+cache's tests are tests/test_torch_kv_quant.py).
 """
 
 import jax.numpy as jnp
@@ -99,9 +101,22 @@ def test_grouped_decode(second_table, plain_rows):
     _check(got, want)
 
 
-def test_int8_segments_are_refused():
+@pytest.mark.parametrize("step", ["chunk", "decode"])
+def test_int8_segments_are_refused(step):
+    """Formerly a refusal: int8 (values, scales) segments now attend as in
+    the JAX package, the scales folded into the logits and probabilities."""
     rng = np.random.default_rng(3)
-    q, k, v = _t(_rand(rng, 1, 2, H, DH), _rand(rng, 1, 2, K, DH), _rand(rng, 1, 2, K, DH))
-    seg = torch.zeros((3, K, DH), dtype=torch.int8), torch.ones((3, K, 1))
-    with pytest.raises(NotImplementedError):
-        ta.chunk_attention_shared(q, k, v, seg, seg, torch.tensor([3]))
+    seg = rng.integers(-127, 128, size=(3, K, DH)).astype(np.int8), rng.random((3, K, 1)).astype(np.float32)
+    jseg, tseg = tuple(map(jnp.asarray, seg)), tuple(_t(*seg))
+    sh_len = np.array([3], np.int32)
+    if step == "chunk":
+        q, k, v = _rand(rng, 1, 2, H, DH), _rand(rng, 1, 2, K, DH), _rand(rng, 1, 2, K, DH)
+        want = ja.chunk_attention_shared(*map(jnp.asarray, (q, k, v)), jseg, jseg, jnp.asarray(sh_len))
+        got = ta.chunk_attention_shared(*_t(q, k, v), tseg, tseg, torch.from_numpy(sh_len))
+    else:
+        q, kc, vc = _rand(rng, 1, 1, H, DH), _rand(rng, 1, 4, K, DH), _rand(rng, 1, 4, K, DH)
+        lengths = np.array([2], np.int32)
+        want = ja.decode_attention_shared(*map(jnp.asarray, (q, kc, vc, lengths)), jseg, jseg,
+                                          jnp.asarray(sh_len))
+        got = ta.decode_attention_shared(*_t(q, kc, vc, lengths), tseg, tseg, torch.from_numpy(sh_len))
+    _check(got, want)
