@@ -156,6 +156,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the Qwen runs sent it, and at 65 and 640 rows (the tiled regime),
      under by_path's qwen_int8_runner; every shape K3 took in those paths
      that phase 3 did not check.
+ 15. the last decoder families, bf16 at full width and depth, random
+     weights from a seed (after phase 13, each tree freed before the next):
+     LLaVA-MPT-7B (MPT-7B + CLIP ViT-L/336 + mlp2x_gelu) through
+     DecodeEngine.generate with dual VDD and with VCD and generate_batch of
+     6 POPE prompts in the mpt template, generate_batch_groups refused;
+     BLIP-2 OPT-2.7b: encode_image_queries of an image and its noised copy,
+     then generate with VCD on precomputed_feats, and a 5-beam 30-token
+     generate_beam caption; BLIP-2 FlanT5-XL: t5_generate on 4 images,
+     t5_encode_with_prefix + t5_candidate_losses ranking 4 candidates,
+     encode_image_queries_instruct; stage-1 BLIP-2: extract_features,
+     match (ITM, ITC), compute_sim_matrix over 8 x 8 with the ITM re-rank,
+     a greedy generate_caption. Each path prints its wall, tokens per
+     answer, answers (captions) per second, first-token seconds and peak
+     memory, and its launches (K1-K4 at zero: no TPU kernel on these
+     paths) under launches_by_path. Then 2-layer full-width references
+     (MPT, OPT, T5 with 2 + 2 layers) bf16 on the card against fp32 on the
+     CPU, a 5-beam fp32 OPT generate_beam card against CPU, and a 2-layer
+     BLIP-2 OPT (.bin, LAVIS names) and LLaVA-MPT (.safetensors, HF names)
+     checkpoint loaded through the new converters, every leaf exact.
 
 Prints a JSON line with each kernel's record (launches: both main paths'
 counts, per path under launches_by_path; K1's and K4's prefill-row times
@@ -1906,19 +1925,18 @@ def blip_cut(full, dtype=None):
                                         for part in ("vision", "qformer", "text")})
 
 
-def blip_seq_logprob(p, c, ids, feats, toks, device) -> float:
+def blip_seq_logprob(adapter, p, c, ids, feats, toks, device) -> float:
     """The summed log-probability of `toks` after the prompt `ids` (with
-    features `feats`) under the model: one teacher-forced prefill."""
-    from llava_align_tpu_torch.decoding.adapters import InstructBlipAdapter
-    from llava_align_tpu_torch.models import llama
+    features `feats`) under the model behind `adapter` (InstructBLIP's or
+    BLIP-2 OPT's): one teacher-forced prefill."""
     from llava_align_tpu_torch.models.llava import plan_splice
 
-    adapter = InstructBlipAdapter(c)
     plan = plan_splice(list(ids) + list(toks), c.num_query_tokens, len(ids) + len(toks) - 1 + c.num_query_tokens)
     t = [torch.from_numpy(np.asarray(getattr(plan, k)))[None].to(device)
          for k in ("tokens", "tok_gather", "img_gather", "is_image")]
     embeds = adapter.splice_embeds(p, *t, feats)
-    hidden, _ = llama.forward(p["llama"], c.text, embeds, torch.arange(embeds.shape[1], device=device)[None])
+    S = embeds.shape[1]
+    hidden, _ = adapter.forward(p, embeds, torch.arange(S, device=device)[None], None, None, max_seq_len=S)
     first = plan.length - len(toks) - 1  # the position whose logits give toks[0]
     logp = torch.log_softmax(adapter.logits(p, hidden[0, first: plan.length - 1]), dim=-1)
     return logp[torch.arange(len(toks)), torch.tensor(toks)].sum().item()
@@ -1993,7 +2011,8 @@ def phase_blip_reference(dev) -> None:
             log(f"  the card's and the CPU's beams over the {cache} cache agree token for token")
         else:
             k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
-            lp = {side: blip_seq_logprob(params_cpu, cfg32, ids, feats["cpu"], seq[: k + 1], cpu)
+            lp = {side: blip_seq_logprob(InstructBlipAdapter(cfg32), params_cpu, cfg32, ids, feats["cpu"], seq[: k + 1],
+                                         cpu)
                   for side, seq in (("card", a), ("cpu", b))}
             log(f"  the beams part at step {k}: log-probabilities of the prefixes to it under the fp32 CPU model "
                 f"card {lp['card']:.6f}, cpu {lp['cpu']:.6f}, gap {lp['cpu'] - lp['card']:.3g}")
@@ -2301,6 +2320,699 @@ def phase_bias_probe(model: RunnerModel, root, smi: str, rec: PathRecorder) -> d
 
 
 
+# ---------------------------------------------------------------------------
+# the last decoder families: LLaVA-MPT-7B and BLIP-2 (OPT-2.7b, FlanT5-XL,
+# the stage-1 Q-Former). No TPU kernel lies on their paths (MPT's alibi
+# attention, OPT's Dh 80, T5, EVA-ViT and the Q-Former are plain torch, as
+# XLA runs them in JAX; none of these trees is quantized), so each path's
+# launches_by_path entry records K1-K4 at zero.
+# ---------------------------------------------------------------------------
+
+FAMILY_BEAMS = 5
+FAMILY_CAPTION_TOKENS = 30
+FAMILY_IMAGES = 4     # t5_generate's and generate_caption's images
+RETRIEVAL = 8         # compute_sim_matrix: 8 images x 8 texts
+RETRIEVAL_K = 4       # its ITM re-rank of the top 4
+
+
+def n_params(tree) -> int:
+    from llava_align_tpu_torch.runners.pope import _tensors
+
+    return sum(t.numel() for t in _tensors(tree))
+
+
+def timed(fn) -> tuple:
+    """fn() with the launch counts reset before it and read after it, the
+    peak-memory counter reset: (its result, seconds, launches)."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches()
+
+
+def family_report(what: str, smi: str, secs: float, tokens: list, unit: str, first_s: float, launches: dict) -> None:
+    """One line per path: wall, tokens per answer, answers (captions) per
+    second, first-token seconds, peak memory, beside the card."""
+    log(f"{what} on {smi}: wall {secs:.4f} s, tokens per {unit[:-1]} {tokens}, {len(tokens) / secs:.4f} {unit}/s, "
+        f"first-token {first_s:.4f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    hit = {k: v for k, v in launches.items() if v}
+    if hit:
+        log(f"  (kernel launches on this path: {hit})")
+
+
+def mpt_requests(image_size: int):
+    """POPE-style requests in the `mpt` conversation template: POPE's 6
+    object questions (MockTokenizer ids), 2 seeded uint8 images, 3
+    questions each."""
+    from llava_align_tpu_torch.runners.common import POPE_OBJECTS, MockTokenizer, build_prompt
+    from llava_align_tpu_torch.tokenization import tokenizer_image_token
+
+    rng = np.random.default_rng(3)
+    images = [rng.integers(0, 256, (3, image_size, image_size), dtype=np.uint8) for _ in range(2)]
+    return [(tokenizer_image_token(build_prompt(f"Is there a {obj} in the image?", "mpt")[0], MockTokenizer()),
+             images[i // 3]) for i, obj in enumerate(POPE_OBJECTS)]
+
+
+def phase_llava_mpt(dev, smi: str) -> dict:
+    """LLaVA-MPT-7B (MPT-7B: d 4096, 32 layers, 32 heads, vocab 50432;
+    CLIP ViT-L/336 + mlp2x_gelu) in bf16 at full width and depth, random
+    weights from a seed: DecodeEngine.generate with dual VDD and with VCD
+    (3 requests each after a warm-up), generate_batch of 6 POPE-style
+    prompts, 8 new tokens, greedy, EOS out of range; generate_batch_groups
+    must be refused (no shared-prefix forward, as in JAX)."""
+    from llava_align_tpu_torch.decoding.adapters import LlavaMptAdapter
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.models import llava_mpt
+
+    cfg = llava_mpt.LlavaMptConfig()
+    t0 = time.perf_counter()
+    params = llava_mpt.init(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    t = cfg.text
+    log(f"LLaVA-MPT path: built random LLaVA-MPT-7B bf16 ({n_params(params) / 1e9:.3f} G parameters: MPT-7B "
+        f"{n_params(params['mpt']) / 1e9:.3f} G (d {t.d_model}, {t.n_layers} layers, {t.n_heads} heads, vocab "
+        f"{t.vocab_size}), CLIP ViT-L/336 {n_params(params['vision']) / 1e9:.3f} G, {cfg.mm_projector_type}) on "
+        f"{dev} in {time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    adapter = LlavaMptAdapter(cfg)
+    reqs = mpt_requests(cfg.vision.image_size)
+    vdd = dual_vdd_config()
+    vcd = dataclasses.replace(vdd, use_dd=False, use_dd_unk=False, use_cd=True, noise_step=500)
+    by_path = {}
+    with torch.inference_mode():
+        for name, gen in (("dual VDD", vdd), ("VCD", vcd)):
+            engine = DecodeEngine(params, cfg, gen, adapter=adapter)
+            engine.generate(*reqs[0])  # warm-up: cuBLAS, the allocator
+            outs, secs, launches = timed(lambda: [engine.generate(ids, im) for ids, im in reqs[:3]])
+            for o in outs:
+                check_output(o, t.vocab_size, f"LLaVA-MPT-7B generate ({name})")
+            family_report(f"LLaVA-MPT-7B generate ({name}, 3 requests, prefill {outs[0].prompt_length} positions)",
+                          smi, secs, [o.num_generated for o in outs], "answers",
+                          float(np.mean([o.seconds_to_first_token for o in outs])), launches)
+            by_path[f"mpt_generate_{name.split()[-1].lower()}"] = launches
+        engine = DecodeEngine(params, cfg, vdd, adapter=adapter)
+        outs, secs, launches = timed(lambda: engine.generate_batch(reqs))
+        for o in outs:
+            check_output(o, t.vocab_size, "LLaVA-MPT-7B generate_batch")
+        family_report(f"LLaVA-MPT-7B generate_batch (dual VDD, {len(reqs)} POPE prompts, mpt template)", smi, secs,
+                      [o.num_generated for o in outs], "answers", outs[0].seconds_to_first_token, launches)
+        log(f"  answers: {[o.token_ids for o in outs[:2]]} ...")
+        by_path["mpt_generate_batch"] = launches
+        try:
+            engine.generate_batch_groups([(reqs[0][0][:8], [reqs[0][0][8:]], reqs[0][1])])
+        except ValueError as e:
+            log(f"  generate_batch_groups refused, as in JAX: {e}")
+        else:
+            raise AssertionError("LLaVA-MPT: generate_batch_groups was not refused")
+        phase_mpt_prefill_split(params["mpt"], t, -(-outs[0].prompt_length // 128) * 128, dev, smi)
+    del params, engine
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_mpt_prefill_split(p, t, S: int, dev, smi: str) -> None:
+    """Where an MPT-7B prefill's time goes: mpt.forward of one S-position
+    row (the image row's bucket) against one layer's alibi attention
+    (plain fp32 torch) at that shape, times the layers; beside it
+    scaled_dot_product_attention given the same alibi + causal bias as a
+    float mask (a yardstick only: the port never calls it). CUDA events,
+    the mean of 3 eager calls."""
+    from llava_align_tpu_torch.models import mpt
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((1, S, t.d_model), generator=g, device=dev).to(t.dtype)
+    pos = torch.arange(S, device=dev)[None]
+    q, k, v = (torch.randn((1, S, t.n_heads, t.head_dim), generator=g, device=dev).to(t.dtype) for _ in range(3))
+    slopes = torch.from_numpy(mpt.alibi_slopes(t.n_heads, t.alibi_bias_max)).to(dev)
+    kp = torch.arange(S, device=dev)
+    causal = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+    bias = (slopes[:, None, None] * kp.float()).masked_fill(~causal, float("-inf"))[None].to(t.dtype)
+    prefill_ms = cuda_ms(lambda _: mpt.forward(p, t, x, pos), 3)
+    attn_ms = cuda_ms(lambda _: mpt._alibi_attention(q, k, v, slopes, kp, causal.expand(1, S, S)), 3)
+    sdpa_ms = cuda_ms(lambda _: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                               v.transpose(1, 2), attn_mask=bias), 3)
+    log(f"LLaVA-MPT-7B prefill split on {smi} (CUDA events, mean of 3 eager calls): mpt.forward of one {S}-position "
+        f"row {prefill_ms:.4f} ms; one layer's alibi attention [1, {S}, {t.n_heads}, {t.head_dim}] {attn_ms:.4f} ms, "
+        f"x {t.n_layers} layers = {attn_ms * t.n_layers:.4f} ms ({attn_ms * t.n_layers / prefill_ms:.1%} of the "
+        f"prefill); SDPA with the same bias as a float mask {sdpa_ms:.4f} ms a layer (a yardstick)")
+
+
+def phase_blip2_opt(dev, smi: str) -> dict:
+    """BLIP-2 OPT-2.7b (EVA-ViT-g, 39 layers at 224 px; the 12-layer
+    Q-Former, 32 queries; OPT-2.7b: 32 layers, d 2560, Dh 80) in bf16 at
+    full width and depth: per question encode_image_queries on the image
+    and on its noised copy (noise step 500), then generate with VCD on
+    precomputed_feats (3 questions after a warm-up); then generate_beam
+    with 5 beams and 30 new tokens (min 8) as a caption, on 2 images."""
+    from llava_align_tpu_torch.config import GenerationConfig
+    from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
+    from llava_align_tpu_torch.decoding.adapters import Blip2OptAdapter
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.models import blip2
+    from llava_align_tpu_torch.ops.noise import add_diffusion_noise
+    from llava_align_tpu_torch.runners.common import MockTokenizer
+
+    cfg = blip2.Blip2OptConfig()
+    t0 = time.perf_counter()
+    params = blip2.init_opt(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"BLIP-2 OPT path: built random BLIP-2 OPT-2.7b bf16 ({n_params(params) / 1e9:.3f} G parameters: EVA-ViT-g "
+        f"{n_params(params['visual']) / 1e9:.3f} G, Q-Former {n_params(params['qformer']) / 1e9:.3f} G, OPT-2.7b "
+        f"{n_params(params['lm']) / 1e9:.3f} G (head dim {cfg.text.head_dim})) on {dev} in "
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tok = MockTokenizer()
+    H, vdt = cfg.vision.image_size, cfg.vision.dtype
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.standard_normal((4, 3, H, H)).astype(np.float32)).to(dev, vdt)
+    g = torch.Generator(device=dev).manual_seed(5)
+    adapter = Blip2OptAdapter(cfg)
+    by_path = {}
+    with torch.inference_mode():
+        def encode(image):
+            noised = add_diffusion_noise(image, 500, generator=g)
+            return torch.cat([blip2.encode_image_queries(params, cfg, image), blip2.encode_image_queries(params, cfg, noised)])
+
+        gen = dataclasses.replace(dual_vdd_config(), use_dd=False, use_dd_unk=False, use_cd=True)
+        engine = DecodeEngine(params, cfg, gen, adapter=adapter)
+        questions = [[IMAGE_TOKEN_INDEX] + tok(f"Question: {q} Answer:").input_ids for q in QUESTIONS[:3]]
+        engine.generate(questions[0], precomputed_feats=encode(images[:1]))  # warm-up
+        t_enc = []
+
+        def answer_all():
+            outs = []
+            for i, ids in enumerate(questions):
+                t1 = time.perf_counter()
+                feats = encode(images[i : i + 1])
+                torch.cuda.synchronize()
+                t_enc.append(time.perf_counter() - t1)
+                outs.append(engine.generate(ids, precomputed_feats=feats))
+            return outs
+
+        outs, secs, launches = timed(answer_all)
+        for o in outs:
+            check_output(o, cfg.text.vocab_size, "BLIP-2 OPT generate (VCD)")
+        family_report("BLIP-2 OPT-2.7b encode (image + noised) + generate (VCD, 3 questions)", smi, secs,
+                      [o.num_generated for o in outs], "answers",
+                      float(np.mean([e + o.seconds_to_first_token for e, o in zip(t_enc, outs)])), launches)
+        log(f"  encodes {', '.join(f'{e:.4f}' for e in t_enc)} s (two streams each)")
+        by_path["blip2_opt_generate_vcd"] = launches
+
+        beam_gen = GenerationConfig(max_new_tokens=FAMILY_CAPTION_TOKENS, do_sample=False, eos_token_id=2)
+        beam_engine = DecodeEngine(params, cfg, beam_gen, adapter=adapter)
+        prompt = [IMAGE_TOKEN_INDEX] + tok("a photo of").input_ids
+        one = DecodeEngine(params, cfg, dataclasses.replace(beam_gen, max_new_tokens=1), adapter=adapter)
+        feats = [blip2.encode_image_queries(params, cfg, images[i : i + 1]) for i in range(2)]
+        one.generate_beam(prompt, num_beams=FAMILY_BEAMS, precomputed_feats=feats[0])  # warm-up
+        _, first_s, _ = timed(lambda: one.generate_beam(prompt, num_beams=FAMILY_BEAMS, precomputed_feats=feats[0]))
+        outs, secs, launches = timed(lambda: [beam_engine.generate_beam(prompt, num_beams=FAMILY_BEAMS,
+                                                                        min_new_tokens=8, precomputed_feats=f)
+                                              for f in feats])
+        if not all(8 <= o.num_generated <= FAMILY_CAPTION_TOKENS for o in outs):
+            raise AssertionError(f"BLIP-2 OPT beams: {[o.num_generated for o in outs]} tokens")
+        family_report(f"BLIP-2 OPT-2.7b generate_beam ({FAMILY_BEAMS} beams, max {FAMILY_CAPTION_TOKENS} tokens, "
+                      "min 8, 2 captions)", smi, secs, [o.num_generated for o in outs], "captions", first_s, launches)
+        by_path["blip2_opt_generate_beam"] = launches
+    del params, engine, beam_engine, one, feats
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_blip2_t5(dev, smi: str) -> dict:
+    """BLIP-2 FlanT5-XL (EVA-ViT-g, the Q-Former, Flan-T5-XL: 24 + 24
+    layers, d 2048) in bf16 at full width and depth: t5_generate on 4
+    images (greedy, up to 30 tokens, eos 1); t5_encode_with_prefix +
+    t5_candidate_losses ranking 4 candidates per image;
+    encode_image_queries_instruct once (a 4-image batch)."""
+    from llava_align_tpu_torch.models import blip2
+    from llava_align_tpu_torch.runners.common import MockTokenizer
+
+    cfg = blip2.Blip2T5Config()
+    t0 = time.perf_counter()
+    params = blip2.init_t5(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"BLIP-2 T5 path: built random BLIP-2 FlanT5-XL bf16 ({n_params(params) / 1e9:.3f} G parameters: EVA-ViT-g "
+        f"{n_params(params['visual']) / 1e9:.3f} G, Q-Former {n_params(params['qformer']) / 1e9:.3f} G, Flan-T5-XL "
+        f"{n_params(params['lm']) / 1e9:.3f} G) on {dev} in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tok = MockTokenizer()
+    H = cfg.vision.image_size
+    images = torch.from_numpy(np.random.default_rng(6).standard_normal((FAMILY_IMAGES, 3, H, H)).astype(np.float32))
+    images = images.to(dev, cfg.vision.dtype)
+    prompts = [tok(f"Question: {q} Short answer:").input_ids[1:] + [1] for q in QUESTIONS[:FAMILY_IMAGES]]
+    by_path = {}
+    with torch.inference_mode():
+        blip2.t5_generate(params, cfg, images[:1], prompts[:1], max_new_tokens=2)  # warm-up
+        _, first_s, _ = timed(lambda: blip2.t5_generate(params, cfg, images, prompts, max_new_tokens=1))
+        caps, secs, launches = timed(lambda: blip2.t5_generate(params, cfg, images, prompts,
+                                                               max_new_tokens=FAMILY_CAPTION_TOKENS))
+        if len(caps) != FAMILY_IMAGES or not all(0 <= x < cfg.text.vocab_size for c in caps for x in c):
+            raise AssertionError(f"t5_generate: {caps}")
+        family_report(f"BLIP-2 FlanT5-XL t5_generate ({FAMILY_IMAGES} images, greedy, max "
+                      f"{FAMILY_CAPTION_TOKENS} tokens)", smi, secs, [len(c) for c in caps], "answers", first_s,
+                      launches)
+        by_path["blip2_t5_generate"] = launches
+
+        cands = [tok(c).input_ids[1:] + [1] for c in ("yes", "no", "a dog", "a dining table")]
+        cand_ids = torch.zeros((len(cands), max(map(len, cands))), dtype=torch.long, device=dev)
+        for i, c in enumerate(cands):
+            cand_ids[i, : len(c)] = torch.tensor(c)
+        ids = torch.zeros((FAMILY_IMAGES, max(map(len, prompts))), dtype=torch.long, device=dev)
+        for i, p in enumerate(prompts):
+            ids[i, : len(p)] = torch.tensor(p)
+        mask = (ids > 0).long()
+
+        def rank():
+            q_emb = blip2.encode_image_queries(params, cfg, images)
+            enc, enc_mask = blip2.t5_encode_with_prefix(params, cfg, q_emb, ids, mask)
+            return blip2.t5_candidate_losses(params, cfg, enc, enc_mask, cand_ids)
+
+        losses, secs, launches = timed(rank)
+        losses = losses.float().cpu().numpy()
+        if losses.shape != (FAMILY_IMAGES, len(cands)) or not np.isfinite(losses).all():
+            raise AssertionError(f"t5_candidate_losses: {losses}")
+        log(f"BLIP-2 FlanT5-XL candidate ranking ({len(cands)} candidates x {FAMILY_IMAGES} images) on {smi}: "
+            f"{secs:.4f} s, {FAMILY_IMAGES / secs:.4f} images/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; ranks {np.argsort(losses, axis=-1).tolist()}; "
+            f"launches {launches}")
+        by_path["blip2_t5_rank"] = launches
+
+        qtext = torch.tensor([[101] + tok("Is there a dog?").input_ids[1:] + [102]] * FAMILY_IMAGES, device=dev)
+        q, secs, launches = timed(lambda: blip2.encode_image_queries_instruct(params, cfg, images, qtext,
+                                                                              torch.ones_like(qtext)))
+        if q.shape != (FAMILY_IMAGES, cfg.num_query_tokens, cfg.text.d_model) or not torch.isfinite(q).all():
+            raise AssertionError(f"encode_image_queries_instruct: {tuple(q.shape)}")
+        log(f"BLIP-2 FlanT5-XL encode_image_queries_instruct ({FAMILY_IMAGES} images) on {smi}: {secs:.4f} s; "
+            f"launches {launches}")
+        by_path["blip2_t5_instruct_encode"] = launches
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_blip2_stage1(dev, smi: str) -> dict:
+    """Stage-1 BLIP-2 (EVA-ViT-g, the Q-Former with its MLM head,
+    vision/text projections to 256, the ITM head) in bf16 at full width and
+    depth: extract_features in each mode, match with the ITM and ITC heads,
+    compute_sim_matrix over 8 images x 8 texts with the ITM re-rank of the
+    top 4, and a greedy generate_caption (30 tokens at most, min 10) on 4
+    images."""
+    from llava_align_tpu_torch.models import blip2
+    from llava_align_tpu_torch.runners.common import MockTokenizer
+
+    cfg = blip2.Blip2QformerConfig()
+    t0 = time.perf_counter()
+    params = blip2.init_stage1(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"BLIP-2 stage-1 path: built random BLIP-2 (Q-Former) bf16 ({n_params(params) / 1e9:.3f} G parameters) on "
+        f"{dev} in {time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tok = MockTokenizer()
+    H = cfg.vision.image_size
+    images = torch.from_numpy(np.random.default_rng(7).standard_normal((RETRIEVAL, 3, H, H)).astype(np.float32))
+    images = images.to(dev, cfg.vision.dtype)
+    texts = [f"a photo of a {o}" for o in ("dog", "person", "dining table", "car", "bicycle", "chair", "cat", "bus")]
+    ids = torch.zeros((RETRIEVAL, cfg.max_txt_len), dtype=torch.long, device=dev)
+    for i, s in enumerate(texts):
+        row = [101] + tok(s).input_ids[1:] + [102]
+        ids[i, : len(row)] = torch.tensor(row)
+    mask = (ids > 0).long()
+    by_path = {}
+    with torch.inference_mode():
+        blip2.match(params, cfg, images[:1], ids[:1], mask[:1])  # warm-up
+        for mode in ("image", "text", "multimodal"):
+            out, secs, launches = timed(lambda: blip2.extract_features(params, cfg, images, ids, mask, mode=mode))
+            shapes = {k: tuple(v.shape) for k, v in out.items() if v is not None}
+            if not all(torch.isfinite(v.float()).all() for v in out.values() if v is not None):
+                raise AssertionError(f"extract_features({mode}): not finite")
+            log(f"BLIP-2 stage-1 extract_features({mode}, {RETRIEVAL} inputs) on {smi}: {secs:.4f} s, {shapes}")
+            by_path[f"blip2_stage1_features_{mode}"] = launches
+        for head in ("itm", "itc"):
+            out, secs, launches = timed(lambda: blip2.match(params, cfg, images, ids, mask, head))
+            log(f"BLIP-2 stage-1 match({head}, {RETRIEVAL} pairs) on {smi}: {secs:.4f} s, shape {tuple(out.shape)}")
+            by_path[f"blip2_stage1_match_{head}"] = launches
+        (i2t, t2i), secs, launches = timed(lambda: blip2.compute_sim_matrix(params, cfg, images, ids, mask,
+                                                                             k_test=RETRIEVAL_K))
+        for name, m in (("i2t", i2t), ("t2i", t2i)):
+            if m.shape != (RETRIEVAL, RETRIEVAL) or not ((m != -100.0).sum(1) == RETRIEVAL_K).all():
+                raise AssertionError(f"compute_sim_matrix {name}: {m}")
+        log(f"BLIP-2 stage-1 compute_sim_matrix ({RETRIEVAL} x {RETRIEVAL}, ITM re-rank of the top {RETRIEVAL_K}) "
+            f"on {smi}: {secs:.4f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; i2t top-1 "
+            f"{i2t.argmax(1).tolist()}; launches {launches}")
+        by_path["blip2_stage1_sim_matrix"] = launches
+        kw = dict(bos_token_id=101, eos_token_id=102, min_length=10)
+        imgs = images[:FAMILY_IMAGES]
+        _, first_s, _ = timed(lambda: blip2.generate_caption(params, cfg, imgs, max_new_tokens=1, **kw))
+        caps, secs, launches = timed(lambda: blip2.generate_caption(params, cfg, imgs,
+                                                                    max_new_tokens=FAMILY_CAPTION_TOKENS, **kw))
+        lengths = [int(np.argmax(np.append(r, 102) == 102)) for r in caps]
+        if caps.shape[0] != FAMILY_IMAGES or min(lengths) < 9:
+            raise AssertionError(f"generate_caption: {caps}")
+        family_report(f"BLIP-2 stage-1 generate_caption (greedy, {FAMILY_IMAGES} images, max "
+                      f"{FAMILY_CAPTION_TOKENS} tokens, min 10)", smi, secs, lengths, "captions", first_s, launches)
+        by_path["blip2_stage1_caption"] = launches
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def adapter_logits_steps(adapter, p, embeds, length: int, steps, device) -> list:
+    """A decoder's logits (through `adapter`) at the last real position
+    (`length`) of one prompt's `embeds` [1, S, D], then at one decode step
+    per token of `steps`, as fp32 CPU tensors."""
+    S = embeds.shape[1]
+    cache = adapter.init_cache(1, S + len(steps), device=device)
+    zero = torch.zeros((1,), dtype=torch.long, device=device)
+    kw = dict(max_seq_len=S + len(steps))
+    hidden, _ = adapter.forward(p, embeds, torch.arange(S, device=device)[None], cache, zero, **kw)
+    out = [adapter.logits(p, hidden[:, length - 1])]
+    for i, tok in enumerate(steps):
+        pos = zero + length + i
+        emb = adapter.embed_tokens(p, torch.full((1, 1), tok, device=device))
+        hidden, _ = adapter.forward(p, emb, pos[:, None], cache, pos, **kw)
+        out.append(adapter.logits(p, hidden[:, 0]))
+    return [o.float().cpu() for o in out]
+
+
+def splice_plan_tensors(plan, device) -> list:
+    return [torch.from_numpy(np.asarray(getattr(plan, k)))[None].to(device)
+            for k in ("tokens", "tok_gather", "img_gather", "is_image")]
+
+
+def mpt_cut(full, dtype=None):
+    """full width, 2 MPT layers, 3 CLIP layers (select_layer -2 runs 2)."""
+    kw = {"dtype": dtype} if dtype else {}
+    return dataclasses.replace(full, text=dataclasses.replace(full.text, n_layers=2, **kw),
+                               vision=dataclasses.replace(full.vision, num_layers=3, **kw))
+
+
+def t5_cut(full, dtype=None):
+    """blip_cut, and 2 T5 decoder layers."""
+    cut = blip_cut(full, dtype)
+    return dataclasses.replace(cut, text=dataclasses.replace(cut.text, num_decoder_layers=2))
+
+
+def phase_family_references(dev) -> None:
+    """The new families cut to 2 layers at full width, bf16 on the card
+    against the same params in fp32 on the CPU, at REFERENCE_TOL:
+    LLaVA-MPT (the image prompt's prefill logits and two decode steps'),
+    BLIP-2 OPT (encode_image_queries, prefill, two decode steps), BLIP-2
+    T5 (encode_image_queries, the T5 encoder's states, three decode_steps'
+    logits); then a 5-beam generate_beam of 8 tokens of the OPT cut in
+    fp32, card against CPU (agreement, or the log-probability gap where
+    they part)."""
+    from llava_align_tpu_torch.config import GenerationConfig
+    from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
+    from llava_align_tpu_torch.decoding.adapters import Blip2OptAdapter, LlavaMptAdapter
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.models import blip2, llava_mpt, t5
+    from llava_align_tpu_torch.models.llava import plan_splice
+    from llava_align_tpu_torch.ops.image import normalize_device
+    from llava_align_tpu_torch.runners.common import MockTokenizer
+
+    cpu = torch.device("cpu")
+    steps = (300, 400)  # fixed next tokens, so both sides decode the same sequence
+
+    # LLaVA-MPT
+    full = llava_mpt.LlavaMptConfig()
+    params = llava_mpt.init(mpt_cut(full), device=dev, seed=1)
+    params_cpu = to_fp32(params)
+    ids, image = mpt_requests(full.vision.image_size)[0]
+    plan = plan_splice(ids, full.num_image_tokens, -(-(len(ids) - 1 + full.num_image_tokens) // 128) * 128)
+
+    @torch.inference_mode()
+    def run_mpt(p, c, device):
+        a = LlavaMptAdapter(c)
+        feats = a.encode_images(p, normalize_device(torch.from_numpy(image)[None].to(device), c.vision.dtype))
+        embeds = a.splice_embeds(p, *splice_plan_tensors(plan, device), feats)
+        return adapter_logits_steps(a, p, embeds, plan.length, steps, device)
+
+    got, ref = run_mpt(params, mpt_cut(full), dev), run_mpt(params_cpu, mpt_cut(full, torch.float32), cpu)
+    for name, g, r in zip(("prefill", "decode 1", "decode 2"), got, ref):
+        rel_check(g, r, f"LLaVA-MPT reference {name} ({plan.length} positions): max|card - cpu fp32| / max|cpu|")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+
+    # BLIP-2 OPT and T5
+    rng = np.random.default_rng(8)
+    tok = MockTokenizer()
+    full_opt = blip2.Blip2OptConfig()
+    H = full_opt.vision.image_size
+    image = torch.from_numpy(rng.standard_normal((1, 3, H, H)).astype(np.float32))
+    ids = [IMAGE_TOKEN_INDEX] + tok("Question: Is there a dog in the image? Answer:").input_ids
+    Q = full_opt.num_query_tokens
+    plan = plan_splice(ids, Q, -(-(len(ids) - 1 + Q) // 32) * 32)
+    params = blip2.init_opt(blip_cut(full_opt), device=dev, seed=2)
+    params_cpu = to_fp32(params)
+
+    @torch.inference_mode()
+    def run_opt(p, c, device):
+        a = Blip2OptAdapter(c)
+        feats = blip2.encode_image_queries(p, c, image.to(device, c.vision.dtype))
+        embeds = a.splice_embeds(p, *splice_plan_tensors(plan, device), feats)
+        return [feats.float().cpu()] + adapter_logits_steps(a, p, embeds, plan.length, steps, device)
+
+    got, ref = run_opt(params, blip_cut(full_opt), dev), run_opt(params_cpu, blip_cut(full_opt, torch.float32), cpu)
+    for name, g, r in zip(("encode", "prefill", "decode 1", "decode 2"), got, ref):
+        rel_check(g, r, f"BLIP-2 OPT reference {name}: max|card - cpu fp32| / max|cpu|")
+    del params
+    torch.cuda.empty_cache()
+
+    # the OPT cut's beams in fp32 on both sides
+    cfg32 = blip_cut(full_opt, torch.float32)
+    params_card = to_fp32(params_cpu, dev)
+    gen = GenerationConfig(max_new_tokens=8, do_sample=False, eos_token_id=2, pad_token_id=0)
+    beams, feats = {}, {}
+    with torch.inference_mode():
+        for side, p, device in (("card", params_card, dev), ("cpu", params_cpu, cpu)):
+            feats[side] = blip2.encode_image_queries(p, cfg32, image.to(device))
+            engine = DecodeEngine(p, cfg32, gen, adapter=Blip2OptAdapter(cfg32), bucket=32)
+            beams[side] = engine.generate_beam(ids, num_beams=FAMILY_BEAMS, precomputed_feats=feats[side]).token_ids
+    a, b = beams["card"], beams["cpu"]
+    log(f"BLIP-2 OPT reference, {FAMILY_BEAMS}-beam generate_beam of 8 tokens, fp32: card {a}, cpu {b}")
+    if a == b:
+        log("  the card's and the CPU's beams agree token for token")
+    else:
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        lp = {side: blip_seq_logprob(Blip2OptAdapter(cfg32), params_cpu, cfg32, ids, feats["cpu"], seq[: k + 1], cpu)
+              for side, seq in (("card", a), ("cpu", b))}
+        log(f"  the beams part at step {k}: log-probabilities of the prefixes to it under the fp32 CPU model "
+            f"card {lp['card']:.6f}, cpu {lp['cpu']:.6f}, gap {lp['cpu'] - lp['card']:.3g}")
+    del params_cpu, params_card
+    torch.cuda.empty_cache()
+
+    full_t5 = blip2.Blip2T5Config()
+    params = blip2.init_t5(t5_cut(full_t5), device=dev, seed=3)
+    params_cpu = to_fp32(params)
+    prompt = torch.tensor([tok("Question: Is there a dog in the image? Short answer:").input_ids[1:] + [1]])
+    dec_steps = (0, 300, 400)  # the decoder start token, then fixed tokens
+
+    @torch.inference_mode()
+    def run_t5(p, c, device):
+        q_emb = blip2.encode_image_queries(p, c, image.to(device, c.vision.dtype))
+        ids_d = prompt.to(device)
+        enc, mask = blip2.t5_encode_with_prefix(p, c, q_emb, ids_d, torch.ones_like(ids_d))
+        cross = t5.precompute_cross_kv(p["lm"], c.text, enc)
+        cache = t5.init_self_cache(c.text, 1, len(dec_steps), device=device)
+        out = [q_emb.float().cpu(), enc.float().cpu()]
+        for t_, tok_id in enumerate(dec_steps):
+            logits, cache = t5.decode_step(p["lm"], c.text, torch.tensor([tok_id], device=device), t_, cache, cross,
+                                           mask)
+            out.append(logits.float().cpu())
+        return out
+
+    got, ref = run_t5(params, t5_cut(full_t5), dev), run_t5(params_cpu, t5_cut(full_t5, torch.float32), cpu)
+    for name, g, r in zip(("encode", "T5 encoder", "decode 0", "decode 1", "decode 2"), got, ref):
+        rel_check(g, r, f"BLIP-2 T5 reference {name}: max|card - cpu fp32| / max|cpu|")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+
+
+# checkpoints of the new families, written from a random 2-layer tree under
+# the LAVIS / HF key names (the inverse of utils/hf_convert's mappings)
+
+MPT_VISION = "transformer.vision_tower.vision_tower.vision_model."
+MPT_PROJECTOR = "transformer.mm_projector."
+SAFETENSORS_TAGS = {torch.bfloat16: "BF16", torch.float32: "F32"}
+
+
+def eva_state_dict(vis, cfg, prefix: str = "visual_encoder.") -> dict:
+    W, P = cfg.width, cfg.patch_size
+    lay = vis["layers"]
+    sd = {prefix + "patch_embed.proj.weight": vis["patch_embed"]["w"].reshape(W, 3, P, P),
+          prefix + "patch_embed.proj.bias": vis["patch_embed"]["b"], prefix + "cls_token": vis["cls"].reshape(1, 1, W),
+          prefix + "pos_embed": vis["pos_embed"].reshape(1, -1, W)}
+    leaves = {"norm1.weight": lay["norm1"]["scale"], "norm1.bias": lay["norm1"]["bias"], "attn.qkv.weight": lay["qkv_w"],
+              "attn.q_bias": lay["q_bias"], "attn.v_bias": lay["v_bias"], "attn.proj.weight": lay["proj"]["w"],
+              "attn.proj.bias": lay["proj"]["b"], "norm2.weight": lay["norm2"]["scale"],
+              "norm2.bias": lay["norm2"]["bias"], "mlp.fc1.weight": lay["fc1"]["w"], "mlp.fc1.bias": lay["fc1"]["b"],
+              "mlp.fc2.weight": lay["fc2"]["w"], "mlp.fc2.bias": lay["fc2"]["b"]}
+    for i in range(cfg.num_layers):
+        sd.update({f"{prefix}blocks.{i}.{k}": v[i] for k, v in leaves.items()})
+    return sd
+
+
+def qformer_state_dict(qf, prefix: str = "Qformer.bert.") -> dict:
+    sd = {}
+
+    def lin(key, p):
+        sd[prefix + key + ".weight"], sd[prefix + key + ".bias"] = p["w"], p["b"]
+
+    def ln(key, p):
+        sd[prefix + key + ".weight"], sd[prefix + key + ".bias"] = p["scale"], p["bias"]
+
+    emb = qf["embeddings"]
+    sd[prefix + "embeddings.word_embeddings.weight"] = emb["word"]
+    sd[prefix + "embeddings.position_embeddings.weight"] = emb["position"]
+    ln("embeddings.LayerNorm", emb["ln"])
+    for i, lp in enumerate(qf["layers"]):
+        b = f"encoder.layer.{i}."
+        for att, name in (("self_attn", "attention"), ("cross_attn", "crossattention")):
+            if att in lp:
+                for leaf, key in (("query", "self.query"), ("key", "self.key"), ("value", "self.value"),
+                                  ("out", "output.dense")):
+                    lin(f"{b}{name}.{key}", lp[att][leaf])
+                ln(f"{b}{name}.output.LayerNorm", lp[att]["ln"])
+        for part in ("", "_query"):
+            lin(f"{b}intermediate{part}.dense", lp["intermediate" + part])
+            lin(f"{b}output{part}.dense", lp["output" + part])
+            ln(f"{b}output{part}.LayerNorm", lp[f"output{part}_ln"])
+    return sd
+
+
+def blip2_opt_state_dict(params, cfg) -> dict:
+    """A LAVIS blip2_opt state dict of `params` (the Q-Former's text branch
+    kept)."""
+    sd = eva_state_dict(params["visual"], cfg.vision)
+    sd.update({"ln_vision.weight": params["ln_vision"]["scale"], "ln_vision.bias": params["ln_vision"]["bias"],
+               "query_tokens": params["query_tokens"][None], "opt_proj.weight": params["proj"]["w"],
+               "opt_proj.bias": params["proj"]["b"]})
+    sd.update(qformer_state_dict(params["qformer"]))
+    lm, p = params["lm"], "opt_model.model.decoder."
+    sd.update({p + "embed_tokens.weight": lm["embed_tokens"], p + "embed_positions.weight": lm["embed_positions"],
+               p + "final_layer_norm.weight": lm["final_ln"]["scale"], p + "final_layer_norm.bias": lm["final_ln"]["bias"]})
+    lay = lm["layers"]
+    for i in range(cfg.text.num_layers):
+        for leaf, name in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"), ("v", "self_attn.v_proj"),
+                           ("out", "self_attn.out_proj"), ("fc1", "fc1"), ("fc2", "fc2")):
+            sd[f"{p}layers.{i}.{name}.weight"], sd[f"{p}layers.{i}.{name}.bias"] = lay[leaf]["w"][i], lay[leaf]["b"][i]
+        for leaf, name in (("attn_ln", "self_attn_layer_norm"), ("ffn_ln", "final_layer_norm")):
+            sd[f"{p}layers.{i}.{name}.weight"] = lay[leaf]["scale"][i]
+            sd[f"{p}layers.{i}.{name}.bias"] = lay[leaf]["bias"][i]
+    return sd
+
+
+def llava_mpt_state_dict(params, cfg) -> dict:
+    """An HF LLaVA-MPT state dict of `params` (MPT without norm biases, as
+    MPT-7B ships: the converter's zeros stand for them)."""
+    m, p = params["mpt"], "transformer."
+    sd = {p + "wte.weight": m["wte"], p + "norm_f.weight": m["norm_f"]["scale"]}
+    lay = m["layers"]
+    for i in range(cfg.text.n_layers):
+        for leaf, name in (("wqkv", "attn.Wqkv"), ("out_proj", "attn.out_proj"), ("up_proj", "ffn.up_proj"),
+                           ("down_proj", "ffn.down_proj"), ("norm_1", "norm_1"), ("norm_2", "norm_2")):
+            w = lay[leaf]["scale"] if leaf.startswith("norm") else lay[leaf]
+            sd[f"{p}blocks.{i}.{name}.weight"] = w[i]
+    v, P = params["vision"], cfg.vision.patch_size
+    D = v["cls"].shape[0]
+    sd.update({MPT_VISION + "embeddings.class_embedding": v["cls"],
+               MPT_VISION + "embeddings.patch_embedding.weight": v["patch_embed"].t().reshape(D, 3, P, P),
+               MPT_VISION + "embeddings.position_embedding.weight": v["pos_embed"]})
+    for leaf, name in (("pre_ln", "pre_layrnorm"), ("post_ln", "post_layernorm")):
+        sd[MPT_VISION + name + ".weight"], sd[MPT_VISION + name + ".bias"] = v[leaf]["scale"], v[leaf]["bias"]
+    for i in range(cfg.vision.num_layers):
+        q = MPT_VISION + f"encoder.layers.{i}."
+        for leaf, name in CKPT_VISION_LINEARS.items():
+            sd[q + name + ".weight"] = v["layers"][leaf]["kernel"][i].t()
+            sd[q + name + ".bias"] = v["layers"][leaf]["bias"][i]
+        for leaf, name in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            sd[q + name + ".weight"], sd[q + name + ".bias"] = v["layers"][leaf]["scale"][i], v["layers"][leaf]["bias"][i]
+    for j, layer in enumerate(params["projector"]["layers"]):
+        sd[f"{MPT_PROJECTOR}{2 * j}.weight"], sd[f"{MPT_PROJECTOR}{2 * j}.bias"] = layer["kernel"].t(), layer["bias"]
+    return sd
+
+
+def write_safetensors(path, sd: dict) -> None:
+    """One .safetensors file of sd (the format the port's reader takes)."""
+    header, blobs, off = {}, [], 0
+    for k, t in sd.items():
+        b = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[k] = {"dtype": SAFETENSORS_TAGS[t.dtype], "shape": list(t.shape), "data_offsets": [off, off + len(b)]}
+        blobs.append(b)
+        off += len(b)
+    h = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little") + h + b"".join(blobs))
+
+
+def trees_equal(got, want, path: str = "") -> int:
+    """Leaf-exact comparison (dtype, shape, values) of two trees; the number
+    of leaves held."""
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{path}: keys {sorted(got)} vs {sorted(want)}")
+        return sum(trees_equal(got[k], want[k], f"{path}.{k}") for k in want)
+    if isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: {len(got)} vs {len(want)} entries")
+        return sum(trees_equal(g, w, f"{path}[{i}]") for i, (g, w) in enumerate(zip(got, want)))
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"checkpoint leaf {path}: not its source tensor ({got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)})")
+    return 1
+
+
+def phase_family_checkpoints(dev, smi: str) -> None:
+    """A 2-layer BLIP-2 OPT (LAVIS names, two .bin shards) and a 2-layer
+    LLaVA-MPT (3 CLIP layers; HF names, one .safetensors file written here)
+    at full width, bf16, from random trees: each written to a temporary dir, read
+    by utils.hf_convert.load_state_dict and converted onto the card
+    (convert_blip2_opt; convert_mpt + convert_clip + convert_projector),
+    every leaf held exactly against the tree it was written from."""
+    import shutil
+    import tempfile
+
+    from llava_align_tpu_torch.models import blip2, llava_mpt
+    from llava_align_tpu_torch.utils import hf_convert
+
+    cases = (
+        ("BLIP-2 OPT-2.7b", blip_cut(blip2.Blip2OptConfig()), blip2.init_opt, blip2_opt_state_dict, "bin",
+         lambda sd, c: hf_convert.convert_blip2_opt(sd, c, device=dev)),
+        ("LLaVA-MPT-7B", mpt_cut(llava_mpt.LlavaMptConfig()), llava_mpt.init, llava_mpt_state_dict, "safetensors",
+         lambda sd, c: {"mpt": hf_convert.convert_mpt(sd, c.text, device=dev),
+                        "vision": hf_convert.convert_clip(sd, c.vision, prefix=MPT_VISION, device=dev),
+                        "projector": hf_convert.convert_projector(sd, c.mm_projector_type, c.text.dtype,
+                                                                  prefix=MPT_PROJECTOR, device=dev)}),
+    )
+    for what, cfg, init, to_sd, fmt, convert in cases:
+        root = Path(tempfile.mkdtemp(prefix="family_ckpt_"))
+        try:
+            params = init(cfg, device=dev, seed=5)
+            sd = {k: v.cpu() for k, v in to_sd(params, cfg).items()}
+            if fmt == "bin":
+                keys = sorted(sd)
+                for n, part in enumerate((keys[: len(keys) // 2], keys[len(keys) // 2:]), 1):
+                    torch.save({k: sd[k] for k in part}, root / f"pytorch_model-{n:05d}-of-00002.bin")
+            else:
+                write_safetensors(root / "model.safetensors", sd)
+            nbytes = sum(f.stat().st_size for f in root.iterdir())
+            del sd
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded = convert(hf_convert.load_state_dict(str(root)), cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = trees_equal(loaded, params, what)
+            log(f"{what} checkpoint (2 layers, full width, {fmt}) on {smi}: {nbytes / 1e9:.4f} GB read and converted "
+                f"in {secs:.4f} s, {nbytes / secs / 1e9:.4f} GB/s (files just written: the page cache); {n} leaves "
+                f"equal their source tensors exactly")
+            del params, loaded
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -2432,6 +3144,21 @@ def main() -> int:
     phase_blip_reference(dev)
     torch.cuda.synchronize()
     log(f"InstructBLIP reference phase wall {time.perf_counter() - t0:.2f} s")
+
+    # the last decoder families: LLaVA-MPT-7B, BLIP-2 OPT-2.7b, FlanT5-XL and
+    # stage 1, bf16 at full width and depth (no TPU kernel on their paths:
+    # their launches_by_path entries hold K1-K4 at zero)
+    for what, phase in (("LLaVA-MPT-7B", phase_llava_mpt), ("BLIP-2 OPT-2.7b", phase_blip2_opt),
+                        ("BLIP-2 FlanT5-XL", phase_blip2_t5), ("BLIP-2 stage 1", phase_blip2_stage1)):
+        t0 = time.perf_counter()
+        by_path.update(phase(dev, smi))
+        log(f"{what} phase wall {time.perf_counter() - t0:.2f} s (the tree's build included)")
+    for what, phase in (("new families' reference", phase_family_references),
+                        ("new families' checkpoint", lambda d: phase_family_checkpoints(d, smi))):
+        t0 = time.perf_counter()
+        phase(dev)
+        torch.cuda.synchronize()
+        log(f"{what} phase wall {time.perf_counter() - t0:.2f} s")
 
     # K1 at every row count the model paths (LLaVA and Qwen) sent it that
     # phase 3 did not check: the Qwen prefills' tiled-regime rows

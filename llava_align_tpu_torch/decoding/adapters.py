@@ -1,6 +1,6 @@
 """Model adapters: the decode engine's interface to each VLM family (torch
-twin of llava_align_tpu/decoding/adapters.py: LLaVA, Qwen-VL and
-InstructBLIP).
+twin of llava_align_tpu/decoding/adapters.py: LLaVA, LLaVA-MPT, Qwen-VL,
+InstructBLIP and BLIP-2 OPT).
 
 Branch degradation for llava: 'unk' → IMAGE_TOKEN_INDEX→token 0; 'none' →
 sentinel removed (reference vcd_sample.py:153-160). For qwen: 'none' drops
@@ -8,10 +8,13 @@ the sentinel and the <img>/</img> framing ids; 'unk' needs the tokenizer's
 text ('None {q} Answer:') and is passed as explicit branch ids. For
 instructblip: 'none' drops the sentinel; there is no 'unk'.
 
-All three take the two opt-in serving modes of the JAX adapters, which
-DecodeEngine(act_quant=..., kv_quant=...) sets on a copy of the adapter:
-act_quant (W8A8 at prefill row counts, ops/quant.int8_matmul_w8a8) and
-kv_quant (the int8 KV cache, ops/quant.kv_quantize_block).
+LLaVA, Qwen-VL and InstructBLIP take the two opt-in serving modes of the
+JAX adapters, which DecodeEngine(act_quant=..., kv_quant=...) sets on a
+copy of the adapter: act_quant (W8A8 at prefill row counts,
+ops/quant.int8_matmul_w8a8) and kv_quant (the int8 KV cache,
+ops/quant.kv_quantize_block). LLaVA-MPT and BLIP-2 OPT take neither, nor
+the shared-prefix forward, as in JAX: the engine warns and ignores the
+modes, and generate_batch_groups refuses them.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from llava_align_tpu_torch.config import LlavaConfig
 from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
-from llava_align_tpu_torch.models import llama, llava, qwen, qwen_vl
+from llava_align_tpu_torch.models import clip_vit, llama, llava, mpt, opt, projector, qwen, qwen_vl
 
 Params = Dict[str, Any]
 
@@ -101,6 +104,46 @@ class LlavaAdapter:
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         return llama.logits_from_hidden(params["llama"], hidden)
+
+
+class LlavaMptAdapter(LlavaAdapter):
+    """LLaVA with the MPT backbone (reference llava/model/language_model/
+    llava_mpt.py): LLaVA's vision tower, projector and splice, the alibi
+    MPT decoder (models/mpt). cfg: models.llava_mpt.LlavaMptConfig; params
+    {'mpt', 'vision', 'projector'}."""
+
+    name = "llava_mpt"
+    supports_shared_prefix = False  # mpt.forward has no shared-segment path
+    supports_act_quant = False  # mpt.forward has no act_quant path
+    supports_kv_quant = False  # mpt.init_cache has no int8 layout
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.cfg.text.kv_heads
+
+    def encode_images(self, params: Params, images: torch.Tensor) -> torch.Tensor:
+        feats = clip_vit.forward_features(params["vision"], self.cfg.vision, images)
+        return projector.forward(params["projector"], feats.to(self.cfg.text.dtype))
+
+    def splice_embeds(self, params, tokens, tok_g, img_g, is_img, feats):
+        return llava.splice(self.embed_tokens(params, tokens), tok_g, img_g, is_img, feats)
+
+    def embed_tokens(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
+        return mpt.embed_tokens(params["mpt"], ids)
+
+    def params_device(self, params: Params) -> torch.device:
+        return params["mpt"]["wte"].device
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        return mpt.init_cache(self.cfg.text, batch, max_len, device=device)
+
+    def forward(self, params, embeds, positions, cache, offsets, *, attn_impl="auto",
+                max_seq_len: int, cache_row_offset=0):
+        return mpt.forward(params["mpt"], self.cfg.text, embeds, positions, cache, offsets,
+                           attn_impl=attn_impl, cache_row_offset=cache_row_offset)
+
+    def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+        return mpt.logits_from_hidden(params["mpt"], hidden)
 
 
 class QwenVLAdapter:
@@ -211,3 +254,40 @@ class InstructBlipAdapter(LlavaAdapter):
             "InstructBLIP features are text-conditioned; encode with "
             "models.instructblip.encode and pass precomputed_feats to generate()"
         )
+
+
+class Blip2OptAdapter(InstructBlipAdapter):
+    """BLIP-2 with the OPT backbone (reference blip2_opt): the query-only
+    Q-Former's projected queries are the prompt prefix
+    (models/blip2.encode_image_queries, passed as precomputed_feats as for
+    InstructBLIP); OPT decodes. cfg: models.blip2.Blip2OptConfig; params
+    {'visual', 'ln_vision', 'query_tokens', 'qformer', 'proj', 'lm'}."""
+
+    name = "blip2_opt"
+    supports_shared_prefix = False
+    supports_act_quant = False  # opt.forward has no act_quant path
+    supports_kv_quant = False  # opt.init_cache has no int8 layout
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.cfg.text.num_heads
+
+    def splice_embeds(self, params, tokens, tok_g, img_g, is_img, feats):
+        return llava.splice(self.embed_tokens(params, tokens), tok_g, img_g, is_img, feats)
+
+    def embed_tokens(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
+        return opt.embed_tokens(params["lm"], ids)
+
+    def params_device(self, params: Params) -> torch.device:
+        return params["lm"]["embed_tokens"].device
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        return opt.init_cache(self.cfg.text, batch, max_len, device=device)
+
+    def forward(self, params, embeds, positions, cache, offsets, *, attn_impl="auto",
+                max_seq_len: int, cache_row_offset=0):
+        return opt.forward(params["lm"], self.cfg.text, embeds, positions, cache, offsets,
+                           attn_impl=attn_impl, cache_row_offset=cache_row_offset)
+
+    def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+        return opt.logits_from_hidden(params["lm"], hidden)

@@ -1,6 +1,6 @@
-"""Q-Former, the BLIP-2 querying transformer (torch twin of the `forward`
-path of llava_align_tpu/models/qformer.py: the instruction-conditioned
-query stream InstructBLIP runs).
+"""Q-Former, the BLIP-2 querying transformer (torch twin of
+llava_align_tpu/models/qformer.py: the instruction-conditioned query
+stream InstructBLIP runs, and the stage-1 BLIP-2 paths).
 
 Capability parity: reference experiments/lavis/models/blip2_models/Qformer.py —
 BertEmbeddings (word + position for text, learned queries prepended, one
@@ -20,14 +20,19 @@ dicts, a 'cross_attn' entry only on the layers has_cross_attention names:
     layers[i]/{intermediate, output, output_ln,
                intermediate_query, output_query, output_query_ln}
 
-Not ported yet (stage-1 BLIP-2, ROADMAP Queue 1 item 3's BLIP-2 part):
-forward_text, forward_queries, forward_lm and the MLM head.
+Stage-1 BLIP-2 (reference blip2_qformer.py): `forward_text` (text-only
+bidirectional encode), `forward_queries` (query-only pass that also returns
+each layer's self-attention K/V of the queries, the past the LM path
+decodes against), `forward_lm` (causal text over that cached query K/V;
+text positions start at 0), the MLM head (`lm_head_init`, `lm_logits`) and
+`lm_loss_mean` (shifted CE with label smoothing 0.1). A stage-1 tree
+carries the head under "head".
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -190,3 +195,107 @@ def forward(
         else:
             x = q_out
     return x
+
+
+# ---------------------------------------------------------------------------
+# stage-1 BLIP-2 paths (text-only encode, cached-query causal LM, MLM head)
+# ---------------------------------------------------------------------------
+
+
+def _embed_text(params: Params, cfg: QFormerConfig, text_ids: torch.Tensor) -> torch.Tensor:
+    """Word + position embeddings + the shared LayerNorm; text positions
+    start at 0 (the reference subtracts query_length from the past length,
+    Qformer.py:859-864)."""
+    emb = params["embeddings"]
+    T = text_ids.shape[1]
+    x = emb["word"][text_ids.long().clamp(0, cfg.vocab_size - 1)] + emb["position"][:T]
+    return layer_norm(x, emb["ln"]["scale"], emb["ln"]["bias"], cfg.layer_norm_eps)
+
+
+def forward_text(params: Params, cfg: QFormerConfig, text_ids: torch.Tensor,
+                 text_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Text-only bidirectional encode → [B, T, D] (blip2_qformer.forward_text:
+    the text feed-forward, no cross-attention)."""
+    eps = cfg.layer_norm_eps
+    x = _embed_text(params, cfg, text_ids)
+    for lp in params["layers"]:
+        x = _bert_attention(lp["self_attn"], cfg, x, x, text_mask, eps)
+        x = _ffn(x, lp["intermediate"], lp["output"], lp["output_ln"], eps)
+    return x
+
+
+def forward_queries(params: Params, cfg: QFormerConfig, query_embeds: torch.Tensor,
+                    image_embeds: torch.Tensor) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Query-only pass → (hidden [B, Q, D], per layer the queries'
+    self-attention (K, V) [B, Q, H, Dh]) (blip2_qformer.py:101-107)."""
+    eps = cfg.layer_norm_eps
+    emb = params["embeddings"]
+    x = layer_norm(query_embeds, emb["ln"]["scale"], emb["ln"]["bias"], eps)
+    kv: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    for lp in params["layers"]:
+        k, v = _attn_kv(lp["self_attn"], cfg, x)
+        kv.append((k, v))
+        x = _attend(lp["self_attn"], cfg, x, k, v, None, eps)
+        if "cross_attn" in lp:
+            x = _bert_attention(lp["cross_attn"], cfg, x, image_embeds, None, eps)
+        x = _ffn(x, lp["intermediate_query"], lp["output_query"], lp["output_query_ln"], eps)
+    return x, kv
+
+
+def forward_lm(params: Params, cfg: QFormerConfig, text_ids: torch.Tensor, text_mask: Optional[torch.Tensor],
+               query_kv: List[Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+    """Causal text pass over the cached query K/V → text hidden [B, T, D]:
+    each text row attends every query column and the text columns up to
+    its own (Qformer.py:743-783), through the TEXT feed-forward."""
+    eps = cfg.layer_norm_eps
+    B, T = text_ids.shape
+    Q = query_kv[0][0].shape[1]
+    x = _embed_text(params, cfg, text_ids)
+    dev = x.device
+    causal = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+    cols = torch.cat([torch.ones((B, T, Q), dtype=torch.bool, device=dev), causal.expand(B, T, T)], dim=-1)
+    if text_mask is not None:
+        pad = torch.cat([torch.ones((B, Q), dtype=torch.bool, device=dev), text_mask.bool()], dim=1)
+        cols = cols & pad[:, None, :]
+    bias = torch.where(cols[:, None, None], 0.0, NEG).to(torch.float32)
+    bias = bias.expand(B, cfg.num_heads, 1, T, Q + T)
+    for (qk, qv), lp in zip(query_kv, params["layers"]):
+        k_t, v_t = _attn_kv(lp["self_attn"], cfg, x)
+        k = torch.cat([qk.to(k_t.dtype), k_t], dim=1)
+        v = torch.cat([qv.to(v_t.dtype), v_t], dim=1)
+        x = _attend(lp["self_attn"], cfg, x, k, v, bias, eps)
+        x = _ffn(x, lp["intermediate"], lp["output"], lp["output_ln"], eps)
+    return x
+
+
+def lm_head_init(cfg: QFormerConfig, word_embeddings: torch.Tensor, device=None, seed: int = 0) -> Params:
+    """BertOnlyMLMHead params (Qformer.py:607-651), the decoder tied to
+    `word_embeddings` (the same tensor); converters load
+    cls.predictions.decoder.weight in its place."""
+    device = resolve_device(device)
+    w = normal_init(torch.Generator(device=device).manual_seed(seed), device)
+    D, dt = cfg.hidden_size, cfg.dtype
+    return {
+        "transform": {"w": w((D, D), D, dt), "b": torch.zeros((D,), dtype=dt, device=device)},
+        "ln": {"scale": torch.ones((D,), dtype=dt, device=device), "bias": torch.zeros((D,), dtype=dt, device=device)},
+        "decoder": word_embeddings,
+        "bias": torch.zeros((cfg.vocab_size,), dtype=dt, device=device),
+    }
+
+
+def lm_logits(head: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """cls.predictions: dense → gelu → LayerNorm → decoder + bias, fp32."""
+    x = gelu_exact(_dense(hidden, head["transform"]))
+    x = layer_norm(x, head["ln"]["scale"], head["ln"]["bias"], 1e-12)
+    return x.float() @ head["decoder"].float().t() + head["bias"].float()
+
+
+def lm_loss_mean(logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.1) -> torch.Tensor:
+    """Shifted next-token CE with label smoothing, the mean over targets
+    that are not -100 (Qformer.py:1073-1080)."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = labels[:, 1:].long()
+    valid = tgt != -100
+    nll = -torch.gather(logp, -1, torch.where(valid, tgt, 0)[..., None])[..., 0]
+    tok = (1.0 - label_smoothing) * nll + label_smoothing * -logp.mean(-1)
+    return torch.where(valid, tok, 0.0).sum() / valid.sum().clamp(min=1)

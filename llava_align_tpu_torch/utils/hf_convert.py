@@ -1,9 +1,11 @@
-"""HF-format LLaVA and Qwen-VL checkpoints and LAVIS InstructBLIP ones →
-the port's param trees (torch twin of the LLaVA, Qwen-VL and InstructBLIP
-parts of llava_align_tpu/utils/hf_convert.py: convert_llama, convert_clip,
-convert_projector, load_state_dict, config_from_hf, load_llava_checkpoint;
-convert_qwen, convert_qwen_visual, load_qwen_vl_checkpoint;
-convert_eva_vit, convert_qformer, convert_instructblip).
+"""HF-format LLaVA and Qwen-VL checkpoints, LAVIS InstructBLIP and BLIP-2
+ones, and HF T5 / OPT / MPT state dicts → the port's param trees (torch
+twin of those parts of llava_align_tpu/utils/hf_convert.py: convert_llama,
+convert_clip, convert_projector, load_state_dict, config_from_hf,
+load_llava_checkpoint; convert_qwen, convert_qwen_visual,
+load_qwen_vl_checkpoint; convert_eva_vit, convert_qformer,
+convert_instructblip; convert_t5, convert_opt, convert_mpt,
+convert_blip2_stage1, convert_blip2_opt, convert_blip2_t5).
 
 The tree is the JAX package's, so that loading a checkpoint here and
 `utils.jax_params.from_jax_params` of the JAX loader's tree give the same
@@ -518,3 +520,157 @@ def convert_instructblip(sd: StateDict, cfg, device=None) -> Dict[str, Any]:
         "llm_proj": {"w": sd["llm_proj.weight"].to(device, tdt), "b": sd["llm_proj.bias"].to(device, tdt)},
         "llama": convert_llama(sd, cfg.text, prefix="llm_model.", device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# T5 / Flan-T5, OPT, MPT and the BLIP-2 checkpoints
+# ---------------------------------------------------------------------------
+
+
+def convert_t5(sd: StateDict, cfg, prefix: str = "", device=None) -> Dict[str, Any]:
+    """HF / LAVIS T5ForConditionalGeneration state dict → the models/t5 tree
+    (linears [out, in]; lm_head None when the checkpoint has none)."""
+    device = resolve_device(device)
+    p, dt = prefix, cfg.dtype
+
+    def dense(key):
+        return sd[p + key + ".weight"].to(device, dt)
+
+    def ffn(base):
+        names = ("wi_0", "wi_1", "wo") if cfg.gated_act else ("wi", "wo")
+        return {n: dense(f"{base}.DenseReluDense.{n}") for n in names}
+
+    def attn(base):
+        return {n: dense(f"{base}.{n}") for n in ("q", "k", "v", "o")}
+
+    def enc_layer(i):
+        b = f"encoder.block.{i}.layer."
+        return {"ln1": dense(b + "0.layer_norm"), "attn": attn(b + "0.SelfAttention"),
+                "ln2": dense(b + "1.layer_norm"), "ffn": ffn(b + "1")}
+
+    def dec_layer(i):
+        b = f"decoder.block.{i}.layer."
+        return {"ln1": dense(b + "0.layer_norm"), "attn": attn(b + "0.SelfAttention"),
+                "ln_x": dense(b + "1.layer_norm"), "xattn": attn(b + "1.EncDecAttention"),
+                "ln2": dense(b + "2.layer_norm"), "ffn": ffn(b + "2")}
+
+    def side(name, layers):
+        return {"rel_bias": dense(f"{name}.block.0.layer.0.SelfAttention.relative_attention_bias"),
+                "layers": layers, "final_ln": dense(f"{name}.final_layer_norm")}
+
+    return {
+        "shared": dense("shared"),
+        "encoder": side("encoder", [enc_layer(i) for i in range(cfg.num_layers)]),
+        "decoder": side("decoder", [dec_layer(i) for i in range(cfg.num_decoder_layers)]),
+        "lm_head": dense("lm_head") if p + "lm_head.weight" in sd else None,
+    }
+
+
+def convert_opt(sd: StateDict, cfg, prefix: str = "", device=None) -> Dict[str, Any]:
+    """HF / LAVIS OPT state dict (model.decoder.*) → the models/opt tree."""
+    device = resolve_device(device)
+    p, dt, L = prefix + "model.decoder.", cfg.dtype, cfg.num_layers
+
+    def st(template):
+        return _stack(sd, p + template, L, dt, device)
+
+    def dense(name):
+        return {"w": st(f"layers.{{i}}.{name}.weight"), "b": st(f"layers.{{i}}.{name}.bias")}
+
+    def lnorm(name):
+        return {"scale": st(f"layers.{{i}}.{name}.weight"), "bias": st(f"layers.{{i}}.{name}.bias")}
+
+    return {
+        "embed_tokens": sd[p + "embed_tokens.weight"].to(device, dt),
+        "embed_positions": sd[p + "embed_positions.weight"].to(device, dt),
+        "layers": {
+            "attn_ln": lnorm("self_attn_layer_norm"),
+            "q": dense("self_attn.q_proj"), "k": dense("self_attn.k_proj"),
+            "v": dense("self_attn.v_proj"), "out": dense("self_attn.out_proj"),
+            "ffn_ln": lnorm("final_layer_norm"),
+            "fc1": dense("fc1"), "fc2": dense("fc2"),
+        },
+        "final_ln": {"scale": sd[p + "final_layer_norm.weight"].to(device, dt),
+                     "bias": sd[p + "final_layer_norm.bias"].to(device, dt)},
+    }
+
+
+def convert_mpt(sd: StateDict, cfg, prefix: str = "", device=None) -> Dict[str, Any]:
+    """MPT state dict (transformer.blocks.{i}.*) → the models/mpt tree. A
+    norm bias the checkpoint lacks (no_bias) is zeros; q_ln/k_ln come over
+    when the checkpoint has them."""
+    device = resolve_device(device)
+    p, dt, L, D = prefix + "transformer.", cfg.dtype, cfg.n_layers, cfg.d_model
+
+    def st(template):
+        return _stack(sd, p + "blocks.{i}." + template, L, dt, device)
+
+    def norm(name, width):
+        bias_key = p + f"blocks.0.{name}.bias"
+        bias = st(name + ".bias") if bias_key in sd else torch.zeros((L, width), dtype=dt, device=device)
+        return {"scale": st(name + ".weight"), "bias": bias}
+
+    layers = {"norm_1": norm("norm_1", D), "wqkv": st("attn.Wqkv.weight"), "out_proj": st("attn.out_proj.weight"),
+              "norm_2": norm("norm_2", D), "up_proj": st("ffn.up_proj.weight"),
+              "down_proj": st("ffn.down_proj.weight")}
+    if p + "blocks.0.attn.q_ln.weight" in sd:
+        layers["q_ln"] = norm("attn.q_ln", D)
+        layers["k_ln"] = norm("attn.k_ln", cfg.kv_heads * cfg.head_dim)
+    norm_f_bias = sd.get(p + "norm_f.bias")
+    return {
+        "wte": sd[p + "wte.weight"].to(device, dt),
+        "layers": layers,
+        "norm_f": {"scale": sd[p + "norm_f.weight"].to(device, dt),
+                   "bias": torch.zeros((D,), dtype=dt, device=device) if norm_f_bias is None
+                   else norm_f_bias.to(device, dt)},
+    }
+
+
+def _blip2_common(sd: StateDict, cfg, device, **qf_kw) -> Dict[str, Any]:
+    """visual, ln_vision, query_tokens and the Q-Former of a LAVIS BLIP-2
+    checkpoint."""
+    vdt = cfg.vision.dtype
+    return {
+        "visual": convert_eva_vit(sd, cfg.vision, device=device),
+        "ln_vision": {"scale": sd["ln_vision.weight"].to(device, vdt), "bias": sd["ln_vision.bias"].to(device, vdt)},
+        "query_tokens": sd["query_tokens"].reshape(cfg.num_query_tokens, -1).to(device, cfg.qformer.dtype),
+        "qformer": convert_qformer(sd, cfg.qformer, device=device, **qf_kw),
+    }
+
+
+def convert_blip2_stage1(sd: StateDict, cfg, device=None) -> Dict[str, Any]:
+    """LAVIS blip2 / blip2_feature_extractor / blip2_image_text_matching
+    checkpoint → the models/blip2 stage-1 tree (Qformer.bert + Qformer.cls,
+    vision/text_proj, itm_head, temp as a 0-d fp32 tensor)."""
+    device = resolve_device(device)
+    dt = cfg.qformer.dtype
+
+    def lin(name):
+        return {"w": sd[name + ".weight"].to(device, dt), "b": sd[name + ".bias"].to(device, dt)}
+
+    out = _blip2_common(sd, cfg, device, head_prefix="Qformer.cls.")
+    out.update(vision_proj=lin("vision_proj"), text_proj=lin("text_proj"), itm_head=lin("itm_head"),
+               temp=sd["temp"].reshape(()).to(device, torch.float32))
+    return out
+
+
+def _blip2_lm(sd: StateDict, cfg, proj: str, convert_lm, lm_prefix: str, device) -> Dict[str, Any]:
+    device = resolve_device(device)
+    dt = cfg.text.dtype
+    out = _blip2_common(sd, cfg, device)
+    out["proj"] = {"w": sd[proj + ".weight"].to(device, dt), "b": sd[proj + ".bias"].to(device, dt)}
+    out["lm"] = convert_lm(sd, cfg.text, prefix=lm_prefix, device=device)
+    return out
+
+
+def convert_blip2_opt(sd: StateDict, cfg, device=None) -> Dict[str, Any]:
+    """LAVIS blip2_opt checkpoint → the Blip2OptConfig tree (pruned-text
+    Q-Former + opt_proj + opt_model)."""
+    return _blip2_lm(sd, cfg, "opt_proj", convert_opt, "opt_model.", device)
+
+
+def convert_blip2_t5(sd: StateDict, cfg, device=None) -> Dict[str, Any]:
+    """LAVIS blip2_t5 / blip2_t5_instruct checkpoint → the Blip2T5Config tree
+    (t5_proj + t5_model; the instruct variant keeps the Q-Former's text
+    branches)."""
+    return _blip2_lm(sd, cfg, "t5_proj", convert_t5, "t5_model.", device)

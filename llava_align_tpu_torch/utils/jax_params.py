@@ -1,7 +1,8 @@
 """Carry a JAX param tree (as numpy) over to the port's tensors.
 
-Both packages keep the same tree: LLaMA and Qwen linears are [out, in] in
-both (the Qwen ViT's nested {w, b} dicts too), and CLIP/projector kernels
+Both packages keep the same tree: LLaMA, Qwen, OPT, MPT, T5 and BLIP
+linears are [out, in] in both (the Qwen ViT's nested {w, b} dicts too;
+T5's layer lists and relative-bias tables [NB, H] as they are), and CLIP/projector kernels
 stay [in, out] (used as y @ kernel) — nothing is transposed. int8 dicts {'q', 's'} become int8 and fp32 tensors, int4 dicts
 {'q4', 'gs'} packed int8 and fp32 tensors (the same layout in both
 packages, so the carry-over is a copy). Takes numpy
@@ -41,7 +42,8 @@ def from_jax_params(tree: Any, device=None, dtype: Optional[torch.dtype] = None)
     """Nested dicts/lists of numpy arrays → the same structure of tensors on
     `device` (the GPU unless another is named). Float leaves take `dtype`
     when given (else their own); the scales of int8 ('s') and int4 ('gs')
-    dicts stay fp32."""
+    dicts and BLIP-2 stage 1's 0-d 'temp' stay fp32, and None leaves stay
+    None."""
     device = resolve_device(device)
 
     def scale_key(node: dict) -> Optional[str]:
@@ -52,9 +54,11 @@ def from_jax_params(tree: Any, device=None, dtype: Optional[torch.dtype] = None)
         return None
 
     def walk(node, is_scale=False):
+        if node is None:  # e.g. a tied T5's lm_head
+            return None
         if isinstance(node, dict):
             sk = scale_key(node)
-            return {k: walk(v, k == sk) for k, v in node.items()}
+            return {k: walk(v, k in (sk, "temp")) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)
         return _to_tensor(node, device, dtype, is_scale)

@@ -1,7 +1,9 @@
 """Random-weight LLaVA and Qwen-VL params at real shapes (torch twin of
 llava_align_tpu/utils/synthetic.py build_random_llava_params and
-build_random_qwen_vl_params), and the LLaMA decoder's tree alone
-(build_random_llama_params, which models/instructblip.init builds on).
+build_random_qwen_vl_params), LLaVA-MPT's (build_random_llava_mpt_params),
+and the LLaMA, OPT, MPT and T5 decoders' trees alone
+(build_random_llama_params / _opt_ / _mpt_ / _t5_params, which
+models/instructblip.init and models/blip2's inits build on).
 
 The tree and the init scales are those of the JAX package's llava.init (+
 quantize_llama_params(fuse=True) for quant="int8", + bits=4 for "int4"); the
@@ -110,6 +112,14 @@ def _random_llama(t, quant: str, device, w) -> Dict[str, Any]:
 def build_random_llava_params(cfg, quant: str = "none", device=None, seed: int = 0) -> Dict[str, Any]:
     device = resolve_device(device)
     w = normal_init(torch.Generator(device=device).manual_seed(seed), device)
+    llama = _random_llama(cfg.text, quant, device, w)
+    vision, proj = _random_clip_projector(cfg, cfg.text.hidden_size, cfg.text.dtype, device, w)
+    return {"llama": llama, "vision": vision, "projector": proj}
+
+
+def _random_clip_projector(cfg, D: int, dt, device, w) -> tuple:
+    """The CLIP tower (cfg.vision) and the cfg.mm_projector_type projector
+    into width D, as llava.init draws them."""
 
     def ones(shape, dtype):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -117,8 +127,6 @@ def build_random_llava_params(cfg, quant: str = "none", device=None, seed: int =
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    llama = _random_llama(cfg.text, quant, device, w)
-    D, dt = cfg.text.hidden_size, cfg.text.dtype
     vc = cfg.vision
     vD, vF, vL, P, vdt = vc.hidden_size, vc.intermediate_size, vc.num_layers, vc.patch_size, vc.dtype
 
@@ -143,7 +151,104 @@ def build_random_llava_params(cfg, quant: str = "none", device=None, seed: int =
     for i in range(projector.num_layers(cfg.mm_projector_type)):
         fan_in = vD if i == 0 else D
         proj_layers.append({"kernel": w((fan_in, D), fan_in, dt), "bias": zeros((D,), dt)})
-    return {"llama": llama, "vision": vision, "projector": {"layers": proj_layers}}
+    return vision, {"layers": proj_layers}
+
+
+def _draws(device, seed: int, w):
+    """(device, w): w as given, else N(0, 1/fan_in) draws from a new
+    generator seeded with `seed` on the resolved device."""
+    device = resolve_device(device)
+    return device, w or normal_init(torch.Generator(device=device).manual_seed(seed), device)
+
+
+def build_random_opt_params(t, device=None, seed: int = 0) -> Dict[str, Any]:
+    """models/opt's tree for OptConfig `t` (opt.init's scales: weights
+    N(0, 1/fan_in), biases zeros, norms ones), drawn from a generator
+    seeded with `seed`."""
+    device, w = _draws(device, seed, None)
+    D, F, L, V, dt = t.hidden_size, t.ffn_dim, t.num_layers, t.vocab_size, t.dtype
+
+    def dense(out_d, in_d):
+        return {"w": w((L, out_d, in_d), in_d, dt), "b": torch.zeros((L, out_d), dtype=dt, device=device)}
+
+    def ln(shape):
+        return {"scale": torch.ones(shape, dtype=dt, device=device), "bias": torch.zeros(shape, dtype=dt, device=device)}
+
+    return {
+        "embed_tokens": w((V, D), D, dt),
+        "embed_positions": w((t.max_position_embeddings + 2, D), D, dt),
+        "layers": {"attn_ln": ln((L, D)), "q": dense(D, D), "k": dense(D, D), "v": dense(D, D),
+                   "out": dense(D, D), "ffn_ln": ln((L, D)), "fc1": dense(F, D), "fc2": dense(D, F)},
+        "final_ln": ln((D,)),
+    }
+
+
+def build_random_mpt_params(t, device=None, seed: int = 0, w=None) -> Dict[str, Any]:
+    """models/mpt's tree for MptConfig `t` (mpt.init's scales; q_ln/k_ln
+    only under qk_ln), drawn by `w` (normal_init: build_random_llava_mpt_params's
+    one generator) or from a generator seeded with `seed`."""
+    device, w = _draws(device, seed, w)
+    D, F, L, V, dt = t.d_model, t.ffn_dim, t.n_layers, t.vocab_size, t.dtype
+    KV = t.kv_heads * t.head_dim
+
+    def ln(shape):
+        return {"scale": torch.ones(shape, dtype=dt, device=device), "bias": torch.zeros(shape, dtype=dt, device=device)}
+
+    layers = {"norm_1": ln((L, D)), "wqkv": w((L, D + 2 * KV, D), D, dt), "out_proj": w((L, D, D), D, dt),
+              "norm_2": ln((L, D)), "up_proj": w((L, F, D), D, dt), "down_proj": w((L, D, F), F, dt)}
+    if t.qk_ln:
+        layers["q_ln"], layers["k_ln"] = ln((L, D)), ln((L, KV))
+    return {"wte": w((V, D), D, dt), "layers": layers, "norm_f": ln((D,))}
+
+
+def build_random_t5_params(t, device=None, seed: int = 0) -> Dict[str, Any]:
+    """models/t5's tree for T5Config `t` (t5.init's tree: linears and the
+    relative-bias tables N(0, 1/fan_in), RMS scales ones; lm_head None when
+    tied), drawn as build_random_opt_params draws. One departure from
+    t5.init's scales: every attention's q is drawn at T5's own init scale,
+    std (d_model * d_kv)^-0.5 (the reference's T5 _init_weights, which folds
+    the 1/sqrt(d_kv) that its unscaled attention lacks into q). At t5.init's
+    N(0, 1/d_model) the attention logits have a std of ~sqrt(d_kv) = 8, so
+    peaked that a bf16 rounding of q.k moves a 2-layer cut's logits by
+    ~1e-1 of their range against fp32, in either framework."""
+    device, w = _draws(device, seed, None)
+    D, I, F, V, dt = t.d_model, t.inner_dim, t.d_ff, t.vocab_size, t.dtype
+
+    def lin(out_d, in_d):
+        return w((out_d, in_d), in_d, dt)
+
+    def attn():
+        return {"q": w((I, D), D * t.d_kv, dt), "k": lin(I, D), "v": lin(I, D), "o": lin(D, I)}
+
+    def ffn():
+        if t.gated_act:
+            return {"wi_0": lin(F, D), "wi_1": lin(F, D), "wo": lin(D, F)}
+        return {"wi": lin(F, D), "wo": lin(D, F)}
+
+    def ln():
+        return torch.ones((D,), dtype=dt, device=device)
+
+    NB = t.relative_attention_num_buckets
+    return {
+        "shared": lin(V, D),
+        "encoder": {"rel_bias": lin(NB, t.num_heads),
+                    "layers": [{"ln1": ln(), "attn": attn(), "ln2": ln(), "ffn": ffn()}
+                               for _ in range(t.num_layers)],
+                    "final_ln": ln()},
+        "decoder": {"rel_bias": lin(NB, t.num_heads),
+                    "layers": [{"ln1": ln(), "attn": attn(), "ln_x": ln(), "xattn": attn(), "ln2": ln(),
+                                "ffn": ffn()} for _ in range(t.num_decoder_layers)],
+                    "final_ln": ln()},
+        "lm_head": None if t.tie_word_embeddings else lin(V, D),
+    }
+
+
+def build_random_llava_mpt_params(cfg, device=None, seed: int = 0) -> Dict[str, Any]:
+    """{'mpt', 'vision', 'projector'} at cfg's shapes (models/llava_mpt.
+    LlavaMptConfig; llava_mpt.init's tree), all drawn from one generator."""
+    device, w = _draws(device, seed, None)
+    vision, proj = _random_clip_projector(cfg, cfg.text.d_model, cfg.text.dtype, device, w)
+    return {"mpt": build_random_mpt_params(cfg.text, device, w=w), "vision": vision, "projector": proj}
 
 
 def build_random_qwen_vl_params(cfg, quant: str = "none", device=None, seed: int = 0) -> Dict[str, Any]:

@@ -19,8 +19,9 @@ QwenVLAdapter's `generate` on a 2-layer full-width Qwen-VL against its fp32
 run on the CPU; a 5-beam InstructBLIP `generate_beam` (fp32, its prefill on
 K3) against the same on the CPU; W8A8 (codes and product) at 256 and 640
 rows and the int8-cache decode attention against the CPU, and a sampled
-`generate` (W8A8 and the int8 cache on, and off) reproduced under one seed.
-This file imports no jax, so on the machine with the card it runs without
+`generate` (W8A8 and the int8 cache on, and off) reproduced under one seed;
+a BLIP-2 OPT `generate` whose positions run past OPT's learned position
+table, against the CPU. This file imports no jax, so on the machine with the card it runs without
 the repository's conftest (which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -861,3 +862,43 @@ def test_sampled_generate_reproduced_under_one_seed_on_card(dev):
         assert (quant.int8_matmul_w8a8.launches > n0) == act_quant
         assert runs[0].token_ids == runs[1].token_ids and len(runs[0].token_ids) == 8
         np.testing.assert_array_equal(runs[0].first_scores_top_probs, runs[1].first_scores_top_probs)
+
+
+# ---------------------------------------------------------------------------
+# BLIP-2 OPT: the learned-position gather past its table on the card
+# ---------------------------------------------------------------------------
+
+
+def test_blip2_opt_generate_past_position_table_on_card_matches_cpu(dev):
+    """A tiny fp32 BLIP-2 OPT `generate` (greedy, 'none' branch) whose
+    prompt buckets past OPT's 130-row position table (4 query slots + 133
+    ids → a 144-row prefill; decode positions 137-141): positions + 2 index
+    past the table, which the port clamps as a JAX gather does (torch
+    indexing would assert on the card). Card tokens equal the CPU run's."""
+    import numpy as np
+
+    from llava_align_tpu_torch.config import GenerationConfig
+    from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
+    from llava_align_tpu_torch.decoding.adapters import Blip2OptAdapter
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.models import blip2
+
+    cfg = blip2.Blip2OptConfig.tiny()
+    params = blip2.init_opt(cfg, device=dev, seed=6)
+    params_cpu = _to_cpu32(params)
+    rng = np.random.default_rng(7)
+    image = rng.standard_normal((1, 3, 28, 28)).astype(np.float32)
+    ids = [IMAGE_TOKEN_INDEX, 1] + [int(t) for t in rng.integers(3, 256, 132)]
+    gen = GenerationConfig(max_new_tokens=6, do_sample=False, use_dd=True, cd_alpha=1.0, cd_beta=0.1,
+                           eos_token_id=10**9)
+    out = {}
+    with torch.inference_mode():
+        for name, p, device in (("card", params, dev), ("cpu", params_cpu, torch.device("cpu"))):
+            feats = blip2.encode_image_queries(p, cfg, torch.from_numpy(image).to(device))
+            eng = DecodeEngine(p, cfg, gen, adapter=Blip2OptAdapter(cfg), bucket=16)
+            out[name] = eng.generate(ids, precomputed_feats=feats)
+            torch.cuda.synchronize()
+    assert out["card"].prompt_length == len(ids) - 1 + cfg.num_query_tokens > cfg.text.max_position_embeddings
+    assert out["card"].token_ids == out["cpu"].token_ids
+    np.testing.assert_allclose(out["card"].first_scores_top_probs, out["cpu"].first_scores_top_probs,
+                               rtol=0, atol=1e-4)

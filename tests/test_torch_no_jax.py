@@ -4,7 +4,8 @@ POPE runner and its scorer on a question file it writes, VCD through each
 entry point, a tiny checkpoint written here as .safetensors and loaded,
 the MME and MMMU runners and scorers, the Qwen-VL and InstructBLIP
 runners, the W8A8 and int8 KV-cache modes, the sampling sweep, the bias
-probe and the judge pipeline, and every microbenchmark twin (at rehearsal size) on the CPU,
+probe and the judge pipeline, LLaVA-MPT and BLIP-2 OPT generates, BLIP-2
+T5's t5_generate and a stage-1 caption, and every microbenchmark twin (at rehearsal size) on the CPU,
 with jax (and the JAX package) blocked — the machine with the card has no
 jax — and, for the slice's modules, with safetensors and transformers
 blocked too (the card machine has neither)."""
@@ -181,6 +182,29 @@ with contextlib.redirect_stdout(printed):
     assert mmmu.main(base + ["--question-file", uf, "--answers-file", os.path.join(d, "mmmu.jsonl.out"),
                              "--calibrate", "--score-setting", "none_unk", "--print-table"]) == 0
 assert "Overall" in printed.getvalue()
+
+# the last decoder families: LLaVA-MPT, BLIP-2 OPT (on precomputed_feats),
+# BLIP-2 FlanT5's t5_generate and stage-1 captions, tiny random trees
+from llava_align_tpu_torch.decoding.adapters import Blip2OptAdapter, LlavaMptAdapter
+from llava_align_tpu_torch.models import blip2, llava_mpt
+mcfg = llava_mpt.LlavaMptConfig.tiny()
+meng = DecodeEngine(llava_mpt.init(mcfg, device="cpu"), mcfg, gen, adapter=LlavaMptAdapter(mcfg))
+assert meng.generate(ids, image).num_generated == 4
+ocfg = blip2.Blip2OptConfig.tiny()
+op = blip2.init_opt(ocfg, device="cpu")
+pix = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 3, 28, 28)).astype(np.float32))
+feats = blip2.encode_image_queries(op, ocfg, pix)
+gen_opt = GenerationConfig(max_new_tokens=4, do_sample=False, use_dd=True, eos_token_id=10**9)
+oeng = DecodeEngine(op, ocfg, gen_opt, adapter=Blip2OptAdapter(ocfg))
+assert oeng.generate([-200, 1, 5, 6], precomputed_feats=feats).num_generated == 4
+tcfg = blip2.Blip2T5Config.tiny()
+caps = blip2.t5_generate(blip2.init_t5(tcfg, device="cpu"), tcfg, pix, [[5, 6, 1]], max_new_tokens=3,
+                         eos_token_id=10**6)
+assert [len(c) for c in caps] == [3], caps
+scfg = blip2.Blip2QformerConfig.tiny()
+cap = blip2.generate_caption(blip2.init_stage1(scfg, device="cpu"), scfg, pix, bos_token_id=101,
+                             eos_token_id=10**6, max_new_tokens=3)
+assert cap.shape == (1, 3), cap
 
 loaded = [m for m, mod in sys.modules.items()
           if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "llava_align_tpu", "safetensors",
