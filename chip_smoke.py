@@ -175,6 +175,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
      CPU, a 5-beam fp32 OPT generate_beam card against CPU, and a 2-layer
      BLIP-2 OPT (.bin, LAVIS names) and LLaVA-MPT (.safetensors, HF names)
      checkpoint loaded through the new converters, every leaf exact.
+ 16. LLaVA training (after phase 15, on a card freed of every serving
+     tree): LLaVA-v1.5-7B as the port's zoo builds it (LlavaModel
+     size 7b: bf16, random, full width and depth, 7.06 G parameters)
+     trained by runners/train's llava step with main's optimizer
+     (build_optimizer: AdamW, the decay mask, clip 1.0, warm-up-cosine)
+     through framework.runner.Runner, on 2 rows of <image> + a 16-token
+     caption from the caption data path (coco_caption, synthetic images,
+     the mock tokenizer; 608 positions): one warm step and 4 timed; s/step,
+     tokens/s, model TFLOP/s, peak memory and each loss (finite) printed,
+     also as a `train_7b` JSON line; then runners/train.main with a
+     captioning YAML on a 2-layer full-width checkpoint written here, 2
+     epochs (checkpoint_last each epoch) and a resume from checkpoint_last
+     for a third; then the 7B cut to 2 decoder / 2 vision layers in fp32
+     (TF32 off), 3 AdamW steps (warm-up, clip) and 4 micro-steps with
+     accum_grad_iters=2, card against CPU: each loss within 1e-3
+     relative, every leaf within 2 x lr x updates. K1-K4 must not launch
+     (launches_by_path 7b_train and train_cli).
 
 Prints a JSON line with each kernel's record (launches: both main paths'
 counts, per path under launches_by_path; K1's and K4's prefill-row times
@@ -200,6 +217,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -3013,6 +3031,322 @@ def phase_family_checkpoints(dev, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# training (LLaVA): the 7B step at full width and depth, the config CLI on
+# a 2-layer full-width checkpoint, and the fp32 reference card vs CPU
+# ---------------------------------------------------------------------------
+
+TRAIN_CAPTION = ("a photo of a small dog sitting on a red mat next to an old wooden chair in the sun "
+                 "by the window")  # 19 words: the mock tokenizer keeps 16
+TRAIN_BATCH = 2
+TRAIN_TIMED = 4
+# the reference's optimizer: the registered schedule with a real warm-up
+# (from 1e-5 to 1e-4 over one step), the clip on
+TRAIN_REF_LR = 1e-4
+TRAIN_REF_TOL = 1e-3
+
+
+def write_caption_files(root: Path, n: int) -> Path:
+    """A coco_caption annotation file of n rows over n // 2 image names
+    (absent: the data path's synthetic images)."""
+    root.mkdir(parents=True, exist_ok=True)
+    ann = root / "captions.json"
+    ann.write_text(json.dumps([{"image": f"img_{i // 2}.jpg", "caption": f"{TRAIN_CAPTION} {i}",
+                                "image_id": i // 2} for i in range(n)]))
+    return ann
+
+
+def caption_loader(cfg, ann: Path, batch: int, prep):
+    """The train CLI's data path for one epoch: coco_caption through
+    build_datasets_for_model (BlipImageEvalProcessor at the tower's size),
+    _batches with the mock tokenizer, then the arch's prep."""
+    from llava_align_tpu_torch.framework.datasets import build_datasets_for_model
+    from llava_align_tpu_torch.framework.registry import registry
+    from llava_align_tpu_torch.runners import train as train_cli
+    from llava_align_tpu_torch.runners.common import resolve_tokenizer
+
+    task = registry.get_task_class("captioning")()
+    sets = build_datasets_for_model(task, types.SimpleNamespace(cfg=cfg), {"coco_caption": {
+        "build_info": {"train": {"ann_paths": [str(ann)], "vis_root": str(ann.parent)}}, "synthetic_images": True}})
+    tokenize = resolve_tokenizer({}, cfg.text.vocab_size)
+    return [prep(b) for b in train_cli._batches(sets["coco_caption"]["train"], batch, tokenize=tokenize)]
+
+
+def train_flops(cfg, B: int, S: int) -> float:
+    """Model FLOPs of one step (forward + backward = 3 x forward): 2 per
+    multiply-add over each dense weight the step runs (the decoder's
+    layers and lm_head at B*S positions, the CLIP layers select_layer runs
+    at B*(1+N) positions, the projector at B*N), plus attention's QK^T and
+    PV at full S x S as mha computes them."""
+    t, v = cfg.text, cfg.vision
+    D, F, L, V = t.hidden_size, t.intermediate_size, t.num_layers, t.vocab_size
+    dec = L * (2 * D * t.q_dim + 2 * D * t.kv_dim + 3 * D * F) + D * V
+    vD, vF, vL = v.hidden_size, v.intermediate_size, v.num_layers + 1 + v.select_layer
+    Nv = 1 + v.num_patches
+    vis = vL * (4 * vD * vD + 2 * vD * vF)
+    proj = vD * D + D * D
+    attn = L * 2 * 2 * B * S * S * t.q_dim + vL * 2 * 2 * B * Nv * Nv * vD
+    return 3 * (2 * dec * B * S + 2 * vis * B * Nv + 2 * proj * B * v.num_patches + attn)
+
+
+def train_step_split(cfg, params, opt_state, tx, batch) -> dict:
+    """One train step as make_train_step runs it, timed in its parts
+    (synchronized wall): the loss's forward, autograd's backward, and the
+    optimizer's in-place update."""
+    from llava_align_tpu_torch.train import trainer
+
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    leaves = trainer.trainable_leaves(params)
+    with torch.enable_grad():
+        loss = trainer.multimodal_lm_loss(params, cfg, batch)
+        torch.cuda.synchronize()
+        out["forward"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    torch.cuda.synchronize()
+    out["backward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tx.step(params, grads, opt_state)
+    torch.cuda.synchronize()
+    out["optimizer"] = time.perf_counter() - t0
+    return out
+
+
+def phase_train(dev, smi: str) -> dict:
+    """LLaVA-v1.5-7B as the port's zoo builds it (LlavaModel(size="7b"):
+    bf16, random, full width and depth, CLIP ViT-L/336 included) trained by
+    runners/train's llava step with main's optimizer (build_optimizer at
+    its defaults: linear_warmup_cosine_lr from 1e-4, weight decay 0.05 under
+    the decay mask, clip 1.0) through framework.runner.Runner (no
+    checkpoint: ~56 GB of params and moments), on TRAIN_BATCH rows of
+    <image> + a 16-token caption from the caption data path (608
+    positions): one warm step, then TRAIN_TIMED timed, then one more split
+    into forward, backward and optimizer. Prints s/step, tokens/s, model
+    TFLOP/s, peak memory, each step's loss (finite), and the kernels'
+    launches (K1-K4 must stay at 0: no TPU kernel on this
+    path). A batch that does not fit retries with one row."""
+    import tempfile
+
+    from llava_align_tpu_torch.framework.model_zoo import LlavaModel
+    from llava_align_tpu_torch.framework.optims import build_optimizer
+    from llava_align_tpu_torch.framework.runner import Runner, RunnerConfig
+    from llava_align_tpu_torch.runners import train as train_cli
+
+    t0 = time.perf_counter()
+    model = LlavaModel(size="7b", device=dev)
+    torch.cuda.synchronize()
+    n = n_params(model.params)
+    log(f"train: built LlavaModel(size='7b') on {dev} in {time.perf_counter() - t0:.2f} s: {n / 1e9:.4f} G "
+        f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    root = Path(tempfile.mkdtemp(prefix="llava_train_"))
+    try:
+        for batch in (TRAIN_BATCH, 1):
+            steps = 1 + TRAIN_TIMED
+            tx = build_optimizer(init_lr=1e-4, max_steps=steps, steps_per_epoch=steps)
+            step, init_state, prep = train_cli._make_train_step("llava", model, tx, device=dev)
+            batches = caption_loader(model.cfg, write_caption_files(root, batch * steps), batch, prep)
+            secs, losses = [], []
+
+            def timed_step(params, opt_state, b):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = step(params, opt_state, b)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                losses.append(float(out[2]))
+                return out
+
+            try:
+                opt_state = init_state(model.params)
+                reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                runner = Runner(RunnerConfig(max_epoch=1, output_dir=str(root / "out"), save_last=False,
+                                             log_freq=100), timed_step, model.params, opt_state, lambda e: batches)
+                runner.train()
+                break
+            except torch.cuda.OutOfMemoryError:
+                if batch == 1:
+                    raise
+                log(f"train: batch {batch} does not fit ({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                    "at the failure); taking batch 1")
+                runner = opt_state = None
+                torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        S = batches[0]["tokens"].shape[1]
+        if not all(np.isfinite(losses)) or len(losses) != steps:
+            raise AssertionError(f"train: losses {losses}")
+        if any(launches.values()):
+            raise AssertionError(f"train: a kernel launched under autograd: {launches}")
+        s_step = sum(secs[1:]) / TRAIN_TIMED
+        flops = train_flops(model.cfg, batch, S)
+        split = train_step_split(model.cfg, runner.params, runner.opt_state, tx, batches[-1])
+        log(f"train 7B on {smi}: batch {batch} x {S} positions, steps {[round(s, 4) for s in secs]} s "
+            f"(first = warm-up); {s_step:.4f} s/step, {batch * S / s_step:.1f} tokens/s (positions), "
+            f"{flops / s_step / 1e12:.2f} model TFLOP/s ({flops / 1e12:.2f} TFLOP a step), peak "
+            f"{peak:.2f} GiB; losses {[round(x, 4) for x in losses]}; launches {launches}")
+        log(f"  one more step split on {smi}: " + ", ".join(f"{k} {v:.4f} s" for k, v in split.items()))
+        print(json.dumps({"train_7b": {"batch": batch, "positions": S, "params": n, "s_per_step": s_step,
+                                       "split_s": split,
+                                       "step_s": secs, "tokens_per_s": batch * S / s_step,
+                                       "model_tflops": flops / s_step / 1e12, "peak_gib": peak,
+                                       "losses": losses}}), flush=True)
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    del model, runner, opt_state, step, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_cli(dev, smi: str) -> dict:
+    """runners/train.main on the card (no run.device: the GPU) with a
+    captioning YAML: a llava-v1.5-7b-shaped checkpoint dir (CKPT_CONFIG: 2
+    decoder layers at full width, the whole ViT-L/336; bf16 .bin shards
+    written here) as model_path, coco_caption over 4 synthetic images, batch
+    2, 2 epochs, checkpoint_last written each epoch; then a resume from
+    checkpoint_last (run.resume_ckpt_path) to max_epoch 3 trains one more
+    epoch. Each epoch's loss must be finite, the state's epoch/iters/count
+    must follow, and no kernel may launch."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from llava_align_tpu_torch.framework.runner import CHECKPOINT_FILE, Runner
+    from llava_align_tpu_torch.runners import train as train_cli
+
+    root = Path(tempfile.mkdtemp(prefix="llava_train_cli_"))
+    losses = []
+    orig = Runner.train_epoch
+
+    def recording(self, epoch):
+        stats = orig(self, epoch)
+        losses.append(stats["loss"])
+        return stats
+
+    try:
+        ckpt = root / "ckpt"
+        ckpt.mkdir()
+        sd = checkpoint_state_dict(dev, seed=11)
+        (ckpt / "config.json").write_text(json.dumps(CKPT_CONFIG))
+        torch.save({k: v.cpu() for k, v in sd.items()}, ckpt / "pytorch_model.bin")
+        del sd
+        ann = write_caption_files(root, 8)
+        cfg = {"model": {"arch": "llava", "model_path": str(ckpt)},
+               "datasets": {"coco_caption": {"build_info": {"train": {"ann_paths": [str(ann)],
+                                                                      "vis_root": str(root)}},
+                                             "synthetic_images": True}},
+               "run": {"task": "captioning", "batch_size_train": 2, "max_epoch": 2, "init_lr": 1e-4,
+                       "warmup_steps": 1, "warmup_lr": 1e-5, "log_freq": 100, "output_dir": str(root / "out")}}
+        (root / "train.yaml").write_text(yaml.safe_dump(cfg))
+        state_path = root / "out" / "checkpoint_last" / CHECKPOINT_FILE
+        reset_launches()
+        with patched(Runner, "train_epoch", recording):
+            t0 = time.perf_counter()
+            train_cli.main(["--cfg-path", str(root / "train.yaml")])
+            torch.cuda.synchronize()
+            t_main = time.perf_counter() - t0
+            state = torch.load(state_path, map_location="cpu", weights_only=True)
+            if (state["epoch"], state["iters"], state["opt_state"]["count"]) != (1, 8, 8):
+                raise AssertionError(f"train CLI: checkpoint_last at epoch {state['epoch']}, iters "
+                                     f"{state['iters']}, count {state['opt_state']['count']}")
+            del state
+            t0 = time.perf_counter()
+            train_cli.main(["--cfg-path", str(root / "train.yaml"), "--options", "run.max_epoch=3",
+                            f"run.resume_ckpt_path={root / 'out' / 'checkpoint_last'}"])
+            torch.cuda.synchronize()
+            t_resume = time.perf_counter() - t0
+        launches = read_launches()
+        state = torch.load(state_path, map_location="cpu", weights_only=True)
+        ok = (state["epoch"], state["iters"], state["opt_state"]["count"]) == (2, 12, 12)
+        nbytes = state_path.stat().st_size
+        del state
+        log(f"train CLI on {smi}: main (2 epochs of 4 steps, checkpoint_last each epoch, {nbytes / 1e9:.3f} GB) "
+            f"{t_main:.2f} s, resume (1 epoch) {t_resume:.2f} s; per-epoch losses {[round(x, 4) for x in losses]}; "
+            f"launches {launches}")
+        if not ok or len(losses) != 3 or not all(np.isfinite(losses)):
+            raise AssertionError(f"train CLI: resume state {ok}, losses {losses}")
+        if any(launches.values()):
+            raise AssertionError(f"train CLI: a kernel launched under autograd: {launches}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tree_copy(node, device):
+    """A copy of the tree on `device` (a new tensor even where it lies
+    there already: training updates in place)."""
+    if isinstance(node, dict):
+        return {k: tree_copy(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [tree_copy(v, device) for v in node]
+    return node.to(device, copy=True)
+
+
+def phase_train_reference(dev) -> None:
+    """The 7B model cut to 2 decoder / 2 vision layers at full width, fp32
+    (TF32 off), trained 3 AdamW steps (registered warm-up-cosine schedule
+    warming up from 1e-5 over one step, clip 1.0) on the card and on the
+    CPU from the same params and batches (1 row of <image> + 16 tokens),
+    then a second run of 4 micro-steps with accum_grad_iters=2: each step's
+    loss within TRAIN_REF_TOL relative, every leaf within 2 x lr x applied
+    steps (Adam's sign-like step turns rounding noise in a near-zero
+    gradient into up to +-lr)."""
+    from llava_align_tpu_torch.config import LlavaConfig
+    from llava_align_tpu_torch.framework.optims import build_optimizer, tree_leaves
+    from llava_align_tpu_torch.runners import train as train_cli
+    from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cut_config(LlavaConfig.llava_v15_7b(), torch.float32)
+    cpu_params = build_random_llava_params(cfg, device="cpu", seed=5)
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="llava_train_ref_"))
+    for accum, calls in ((1, 3), (2, 4)):
+        out = {}
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            t0 = time.perf_counter()
+            params = tree_copy(cpu_params, device)
+            tx = build_optimizer(init_lr=TRAIN_REF_LR, warmup_steps=1, warmup_start_lr=1e-5, max_steps=3,
+                                 max_grad_norm=1.0, accum_grad_iters=accum)
+            step, init_state, prep = train_cli._make_train_step("llava", types.SimpleNamespace(cfg=cfg), tx,
+                                                                device=device)
+            batches = caption_loader(cfg, write_caption_files(root, calls), 1, prep)
+            state, losses = init_state(params), []
+            for b in batches:
+                params, state, loss = step(params, state, b)
+                losses.append(float(loss))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = (losses, [x.detach().cpu() for x in tree_leaves(params)], state["count"],
+                         time.perf_counter() - t0)
+            del params, state
+        (cl, cp, cc, ct), (rl, rp, rc, rt) = out["card"], out["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(cl, rl))
+        dmax = max(float((a - b).abs().max()) for a, b in zip(cp, rp))
+        bound = 2 * TRAIN_REF_LR * rc
+        ok = cc == rc == calls // accum and rel <= TRAIN_REF_TOL and dmax <= bound
+        log(f"train reference (2-layer 7B cut, fp32, accum {accum}, {calls} calls, {rc} updates): losses card "
+            f"{[round(x, 6) for x in cl]} cpu {[round(x, 6) for x in rl]}, max rel {rel:.3g} (tol "
+            f"{TRAIN_REF_TOL}); max |param card - cpu| {dmax:.3g} (bound 2 lr steps {bound:.3g}); card "
+            f"{ct:.2f} s, cpu {rt:.2f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train reference: card and CPU disagree")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -3159,6 +3493,17 @@ def main() -> int:
         phase(dev)
         torch.cuda.synchronize()
         log(f"{what} phase wall {time.perf_counter() - t0:.2f} s")
+
+    # LLaVA training (autograd: no TPU kernel lies on these paths, and the
+    # wrappers refuse grad inputs; their launches_by_path entries hold K1-K4
+    # at zero)
+    for what, tag, phase in (("train 7B", "7b_train", phase_train), ("train CLI", "train_cli", phase_train_cli)):
+        t0 = time.perf_counter()
+        by_path[tag] = phase(dev, smi)
+        log(f"{what} phase wall {time.perf_counter() - t0:.2f} s (the tree's build included)")
+    t0 = time.perf_counter()
+    phase_train_reference(dev)
+    log(f"train reference phase wall {time.perf_counter() - t0:.2f} s")
 
     # K1 at every row count the model paths (LLaVA and Qwen) sent it that
     # phase 3 did not check: the Qwen prefills' tiled-regime rows

@@ -108,11 +108,24 @@ def _write_cache(
         cache_full[li, row_offset : row_offset + B, :S] = new
 
 
+def layer_views(layers: Params) -> Params:
+    """The layer tree as `forward` reads it: under autograd, each stacked
+    [L, ...] leaf that requires grad becomes a tuple of its L layer views
+    by one unbind, whose backward is one stack of the layers' gradients
+    (indexing w[li] instead costs a zero tensor of the whole stack per
+    layer in the backward: ~L full stacks written per leaf). The numbers
+    are the same either way; outside autograd the tree is returned as is."""
+    if not torch.is_grad_enabled():
+        return layers
+    return {k: v.unbind(0) if isinstance(v, torch.Tensor) and v.requires_grad else v
+            for k, v in layers.items()}
+
+
 def linear(h: torch.Tensor, w: Any, li: int, act_quant: bool = False) -> torch.Tensor:
-    """h [B, S, in] x layer li of a stacked linear [L, out, in] → [B, S,
-    out]: int4 stacks through K4's dispatch, int8 ones through K1's (with
-    act_quant, W8A8 from W8A8_MIN_ROWS rows on), float ones through
-    torch.matmul."""
+    """h [B, S, in] x layer li of a stacked linear [L, out, in] (or the
+    tuple of its layers, layer_views) → [B, S, out]: int4 stacks through
+    K4's dispatch, int8 ones through K1's (with act_quant, W8A8 from
+    W8A8_MIN_ROWS rows on), float ones through torch.matmul."""
     if is_quantized_int4(w):
         return int4_matmul_stacked_dispatch(h, w, li)
     if is_quantized(w):
@@ -246,7 +259,7 @@ def forward(
     cache_offset = cache_offset.long()
     is_decode = cache is not None and S == 1
 
-    layers = params["layers"]
+    layers = layer_views(params["layers"])
     QD, KD = cfg.q_dim, cfg.kv_dim
     Hn, Kn, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 

@@ -158,6 +158,17 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would need a backward through kernel `name`: the
+    kernels write into fresh tensors through raw pointers, so their outputs
+    carry no grad_fn and a gradient would be lost without a word. Their
+    plain versions (what CPU tensors take) are differentiable."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires grad; "
+            "call it under torch.no_grad() / torch.inference_mode(), or use its plain version")
+
+
 def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:

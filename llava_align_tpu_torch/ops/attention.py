@@ -379,6 +379,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     PV), fp32 on the CUDA cores. CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
+    _kernels.refuse_grad("flash_attention", q, k, v)
     B, S, H, Dh = q.shape
     if not (k.device == v.device == q.device and q.is_cuda):
         raise ValueError("q, k and v must lie on one CUDA device")
@@ -407,12 +408,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 flash_attention.launches = 0
 
 
-def causal_attention_impl(Dh: int, H: int, K: int, dtype: torch.dtype) -> str:
+def causal_attention_impl(Dh: int, H: int, K: int, dtype: torch.dtype, needs_grad: bool = False) -> str:
     """The dispatch rule of causal_attention(impl="auto"): 'pallas' (K3)
     where K3 takes the shape (Dh in {64, 128}, H % K == 0, bf16 or fp32),
-    'xla' (mha, the twin of mha_xla) for every other shape. The JAX
-    package's 1536-token cut-over was measured on a TPU and does not carry
-    over."""
+    'xla' (mha, the twin of mha_xla) for every other shape, and always
+    'xla' when a gradient is needed (K3 has no backward; the JAX package's
+    flash kernel has no VJP either, and its 'auto' takes mha_xla off the
+    TPU). The JAX package's 1536-token cut-over was measured on a TPU and
+    does not carry over."""
+    if needs_grad:
+        return "xla"
     return "pallas" if Dh in (64, 128) and H % K == 0 and dtype in _kernels.DTYPE_CODE else "xla"
 
 
@@ -421,9 +426,10 @@ def causal_attention(
 ) -> torch.Tensor:
     """Causal self-attention for prefill (twin of causal_attention): 'pallas'
     runs K3 (CPU tensors: its plain version), 'xla' runs mha; 'auto' picks by
-    causal_attention_impl."""
+    causal_attention_impl (mha whenever autograd needs a backward)."""
     if impl == "auto":
-        impl = causal_attention_impl(q.shape[3], q.shape[2], k.shape[2], q.dtype)
+        needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        impl = causal_attention_impl(q.shape[3], q.shape[2], k.shape[2], q.dtype, needs_grad)
     if impl == "pallas":
         return flash_attention(q, k, v)
     if impl == "xla":

@@ -148,6 +148,7 @@ def int8_matmul_stacked(
     version."""
     if h.device.type == "cpu":
         return int8_matmul_stacked_plain(h, q, s, layer_idx)
+    _kernels.refuse_grad("int8_matmul_stacked", h, s)
     _check_kernel_args(h, q, s)
     L, O, D = q.shape
     if s.shape != (L, O) or not 0 <= layer_idx < L:
@@ -173,6 +174,7 @@ def int8_matmul_cuda(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch
     version."""
     if h.device.type == "cpu":
         return int8_matmul_plain(h, q, s)
+    _kernels.refuse_grad("int8_matmul_cuda", h, s)
     _check_kernel_args(h, q, s)
     O, D = q.shape
     if s.shape != (O,):
@@ -466,6 +468,7 @@ def int4_matmul_stacked(
     take the plain version."""
     if h.device.type == "cpu":
         return int4_matmul_stacked_plain(h, q4, gs, layer_idx)
+    _kernels.refuse_grad("int4_matmul_stacked", h, gs)
     _check_int4_args(h, q4, gs, layer_idx)
     B, D = h.shape
     O = q4.shape[2]

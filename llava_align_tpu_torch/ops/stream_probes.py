@@ -40,6 +40,7 @@ def unpack_int4_rowmajor(p: torch.Tensor) -> torch.Tensor:
 
 
 def _check_stream_args(h: torch.Tensor, tensors, what: str) -> None:
+    _kernels.refuse_grad(what, h, *tensors)
     if not all(t.is_cuda and t.device == h.device for t in tensors):
         raise ValueError(f"{what}: every operand must lie on h's CUDA device")
     if h.dtype != torch.bfloat16:
@@ -193,6 +194,7 @@ def repeat2d(
     `shape`. CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return repeat2d_plain(x, shape, rows, cols, offset, scale)
+    _kernels.refuse_grad("repeat2d", x)
     _check_repeat2d_args(x, shape, rows, cols, offset)
     if x.dtype != torch.float32 or x.stride(1) != 1:
         raise TypeError(f"repeat2d takes fp32 with contiguous rows, got {x.dtype}, strides {x.stride()}")

@@ -2,7 +2,8 @@
 (dataset chunking, question loading, the resumable jsonl AnswerFile and its
 per-rank merge, build_prompt, postprocess_answer, load_image_tensor,
 make_generation_config, MockTokenizer and load_model: random:* models and
-HF-format checkpoint dirs), and pope_groups, POPE-style traffic split as
+HF-format checkpoint dirs; the train CLI's mock_tokenize and
+resolve_tokenizer, verbatim), and pope_groups, POPE-style traffic split as
 the grouped entry points take it.
 
 --dist auto (jax.distributed in the JAX package) is not ported yet.
@@ -359,3 +360,48 @@ def _load_tokenizer(path: str):
         return AutoTokenizer.from_pretrained(path, use_fast=False)
     except (OSError, ValueError, ImportError):  # no slow tokenizer files, class or sentencepiece
         return AutoTokenizer.from_pretrained(path, use_fast=True)
+
+
+def mock_tokenize(texts, vocab: int = 64, length: int = 16):
+    """Deterministic offline-smoke tokenizer shared by the config-driven
+    train/evaluate CLIs: stable crc32 word hashing (process-independent,
+    unlike str hash) → ([N, length] ids, mask). Real checkpoints need a real
+    tokenizer — pass run.tokenizer_path in the CLI configs."""
+    import zlib
+
+    import numpy as np
+
+    vocab = min(int(vocab), 30000)
+    ids = np.zeros((len(texts), length), np.int64)
+    for i, t in enumerate(texts):
+        for j, w in enumerate(str(t).split()[:length]):
+            ids[i, j] = zlib.crc32(w.encode()) % (vocab - 2) + 1
+    return ids, (ids != 0).astype(np.int64)
+
+
+def resolve_tokenizer(run_cfg, vocab: int):
+    """run.tokenizer_path → BertTokenizerFast over a local vocab file;
+    otherwise the crc32 mock (offline smoke). Returns texts → (ids, mask)."""
+    import numpy as np
+
+    path = run_cfg.get("tokenizer_path")
+    if path:
+        from transformers import BertTokenizerFast
+
+        tok = BertTokenizerFast(vocab_file=path)
+
+        def real(texts, length: int = 32):
+            out = tok(
+                list(map(str, texts)), padding="max_length", truncation=True,
+                max_length=length, return_tensors="np",
+            )
+            return out["input_ids"].astype(np.int64), out["attention_mask"].astype(np.int64)
+
+        return real
+    import logging
+
+    logging.getLogger(__name__).info(
+        "no run.tokenizer_path — using the offline crc32 mock tokenizer "
+        "(metrics are smoke-only for real checkpoints)"
+    )
+    return lambda texts, length=16: mock_tokenize(texts, vocab=vocab, length=length)

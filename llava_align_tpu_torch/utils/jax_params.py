@@ -8,6 +8,9 @@ stay [in, out] (used as y @ kernel) — nothing is transposed. int8 dicts {'q', 
 packages, so the carry-over is a copy). Takes numpy
 leaves (jax.device_get of a param tree), so this module imports no jax.
 
+from_jax_opt_state carries an optax optimizer state the same way into the
+state of framework/optims.AdamW, so a resume can be held against JAX.
+
 The default device is the GPU, as for load_model and
 build_random_llava_params: without one, the carry-over raises unless
 device="cpu" is asked for.
@@ -64,3 +67,38 @@ def from_jax_params(tree: Any, device=None, dtype: Optional[torch.dtype] = None)
         return _to_tensor(node, device, dtype, is_scale)
 
     return walk(tree)
+
+
+def _fields(node) -> tuple:
+    return getattr(node, "_fields", ()) if isinstance(node, tuple) else ()
+
+
+def _find_adam(node):
+    """The ScaleByAdamState (count, mu, nu) inside an optax chain state."""
+    if {"count", "mu", "nu"} <= set(_fields(node)):
+        return node
+    if isinstance(node, (tuple, list)):
+        for v in node:
+            found = _find_adam(v)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_opt_state(state: Any, device=None) -> dict:
+    """An optax state of the JAX package's optimizers as numpy
+    (jax.device_get): chain(clip_by_global_norm, adamw), optionally wrapped
+    in MultiSteps → the AdamW state {count, mu, nu[, acc, mini_step]} on
+    `device`, each moment in its own dtype (optax keeps mu and nu in the
+    param's dtype). Namedtuples are read by their field names, so no optax
+    import is needed."""
+    multi = state if "acc_grads" in _fields(state) else None
+    adam = _find_adam(multi.inner_opt_state if multi is not None else state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optimizer state")
+    out = {"count": int(np.asarray(adam.count)),
+           "mu": from_jax_params(adam.mu, device), "nu": from_jax_params(adam.nu, device)}
+    if multi is not None:
+        out["acc"] = from_jax_params(multi.acc_grads, device)
+        out["mini_step"] = int(np.asarray(multi.mini_step))
+    return out

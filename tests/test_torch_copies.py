@@ -400,6 +400,15 @@ VERBATIM_COPIES = [
     # LLaVA's last runners: the judge pipeline
     *[("evals.gpt_review", n) for n in (
         "openai_judge", "parse_score", "build_review_content", "run_review", "summarize_reviews")],
+    # training: the config helpers, the caption data path, the CLI's tokenizer and batching
+    *[("framework.config", n) for n in ("_parse_value", "set_dot", "get_dot", "merge")],
+    *[("framework.datasets", n) for n in (
+        "_load_annotations", "_load_image", "BaseAnnotationDataset", "CaptionDataset", "CaptionEvalDataset",
+        "CaptionBuilder", "_named_builder")],
+    *[("framework.processors", n) for n in ("_normalize", "BlipImageEvalProcessor")],
+    *[("runners.common", n) for n in ("mock_tokenize", "resolve_tokenizer")],
+    ("runners.train", "_batches"),
+    ("train.trainer", "build_train_batch"),
 ]
 
 
@@ -592,3 +601,24 @@ def test_caption_task_copy_behaves_as_jax(tmp_path):
             m.update(loss=v)
         avgs.append((m.global_avg(), m.loss.median, m.loss.avg, str(m)))
     assert avgs[0] == avgs[1] and avgs[1][0] == {"loss": 3.0}
+
+
+def test_config_copy_behaves_as_jax(tmp_path):
+    """framework/config.Config (yaml imported where a file is read): the
+    same tree, dot-list overrides and sections as the JAX package's."""
+    from llava_align_tpu.framework.config import Config as JConfig
+    from llava_align_tpu_torch.framework.config import Config as TConfig
+
+    path = tmp_path / "c.yaml"
+    path.write_text("run:\n  task: captioning\n  init_lr: 1.0e-4\nmodel:\n  arch: llava\n"
+                    "datasets:\n  coco_caption: {synthetic_images: true}\n")
+    opts = ["run.device=cpu", "run.max_epoch=3", "model.size=tiny", 'run.betas=[0.9, 0.95]', "a.b.c={\"x\": 1}"]
+    j = JConfig(str(path), options=opts, defaults={"run": {"seed": 7}})
+    c = TConfig(str(path), options=opts, defaults={"run": {"seed": 7}})
+    assert c.to_dict() == j.to_dict() and c.pretty() == j.pretty()
+    assert (c.run_cfg, c.model_cfg, c.datasets_cfg) == (j.run_cfg, j.model_cfg, j.datasets_cfg)
+    assert c.get("a.b.c.x") == j.get("a.b.c.x") == 1 and c.get("run.nope", 5) == 5
+    with pytest.raises(ValueError):
+        TConfig(str(path), options=["no_equals_sign"])
+    with pytest.raises(ValueError, match="missing"):
+        c.validate(["run.task", "run.nope"])

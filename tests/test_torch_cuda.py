@@ -21,7 +21,9 @@ K3) against the same on the CPU; W8A8 (codes and product) at 256 and 640
 rows and the int8-cache decode attention against the CPU, and a sampled
 `generate` (W8A8 and the int8 cache on, and off) reproduced under one seed;
 a BLIP-2 OPT `generate` whose positions run past OPT's learned position
-table, against the CPU. This file imports no jax, so on the machine with the card it runs without
+table, against the CPU; two fp32 train steps of a tiny LLaVA on the card
+against the CPU, and the kernels' refusal of an input that requires grad
+(causal_attention's 'auto' takes mha under grad). This file imports no jax, so on the machine with the card it runs without
 the repository's conftest (which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -902,3 +904,80 @@ def test_blip2_opt_generate_past_position_table_on_card_matches_cpu(dev):
     assert out["card"].token_ids == out["cpu"].token_ids
     np.testing.assert_allclose(out["card"].first_scores_top_probs, out["cpu"].first_scores_top_probs,
                                rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: autograd on the card, and the kernels' refusal of grad inputs
+# ---------------------------------------------------------------------------
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device, copy=True)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """Two make_train_step steps of a tiny fp32 LLaVA (clip on, no warm-up)
+    on the card and on the CPU from the same params and batch: losses
+    within 1e-5 relative, every param within 2*lr*steps (Adam's sign-like
+    step turns rounding noise in a near-zero gradient into up to +-lr), and
+    no kernel launched (autograd takes mha and torch.matmul)."""
+    import numpy as np
+
+    from llava_align_tpu_torch.config import LlavaConfig
+    from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
+    from llava_align_tpu_torch.framework.optims import tree_leaves
+    from llava_align_tpu_torch.train import trainer
+    from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
+
+    cfg = LlavaConfig.tiny(vocab_size=64)
+    rng = np.random.default_rng(0)
+    H = cfg.vision.image_size
+    samples = [{"input_ids": [1, 5, IMAGE_TOKEN_INDEX, 7 + i, 8, 9],
+                "images": rng.normal(size=(3, H, H)).astype(np.float32)} for i in range(4)]
+    batch = trainer.build_train_batch(cfg, samples, pad_to=16)
+    lr, steps = 1e-4, 2
+    out = {}
+    launches = attention.flash_attention.launches
+    cpu_params = build_random_llava_params(cfg, device="cpu", seed=3)
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        params = _to_device(cpu_params, device)
+        opt = trainer.make_optimizer(lr, warmup_steps=0, total_steps=10)
+        step, state = trainer.make_train_step(cfg, opt), opt.init(params)
+        losses = []
+        for _ in range(steps):
+            params, state, loss = step(params, state, trainer.batch_to_device(batch, device))
+            losses.append(float(loss))
+        out[name] = (losses, [x.detach().cpu() for x in tree_leaves(params)])
+    assert attention.flash_attention.launches == launches
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-5)
+    for a, b in zip(out["card"][1], out["cpu"][1]):
+        assert (a - b).abs().max() <= 2 * lr * steps
+
+
+def test_kernels_refuse_grad_and_auto_attention_differentiates(dev):
+    """K3 (flash_attention) and the int8 dispatch (K2 at 4 rows) raise on a
+    CUDA input that requires grad; causal_attention(impl="auto") under grad
+    takes mha, launches no kernel, and gives q, k and v non-zero grads."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(1, 16, 2, 64, generator=g, device=dev, dtype=torch.bfloat16).requires_grad_(True)
+               for _ in range(3))
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.flash_attention(q, k, v)
+    wq = quant.quantize_weight(torch.randn(64, 128, generator=g, device=dev, dtype=torch.bfloat16))
+    h = torch.randn(4, 128, generator=g, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        quant.int8_matmul(h, wq)
+    with torch.no_grad():  # the same calls without a grad run the kernels
+        attention.flash_attention(q, k, v)
+        quant.int8_matmul(h, wq)
+    launches = attention.flash_attention.launches
+    out = attention.causal_attention(q, k, v)
+    grads = torch.autograd.grad(out.float().square().sum(), [q, k, v])
+    assert attention.flash_attention.launches == launches
+    assert all(bool(x.abs().sum() > 0) for x in grads)
+    with torch.no_grad():
+        torch.testing.assert_close(out, attention.mha(q, k, v, causal=True), rtol=0, atol=0)

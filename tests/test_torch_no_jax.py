@@ -5,10 +5,11 @@ entry point, a tiny checkpoint written here as .safetensors and loaded,
 the MME and MMMU runners and scorers, the Qwen-VL and InstructBLIP
 runners, the W8A8 and int8 KV-cache modes, the sampling sweep, the bias
 probe and the judge pipeline, LLaVA-MPT and BLIP-2 OPT generates, BLIP-2
-T5's t5_generate and a stage-1 caption, and every microbenchmark twin (at rehearsal size) on the CPU,
+T5's t5_generate and a stage-1 caption, the train CLI (2 epochs and a
+resume), and every microbenchmark twin (at rehearsal size) on the CPU,
 with jax (and the JAX package) blocked — the machine with the card has no
 jax — and, for the slice's modules, with safetensors and transformers
-blocked too (the card machine has neither)."""
+blocked too (the port must not need them)."""
 
 import os
 import subprocess
@@ -421,8 +422,52 @@ print("OK")
 """
 
 
+TRAIN_CODE = r"""
+import sys
+for blocked in ("jax", "jaxlib", "llava_align_tpu", "safetensors", "transformers"):
+    sys.modules[blocked] = None
+
+import json, os, tempfile
+import yaml
+import torch
+from llava_align_tpu_torch.runners import train
+
+d = tempfile.mkdtemp()
+ann = os.path.join(d, "ann.json")
+with open(ann, "w") as f:
+    json.dump([{"image": f"img_{i % 2}.jpg", "caption": c, "image_id": i % 2}
+               for i, c in enumerate(["a dog", "two cats on a mat", "a red car", "a bowl of fruit"])], f)
+cfg = {"model": {"arch": "llava", "size": "tiny"},
+       "datasets": {"coco_caption": {"build_info": {"train": {"ann_paths": [ann], "vis_root": d}},
+                                     "synthetic_images": True}},
+       "run": {"task": "captioning", "batch_size_train": 2, "max_epoch": 2, "init_lr": 1e-3,
+               "warmup_steps": 1, "output_dir": os.path.join(d, "out"), "log_freq": 100}}
+path = os.path.join(d, "train.yaml")
+with open(path, "w") as f:
+    yaml.safe_dump(cfg, f)
+stats = train.main(["--cfg-path", path, "--options", "run.device=cpu"])
+assert stats["loss"] == stats["loss"] and stats["loss"] > 0, stats
+state = torch.load(os.path.join(d, "out", "checkpoint_last", "state.pt"), weights_only=True)
+assert state["epoch"] == 1 and state["opt_state"]["count"] == 4, state.keys()
+stats = train.main(["--cfg-path", path, "--options", "run.device=cpu", "run.max_epoch=3",
+                    "run.resume_ckpt_path=" + os.path.join(d, "out", "checkpoint_last")])
+state = torch.load(os.path.join(d, "out", "checkpoint_last", "state.pt"), weights_only=True)
+assert state["epoch"] == 2 and state["opt_state"]["count"] == 6
+
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "llava_align_tpu", "safetensors",
+                                                     "transformers")]
+assert not loaded, loaded
+print("OK")
+"""
+
+
 def _run(code: str) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one intra-op thread: beside the suite's parallel workers, a child with
+    # a thread per core spins at every parallel region (the twins' host-
+    # clock loops ran 9 s alone on one thread, 156 s on eight beside three
+    # busy processes, past the timeout under the whole suite)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
         timeout=300,
@@ -468,5 +513,15 @@ def test_quant_modes_and_last_runners_run_with_jax_blocked():
     judge; openai_judge needs the openai package) on random:tiny with jax,
     the JAX package, safetensors, transformers and openai unimportable."""
     proc = _run(QUANT_CODE)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
+
+
+def test_train_cli_runs_with_jax_blocked():
+    """runners/train.main on a captioning YAML (model arch llava, size
+    tiny, synthetic images), 2 epochs then a resume from checkpoint_last,
+    with jax, the JAX package, safetensors and transformers unimportable
+    (the card machine has PyYAML and Pillow, which this path reads)."""
+    proc = _run(TRAIN_CODE)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
