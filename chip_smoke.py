@@ -145,6 +145,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      on the CPU; runners/qwen_pope.run --quant w8a8 grouped on phase 10's
      tree (every stacked call of >= 256 rows on W8A8); K1, K2 and K3 must
      launch in every runner phase;
+ 13c. parallelism (after the bias probe, the 7B trees freed): 2 ranks
+     spawned on the one card (parallel/dryrun.spawn; gloo, both on cuda:0:
+     they measure correctness, not tensor-parallel speed), any rank's
+     failure fatal. Each builds the random 7B int8 tree and runs the POPE
+     runner with --dist auto (dual VDD, --no-group-by-image --batch-size 6,
+     --calibrate): rank 0's merged answers must hold every question once,
+     in order, and equal phase 6's one-rank answers of that layout (each
+     rank's 6 questions are one lockstep call of the same questions as
+     there), questions/s printed beside it; then a TP = 2 engine on the
+     tree (generate dual VDD, generate_batch, generate_batch_groups) under
+     a recorder of the shard shapes each kernel takes, K1, K2 and K3
+     required (launches_by_path tp2, 7b_pope_runner_dist_auto), its
+     first-step logits within 5e-2 of the one-rank engine's; the 2-layer
+     full-width fp32 cut's greedy tokens under data 1 x model 2 and
+     data 2 x model 1 equal to one rank's; one fp32 train step of the cut
+     under both meshes within 1e-3 (loss) and 2 lr (params) of the
+     unsharded step. Then K1, K2 and K3 held against their plain versions
+     and timed at those shard shapes (each kernel's `tp2` record);
  14. the model paths' own shapes: the 7B path, the LLaVA runner phases,
      the Qwen ones and the InstructBLIP ones run under recorders that note
      what reaches each kernel; K1 at every row count they sent a 7B-shaped stack (Qwen-VL-7B's
@@ -189,8 +207,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      epochs (checkpoint_last each epoch) and a resume from checkpoint_last
      for a third; then the 7B cut to 2 decoder / 2 vision layers in fp32
      (TF32 off), 3 AdamW steps (warm-up, clip) and 4 micro-steps with
-     accum_grad_iters=2, card against CPU: each loss within 1e-3
-     relative, every leaf within 2 x lr x updates. K1-K4 must not launch
+     accum_grad_iters=2, card against CPU in lockstep: each loss within
+     1e-3 relative, every leaf within 2 x lr x updates, the gap printed
+     call by call. K1-K4 must not launch
      (launches_by_path 7b_train and train_cli).
 
 Prints a JSON line with each kernel's record (launches: both main paths'
@@ -199,7 +218,7 @@ under prefill, K1's and K4's per decode row count under by_rows, K1's at
 the model paths' other row counts under path_rows, K2's times per path
 under by_path (each row count under its by_rows), K3's per shape under by_shape,
 with its CUDA-graph times as graph_ms / graph_library_ms and its row
-errors);
+errors; K1's, K2's and K3's at the TP = 2 shard shapes under tp2);
 S1-S7: launches, errors and times from the run of the twin that runs
 each, S7's graph times as graph_ms / graph_library_ms), the card's name
 and power limit, then as the last line
@@ -375,20 +394,21 @@ def k1_phase_rows(prefill_rows: int) -> dict:
             for name, (O, D) in SHAPES_7B.items()}
 
 
-def k1_rows_record(rows_by_stack: dict, g, L: int = 32) -> tuple:
+def k1_rows_record(rows_by_stack: dict, g, L: int = 32, shapes=None) -> tuple:
     """K1 against its plain version on random int8 [L, O, D] stacks of
     SHAPES_7B (LLaVA-v1.5-7B's, which Qwen-VL-7B's decoder shares) at each
     row count of rows_by_stack[name], layers 0 and L-1; each row count timed
     (the kernel with the layer rotated, so each call streams weights L2
     does not hold; plain; torch.matmul on a bf16 weight dequantized
     beforehand) and summed over the stacks that take it: ({rows: record
-    with its bound and its stacks}, the largest error)."""
+    with its bound and its stacks}, the largest error). shapes: the
+    stacks' [O, D] by name, when not SHAPES_7B's (a TP shard's)."""
     from llava_align_tpu_torch.ops import quant
     from llava_align_tpu_torch.scripts._common import SHAPES_7B, matmul_work
 
     dev = torch.device("cuda:0")
     per_rows, err = {}, 0.0
-    for name, (O, D) in SHAPES_7B.items():
+    for name, (O, D) in (shapes or SHAPES_7B).items():
         if not rows_by_stack.get(name):
             continue
         q = torch.randint(-127, 128, (L, O, D), dtype=torch.int8, device=dev, generator=g)
@@ -974,8 +994,9 @@ class PathRecorder:
     shape, k shape, dtype) the decoders' causal prefill (models/llama's
     causal_attention, which models/qwen runs too) routes to K3 in `k3`; by
     weight [O, D], each row count that the dispatch of a stacked int8
-    linear (models/llama.int8_matmul_stacked_dispatch) routes to K1 in `k1`
-    and that of an int8 lm_head (models/llama.int8_matmul) routes to K2 in
+    linear (models/llama.int8_matmul_stacked_dispatch, or a tensor-parallel
+    shard's int8_matmul_stacked_tp) routes to K1 in `k1` and that of an
+    int8 lm_head (models/llama.int8_matmul) routes to K2 in
     `k2`; and the seconds of each quantize_qwen_params call (the Qwen
     runners' --quant int8) in `quant_s`. Under act_quant (--quant w8a8) a
     stacked call of W8A8_MIN_ROWS rows or more is noted by rows in `w8a8`
@@ -992,6 +1013,7 @@ class PathRecorder:
         from llava_align_tpu_torch.ops import attention, quant
 
         causal, stacked, lm_head = llama.causal_attention, llama.int8_matmul_stacked_dispatch, llama.int8_matmul
+        stacked_tp = llama.int8_matmul_stacked_tp
         quantize, dequant = quant.quantize_qwen_params, quant.int8_matmul_dequant
 
         def k3_recording(q, k, v, *, impl="auto"):
@@ -1010,6 +1032,13 @@ class PathRecorder:
             if w8a8_due:
                 (self.w8a8 if quant.int8_matmul_w8a8.launches > n0 else self.w8a8_missed)[rows] += 1
             return out
+
+        def k1_tp_recording(h, wq, li, group, mode, **kw):
+            # a tensor-parallel shard: its own [O, D] and rows, as the dispatch reads them
+            rows, (O, D) = h.numel() // h.shape[-1], wq["q"].shape[1:]
+            if quant._stream_rows_ok(rows, O, D) and not (kw.get("act_quant") and rows >= quant.W8A8_MIN_ROWS):
+                self.k1[(O, D)].add(rows)
+            return stacked_tp(h, wq, li, group, mode, **kw)
 
         def dequant_counted(h, q, s):
             self.dequant[(h.numel() // h.shape[-1], q.shape[0], q.shape[1])] += 1
@@ -1032,6 +1061,7 @@ class PathRecorder:
         self.patches = contextlib.ExitStack()
         for obj, attr, fn in ((llama, "causal_attention", k3_recording),
                               (llama, "int8_matmul_stacked_dispatch", k1_recording),
+                              (llama, "int8_matmul_stacked_tp", k1_tp_recording),
                               (llama, "int8_matmul", k2_recording), (quant, "quantize_qwen_params", timed_quantize),
                               (quant, "int8_matmul_dequant", dequant_counted)):
             self.patches.enter_context(patched(obj, attr, fn))
@@ -3298,7 +3328,8 @@ def phase_train_reference(dev) -> None:
     then a second run of 4 micro-steps with accum_grad_iters=2: each step's
     loss within TRAIN_REF_TOL relative, every leaf within 2 x lr x applied
     steps (Adam's sign-like step turns rounding noise in a near-zero
-    gradient into up to +-lr)."""
+    gradient into up to +-lr). Card and CPU run in lockstep, and each
+    call's loss gap and the params' gap after it are printed."""
     from llava_align_tpu_torch.config import LlavaConfig
     from llava_align_tpu_torch.framework.optims import build_optimizer, tree_leaves
     from llava_align_tpu_torch.runners import train as train_cli
@@ -3312,39 +3343,335 @@ def phase_train_reference(dev) -> None:
 
     root = Path(tempfile.mkdtemp(prefix="llava_train_ref_"))
     for accum, calls in ((1, 3), (2, 4)):
-        out = {}
+        runs, secs = {}, {}
         for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-            t0 = time.perf_counter()
-            params = tree_copy(cpu_params, device)
             tx = build_optimizer(init_lr=TRAIN_REF_LR, warmup_steps=1, warmup_start_lr=1e-5, max_steps=3,
                                  max_grad_norm=1.0, accum_grad_iters=accum)
             step, init_state, prep = train_cli._make_train_step("llava", types.SimpleNamespace(cfg=cfg), tx,
                                                                 device=device)
-            batches = caption_loader(cfg, write_caption_files(root, calls), 1, prep)
-            state, losses = init_state(params), []
-            for b in batches:
-                params, state, loss = step(params, state, b)
-                losses.append(float(loss))
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            out[name] = (losses, [x.detach().cpu() for x in tree_leaves(params)], state["count"],
-                         time.perf_counter() - t0)
-            del params, state
-        (cl, cp, cc, ct), (rl, rp, rc, rt) = out["card"], out["cpu"]
-        rel = max(abs(a - b) / abs(b) for a, b in zip(cl, rl))
-        dmax = max(float((a - b).abs().max()) for a, b in zip(cp, rp))
+            params = tree_copy(cpu_params, device)
+            runs[name] = [params, init_state(params), step, caption_loader(cfg, write_caption_files(root, calls), 1,
+                                                                           prep)]
+            secs[name] = 0.0
+        # card and CPU in lockstep, each call's loss and params compared as they go
+        per_step = []
+        for i in range(calls):
+            losses = {}
+            for name, r in runs.items():
+                t0 = time.perf_counter()
+                r[0], r[1], loss = r[2](r[0], r[1], r[3][i])
+                losses[name] = float(loss)
+                if name == "card":
+                    torch.cuda.synchronize()
+                secs[name] += time.perf_counter() - t0
+            with torch.no_grad():
+                dmax = max(float((a.detach().cpu() - b.detach()).abs().max())
+                           for a, b in zip(tree_leaves(runs["card"][0]), tree_leaves(runs["cpu"][0])))
+            per_step.append((losses["card"], losses["cpu"], abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"]),
+                             dmax, int(runs["cpu"][1]["count"])))
+        cl, rl = [x[0] for x in per_step], [x[1] for x in per_step]
+        rel = max(x[2] for x in per_step)
+        dmax = per_step[-1][3]
+        cc, rc = runs["card"][1]["count"], runs["cpu"][1]["count"]
         bound = 2 * TRAIN_REF_LR * rc
         ok = cc == rc == calls // accum and rel <= TRAIN_REF_TOL and dmax <= bound
         log(f"train reference (2-layer 7B cut, fp32, accum {accum}, {calls} calls, {rc} updates): losses card "
             f"{[round(x, 6) for x in cl]} cpu {[round(x, 6) for x in rl]}, max rel {rel:.3g} (tol "
             f"{TRAIN_REF_TOL}); max |param card - cpu| {dmax:.3g} (bound 2 lr steps {bound:.3g}); card "
-            f"{ct:.2f} s, cpu {rt:.2f} s {'ok' if ok else 'FAIL'}")
+            f"{secs['card']:.2f} s, cpu {secs['cpu']:.2f} s {'ok' if ok else 'FAIL'}")
+        # the gap split by call: the loss of call i is computed before its update (call 0: the
+        # untouched params, forward only), the params after it
+        for i, (a, b, r, d, n) in enumerate(per_step):
+            log(f"  call {i}: loss card {a:.8f} cpu {b:.8f}, rel {r:.3g}; after it ({n} updates) max |param card "
+                f"- cpu| {d:.3g}")
         if not ok:
             raise AssertionError("train reference: card and CPU disagree")
+        del runs
     import shutil
 
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the parallel phase: ranks spawned on the one card (gloo, both on cuda:0)
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT = 600.0  # seconds for the ranks, their start included
+# the train cut's batch: one row per 'data' slice, <image> + a 16-token caption
+PARALLEL_TRAIN_ROWS = 2
+# the sharded train step against the unsharded one: Adam's first moment
+# (0.1 x the clipped gradient) per leaf, relative to the leaf's largest
+# (floored at 1e-3 of the tree's largest: the CLIP key bias's gradient is
+# rounding noise), and the params outside the noise elements (the CPU
+# test's 1e-5). A dropped shard gradient or a wrong global norm moves mu
+# by a large part of itself and the params by lr.
+PARALLEL_MU_TOL = 1e-3
+PARALLEL_PARAM_TOL = 1e-5
+
+
+def parallel_train_samples(cfg, n: int) -> list:
+    """n rows of <image> + 16 caption tokens, normalized images from a seed."""
+    from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
+
+    rng = np.random.default_rng(11)
+    H = cfg.vision.image_size
+    return [{"input_ids": [1, IMAGE_TOKEN_INDEX] + rng.integers(3, cfg.text.vocab_size, 16).tolist(),
+             "images": rng.normal(size=(3, H, H)).astype(np.float32)} for _ in range(n)]
+
+
+def parallel_rank(rank: int, world: int, device: str, smoke_dir: str) -> dict:
+    """One rank of the parallel phase (parallel/dryrun.spawn: gloo, every
+    rank on cuda:0). In order: the POPE runner with --dist auto on the 7B
+    int8 tree; the TP = 2 engine on it (generate dual VDD, generate_batch,
+    generate_batch_groups) under a PathRecorder, and on rank 0 the
+    first-step logits against the one-rank engine; the 2-layer full-width
+    fp32 cut's greedy tokens under data = 1, model = 2 and data = 2,
+    model = 1 against one rank; one fp32 train step of the cut under both
+    meshes against the unsharded step. Returns what the parent checks."""
+    import torch.distributed as dist
+
+    from llava_align_tpu_torch.config import LlavaConfig
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.framework.optims import tree_leaves
+    from llava_align_tpu_torch.parallel.dist import rank_device
+    from llava_align_tpu_torch.parallel.mesh import make_mesh
+    from llava_align_tpu_torch.parallel.sharding import shard_params, unshard_params
+    from llava_align_tpu_torch.runners import pope
+    from llava_align_tpu_torch.runners.common import MockTokenizer, pope_groups
+    from llava_align_tpu_torch.train import trainer
+    from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
+
+    dev = rank_device(device)
+    smoke_dir = Path(smoke_dir)
+    out = {}
+
+    def say(msg: str) -> None:
+        log(f"[rank {rank}/{world}, {dist.get_backend()}] {msg}")
+
+    # ---- the POPE runner, --dist auto: one whole 7B per rank, each its chunk
+    lm = load_7b(dev)
+    args = pope.build_parser().parse_args([
+        "--model-path", "random:7b", "--quant", "int8", "--question-file",
+        str(smoke_dir / "smoke_POPE_questions.jsonl"), "--answers-file", str(smoke_dir / "7b_pope_runner_dist.jsonl"),
+        *RUNNER_MODES["pope"], "--cd_alpha", "1", "--cd_beta", "0.1", "--max_new_tokens", str(NEW_TOKENS),
+        "--temperature", "0", "--synthetic-images", "--calibrate", *RUNNER_LAYOUTS["batch"], "--dist", "auto"])
+    reset_launches()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with patched(pope, "load_model", lambda *a, **k: lm):
+        path = pope.run(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out["dist_runner"] = dict(path=path, secs=secs, launches=read_launches())
+    say(f"POPE runner --dist auto: {path} in {secs:.4f} s; launches {out['dist_runner']['launches']}")
+
+    # ---- the TP = 2 engine on the same tree
+    gen = dual_vdd_config()
+    mesh = make_mesh(model=PARALLEL_RANKS, data=1)
+    requests = pope_requests(lm.tokenizer, lm.cfg.vision.image_size)
+    groups = pope_groups(lm.tokenizer, lm.cfg.vision.image_size, 2, seed=1)
+    rec = PathRecorder()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with rec:
+        engine = DecodeEngine(lm.params, lm.cfg, gen, mesh=mesh)
+        first = engine.submit_generate(*requests[0])
+        first_logits = prefill_logits(engine, *requests[0])
+        tp_generate = [engine.generate(ids, image).token_ids for ids, image in requests[1:3]]
+        tp_batch = [o.token_ids for o in engine.generate_batch(requests)]
+        tp_groups = [o.token_ids for o in engine.generate_batch_groups(groups)]
+    torch.cuda.synchronize()
+    tp_secs = time.perf_counter() - t0
+    out["tp2"] = dict(launches=read_launches(), secs=tp_secs, int8_tp=bool(engine._int8_tp),
+                      k1={f"{O}x{D}": sorted(r) for (O, D), r in rec.k1.items()},
+                      k2={f"{O}x{D}": sorted(r) for (O, D), r in rec.k2.items()},
+                      k3=sorted({tuple(q) for q, _, _ in rec.k3}),
+                      shards={k: list(v["q"].shape) for k, v in engine.params["llama"]["layers"].items()
+                              if isinstance(v, dict)})
+    say(f"TP=2 engine (7B int8): generate, generate_batch of {len(requests)}, generate_batch_groups of "
+        f"{len(groups)} x 6 in {tp_secs:.4f} s; launches {out['tp2']['launches']}; shards {out['tp2']['shards']}")
+    if rank == 0:
+        one = DecodeEngine(lm.params, lm.cfg, gen)
+        want = one.submit_generate(*requests[0])
+        a, b = first_logits, prefill_logits(one, *requests[0])
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        out["tp2"].update(first_rel=rel, tokens_equal=first["tokens"] == want["tokens"],
+                          batch_equal=tp_batch == [o.token_ids for o in one.generate_batch(requests)])
+        say(f"TP=2 first-step logits (the image rows' prefill) against the one-rank engine: max rel {rel:.3g} "
+            f"of the largest; first request's tokens "
+            f"{'equal' if out['tp2']['tokens_equal'] else 'differ'}, generate_batch's "
+            f"{'equal' if out['tp2']['batch_equal'] else 'differ'} (bf16: the row-parallel sums round in "
+            "another order)")
+        del one
+    del engine, lm, first
+    torch.cuda.empty_cache()
+
+    # ---- the 2-layer full-width fp32 cut: greedy tokens under both meshes = one rank's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cut_config(LlavaConfig.llava_v15_7b(), torch.float32)
+    params = build_random_llava_params(cfg, device=dev, seed=5)
+    reqs = pope_requests(MockTokenizer(), cfg.vision.image_size)
+    one = DecodeEngine(params, cfg, gen)
+    want = ([one.generate(*reqs[0]).token_ids], [o.token_ids for o in one.generate_batch(reqs)])
+    meshes = {f"data{d}_model{m}": make_mesh(model=m, data=d) for d, m in ((1, PARALLEL_RANKS), (PARALLEL_RANKS, 1))}
+    for name, mesh in meshes.items():
+        eng = DecodeEngine(params, cfg, gen, mesh=mesh)
+        got = ([eng.generate(*reqs[0]).token_ids], [o.token_ids for o in eng.generate_batch(reqs)])
+        out[f"fp32_{name}"] = dict(equal=got == want, tokens=got[0][0], want=want[0][0])
+        say(f"fp32 cut, {name}: generate {got[0][0]} (one rank {want[0][0]}), generate_batch of {len(reqs)} "
+            f"{'equal' if got[1] == want[1] else 'DIFFER'}")
+        del eng
+    del one
+    torch.cuda.empty_cache()
+
+    # ---- one fp32 train step of the cut under both meshes against the unsharded step
+    samples = parallel_train_samples(cfg, PARALLEL_TRAIN_ROWS)
+    pad = -(-(len(samples[0]["input_ids"]) - 1 + cfg.num_image_tokens) // 64) * 64
+    batch = trainer.batch_to_device(trainer.build_train_batch(cfg, samples, pad_to=pad), dev)
+    kw = dict(lr=TRAIN_REF_LR, warmup_steps=0, total_steps=10, max_grad_norm=1.0)
+    opt = trainer.make_optimizer(**kw)
+    ref_p, ref_st, ref_loss = trainer.make_train_step(cfg, opt)(tree_copy(params, dev), opt.init(params), batch)
+    ref_leaves = [x.detach() for x in tree_leaves(ref_p)]
+    ref_mu = tree_leaves(ref_st["mu"])
+    # Adam's first step moves each element by lr * sign(g): the elements
+    # whose gradient is rounding noise (sqrt(nu) below 1e-6 of the
+    # largest) may move either way, 2 lr apart; the rest must agree
+    rms = [x.sqrt() for x in tree_leaves(ref_st["nu"])]
+    top = max(float(x.max()) for x in rms)
+    noise = [(x > 0) & (x < 1e-6 * top) for x in rms]
+    mu_top = max(float(x.abs().max()) for x in ref_mu)
+    for name, mesh in meshes.items():
+        specs = trainer.train_shardings(cfg, params, mesh.shape[1])
+        opt = trainer.make_optimizer(**kw)
+        local = shard_params(tree_copy(params, dev), specs, mesh)
+        t0 = time.perf_counter()
+        local, st, loss = trainer.make_train_step(cfg, opt, mesh=mesh)(local, opt.init(local), batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with torch.no_grad():
+            got = unshard_params(local, specs, mesh)
+            diffs = [(a - b).abs() for a, b in zip(tree_leaves(got), ref_leaves)]
+            dmax = max(float(d[~z].max()) if bool((~z).any()) else 0.0 for d, z in zip(diffs, noise))
+            noise_max = max(float(d[z].max()) if bool(z.any()) else 0.0 for d, z in zip(diffs, noise))
+            # mu = (1 - b1) * the clipped gradient: the gradients and the
+            # clip's global norm, per leaf against the unsharded step's
+            mu = tree_leaves(unshard_params(st["mu"], specs, mesh))
+            mu_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3 * mu_top)
+                         for a, b in zip(mu, ref_mu))
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        out[f"train_{name}"] = dict(loss=float(loss), ref_loss=float(ref_loss), rel=rel, dmax=dmax,
+                                    noise_max=noise_max, n_noise=int(sum(int(z.sum()) for z in noise)),
+                                    mu_rel=mu_rel, secs=secs)
+        say(f"fp32 cut train step, {name}: loss {float(loss):.6f} (unsharded {float(ref_loss):.6f}, rel {rel:.3g}); "
+            f"max |param - unsharded| {dmax:.3g} ({out[f'train_{name}']['n_noise']} noise elements: "
+            f"{noise_max:.3g}); Adam mu (the clipped gradient) per leaf within {mu_rel:.3g} of the leaf's "
+            f"largest; {secs:.3f} s")
+        del local, got, st, mu
+    return out
+
+
+@torch.inference_mode()
+def prefill_logits(engine, ids, image) -> torch.Tensor:
+    """The first-step logits [rows, V] (fp32) of one request's image rows
+    (main, and cd under VCD), as `generate` prefills them."""
+    pad, *pack = engine._pack(ids, True, kinds=engine.img_kinds)
+    feats = engine._request_features(image, None)
+    cache = engine.adapter.init_cache(len(engine.img_kinds), pad + 1, device=engine.device)
+    return engine._prefill(pack, pad, feats, cache, 0, pad + 1).float()
+
+
+def phase_parallel(smoke_dir: Path, smi: str, one_rank_rate: float) -> tuple:
+    """The parallel phase: PARALLEL_RANKS ranks spawned on the one card
+    (gloo, both on cuda:0: two ranks sharing a card measure correctness,
+    not tensor-parallel speed), each running parallel_rank; any rank's
+    failure fails the run. Checks: the --dist auto answers, merged by rank
+    0, hold every question once, in order, and equal the one-rank run's
+    (7b_pope_runner_batch: --no-group-by-image --batch-size 6, so each
+    rank's chunk of 6 questions is one lockstep call of the same 6
+    questions as the one-rank run's, and every kernel sees the same rows);
+    the TP = 2 engine launched K1, K2 and K3 (launches_by_path tp2), with
+    its first-step logits within REFERENCE_TOL (of the largest) of the
+    one-rank engine's;
+    the fp32 cut's greedy tokens equal one rank's under both meshes; the
+    train steps against the unsharded step: the loss within TRAIN_REF_TOL,
+    Adam's first moment (the clipped gradient) per leaf within
+    PARALLEL_MU_TOL of the leaf's largest, the params within
+    PARALLEL_PARAM_TOL except the elements whose gradient is rounding
+    noise (within 2 lr: Adam's first step moves each by lr * sign(g)). Then K1, K2 and K3 are held against their plain
+    versions and timed at the shard shapes the TP engine sent them.
+    Returns (launches by path, the tp2 kernel records)."""
+    from llava_align_tpu_torch.evals.pope import load_jsonl
+    from llava_align_tpu_torch.parallel.dryrun import spawn
+
+    t0 = time.perf_counter()
+    results = spawn(parallel_rank, PARALLEL_RANKS, (str(smoke_dir),), device="cuda", timeout=PARALLEL_TIMEOUT)
+    log(f"parallel phase: {PARALLEL_RANKS} ranks on {smi} (gloo, one card) ran in {time.perf_counter() - t0:.2f} s "
+        "(their start and the trees' builds included)")
+
+    def summed(key: str) -> dict:
+        return {n: sum(r[key]["launches"][n] for r in results) for n in results[0][key]["launches"]}
+
+    # --dist auto
+    merged = load_jsonl(str(smoke_dir / "7b_pope_runner_dist.jsonl"))
+    single = load_jsonl(str(smoke_dir / "7b_pope_runner_batch.jsonl"))
+    n_q = 6 * RUNNER_IMAGES
+    if [r["question_id"] for r in merged] != list(range(n_q)):
+        raise AssertionError(f"--dist auto: merged answers for {[r['question_id'] for r in merged]}")
+    texts_equal = [r["text"] for r in merged] == [r["text"] for r in single]
+    records_equal = merged == single
+    secs = max(r["dist_runner"]["secs"] for r in results)
+    log(f"POPE runner --dist auto ({PARALLEL_RANKS} ranks on one card, LLaVA-v1.5-7B int8, dual VDD, "
+        f"{' '.join(RUNNER_LAYOUTS['batch'])}, --calibrate) on {smi}: {n_q} questions in {secs:.4f} s, "
+        f"{n_q / secs:.4f} questions/s (the one-rank run of the same layout in this run: {one_rank_rate:.4f} "
+        f"questions/s); merged answers {'equal' if texts_equal else 'DIFFER from'} the one-rank run's, whole "
+        f"records {'equal' if records_equal else 'differ'}")
+    if not texts_equal:
+        raise AssertionError("--dist auto: the merged answers differ from the one-rank run's")
+    paths = {"7b_pope_runner_dist_auto": summed("dist_runner"), "tp2": summed("tp2")}
+    require_launches(paths["7b_pope_runner_dist_auto"], K123, "the POPE runner under --dist auto")
+    require_launches(paths["tp2"], K123, "the TP = 2 engine")
+    tp = results[0]["tp2"]
+    log(f"TP=2 engine on {smi}: int8 TP {tp['int8_tp']}, shards {tp['shards']}, {tp['secs']:.4f} s (two ranks "
+        f"on one card: correctness, not TP speed); launches {paths['tp2']}; K1 rows by shard {tp['k1']}, "
+        f"K2 {tp['k2']}, K3 q shapes {tp['k3']}; first-step logits within {tp['first_rel']:.3g} of the one-rank "
+        f"engine's largest (tol {REFERENCE_TOL})")
+    if not tp["int8_tp"] or not tp["first_rel"] <= REFERENCE_TOL:
+        raise AssertionError("TP = 2 engine: int8 TP off, or first-step logits off the one-rank engine's")
+    for res in results:
+        for name in ("data1_model2", "data2_model1"):
+            if not res[f"fp32_{name}"]["equal"]:
+                raise AssertionError(f"fp32 cut {name}: greedy tokens differ from one rank's")
+            t = res[f"train_{name}"]
+            if not (t["rel"] <= TRAIN_REF_TOL and t["mu_rel"] <= PARALLEL_MU_TOL and t["dmax"] <= PARALLEL_PARAM_TOL
+                    and t["noise_max"] <= 2 * TRAIN_REF_LR):
+                raise AssertionError(f"train step {name}: loss rel {t['rel']:.3g}, mu {t['mu_rel']:.3g}, params "
+                                     f"{t['dmax']:.3g} or noise elements {t['noise_max']:.3g} off")
+    log("parallel phase: fp32 cut greedy tokens equal one rank's under data 1 x model 2 and data 2 x model 1; "
+        "train steps " + ", ".join(
+            f"{n}: loss rel {results[0][f'train_{n}']['rel']:.3g}, mu {results[0][f'train_{n}']['mu_rel']:.3g}, "
+            f"params {results[0][f'train_{n}']['dmax']:.3g} (noise elements {results[0][f'train_{n}']['noise_max']:.3g})"
+            for n in ("data1_model2", "data2_model1"))
+        + f" (tol {TRAIN_REF_TOL}, {PARALLEL_MU_TOL:g}, {PARALLEL_PARAM_TOL:g}, {2 * TRAIN_REF_LR:g})")
+
+    # the kernels at the shard shapes the TP engine sent them
+    g = torch.Generator(device="cuda:0").manual_seed(13)
+    log("kernels at the TP = 2 shard shapes (random weights of those shapes), against their plain versions")
+    shapes = {k: tuple(int(x) for x in k.split("x")) for k in tp["k1"]}
+    k1_rows, k1_err = k1_rows_record({k: tuple(v) for k, v in tp["k1"].items()}, g, shapes=shapes)
+    (k2_shape, k2_rows), = tp["k2"].items()
+    O, D = (int(x) for x in k2_shape.split("x"))
+    k2, k2_err = k2_path_record(O, D, k2_rows, max(r for r in k2_rows if r <= 64), g)
+    k3 = phase_kernel_flash([tuple(q) for q in tp["k3"]])
+    records = {"K1": dict(shapes={k: list(v) for k, v in shapes.items()}, max_abs_err=k1_err,
+                          by_rows={str(B): r for B, r in sorted(k1_rows.items())}),
+               "K2": dict(k2, max_abs_err=k2_err),
+               "K3": dict(by_shape=k3["by_shape"], max_abs_err=k3["max_abs_err"], max_row_err=k3["max_row_err"])}
+    return paths, records
 
 
 def main() -> int:
@@ -3410,6 +3737,14 @@ def main() -> int:
     log(f"W8A8 runner, int8 KV cache, sampling sweep and bias probe phases wall {time.perf_counter() - t0:.2f} s")
     del lm, llava, llava_w8a8  # the 7B int8 tree goes before the bf16 one of the MMMU runner is built
     torch.cuda.empty_cache()
+    # parallelism: ranks spawned on the card (their own trees; this process holds none now)
+    t0 = time.perf_counter()
+    par_paths, par_records = phase_parallel(smoke_dir, smi, vdd_rates["batch"])
+    by_path.update(par_paths)
+    for kid, r in par_records.items():
+        rec[kid]["tp2"] = r
+        rec[kid]["max_abs_err"] = max(rec[kid]["max_abs_err"], r["max_abs_err"])
+    log(f"parallel phase wall {time.perf_counter() - t0:.2f} s (the ranks' start, builds and kernel checks included)")
     llava_bf16 = RunnerModel("7b", "LLaVA-v1.5-7B bf16", (mmmu, "load_model"), load_7b(dev, "none"),
                              ("--model-path", "random:7b"), kernels=("flash_attention",))
     by_path["7b_mmmu_runner"] = phase_mmmu(llava_bf16, smoke_dir, smi, rec_llava)
@@ -3561,7 +3896,7 @@ def main() -> int:
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("by_rows", "by_path", "prefill", "rows_by_path", "path_rows", "graph_ms", "graph_library_ms",
-             "max_row_err", "by_shape")
+             "max_row_err", "by_shape", "tp2")
     kernels = [
         dict(name=n, route="cuda", source=src, replaces=rep,
              launches=sum(p[n] for p in by_path.values()),

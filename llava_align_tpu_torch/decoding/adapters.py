@@ -45,12 +45,91 @@ class LlavaAdapter:
     kv_quant = False
     supports_kv_quant = True
 
+    # Tensor parallelism (set by DecodeEngine(mesh=...) on its copy of the
+    # adapter): the ('data', 'model') DeviceMesh the tree is sharded over
+    # (embed, lm_head and the vision tower always), whether the decoder's
+    # layer stacks are split too (not int4 ones, nor int8 ones the engine
+    # could not align), and the kv heads of this rank's cache. Only LLaVA
+    # takes a mesh with a 'model' axis above 1 (the others: ROADMAP item 8b).
+    supports_tp = True
+    tp_mesh = None
+    tp_layers = False
+    cache_kv_heads = None
+
     def __init__(self, cfg: LlavaConfig):
         self.cfg = cfg
 
     @property
     def num_image_tokens(self) -> int:
         return self.cfg.num_image_tokens
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.cfg.text.num_kv_heads
+
+    # --- sharding (TP over the 'model' mesh axis) ---------------------------
+    def int8_tp_ready(self, params, n_shards: int) -> bool:
+        """True iff every int8 stack's per-shard dim stays lane-aligned:
+        then the quantized matmuls run tensor-parallel
+        (ops/quant.int8_matmul_stacked_tp)."""
+        from llava_align_tpu_torch.ops.quant import int8_tp_aligned, int8_tp_mode, is_quantized
+
+        layers = params.get("llama", {}).get("layers", {})
+        qs = {k: v for k, v in layers.items() if is_quantized(v)}
+        # kv heads that do not split n ways leave the int8 stacks whole
+        # (models/llama.forward splits only float k/v stacks at heads)
+        return (bool(qs) and self.cfg.text.num_kv_heads % n_shards == 0
+                and all(int8_tp_aligned(v, int8_tp_mode(k), n_shards) for k, v in qs.items()))
+
+    def int8_tp_pad(self, params, n_shards: int):
+        """Lane-align misaligned int8 MLP stacks by bit-inert padding
+        (ops/quant.pad_llama_quantized_for_tp); params unchanged when there
+        is nothing to pad."""
+        from llava_align_tpu_torch.ops.quant import pad_llama_quantized_for_tp
+
+        llama_p = params.get("llama")
+        if not isinstance(llama_p, dict) or "layers" not in llama_p:
+            return params
+        new_layers, changed = pad_llama_quantized_for_tp(llama_p["layers"], n_shards)
+        if not changed:
+            return params
+        return dict(params, llama=dict(llama_p, layers=new_layers))
+
+    def param_shardings(self, params, mesh):
+        """Megatron TP specs for the whole tree (parallel/sharding, leaf for
+        leaf the JAX adapter's placement). int8 stacks split column/row
+        when int8_tp_ready (the fused q|k|v and gate|up block by block);
+        otherwise, and for int4 stacks, they stay whole."""
+        from llava_align_tpu_torch.ops.quant import int8_tp_mode, is_quantized, is_quantized_int4
+        from llava_align_tpu_torch.parallel import sharding as shd
+        from llava_align_tpu_torch.parallel.mesh import axis_size
+
+        n = axis_size(mesh, "model")
+        partial = shd.llava_param_shardings(self.cfg, params, n)
+        ready = n > 1 and self.int8_tp_ready(params, n)
+        t = self.cfg.text
+        lay = dict(partial["llama"]["layers"])
+        for k, v in params["llama"]["layers"].items():
+            if is_quantized_int4(v) or (is_quantized(v) and not ready):
+                lay[k] = None
+            elif is_quantized(v):
+                if k == "qkv":
+                    lay[k] = shd.Shard(1, blocks=(t.q_dim, t.kv_dim, t.kv_dim))
+                elif k == "gateup":
+                    half = int(v["q"].shape[1]) // 2
+                    lay[k] = shd.Shard(1, blocks=(half, half))
+                else:
+                    lay[k] = shd.Shard(1 if int8_tp_mode(k) == "column" else 2)
+        partial["llama"] = dict(partial["llama"], layers=lay)
+        return shd.complete_shardings(params, partial)
+
+    def _tp_group(self):
+        """The 'model' group the embed and lm_head are split over, or None."""
+        if self.tp_mesh is None:
+            return None
+        from llava_align_tpu_torch.parallel.mesh import axis_group
+
+        return axis_group(self.tp_mesh, "model")
 
     @property
     def vision_dtype(self) -> torch.dtype:
@@ -71,19 +150,21 @@ class LlavaAdapter:
         raise ValueError(kind)
 
     def encode_images(self, params: Params, images: torch.Tensor) -> torch.Tensor:
-        return llava.encode_images(params, self.cfg, images)
+        return llava.encode_images(params, self.cfg, images, self.tp_mesh)
 
     def splice_embeds(self, params, tokens, tok_g, img_g, is_img, feats):
-        return llava.splice_embeds(params, self.cfg, tokens, tok_g, img_g, is_img, feats)
+        return llava.splice_embeds(params, self.cfg, tokens, tok_g, img_g, is_img, feats,
+                                   self._tp_group())
 
     def embed_tokens(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
-        return llama.embed_tokens(params["llama"], ids)
+        return llama.embed_tokens(params["llama"], ids, self._tp_group())
 
     def params_device(self, params: Params) -> torch.device:
         return params["llama"]["embed"].device
 
     def init_cache(self, batch: int, max_len: int, device=None):
-        return llama.init_cache(self.cfg.text, batch, max_len, kv_quant=self.kv_quant, device=device)
+        return llama.init_cache(self.cfg.text, batch, max_len, kv_quant=self.kv_quant, device=device,
+                                num_kv_heads=self.cache_kv_heads)
 
     def forward(self, params, embeds, positions, cache, offsets, *, attn_impl="auto",
                 max_seq_len: int, cache_row_offset=0, shared_kv=None, shared_len=None,
@@ -96,6 +177,7 @@ class LlavaAdapter:
             shared_len=shared_len,
             shared_rows_per_prefix=shared_rows_per_prefix,
             shared_rows_per_prefix2=shared_rows_per_prefix2, act_quant=self.act_quant,
+            tp_mesh=self.tp_mesh if self.tp_layers else None,
         )
 
     # Shared-prefix decoding (engine.generate_batch_groups) needs the model
@@ -103,7 +185,7 @@ class LlavaAdapter:
     supports_shared_prefix = True
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-        return llama.logits_from_hidden(params["llama"], hidden)
+        return llama.logits_from_hidden(params["llama"], hidden, self._tp_group())
 
 
 class LlavaMptAdapter(LlavaAdapter):
@@ -111,6 +193,8 @@ class LlavaMptAdapter(LlavaAdapter):
     llava_mpt.py): LLaVA's vision tower, projector and splice, the alibi
     MPT decoder (models/mpt). cfg: models.llava_mpt.LlavaMptConfig; params
     {'mpt', 'vision', 'projector'}."""
+
+    supports_tp = False  # the mesh for this family: ROADMAP item 8b
 
     name = "llava_mpt"
     supports_shared_prefix = False  # mpt.forward has no shared-segment path
@@ -233,6 +317,8 @@ class InstructBlipAdapter(LlavaAdapter):
     inputs_llm / inputs_llm_cd once per question before llm.generate. The
     decoder side (splice, embeddings, cache, forward, logits) is LLaVA's
     LLaMA, with LlavaAdapter's act_quant and kv_quant."""
+
+    supports_tp = False  # the mesh for this family: ROADMAP item 8b
 
     name = "instructblip"  # cfg: models.instructblip.InstructBlipConfig
 

@@ -20,7 +20,9 @@ descending sort; torch.topk promises no order among equal values).
 The loop is an eager Python loop with one host read a step (`done`), as
 the engine's other loops read their tokens; the JAX package runs it on the
 device in lax.while_loop. Unlike it, the loop skips the forward after the
-last step.
+last step. Under DecodeEngine(mesh=...) the adapter the loop calls carries
+the mesh (JAX's beam takes it as tp_mesh), so its forwards run
+tensor-parallel and every rank gets the same beams.
 """
 
 from __future__ import annotations

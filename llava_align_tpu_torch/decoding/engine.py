@@ -31,7 +31,24 @@ The JAX engine's two opt-in serving modes are taken as it takes them:
 act_quant=True (W8A8: int8 stacks take the W8A8 product at prefill row
 counts, ops/quant.int8_matmul_w8a8) and kv_quant="int8" (the int8 KV cache,
 shared prefix segments included). Neither is bit-exact with the default
-path, by design. Not ported yet: mesh.
+path, by design.
+
+mesh= (a ('data', 'model') DeviceMesh, parallel/mesh; one process per
+rank, every rank calls the same entry point with the same inputs and gets
+the whole result): the params are sharded at init over 'model' by the
+adapter's Megatron specs (LLaVA only; int8 stacks lane-padded where that
+makes them TP-ready, as in the JAX engine; int4 stacks stay whole), the KV
+cache holds the local kv heads, and the forwards carry their collectives.
+Data parallelism over 'data' splits the lockstep work by question
+(generate_batch) or by group (generate_batch_groups), never by row: a
+question's main/unk/none/cd rows stay together, as the fusion reads them
+together. The outputs are then gathered, so every rank returns the whole
+batch. A single request (generate, generate_beam) runs whole on every
+'data' slice. Every slice draws from one stream as the unsharded engine
+does: the VCD noise of a split batch is drawn for the whole batch and
+sliced, and a sampled decode gathers every slice's scores each step and
+samples them whole, so a split batch's tokens, greedy or sampled, are the
+unsharded engine's.
 """
 
 from __future__ import annotations
@@ -40,7 +57,7 @@ import copy
 import dataclasses
 import logging
 import time
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,8 +70,25 @@ from llava_align_tpu_torch.decoding.beam import make_beam_fn
 from llava_align_tpu_torch.models import llava as llava_model
 from llava_align_tpu_torch.ops.image import normalize_device, normalize_host
 from llava_align_tpu_torch.ops.noise import add_diffusion_noise
+from llava_align_tpu_torch.parallel import comm
+from llava_align_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 
 Params = Dict[str, Any]
+
+
+def draw_noise_eps(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """The VCD noise's standard-normal draw for a batch split over 'data'
+    (fp32, from `generator`, as ops/noise.add_diffusion_noise draws it)."""
+    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+class _DataSplit(NamedTuple):
+    """This 'data' slice's share of a split batch: its rows of the VCD
+    noise drawn for the whole batch (None without use_cd or images), and
+    every slice's question count."""
+
+    eps: Optional[torch.Tensor]
+    counts: Tuple[int, ...]
 
 logger = logging.getLogger("llava_align_tpu_torch.engine")
 
@@ -140,6 +174,7 @@ class DecodeEngine:
         device: Optional[torch.device] = None,
         act_quant: bool = False,
         kv_quant: Optional[str] = None,
+        mesh=None,
     ):
         self.params = params
         self.cfg = cfg
@@ -162,6 +197,53 @@ class DecodeEngine:
         self.bucket = bucket
         self.top_scores_k = top_scores_k
         self.device = torch.device(device) if device is not None else self.adapter.params_device(params)
+        self.mesh = mesh
+        self._model_size = axis_size(mesh, "model")
+        self._data_size = axis_size(mesh, "data")
+        self._data_rank = axis_rank(mesh, "data")
+        self._data_group = axis_group(mesh, "data") if self._data_size > 1 else None
+        self._int8_tp = False
+        if self._model_size > 1:
+            self._shard_over_model()
+
+    def _shard_over_model(self):
+        """The JAX engine's readiness/padding decision (engine.py:228-294),
+        then the params sharded by the adapter's specs and the adapter
+        copied with the mesh and this rank's cache kv heads."""
+        from llava_align_tpu_torch.ops.quant import is_quantized, is_quantized_int4
+        from llava_align_tpu_torch.parallel.sharding import shard_params
+
+        adapter, m, params = self.adapter, self._model_size, self.params
+        if not getattr(adapter, "supports_tp", False):
+            raise NotImplementedError(
+                f"adapter {getattr(adapter, 'name', '?')!r} takes no mesh with a 'model' axis "
+                f"above 1 (ROADMAP Queue 1 item 8b); use model=1 (data parallelism)")
+        layers = params["llama"]["layers"]
+        has_quant = any(is_quantized(v) for v in layers.values())
+        has_quant4 = any(is_quantized_int4(v) for v in layers.values())
+        if has_quant and not adapter.int8_tp_ready(params, m):
+            padded = adapter.int8_tp_pad(params, m)
+            if padded is not params and adapter.int8_tp_ready(padded, m):
+                params = padded
+        self._int8_tp = has_quant and adapter.int8_tp_ready(params, m)
+        attn_split = not has_quant4 and (self._int8_tp or not has_quant)
+        K = adapter.num_kv_heads
+        if has_quant and not self._int8_tp:
+            logger.warning(
+                "int8-quantized stacks are replicated across the %d-way 'model' axis (per-shard dims "
+                "not lane-aligned for the TP kernels); TP shards only the float tensors.", m)
+        if has_quant4:
+            logger.warning(
+                "int4-quantized stacks are replicated across the %d-way 'model' axis (no int4 TP "
+                "kernel); use int8 for TP serving.", m)
+        self.params = shard_params(params, adapter.param_shardings(params, self.mesh), self.mesh,
+                                   self.device)
+        self.adapter = copy.copy(adapter)
+        self.adapter.tp_mesh = self.mesh
+        self.adapter.tp_layers = attn_split
+        # the cache holds the local kv heads where they split (the JAX
+        # engine's _kv_shardable), else every kv head
+        self.adapter.cache_kv_heads = K // m if attn_split and K % m == 0 else K
 
     # ------------------------------------------------------------------
     # host-side packing (identical to the JAX engine's _pack)
@@ -248,16 +330,20 @@ class DecodeEngine:
     # device side
     # ------------------------------------------------------------------
 
-    def _encode(self, images: np.ndarray, generator: torch.Generator) -> torch.Tensor:
+    def _encode(self, images: np.ndarray, generator: torch.Generator, eps=None) -> torch.Tensor:
         """[G, 3, H, W] pixels (uint8 raw, normalized on the device, or
         normalized floats) → [G, N, D] features; with use_cd [2G, N, D]:
         the clean images' then their diffusion-noised copies', the noise
-        drawn from `generator` in normalized pixel space, in one
-        vision-tower call."""
+        drawn from `generator` in normalized pixel space (or given: `eps`,
+        this slice's rows of a split batch's draw), in one vision-tower
+        call."""
         pixels = normalize_device(torch.from_numpy(np.ascontiguousarray(images)).to(self.device),
                                   self.adapter.vision_dtype)
         if self.gen.use_cd:
-            noised = add_diffusion_noise(pixels, self.gen.noise_step, generator=generator)
+            if eps is None:
+                noised = add_diffusion_noise(pixels, self.gen.noise_step, generator=generator)
+            else:
+                noised = add_diffusion_noise(pixels, self.gen.noise_step, eps=eps)
             pixels = torch.cat([pixels, noised])
         return self.adapter.encode_images(self.params, pixels)
 
@@ -517,11 +603,22 @@ class DecodeEngine:
         collect_batch. The loop reads each step's tokens, so this returns
         when the decode is done (the JAX engine returns at dispatch): the
         POPE runner's order (submit the main call and both scoring calls,
-        then collect) is kept but overlaps nothing here."""
+        then collect) is kept but overlaps nothing here. Under a mesh with
+        a 'data' axis each slice runs its chunk of the questions and the
+        handle holds the whole batch (every rank's)."""
+        if self._data_size > 1 and batch:
+            present = [(i, im) for i, (ids, im) in enumerate(batch)
+                       if im is not None and IMAGE_TOKEN_INDEX in [int(t) for t in ids]]
+            generator, split, (lo, hi) = self._split(len(batch), present, generator)
+            local = self._submit_batch(batch[lo:hi], generator, split)
+            return self._gather_handle(local, split.counts, {"lens_img": len(self.img_kinds)})
+        return self._submit_batch(batch, generator)
+
+    def _submit_batch(self, batch, generator, split=None):
         t0 = time.perf_counter()
         Q = len(batch)
         if Q == 0:
-            return []
+            return self._empty_handle(split, generator) if split is not None else []
         img_packs, txt_packs, slots, present = [], [], [], []
         for qi, (input_ids, image) in enumerate(batch):
             n_sentinels = sum(1 for t in input_ids if t == IMAGE_TOKEN_INDEX)
@@ -551,12 +648,12 @@ class DecodeEngine:
         images = self._assemble_images(slots, Q)[present] if present else None
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(self.gen.seed)
-        out = self._run_batch(Q, pack_img, pack_txt, images, generator)
+        out = self._run_batch(Q, pack_img, pack_txt, images, generator, split)
         out.update(lens_img=pack_img[4], n_img=len(self.img_kinds),
                    seconds_to_first_token=out["t_first"] - t0, seconds_total=time.perf_counter() - t0)
         return out
 
-    def _run_batch(self, Q, pack_img, pack_txt, images, generator):
+    def _run_batch(self, Q, pack_img, pack_txt, images, generator, split=None):
         """The device side of submit_batch: encode (only when a row takes
         image features), the two prefills, and the decode loop over the
         cache rows [Q * n_img image rows | Q * n_txt text rows]."""
@@ -580,7 +677,8 @@ class DecodeEngine:
         # cache row -> question, to broadcast each sampled token to its rows
         row_to_q = np.concatenate([np.repeat(np.arange(Q), n_img), np.repeat(np.arange(Q), n_txt)])
 
-        feats = self._encode(images, generator) if images is not None else None
+        eps = split.eps if split is not None else None
+        feats = self._encode(images, generator, eps) if images is not None else None
         cache = adapter.init_cache(Q * nb, cache_len, device=dev)
         logits = self._prefill(pack_img, pad_img, feats, cache, 0, cache_len)
         lengths_host = pack_img[4].astype(np.int64)
@@ -597,7 +695,7 @@ class DecodeEngine:
             lengths = lengths + 1
             return adapter.logits(params, hidden[:, 0])
 
-        return self._lockstep_decode(logits, perm, row_to_q, step, generator)
+        return self._lockstep_decode(logits, perm, row_to_q, step, generator, split)
 
     def collect_batch(self, handle) -> List[GenerationOutput]:
         """Fetch a submit_batch handle's outputs to the host, one
@@ -607,7 +705,7 @@ class DecodeEngine:
         lens_img, n_img = handle["lens_img"], handle["n_img"]
         return _collect(handle, [int(lens_img[q * n_img]) for q in range(len(handle["n_done"]))])
 
-    def _lockstep_decode(self, logits, perm, row_to_q, step, generator):
+    def _lockstep_decode(self, logits, perm, row_to_q, step, generator, split=None):
         """The decode loop of the lockstep entry points (generate_batch,
         generate_batch_groups) over Q questions: logits [R, V] of the cache
         rows after the prefills, perm[q * nb + b] the cache row of branch b
@@ -617,8 +715,14 @@ class DecodeEngine:
         each question stops on its own done flag (EOS, a stop keyword, or
         max_new_tokens), and a finished question's later tokens are pad.
         Returns the tokens [Q, T], each question's count, and the
-        first-step scores with their softmax top-k."""
+        first-step scores with their softmax top-k.
+
+        split: this slice's share of a batch split over 'data'. A sampled
+        decode then gathers every slice's scores each step, samples them
+        whole (one stream, as the unsharded engine draws) and keeps this
+        slice's rows; every slice steps until every question is done."""
         gen = self.gen
+        sync = split is not None and gen.do_sample
         nb = len(self.kinds)
         Q, V, T = len(perm) // nb, logits.shape[-1], gen.max_new_tokens
         fuse_and_warp = _make_fuse_and_warp(gen, nb - 1)
@@ -632,7 +736,10 @@ class DecodeEngine:
             warped = fuse_and_warp(logits[perm_t].reshape(Q, nb, V))
             if first_scores is None:
                 first_scores = warped
-            toks = S.sample_token(generator, warped, gen.do_sample).cpu().numpy()
+            if sync:
+                toks = self._sample_whole(warped, split.counts, generator).cpu().numpy()
+            else:
+                toks = S.sample_token(generator, warped, gen.do_sample).cpu().numpy()
             if t_first is None:
                 t_first = time.perf_counter()
             toks = np.where(done, gen.pad_token_id, toks)
@@ -641,7 +748,7 @@ class DecodeEngine:
             done_now = (toks == gen.eos_token_id) | _stop_hits(out_buf, n, kws)
             n_done = np.where(done_now & ~done, n, n_done)
             done = done | done_now | (n >= T)
-            if done.all():
+            if self._all_done(done, sync):
                 break
             logits = step(torch.from_numpy(toks[row_to_q]).to(self.device))
 
@@ -709,7 +816,19 @@ class DecodeEngine:
         until collect_batch_groups. The loop reads each step's tokens,
         so this returns when the decode is done (the JAX engine returns at
         dispatch): submitting call g+1 before collecting call g keeps the
-        runner's call order but overlaps nothing here."""
+        runner's call order but overlaps nothing here. Under a mesh with a
+        'data' axis each slice runs its chunk of the groups and the handle
+        holds every group's questions."""
+        if self._data_size > 1 and groups:
+            Qg = len(groups[0][1])
+            present = [(i, g[2]) for i, g in enumerate(groups) if len(g) > 2 and g[2] is not None]
+            generator, split, (lo, hi) = self._split(len(groups), present, generator, Qg)
+            local = self._submit_batch_groups(groups[lo:hi], generator, split)
+            return self._gather_handle(local, split.counts, {"p_lens": 1.0 / Qg, "suf_lens": 1},
+                                       extra=dict(Qg=Qg, M=len(groups) * Qg))
+        return self._submit_batch_groups(groups, generator)
+
+    def _submit_batch_groups(self, groups, generator, split=None):
         t0 = time.perf_counter()
         if self.gen.use_cd and any(len(g) < 3 or g[2] is None for g in groups):
             raise ValueError(
@@ -720,7 +839,7 @@ class DecodeEngine:
             raise ValueError(f"adapter {self.adapter.name!r} has no shared-prefix forward")
         G = len(groups)
         if G == 0:
-            return []
+            return self._empty_handle(split, generator) if split is not None else []
         groups = [tuple(g) + (None,) * (4 - len(g)) for g in groups]
         Qg = len(groups[0][1])
         if Qg == 0 or any(len(g[1]) != Qg for g in groups):
@@ -804,14 +923,14 @@ class DecodeEngine:
         max_full = max(int(pack_prefix[4][row // Qg]) + int(suf_lens[row]) for row in range(M))
         ntk_pad = _round_up(max(max_full, self.bucket), self.bucket)
         out = self._run_groups(G, Qg, sh_kinds, pl_kinds, pack_prefix, suf_tokens, suf_lens,
-                               pack_tp, pack_txt, images, generator, ntk_pad)
+                               pack_tp, pack_txt, images, generator, ntk_pad, split)
         out.update(p_lens=pack_prefix[4], suf_lens=suf_lens, Qg=Qg, M=M,
                    seconds_to_first_token=out["t_first"] - t0,
                    seconds_total=time.perf_counter() - t0)
         return out
 
     def _run_groups(self, G, Qg, sh_kinds, pl_kinds, pack_prefix, suf_tokens, suf_lens,
-                    pack_tp, pack_txt, images, generator, ntk_pad):
+                    pack_tp, pack_txt, images, generator, ntk_pad, split=None):
         """The device side of submit_batch_groups: encode, the three
         prefills, and the decode loop over the row layout
         [G*n_img segment blocks of Qg image rows | G*n_sh blocks of Qg
@@ -866,7 +985,7 @@ class DecodeEngine:
 
         # ---- vision ([clean; noised] under use_cd, into segment order),
         # then the shared prefix segments: G * n_img rows
-        feats = self._encode(images, generator)
+        feats = self._encode(images, generator, split.eps if split is not None else None)
         N, D = feats.shape[1], feats.shape[2]
         feats = feats.reshape(n_img, G, N, D).transpose(0, 1).reshape(G * n_img, N, D)
         p_cache = adapter.init_cache(G * n_img, pack_prefix[1].shape[1], device=dev)
@@ -926,7 +1045,7 @@ class DecodeEngine:
             lengths = lengths + 1
             return adapter.logits(params, hidden[:, 0])
 
-        return self._lockstep_decode(logits, perm, row_to_q, step, generator)
+        return self._lockstep_decode(logits, perm, row_to_q, step, generator, split)
 
     def collect_batch_groups(self, handle) -> List[GenerationOutput]:
         """Fetch a submit_batch_groups handle's outputs to the host, one
@@ -961,6 +1080,83 @@ class DecodeEngine:
             bases.append(base)
         return bases
 
+    # ------------------------------------------------------------------
+    # data parallelism: one stream for the whole batch, the ranks' chunks
+    # gathered into one handle
+    # ------------------------------------------------------------------
+
+    def _split(self, n: int, images: Sequence[tuple], generator, per_item: int = 1):
+        """This 'data' slice's chunk (lo, hi) of n items (questions, or
+        groups of per_item questions), its _DataSplit and the generator
+        (seeded from gen.seed when None). images: (item index, image) of
+        the items whose image is encoded. Under use_cd the generator first
+        draws the noise of all of them, as the unsharded engine does, and
+        the split keeps this chunk's rows."""
+        counts, (lo, hi) = _data_chunks(n, self._data_size, self._data_rank)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(self.gen.seed)
+        eps = None
+        if self.gen.use_cd and images:
+            whole = draw_noise_eps((len(images),) + tuple(np.shape(images[0][1])), generator, self.device)
+            mine = [k for k, (i, _) in enumerate(images) if lo <= i < hi]
+            eps = whole[mine[0] : mine[-1] + 1] if mine else None
+        return generator, _DataSplit(eps, tuple(c * per_item for c in counts)), (lo, hi)
+
+    def _sample_whole(self, warped: torch.Tensor, counts: Sequence[int], generator) -> torch.Tensor:
+        """Sample this slice's rows of a split batch: every slice's warped
+        scores gathered, sampled whole from the one stream, then sliced."""
+        lo = sum(counts[: self._data_rank])
+        full = comm.gather_rows(warped.float().contiguous(), counts, self._data_group)
+        return S.sample_token(generator, full, True)[lo : lo + warped.shape[0]]
+
+    def _all_done(self, done: np.ndarray, sync: bool) -> bool:
+        """True when every question is done: this slice's, or with sync
+        every slice's (one all_reduce of the open count)."""
+        if not sync:
+            return bool(done.all())
+        n_open = torch.tensor([int((~done).sum())], dtype=torch.long, device=self.device)
+        return int(comm.all_reduce_(n_open, self._data_group)) == 0
+
+    def _empty_handle(self, split: "_DataSplit", generator) -> dict:
+        """A handle of zero questions (a 'data' slice whose chunk is empty:
+        it still joins the gather and, in a sampled decode, each step's
+        draw)."""
+        V, T = int(self.cfg.text.vocab_size), self.gen.max_new_tokens
+        k = min(self.top_scores_k, V)
+        dev = self.device
+        if self.gen.do_sample:
+            none = torch.zeros((0, V), dtype=torch.float32, device=dev)
+            while True:
+                self._sample_whole(none, split.counts, generator)
+                if self._all_done(np.zeros((0,), bool), True):
+                    break
+        return dict(out_buf=np.zeros((0, T), np.int64), n_done=np.zeros((0,), np.int64),
+                    top_probs=torch.zeros((0, k), dtype=torch.float32, device=dev),
+                    top_ids=torch.zeros((0, k), dtype=torch.long, device=dev),
+                    first_scores=torch.zeros((0, V), dtype=torch.float32, device=dev),
+                    lens_img=np.zeros((0,), np.int32), p_lens=np.zeros((0,), np.int32),
+                    suf_lens=np.zeros((0,), np.int32), t_first=time.perf_counter(),
+                    n_img=len(self.img_kinds), seconds_to_first_token=0.0, seconds_total=0.0)
+
+    def _gather_handle(self, local: dict, counts: Sequence[int], per_question: Mapping[str, float],
+                       extra: Optional[dict] = None) -> dict:
+        """Concatenate the 'data' slices' handles in rank order (counts:
+        each slice's questions): out_buf, n_done, first_scores and its
+        top-k (a row per question), and the keys of per_question, with
+        their rows per question (lens_img: n_img; p_lens: 1/Qg, one per
+        group). Every rank gathers the same keys, its chunk empty or not."""
+        group, dev = self._data_group, self.device
+        out = dict(local, **(extra or {}))
+        for key in ["out_buf", "n_done", "first_scores", "top_probs", "top_ids"] + list(per_question):
+            x = local[key]
+            host = isinstance(x, np.ndarray)
+            t = torch.from_numpy(np.ascontiguousarray(x)).to(dev) if host else x
+            per = per_question.get(key, 1)
+            rows = [int(round(c * per)) for c in counts]
+            t = comm.gather_rows(t.contiguous(), rows, group)
+            out[key] = t.cpu().numpy() if host else t
+        return out
+
     @staticmethod
     def common_token_prefix(token_lists: Sequence[Sequence[int]]) -> int:
         """Longest common prefix length over token lists, capped so every
@@ -974,6 +1170,14 @@ class DecodeEngine:
         while p < lo - 1 and all(t[p] == first[p] for t in token_lists):
             p += 1
         return p
+
+
+def _data_chunks(n: int, data: int, rank: int):
+    """Each 'data' slice's count of n items split as runners/common.
+    split_list splits (contiguous, ceil-sized), and this rank's (lo, hi)."""
+    size = -(-n // data)
+    bounds = [(min(r * size, n), min((r + 1) * size, n)) for r in range(data)]
+    return [hi - lo for lo, hi in bounds], bounds[rank]
 
 
 def _top_scores(first_scores: torch.Tensor, k: int):

@@ -19,9 +19,15 @@ accumulate. `AdamW` below computes the same chain in plain torch, op for op:
   * accumulation keeps the running mean acc += (g - acc) / (mini_step + 1),
     and applies the inner chain (advancing count) only every k-th call.
 
-Updates are in place (torch._foreach_* under torch.no_grad()), in chunks of
-leaves of one device and dtype, so the extra memory is one chunk's
-temporary, never a second copy of the tree.
+Each foreach op below is one op of optax's chain and rounds to the leaf's
+dtype where the compiled optax update rounds: on bf16 leaves the constants
+are bf16 values (JAX's weak typing), the products and sums of each moment
+round one by one (no fused alpha/addcmul), the squared norms of the clip
+accumulate in fp32 and round per leaf, and divisions are true divisions.
+So bf16 params and moments equal optax's bit for bit. Updates are in place
+(torch._foreach_* under torch.no_grad()), in chunks of leaves of one device
+and dtype, so the extra memory is one chunk's temporary, never a second
+copy of the tree.
 
 Capability parity: reference lavis/common/optims.py:14-135 —
 LinearWarmupStepLRScheduler, LinearWarmupCosineLRScheduler, ConstantLR.
@@ -209,6 +215,9 @@ class AdamW:
         self.mask = mask
         self.max_grad_norm = max_grad_norm
         self.accum_steps = int(accum_steps or 1)
+        # per-leaf fp32 squared norms [n] -> their values over the whole
+        # tree; the trainer sets it when the leaves are sharded
+        self.norm_sync: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def lr(self, count: int) -> float:
         lr = self.learning_rate
@@ -250,7 +259,7 @@ class AdamW:
             A, n = tree_leaves(state["acc"]), int(state["mini_step"])
             for c in _chunks(every, P):
                 d = torch._foreach_sub(_pick(G, c), _pick(A, c))
-                torch._foreach_div_(d, n + 1)
+                torch._foreach_div_(d, _divisor(n + 1, A[c[0]].dtype, A[c[0]].device))
                 torch._foreach_add_(_pick(A, c), d)
                 del d
             if n < self.accum_steps - 1:
@@ -269,22 +278,37 @@ class AdamW:
         decayed = self._decayed(params)
         for c in chunks:
             Pc, Gc, Mc, Nc = _pick(P, c), _pick(G, c), _pick(M, c), _pick(N, c)
-            torch._foreach_mul_(Mc, self.b1)
-            torch._foreach_add_(Mc, Gc, alpha=1.0 - self.b1)
-            torch._foreach_mul_(Nc, self.b2)
-            torch._foreach_addcmul_(Nc, Gc, Gc, value=1.0 - self.b2)
-            # the gradients are spent: their buffers take sqrt(nu_hat) + eps
-            for g, v in zip(Gc, Nc):
-                g.copy_(v)
-            torch._foreach_div_(Gc, bc2)
+            dt, dev = Pc[0].dtype, Pc[0].device
+
+            def k(x):
+                return _as_dtype(x, dt)
+
+            # mu = (1 - b1) * g + b1 * mu
+            upd = torch._foreach_mul(Gc, k(1.0 - self.b1))
+            torch._foreach_mul_(Mc, k(self.b1))
+            torch._foreach_add_(Mc, upd)
+            # nu = (1 - b2) * g^2 + b2 * nu (b2 rounds to 1.0 in bf16)
+            torch._foreach_mul_(Gc, Gc)
+            torch._foreach_mul_(Gc, k(1.0 - self.b2))
+            if k(self.b2) != 1.0:
+                torch._foreach_mul_(Nc, k(self.b2))
+            torch._foreach_add_(Nc, Gc)
+            # upd = (mu / bc1) / (sqrt(nu / bc2) + eps); the spent gradient
+            # buffers hold the denominator
+            torch._foreach_copy_(upd, Mc)
+            torch._foreach_div_(upd, _divisor(bc1, dt, dev))
+            torch._foreach_copy_(Gc, Nc)
+            torch._foreach_div_(Gc, _divisor(bc2, dt, dev))
             torch._foreach_sqrt_(Gc)
-            torch._foreach_add_(Gc, self.eps)
-            upd = torch._foreach_div(Mc, bc1)
+            torch._foreach_add_(Gc, k(self.eps))
             torch._foreach_div_(upd, Gc)
             dc = [j for j, i in enumerate(c) if decayed[i]]
             if dc and self.weight_decay:
-                torch._foreach_add_(_pick(upd, dc), _pick(Pc, dc), alpha=self.weight_decay)
-            torch._foreach_mul_(upd, -lr)
+                wd = _pick(Gc, dc)
+                torch._foreach_copy_(wd, _pick(Pc, dc))
+                torch._foreach_mul_(wd, k(self.weight_decay))
+                torch._foreach_add_(_pick(upd, dc), wd)
+            torch._foreach_mul_(upd, k(-lr))
             torch._foreach_add_(Pc, upd)
             del upd
         state["count"] = count + 1
@@ -292,21 +316,56 @@ class AdamW:
             torch._foreach_zero_(G)
             state["mini_step"] = 0
 
+    def global_norm(self, G: List[torch.Tensor], chunks: Optional[List[List[int]]] = None) -> torch.Tensor:
+        """optax.global_norm of the leaves G (a 0-d tensor in their promoted
+        dtype): as jnp.sum does, each leaf's sum of squares accumulates in
+        fp32 and rounds to the leaf's dtype; the leaves' sums add up in tree
+        order, each partial sum in the promoted dtype. norm_sync (set for a
+        sharded tree) maps the per-leaf fp32 sums to their values over the
+        whole tree first."""
+        chunks = chunks if chunks is not None else _chunks(list(range(len(G))), G)
+        sq = [None] * len(G)
+        for c in chunks:
+            for i, n in zip(c, torch._foreach_norm(_pick(G, c), 2, dtype=torch.float32)):
+                sq[i] = n
+        sq = torch.stack([n.to(sq[0].device) for n in sq]).square()
+        if self.norm_sync is not None:
+            sq = self.norm_sync(sq)
+        total = None
+        for i, g in enumerate(G):
+            s = sq[i].to(g.dtype)
+            total = s if total is None else total + s
+        return total.sqrt()
+
     def _clip(self, G: List[torch.Tensor], chunks: List[List[int]]) -> None:
         """optax.clip_by_global_norm: G /= g_norm, G *= max_norm where
-        g_norm >= max_norm, on the device (no host sync)."""
-        norms = []
-        for c in chunks:
-            norms += torch._foreach_norm(_pick(G, c), 2, dtype=torch.float32)
-        g_norm = torch.stack([n.to(norms[0].device) for n in norms]).square().sum().sqrt()
-        keep = g_norm < self.max_grad_norm
+        g_norm >= max_norm (global_norm), on the device (no host sync)."""
+        g_norm = self.global_norm(G, chunks)
+        keep = g_norm < _as_dtype(self.max_grad_norm, g_norm.dtype)
         one = torch.ones_like(g_norm)
-        denom = torch.where(keep, one, g_norm)
-        mult = torch.where(keep, one, torch.full_like(g_norm, self.max_grad_norm))
         for c in chunks:
             Gc = _pick(G, c)
-            torch._foreach_div_(Gc, denom.to(Gc[0].device, Gc[0].dtype))
-            torch._foreach_mul_(Gc, mult.to(Gc[0].device, Gc[0].dtype))
+            dt, dev = Gc[0].dtype, Gc[0].device
+            # where(keep, g, g / g_norm * max_norm): dividing and multiplying
+            # by 1 leaves a kept g as it was
+            torch._foreach_div_(Gc, torch.where(keep, one, g_norm).to(dev, dt))
+            mx = _as_dtype(self.max_grad_norm, dt)
+            if mx != 1.0:
+                torch._foreach_mul_(Gc, torch.where(keep, one, torch.full_like(g_norm, mx)).to(dev, dt))
+
+
+def _as_dtype(x: float, dtype: torch.dtype) -> float:
+    """x rounded to `dtype`, as a Python float: a JAX Python scalar takes
+    the dtype of the array it meets (weak typing), so optax's constants
+    (b1, 1 - b1, eps, weight decay, -lr) are bf16 values on bf16 leaves."""
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
+def _divisor(x: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """x rounded to `dtype`, as a 0-d fp32 tensor on `device`: a tensor
+    divisor keeps the division true on the GPU, where torch multiplies by
+    the reciprocal of a Python scalar divisor."""
+    return torch.tensor(_as_dtype(x, dtype), dtype=torch.float32, device=device)
 
 
 def build_optimizer(

@@ -12,6 +12,11 @@ the JAX package (there an orbax tree), holding one torch.save file,
 CHECKPOINT_FILE, of the same state keys: params, opt_state, epoch, iters,
 best_metric. A resume loads the tensors onto the device of the runner's
 current params and reads weights only.
+
+Under a mesh (Runner(..., mesh=, specs=), the training step's
+parallel/sharding specs) params and the optimizer's trees are this rank's
+shards: a save gathers them whole, and only rank 0 writes the file; a
+resume reads the whole state on every rank and keeps its shard.
 """
 
 from __future__ import annotations
@@ -67,8 +72,12 @@ class Runner:
         opt_state: Any,
         train_loader_fn: Callable[[int], Iterable],
         eval_fn: Optional[Callable[[Any], Dict[str, float]]] = None,
+        *,
+        mesh=None,
+        specs: Any = None,
     ):
         self.cfg = cfg
+        self.mesh, self.specs = mesh, specs
         self.train_step = train_step
         self.params = params
         self.opt_state = opt_state
@@ -90,20 +99,37 @@ class Runner:
                 return x.device
         return torch.device("cpu")
 
+    def _map_state(self, fn):
+        """(params, opt_state) with fn(tree, specs) applied to the params
+        and to the optimizer's trees of the params' structure."""
+        trees = {k: fn(v, self.specs) if k in ("mu", "nu", "acc") else v
+                 for k, v in self.opt_state.items()} if isinstance(self.opt_state, dict) else self.opt_state
+        return fn(self.params, self.specs), trees
+
     def save_checkpoint(self, name: str, epoch: int) -> str:
+        from llava_align_tpu_torch.parallel.dist import barrier, get_rank
+
         path = os.path.abspath(os.path.join(self.cfg.output_dir, f"checkpoint_{name}"))
-        state = {
-            "params": self.params,
-            "opt_state": self.opt_state,
-            "epoch": epoch,
-            "iters": int(self.global_step),
-            "best_metric": float(self.best_metric),
-        }
-        os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
-        torch.save(state, tmp)
-        os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
-        logging.info("saved checkpoint %s", path)
+        params, opt_state = self.params, self.opt_state
+        if self.mesh is not None:
+            from llava_align_tpu_torch.parallel.sharding import unshard_params
+
+            params, opt_state = self._map_state(lambda t, sp: unshard_params(t, sp, self.mesh))
+        if get_rank() == 0:
+            state = {
+                "params": params,
+                "opt_state": opt_state,
+                "epoch": epoch,
+                "iters": int(self.global_step),
+                "best_metric": float(self.best_metric),
+            }
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
+            torch.save(state, tmp)
+            os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+            logging.info("saved checkpoint %s", path)
+        if self.mesh is not None:
+            barrier()
         return path
 
     def load_checkpoint(self, path: str) -> None:
@@ -111,6 +137,10 @@ class Runner:
                            map_location=self._device(), weights_only=True)
         self.params = state["params"]
         self.opt_state = state["opt_state"]
+        if self.mesh is not None:
+            from llava_align_tpu_torch.parallel.sharding import shard_params
+
+            self.params, self.opt_state = self._map_state(lambda t, sp: shard_params(t, sp, self.mesh))
         self.start_epoch = int(state["epoch"]) + 1
         self.global_step = int(state.get("iters", 0))
         self.best_metric = float(state.get("best_metric", -np.inf))

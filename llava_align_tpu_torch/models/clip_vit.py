@@ -26,6 +26,8 @@ import torch
 from llava_align_tpu_torch.config import ClipVisionConfig
 from llava_align_tpu_torch.ops.attention import mha
 from llava_align_tpu_torch.ops.layers import layer_norm, quick_gelu
+from llava_align_tpu_torch.parallel import comm
+from llava_align_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 
 Params = Dict[str, Any]
 
@@ -40,9 +42,17 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(B, gh * gw, C * P * P)
 
 
-def forward_features(params: Params, cfg: ClipVisionConfig, images: torch.Tensor) -> torch.Tensor:
+def forward_features(params: Params, cfg: ClipVisionConfig, images: torch.Tensor,
+                     tp_mesh=None) -> torch.Tensor:
     """images [B, 3, H, W] normalized → 'patch' [B, N, D] or 'cls_patch'
-    [B, 1+N, D] features."""
+    [B, 1+N, D] features.
+
+    tp_mesh: a ('data', 'model') DeviceMesh whose 'model' axis the layer
+    kernels are split over (parallel/sharding.clip_param_shardings:
+    q/k/v/fc1 column, o/fc2 row; biases whole, a column bias sliced to the
+    rank's columns, a row bias added once after the sum). Attention runs on
+    the local heads; one all_reduce follows o and one fc2. The output is
+    whole on every rank."""
     B = images.shape[0]
     D, L, H = cfg.hidden_size, cfg.num_layers, cfg.num_heads
 
@@ -58,19 +68,34 @@ def forward_features(params: Params, cfg: ClipVisionConfig, images: torch.Tensor
         raise ValueError(f"select_layer {sl} out of range for {L} layers")
 
     lay = params["layers"]
-    for li in range(run_layers):
-        def lin(name, y):
-            return y @ lay[name]["kernel"][li] + lay[name]["bias"][li]
+    group, n, r = None, 1, 0
+    if tp_mesh is not None and axis_size(tp_mesh, "model") > 1:
+        n = axis_size(tp_mesh, "model")
+        group, r = axis_group(tp_mesh, "model"), axis_rank(tp_mesh, "model")
+    Hl, Dl = H // n, D // n
 
-        y = layer_norm(x, lay["ln1"]["scale"][li], lay["ln1"]["bias"][li], cfg.layer_norm_eps)
+    for li in range(run_layers):
+        def col(name, y):
+            # the whole bias is every rank's leaf: under autograd its
+            # slices' gradients are summed over the group (copy_to)
+            b = comm.copy_to(lay[name]["bias"][li], group)
+            w = lay[name]["kernel"][li]
+            return y @ w + b.narrow(-1, r * w.shape[-1], w.shape[-1])
+
+        def row(name, y):
+            return comm.reduce_from(y @ lay[name]["kernel"][li], group) + lay[name]["bias"][li]
+
+        y = comm.copy_to(layer_norm(x, lay["ln1"]["scale"][li], lay["ln1"]["bias"][li], cfg.layer_norm_eps),
+                         group)
         S = y.shape[1]
-        q = lin("q", y).reshape(B, S, H, D // H)
-        k = lin("k", y).reshape(B, S, H, D // H)
-        v = lin("v", y).reshape(B, S, H, D // H)
-        attn = mha(q, k, v, causal=False).reshape(B, S, D)
-        x = x + lin("o", attn)
-        y = layer_norm(x, lay["ln2"]["scale"][li], lay["ln2"]["bias"][li], cfg.layer_norm_eps)
-        x = x + lin("fc2", quick_gelu(lin("fc1", y)))
+        q = col("q", y).reshape(B, S, Hl, D // H)
+        k = col("k", y).reshape(B, S, Hl, D // H)
+        v = col("v", y).reshape(B, S, Hl, D // H)
+        attn = mha(q, k, v, causal=False).reshape(B, S, Dl)
+        x = x + row("o", attn)
+        y = comm.copy_to(layer_norm(x, lay["ln2"]["scale"][li], lay["ln2"]["bias"][li], cfg.layer_norm_eps),
+                         group)
+        x = x + row("fc2", quick_gelu(col("fc1", y)))
 
     if cfg.select_feature == "patch":
         return x[:, 1:]

@@ -45,10 +45,14 @@ from llava_align_tpu_torch.ops.quant import (
     int4_matmul_stacked_dispatch,
     int8_matmul,
     int8_matmul_stacked_dispatch,
+    int8_matmul_stacked_tp,
+    int8_tp_mode,
     is_quantized,
     is_quantized_int4,
     kv_quantize_block,
 )
+from llava_align_tpu_torch.parallel import comm
+from llava_align_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]
@@ -56,12 +60,14 @@ KVCache = Dict[str, torch.Tensor]
 
 def init_cache(
     cfg: LlamaConfig, batch: int, max_len: int, dtype: Optional[torch.dtype] = None,
-    kv_quant: bool = False, device=None,
+    kv_quant: bool = False, device=None, num_kv_heads: Optional[int] = None,
 ) -> KVCache:
     """{'k', 'v'}: [L, batch, max_len, K, Dh] zeros on `device`; with
     kv_quant int8 values plus fp32 'ks'/'vs' scale planes [L, batch,
-    max_len, K, 1] (the trailing singleton as in the JAX package)."""
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    max_len, K, 1] (the trailing singleton as in the JAX package).
+    num_kv_heads: K, when not cfg's (a tensor-parallel rank's local kv
+    heads)."""
+    shape = (cfg.num_layers, batch, max_len, num_kv_heads or cfg.num_kv_heads, cfg.head_dim)
     if kv_quant:
         return quantized_cache(shape, device)
     dtype = dtype or cfg.dtype
@@ -84,13 +90,15 @@ def quantized_cache(shape, device=None) -> KVCache:
     }
 
 
-def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: Params, token_ids: torch.Tensor, tp_group=None) -> torch.Tensor:
     """token_ids [...] int → embeddings [..., D]. Ids are clipped to the
     vocab, as JAX clamps its gathers: the sentinel IMAGE_TOKEN_INDEX=-200
     would otherwise wrap (CPU) or fault (CUDA); the caller overwrites those
-    positions with image features."""
+    positions with image features. tp_group: the 'model' group of an embed
+    split on its hidden dim ([V, D/n], parallel/sharding); the hidden
+    shards are gathered, so every rank gets the whole [..., D]."""
     V = params["embed"].shape[0]
-    return params["embed"][token_ids.clamp(0, V - 1)]
+    return comm.gather_last(params["embed"][token_ids.clamp(0, V - 1)], tp_group)
 
 
 def _write_cache(
@@ -121,16 +129,27 @@ def layer_views(layers: Params) -> Params:
             for k, v in layers.items()}
 
 
-def linear(h: torch.Tensor, w: Any, li: int, act_quant: bool = False) -> torch.Tensor:
+def linear(h: torch.Tensor, w: Any, li: int, act_quant: bool = False, *,
+           tp_group=None, tp_mode: str = "column") -> torch.Tensor:
     """h [B, S, in] x layer li of a stacked linear [L, out, in] (or the
     tuple of its layers, layer_views) → [B, S, out]: int4 stacks through
     K4's dispatch, int8 ones through K1's (with act_quant, W8A8 from
-    W8A8_MIN_ROWS rows on), float ones through torch.matmul."""
+    W8A8_MIN_ROWS rows on), float ones through torch.matmul.
+
+    tp_group: this rank's shard of a tensor-parallel stack over the 'model'
+    group. column: h is whole, the output is this rank's columns; row: h is
+    this rank's slice of the contraction and the partial products are
+    summed over the group (int8: ops/quant.int8_matmul_stacked_tp, which
+    applies the scales after the sum)."""
+    if tp_group is not None and is_quantized(w):
+        return int8_matmul_stacked_tp(h, w, li, tp_group, tp_mode, act_quant=act_quant)
     if is_quantized_int4(w):
-        return int4_matmul_stacked_dispatch(h, w, li)
-    if is_quantized(w):
-        return int8_matmul_stacked_dispatch(h, w, li, act_quant=act_quant)
-    return h @ w[li].t()
+        out = int4_matmul_stacked_dispatch(h, w, li)
+    elif is_quantized(w):
+        out = int8_matmul_stacked_dispatch(h, w, li, act_quant=act_quant)
+    else:
+        out = h @ w[li].t()
+    return comm.reduce_from(out, tp_group) if tp_mode == "row" else out
 
 
 def _write_kv(cache: KVCache, k: torch.Tensor, v: torch.Tensor, li: int, offsets: torch.Tensor,
@@ -162,34 +181,51 @@ def _read_shared(shared_kv: KVCache, li: int, name: str, scales: str):
     return shared_kv[name][li]
 
 
+def _take_heads(x, heads: Optional[torch.Tensor]):
+    """x [..., K, Dh] (or an int8 (values, scales) pair) at the kv heads
+    `heads` (None: all, as they are)."""
+    if heads is None:
+        return x
+    if isinstance(x, tuple):
+        return tuple(t.index_select(-2, heads) for t in x)
+    return x.index_select(-2, heads)
+
+
 def attend(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, li: int, cache: Optional[KVCache],
     cache_offset: torch.Tensor, is_decode: bool, cache_row_offset: int, attn_impl: str,
     shared_kv: Optional[KVCache] = None, shared_len: Optional[torch.Tensor] = None,
     shared_rows_per_prefix: Optional[int] = None, shared_rows_per_prefix2: int = 0,
+    kv_heads: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One layer's attention, as `forward` (which see for the arguments)
     runs it: k and v [B, S, K, Dh] are written into the cache first (if
     any); then a decode step attends over the cache rows, a prefill
     causally within its block (K3 or mha by attn_impl), and either one
-    against the shared prefix segment too when shared_kv is given."""
+    against the shared prefix segment too when shared_kv is given.
+    kv_heads: each query head's kv head, where the kv heads stay whole on a
+    tensor-parallel rank that holds only some query heads (forward); every
+    key and value read is taken at those heads."""
     B = q.shape[0]
     if cache is not None:
         _write_kv(cache, k, v, li, cache_offset, is_decode, cache_row_offset)
+    k, v = _take_heads(k, kv_heads), _take_heads(v, kv_heads)
     rows = slice(cache_row_offset, cache_row_offset + B)
     if shared_kv is None:
         if is_decode:
-            return decode_attention(q, *_read_kv(cache, li, rows), cache_offset)
+            kc, vc = _read_kv(cache, li, rows)
+            return decode_attention(q, _take_heads(kc, kv_heads), _take_heads(vc, kv_heads), cache_offset)
         return causal_attention(q, k, v, impl=attn_impl)
-    k_sh, v_sh = _read_shared(shared_kv, li, "k", "ks"), _read_shared(shared_kv, li, "v", "vs")
+    k_sh = _take_heads(_read_shared(shared_kv, li, "k", "ks"), kv_heads)
+    v_sh = _take_heads(_read_shared(shared_kv, li, "v", "vs"), kv_heads)
     grouped = shared_kv["k"].dim() == 5  # [L, G, P, K, Dh]: one prefix per row group
     two = {}
     if "k2" in shared_kv:  # second (text-branch) segment table
-        two = dict(k_sh2=_read_shared(shared_kv, li, "k2", "k2s"),
-                   v_sh2=_read_shared(shared_kv, li, "v2", "v2s"),
+        two = dict(k_sh2=_take_heads(_read_shared(shared_kv, li, "k2", "k2s"), kv_heads),
+                   v_sh2=_take_heads(_read_shared(shared_kv, li, "v2", "v2s"), kv_heads),
                    rows_per_prefix2=shared_rows_per_prefix2)
     if is_decode:
-        kc, vc = _read_kv(cache, li, rows)
+        kc, vc = (_take_heads(x, kv_heads) for x in _read_kv(cache, li, rows))
         if grouped:
             return decode_attention_shared_grouped(
                 q, kc, vc, cache_offset, k_sh, v_sh, shared_len, shared_rows_per_prefix, **two
@@ -246,12 +282,22 @@ def forward(
     act_quant    opt-in W8A8: int8 stacks take the W8A8 product at
                  W8A8_MIN_ROWS rows and more (prefills); decode rows keep
                  K1. Not bit-exact with the weight-only path, by design.
+    tp_mesh      optional ('data', 'model') DeviceMesh whose 'model' axis
+                 this rank's tree is sharded over (parallel/sharding):
+                 column-parallel q/k/v/gate/up (fused stacks split block by
+                 block), row-parallel o/down, each followed by one
+                 all_reduce over 'model' (Megatron; int8 stacks through
+                 ops/quant.int8_matmul_stacked_tp). Attention runs on the
+                 local heads (H/n, and K/n kv heads in the cache; where K
+                 does not split n ways, k/v and the cache stay whole and
+                 each query head reads its kv head). The caller passes it
+                 only for a tree whose layer stacks are split (not for
+                 int4 stacks, or int8 stacks the engine could not align:
+                 those run whole, with no collective). embeds are whole on
+                 every rank, and so is the returned hidden.
 
     Returns (hidden [B, S, D] after the final norm, cache).
-    Not ported yet: tp_mesh.
     """
-    if tp_mesh is not None:
-        raise NotImplementedError("tp_mesh is not ported yet")
     B, S, _ = embeds.shape
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     if cache_offset is None:
@@ -262,36 +308,57 @@ def forward(
     layers = layer_views(params["layers"])
     QD, KD = cfg.q_dim, cfg.kv_dim
     Hn, Kn, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    group, kv_heads = None, None
+    if tp_mesh is not None and axis_size(tp_mesh, "model") > 1:
+        n = axis_size(tp_mesh, "model")
+        group = axis_group(tp_mesh, "model")
+        QD, Hn = QD // n, Hn // n
+        if Kn % n == 0:  # parallel/sharding's rule for k and v
+            KD, Kn = KD // n, Kn // n
+        else:
+            # kv heads that do not split over 'model' stay whole (and so
+            # does the cache): this rank's query heads read theirs
+            r = axis_rank(tp_mesh, "model")
+            g = cfg.num_heads // cfg.num_kv_heads
+            kv_heads = torch.tensor([(r * Hn + j) // g for j in range(Hn)], device=embeds.device)
 
     def lin(h, name, li):
-        return linear(h, layers[name], li, act_quant)
+        return linear(h, layers[name], li, act_quant, tp_group=group, tp_mode=int8_tp_mode(name))
 
     def attn_fn(q, k, v, li):
         return attend(q, k, v, li, cache, cache_offset, is_decode, cache_row_offset, attn_impl,
-                      shared_kv, shared_len, shared_rows_per_prefix, shared_rows_per_prefix2)
+                      shared_kv, shared_len, shared_rows_per_prefix, shared_rows_per_prefix2, kv_heads)
 
     x = embeds
     for li in range(cfg.num_layers):
         h = rms_norm(x, layers["attn_norm"][li], cfg.rms_norm_eps)
+        hq = comm.copy_to(h, group)
         if "qkv" in layers:
-            qkv = lin(h, "qkv", li)  # one launch streams q|k|v
+            qkv = lin(hq, "qkv", li)  # one launch streams q|k|v
             q = qkv[..., :QD].reshape(B, S, Hn, Dh)
             k = qkv[..., QD : QD + KD].reshape(B, S, Kn, Dh)
             v = qkv[..., QD + KD : QD + 2 * KD].reshape(B, S, Kn, Dh)
+        elif kv_heads is None:
+            q = lin(hq, "q", li).reshape(B, S, Hn, Dh)
+            k = lin(hq, "k", li).reshape(B, S, Kn, Dh)
+            v = lin(hq, "v", li).reshape(B, S, Kn, Dh)
         else:
-            q = lin(h, "q", li).reshape(B, S, Hn, Dh)
-            k = lin(h, "k", li).reshape(B, S, Kn, Dh)
-            v = lin(h, "v", li).reshape(B, S, Kn, Dh)
+            # whole k and v on every rank; under autograd each rank's share
+            # of their gradient (its query heads') is summed over the group
+            q = lin(hq, "q", li).reshape(B, S, Hn, Dh)
+            k = comm.copy_to(linear(h, layers["k"], li, act_quant), group).reshape(B, S, Kn, Dh)
+            v = comm.copy_to(linear(h, layers["v"], li, act_quant), group).reshape(B, S, Kn, Dh)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attn_fn(q, k, v.contiguous(), li)
         x = x + lin(attn.reshape(B, S, QD), "o", li)
 
-        h = rms_norm(x, layers["mlp_norm"][li], cfg.rms_norm_eps)
+        h = comm.copy_to(rms_norm(x, layers["mlp_norm"][li], cfg.rms_norm_eps), group)
         if "gateup" in layers:
             gu = lin(h, "gateup", li)  # one launch streams gate|up
-            # split at the stack's own half-width, not cfg.intermediate_size
-            # (the JAX package may pad each half for tensor parallelism)
+            # split at the stack's own half-width, not cfg.intermediate_size:
+            # TP lane padding may have widened each half (ops/quant.
+            # pad_llama_quantized_for_tp), and a rank holds [gate_r | up_r]
             Fh = gu.shape[-1] // 2
             act = silu(gu[..., :Fh]) * gu[..., Fh:]
         else:
@@ -301,19 +368,25 @@ def forward(
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache
 
 
-def logits_from_hidden(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+def logits_from_hidden(params: Params, hidden: torch.Tensor, tp_group=None) -> torch.Tensor:
     """lm_head → fp32 logits [..., V]. The int8 lm_head returns h's dtype
-    from the kernel and is then widened, as in the JAX package."""
+    from the kernel and is then widened, as in the JAX package.
+    tp_group: the 'model' group of a vocab-parallel lm_head ([V/n, D] rows,
+    int8 through K2 on them); the ranks' logits are gathered, so every
+    rank gets the whole vocab."""
     w = params["lm_head"]
+    hidden = comm.copy_to(hidden, tp_group)
     if is_quantized(w):
-        return int8_matmul(hidden, w).float()
-    return hidden.to(w.dtype).float() @ w.float().t()
+        out = int8_matmul(hidden, w).float()
+    else:
+        out = hidden.to(w.dtype).float() @ w.float().t()
+    return comm.gather_last(out, tp_group)
 
 
 def last_token_logits(
-    params: Params, hidden: torch.Tensor, last_index: torch.Tensor
+    params: Params, hidden: torch.Tensor, last_index: torch.Tensor, tp_group=None
 ) -> torch.Tensor:
     """Hidden at each row's last valid position, then one [B,D]x[D,V] matmul."""
     B = hidden.shape[0]
     gathered = hidden[torch.arange(B, device=hidden.device), last_index.long()]
-    return logits_from_hidden(params, gathered)
+    return logits_from_hidden(params, gathered, tp_group)

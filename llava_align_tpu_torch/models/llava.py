@@ -21,9 +21,12 @@ from llava_align_tpu_torch.models import clip_vit, llama, projector
 Params = Dict[str, Any]
 
 
-def encode_images(params: Params, cfg: LlavaConfig, images: torch.Tensor) -> torch.Tensor:
-    """[B, 3, H, W] normalized pixels → [B, num_patches, text_hidden]."""
-    feats = clip_vit.forward_features(params["vision"], cfg.vision, images)
+def encode_images(params: Params, cfg: LlavaConfig, images: torch.Tensor,
+                  tp_mesh=None) -> torch.Tensor:
+    """[B, 3, H, W] normalized pixels → [B, num_patches, text_hidden].
+    tp_mesh: the vision tower split over 'model' (clip_vit); the projector
+    is replicated."""
+    feats = clip_vit.forward_features(params["vision"], cfg.vision, images, tp_mesh)
     return projector.forward(params["projector"], feats.to(cfg.text.dtype))
 
 
@@ -92,9 +95,12 @@ def splice_embeds(
     img_gather: torch.Tensor,      # [B, S]
     is_image: torch.Tensor,        # [B, S] bool
     image_features: torch.Tensor,  # [B, N_img_slots, D]
+    tp_group=None,
 ) -> torch.Tensor:
-    """Device-side splice → [B, S, D]."""
-    text_emb = llama.embed_tokens(params["llama"], tokens)  # [B, T, D]
+    """Device-side splice → [B, S, D]. tp_group: the 'model' group of an
+    embed split on its hidden dim: its hidden shards are gathered before
+    the splice."""
+    text_emb = llama.embed_tokens(params["llama"], tokens, tp_group)  # [B, T, D]
     return splice(text_emb, tok_gather, img_gather, is_image, image_features)
 
 

@@ -291,6 +291,135 @@ int8_matmul_w8a8.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Tensor-parallel int8 (the JAX package's int8_matmul_stacked_tp and its
+# lane padding). Column-parallel stacks (qkv/gateup/q/k/v/gate/up) hold
+# their output channels' slice [L, O/n, D] and return this rank's output
+# columns; row-parallel stacks (o/down) hold a contraction slice
+# [L, O, D/n], run the kernel with unit scales, all_reduce the partial
+# products and apply the per-output-channel scales after the sum. Each
+# rank runs the same dispatch as one device, on its shard's own (O, D).
+# ---------------------------------------------------------------------------
+
+_ROW_PARALLEL_NAMES = ("o", "down", "attn_proj", "mlp_proj", "out", "fc2", "down_proj")
+
+
+def int8_tp_mode(name: str) -> str:
+    return "row" if name in _ROW_PARALLEL_NAMES else "column"
+
+
+def int8_tp_aligned(wq: Dict[str, Any], mode: str, n_shards: int) -> bool:
+    """Per-shard dims must stay lane-aligned (multiples of 128): the JAX
+    package's rule, kept as it is."""
+    O, D = int(wq["q"].shape[1]), int(wq["q"].shape[2])
+    dim = O if mode == "column" else D
+    return dim % n_shards == 0 and (dim // n_shards) % 128 == 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pad_quantized_stack(wq: Dict[str, torch.Tensor], mode: str, n_shards: int, halves: int = 1):
+    """Lane-align an int8 [L, O, D] stack for n-way TP by bit-inert padding.
+    column: each of the `halves` equal O-parts (fused gateup has two) gains
+    zero rows with unit scales, so the padded output channels are exact
+    zeros; row: the contraction dim gains zero columns. Returns (stack,
+    changed)."""
+    q, s = wq["q"], wq["s"]
+    L, O, D = (int(d) for d in q.shape)
+    u = 128 * n_shards
+    if mode == "column":
+        part = O // halves
+        pad = _round_up(part, u) - part
+        if pad == 0:
+            return wq, False
+        qs, ss = [], []
+        for h in range(halves):
+            qs.append(torch.nn.functional.pad(q[:, h * part : (h + 1) * part], (0, 0, 0, pad)))
+            ss.append(torch.nn.functional.pad(s[:, h * part : (h + 1) * part], (0, pad), value=1.0))
+        return {"q": torch.cat(qs, dim=1), "s": torch.cat(ss, dim=1)}, True
+    pad = _round_up(D, u) - D
+    if pad == 0:
+        return wq, False
+    return {"q": torch.nn.functional.pad(q, (0, pad)), "s": s}, True
+
+
+def pad_llama_quantized_for_tp(layers: Dict[str, Any], n_shards: int):
+    """Pad the MLP int8 stacks (gateup/gate/up column, down row) to the
+    same F_pad, so 7B-style intermediate sizes shard at any power-of-two TP
+    degree; the head-structured attention stacks stay as they are. Returns
+    (layers, changed)."""
+    out = dict(layers)
+    changed = False
+    for name, halves in (("gateup", 2), ("gate", 1), ("up", 1)):
+        if name in out and is_quantized(out[name]):
+            out[name], ch = pad_quantized_stack(out[name], "column", n_shards, halves)
+            changed |= ch
+    if "down" in out and is_quantized(out["down"]):
+        out["down"], ch = pad_quantized_stack(out["down"], "row", n_shards)
+        changed |= ch
+    return out, changed
+
+
+_UNIT_SCALES: Dict[tuple, torch.Tensor] = {}
+
+
+def _unit_scales(L: int, O: int, device) -> torch.Tensor:
+    key = (L, O, str(device))
+    if key not in _UNIT_SCALES:
+        _UNIT_SCALES[key] = torch.ones((L, O), dtype=torch.float32, device=device)
+    return _UNIT_SCALES[key]
+
+
+def int8_matmul_stacked_tp(
+    h: torch.Tensor, wq: Dict[str, torch.Tensor], layer_idx: int, group, mode: str, *,
+    act_quant: bool = False,
+) -> torch.Tensor:
+    """h [..., D] (column: the whole rows; row: this rank's D slice) x this
+    rank's shard of a stacked int8 [L, O, D] at layer_idx over the process
+    group `group`. column → this rank's output columns [..., O/n]; row →
+    the whole [..., O] on every rank. The body picks as one device does on
+    the shard's own (O, D) (_stream_rows_ok: K1 at decode rows, the dequant
+    product otherwise). act_quant routes >= W8A8_MIN_ROWS rows through
+    W8A8, bit-identical to one device: column shards see the full D, row
+    shards take the global row absmax (MAX all_reduce), sum the int32
+    partial products exactly and apply the same fp32 epilogue."""
+    import torch.distributed as dist
+
+    q, s = wq["q"], wq["s"]
+    lead = h.shape[:-1]
+    h2 = h.reshape(-1, h.shape[-1]).contiguous()
+    n_rows = h2.shape[0]
+    w8a8 = act_quant and n_rows >= W8A8_MIN_ROWS
+    decode_rows = _stream_rows_ok(n_rows, q.shape[1], q.shape[2])
+    if mode == "column":
+        if w8a8:
+            out = int8_matmul_w8a8(h2, q[layer_idx], s[layer_idx])
+        elif decode_rows:
+            out = int8_matmul_stacked(h2, q, s, layer_idx)
+        else:
+            out = int8_matmul_dequant(h2, q[layer_idx], s[layer_idx])
+    elif w8a8:
+        hf = h2.float()
+        amax = hf.abs().amax(dim=-1, keepdim=True)
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)  # the global row absmax
+        a_scale = w8a8_row_scale(amax)
+        acc = torch._int_mm(w8a8_quantize(hf, a_scale), q[layer_idx].t())
+        int8_matmul_w8a8.launches += 1
+        dist.all_reduce(acc, group=group)  # exact: int32 partials
+        out = (acc.float() * a_scale * s[layer_idx]).to(h.dtype)
+    else:
+        ones = _unit_scales(q.shape[0], q.shape[1], q.device)
+        if decode_rows:
+            part = int8_matmul_stacked(h2, q, ones, layer_idx)
+        else:
+            part = int8_matmul_dequant(h2, q[layer_idx], ones[layer_idx])
+        dist.all_reduce(part, group=group)
+        out = part * s[layer_idx][None, :].to(h.dtype)
+    return out.reshape(*lead, out.shape[-1])
+
+
+# ---------------------------------------------------------------------------
 # int8 KV cache blocks (the JAX package's kv_quantize_block layout): int8
 # values with one fp32 absmax scale per (row, position, head), a trailing
 # singleton over Dh. Exact zeros stay exact; a zero vector quantizes to

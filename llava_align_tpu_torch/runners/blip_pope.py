@@ -17,8 +17,8 @@ the mock tokenizer for both the Vicuna and the BERT side, as in the JAX
 runner) or a LAVIS blip2_vicuna_instruct checkpoint dir (weights, with
 llm_tokenizer/ and bert_tokenizer/ beside them, read by transformers). The
 GPU unless --device cpu is given. --quant is read by nothing, as in the
-JAX runner (the tree stays in its float dtype). Refused as the POPE runner
-refuses it: --dist auto.
+JAX runner (the tree stays in its float dtype). --dist auto as in the POPE
+runner.
 """
 
 from __future__ import annotations
@@ -40,11 +40,12 @@ from llava_align_tpu_torch.ops.image import normalize_host, synthetic_image_uint
 from llava_align_tpu_torch.ops.noise import add_diffusion_noise
 from llava_align_tpu_torch.runners.common import (
     AnswerFile,
+    apply_dist_auto,
+    finish_dist_auto,
     MockTokenizer,
     load_questions_for,
     make_generation_config,
 )
-from llava_align_tpu_torch.runners.pope import _refuse_dist_auto
 
 
 def load_blip_model(model_path: str, device=None):
@@ -94,7 +95,7 @@ def qformer_text(bert_tok, prompt_text: str, cfg) -> tuple:
 
 def run(args) -> str:
     """Answer the question file into args.answers_file; returns its path."""
-    _refuse_dist_auto(args)
+    apply_dist_auto(args)
     device = torch.device(args.device) if getattr(args, "device", None) else None
     llm_tok, bert_tok, params, cfg, model_name = load_blip_model(args.model_path, device=device)
     questions = load_questions_for(args)
@@ -183,7 +184,7 @@ def run(args) -> str:
     if in_flight is not None:
         _finish(*in_flight)
     ans.close()
-    return args.answers_file
+    return finish_dist_auto(args)
 
 
 def _load_image(args, image_file: str, cfg) -> np.ndarray:

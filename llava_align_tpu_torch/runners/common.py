@@ -6,7 +6,8 @@ HF-format checkpoint dirs; the train CLI's mock_tokenize and
 resolve_tokenizer, verbatim), and pope_groups, POPE-style traffic split as
 the grouped entry points take it.
 
---dist auto (jax.distributed in the JAX package) is not ported yet.
+and --dist auto (apply_dist_auto / finish_dist_auto over torch.distributed,
+parallel/dist, where the JAX package takes jax.distributed).
 """
 
 from __future__ import annotations
@@ -80,6 +81,55 @@ def load_questions_for(args) -> List[dict]:
         args.question_file, args.num_chunks, args.chunk_idx,
         allow_out_of_range=getattr(args, "dist_merge_target", None) is not None,
     )
+
+
+def apply_dist_auto(args) -> bool:
+    """--dist auto: initialize torch.distributed from the launcher's
+    environment (RANK, WORLD_SIZE, MASTER_ADDR / MASTER_PORT: torchrun, or
+    ranks spawned with it set; parallel/dist picks the backend), shard the
+    question file by rank, and write a per-rank answers part
+    `<answers>.rank{r}-of-{n}<ext>`. Each rank holds one whole model
+    (data parallelism over processes), so every model family takes it.
+    Returns True when multi-process."""
+    if getattr(args, "dist", "none") != "auto":
+        return False
+    from llava_align_tpu_torch.parallel.dist import get_rank, get_world_size, init_distributed_mode
+
+    if not init_distributed_mode(device=getattr(args, "device", None)):
+        return False
+    n, r = get_world_size(), get_rank()
+    args.num_chunks, args.chunk_idx = n, r
+    args.dist_merge_target = args.answers_file  # finish_dist_auto merges here
+    root, ext = os.path.splitext(args.answers_file)
+    args.answers_file = f"{root}.rank{r}-of-{n}{ext}"
+    return True
+
+
+def finish_dist_auto(args) -> str:
+    """Counterpart of apply_dist_auto, called after the answer loop: a
+    barrier (every rank's part is complete once its loop returns), then
+    rank 0 concatenates the parts into the requested answers file. Returns
+    the merged path on rank 0, the rank's part elsewhere, and
+    args.answers_file unchanged without --dist auto."""
+    target = getattr(args, "dist_merge_target", None)
+    if target is None:
+        return args.answers_file
+    from llava_align_tpu_torch.parallel.dist import barrier, get_rank, get_world_size
+
+    barrier()
+    if get_rank() != 0:
+        return args.answers_file
+    return merge_chunk_files(target, get_world_size())
+
+
+def is_dist_worker(args) -> bool:
+    """True on a rank other than 0 of a --dist auto run: it holds a part
+    file only, and leaves converting and scoring to rank 0."""
+    if getattr(args, "dist_merge_target", None) is None:
+        return False
+    from llava_align_tpu_torch.parallel.dist import get_rank
+
+    return get_rank() != 0
 
 
 def merge_chunk_files(answers_file: str, world_size: int) -> str:

@@ -30,6 +30,7 @@ import os
 
 from llava_align_tpu_torch.evals.mme import convert_answers_to_category_txt, score_results_dir
 from llava_align_tpu_torch.runners import pope
+from llava_align_tpu_torch.runners.common import is_dist_worker
 
 
 def load_mme_gt(data_path: str) -> dict:
@@ -82,6 +83,12 @@ def run(args) -> dict:
             args.image_aspect_ratio = "pad"  # llava-v1.5 config default
         answers_file = pope.run(args)
 
+    if is_dist_worker(args):
+        # under --dist auto only rank 0 converts and scores: it holds the
+        # merged file, the others a part, and they would race it into the
+        # same mme_eval dir
+        print("rank != 0: skipping MME conversion/scoring")
+        return {}
     if not args.mme_data_root or not os.path.isdir(args.mme_data_root):
         print(f"--mme-data-root {args.mme_data_root!r} missing or not a directory; "
               "skipping conversion/scoring")

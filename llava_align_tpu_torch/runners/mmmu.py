@@ -21,8 +21,8 @@ Input format: jsonl samples with
 
 Each question's sampling stream (and --calibrate-best's noise) is a
 torch.Generator seeded args.seed + crc32(id) % 65536, where the JAX runner
-seeds a PRNGKey so. The GPU unless --device cpu is given. Not ported yet,
-and refused: --dist auto.
+seeds a PRNGKey so. The GPU unless --device cpu is given. --dist auto as in
+the POPE runner; only rank 0 scores.
 """
 
 from __future__ import annotations
@@ -48,6 +48,9 @@ from llava_align_tpu_torch.evals.mmmu import (
 )
 from llava_align_tpu_torch.runners.common import (
     AnswerFile,
+    apply_dist_auto,
+    finish_dist_auto,
+    is_dist_worker,
     build_prompt,
     load_image_tensor,
     load_model,
@@ -55,7 +58,6 @@ from llava_align_tpu_torch.runners.common import (
     make_generation_config,
     postprocess_answer,
 )
-from llava_align_tpu_torch.runners.pope import _refuse_dist_auto
 from llava_align_tpu_torch.tokenization import keyword_token_ids, tokenizer_image_token
 
 
@@ -75,7 +77,7 @@ def run_qwen(args) -> str:
     from llava_align_tpu_torch.models import qwen_vl as qwen_vl_model
     from llava_align_tpu_torch.runners.qwen_pope import _load_image, load_qwen_model
 
-    _refuse_dist_auto(args)
+    apply_dist_auto(args)
     device = torch.device(args.device) if getattr(args, "device", None) else None
     tokenizer, params, cfg, model_name = load_qwen_model(args.model_path, device=device)
     if getattr(args, "quant", "none") == "int8":
@@ -151,13 +153,13 @@ def run_qwen(args) -> str:
     if in_flight is not None:
         _finish(*in_flight[:2], engine.collect_generate(in_flight[2]))
     ans.close()
-    return args.answers_file
+    return finish_dist_auto(args)
 
 
 def run(args) -> str:
     if getattr(args, "model_family", "llava") == "qwen":
         return run_qwen(args)
-    _refuse_dist_auto(args)
+    apply_dist_auto(args)
     device = torch.device(args.device) if getattr(args, "device", None) else None
     model = load_model(args.model_path, device=device)
     tokenizer, params, cfg = model.tokenizer, model.params, model.cfg
@@ -273,7 +275,7 @@ def run(args) -> str:
         ans.write(record)
     _flush_pending()
     ans.close()
-    return args.answers_file
+    return finish_dist_auto(args)
 
 
 def score(answers_file: str, setting: str = "naive") -> dict:
@@ -446,6 +448,10 @@ def main(argv=None) -> int:
 
     a = build_parser().parse_args(argv)
     path = run(a)
+    if is_dist_worker(a):
+        # under --dist auto only rank 0 scores (it holds the merged file)
+        print("rank != 0: skipping MMMU scoring")
+        return 0
     if a.calibrate_best:
         res = score_sweep(path)
         print(json.dumps({k: v["overall_acc"] for k, v in res["settings"].items()}, indent=2))

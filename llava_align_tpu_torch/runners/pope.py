@@ -21,8 +21,10 @@ has no image leaves the shared-prefix path (it has no noised prefix
 segment), and anyres grid stacks decode one question at a time through
 `generate`. --quant w8a8 is the JAX runner's opt-in throughput mode: int8
 weights plus W8A8 at prefill row counts (DecodeEngine act_quant), not
-bit-exact with --quant int8. Not ported yet, and refused: --dist auto (use
---num-chunks/--chunk-idx).
+bit-exact with --quant int8. --dist auto runs one process per rank
+(torchrun, or ranks spawned with RANK / WORLD_SIZE / MASTER_ADDR /
+MASTER_PORT set), each answering its chunk of the questions into a
+.rank{r}-of-{n} part that rank 0 merges (runners/common.apply_dist_auto).
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ from llava_align_tpu_torch.decoding.engine import DecodeEngine
 from llava_align_tpu_torch.framework.data import ListDataset, PrefetchLoader
 from llava_align_tpu_torch.runners.common import (
     AnswerFile,
+    apply_dist_auto,
     build_prompt,
+    finish_dist_auto,
     load_image_tensor,
     load_model,
     load_questions_for,
@@ -88,16 +92,11 @@ def _auto_group_batch(engine, Qg: int, max_new: int) -> int:
     return max(1, min(4, fit))
 
 
-def _refuse_dist_auto(args) -> None:
-    if getattr(args, "dist", "none") == "auto":
-        raise NotImplementedError(
-            "--dist auto (multi-process sharding) is not ported yet (ROADMAP Queue 1 item 8, parallelism); "
-            "shard with --num-chunks/--chunk-idx")
-
-
 def run(args) -> str:
-    """Answer the question file into args.answers_file; returns its path."""
-    _refuse_dist_auto(args)
+    """Answer the question file into args.answers_file; returns its path
+    (under --dist auto: the merged file on rank 0, the rank's part
+    elsewhere)."""
+    apply_dist_auto(args)
     device = torch.device(args.device) if args.device else None
     # w8a8 = int8 weights + opt-in W8A8 at prefill row counts (not
     # bit-exact with int8; ops/quant W8A8 note)
@@ -347,7 +346,7 @@ def run(args) -> str:
 
     _flush_pending()
     ans.close()
-    return args.answers_file
+    return finish_dist_auto(args)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -362,7 +361,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--conv-mode", type=str, default="llava_v1")
     p.add_argument("--num-chunks", type=int, default=1)
     p.add_argument("--dist", default="none", choices=["none", "auto"],
-                   help="auto is not ported yet (refused); shard with --num-chunks/--chunk-idx")
+                   help="auto: shard by torch.distributed rank (torchrun), one answers part per rank, merged by rank 0")
     p.add_argument("--chunk-idx", type=int, default=0)
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top_p", type=float, default=None)

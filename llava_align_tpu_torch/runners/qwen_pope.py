@@ -17,8 +17,7 @@ qwen.tiktoken for the native tokenizer, which needs `regex`; without
 qwen.tiktoken the tokenizer needs transformers). The GPU unless --device cpu
 is given. --quant int8 quantizes the decoder; --quant w8a8 does too and
 adds W8A8 at prefill row counts (DecodeEngine act_quant). Refused: --quant
-int4 (the JAX runner's reason), and what the POPE runner refuses (--dist
-auto).
+int4 (the JAX runner's reason). --dist auto as in the POPE runner.
 """
 
 from __future__ import annotations
@@ -39,11 +38,12 @@ from llava_align_tpu_torch.models.qwen_vl import QwenVLConfig
 from llava_align_tpu_torch.ops.image import normalize_host, qwen_preprocess_pil
 from llava_align_tpu_torch.runners.common import (
     AnswerFile,
+    apply_dist_auto,
+    finish_dist_auto,
     MockTokenizer,
     load_questions_for,
     make_generation_config,
 )
-from llava_align_tpu_torch.runners.pope import _refuse_dist_auto
 
 
 class QwenMockTokenizer(MockTokenizer):
@@ -91,7 +91,7 @@ def _text_ids(tokenizer, text: str):
 
 def run(args) -> str:
     """Answer the question file into args.answers_file; returns its path."""
-    _refuse_dist_auto(args)
+    apply_dist_auto(args)
     quant = getattr(args, "quant", "none")
     act_quant = quant == "w8a8"  # int8 weights + W8A8 at prefill row counts
     if act_quant:
@@ -243,7 +243,7 @@ def run(args) -> str:
 
     _flush_pending()
     ans.close()
-    return args.answers_file
+    return finish_dist_auto(args)
 
 
 def _load_image(args, image_file: str, cfg) -> np.ndarray:

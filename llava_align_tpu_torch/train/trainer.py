@@ -79,6 +79,7 @@ def multimodal_lm_loss(
     batch: Dict[str, torch.Tensor],
     *,
     attn_impl: str = "auto",
+    tp_mesh=None,
 ) -> torch.Tensor:
     """Next-token cross entropy over spliced multimodal sequences (a 0-d fp32
     tensor).
@@ -89,17 +90,35 @@ def multimodal_lm_loss(
         tok_gather  [B, S], img_gather [B, S], is_image [B, S]
         labels      [B, S] target ids, IGNORE_INDEX at image/pad positions
         images      [B, 3, H, W]
+    tp_mesh: a mesh whose 'model' axis the tree is sharded over
+    (parallel/sharding.llava_param_shardings); the collectives carry the
+    gradients (parallel/comm), and the loss is whole on every rank.
     """
-    feats = llava.encode_images(params, cfg, batch["images"])
+    nll, count = lm_loss_parts(params, cfg, batch, attn_impl=attn_impl, tp_mesh=tp_mesh)
+    return nll / count.clamp(min=1)
+
+
+def lm_loss_parts(params: Params, cfg: LlavaConfig, batch: Dict[str, torch.Tensor], *,
+                  attn_impl: str = "auto", tp_mesh=None):
+    """(the summed next-token nll, the number of target tokens) of the
+    batch: multimodal_lm_loss is their quotient; a data-parallel step
+    divides its chunk's sum by the whole batch's count."""
+    group = None
+    if tp_mesh is not None:
+        from llava_align_tpu_torch.parallel.mesh import axis_group, axis_size
+
+        group = axis_group(tp_mesh, "model") if axis_size(tp_mesh, "model") > 1 else None
+    feats = llava.encode_images(params, cfg, batch["images"], tp_mesh)
     embeds = llava.splice_embeds(
         params, cfg,
         batch["tokens"], batch["tok_gather"], batch["img_gather"],
-        batch["is_image"], feats,
+        batch["is_image"], feats, group,
     )
     B, S, _ = embeds.shape
     positions = torch.arange(S, device=embeds.device).expand(B, S)
-    hidden, _ = llama.forward(params["llama"], cfg.text, embeds, positions, attn_impl=attn_impl)
-    logits = llama.logits_from_hidden(params["llama"], hidden)  # [B, S, V] fp32
+    hidden, _ = llama.forward(params["llama"], cfg.text, embeds, positions, attn_impl=attn_impl,
+                              tp_mesh=tp_mesh)
+    logits = llama.logits_from_hidden(params["llama"], hidden, group)  # [B, S, V] fp32
 
     shift_logits = logits[:, :-1]
     shift_labels = batch["labels"][:, 1:].long()
@@ -107,8 +126,7 @@ def multimodal_lm_loss(
     safe_labels = torch.where(valid, shift_labels, 0)
     logp = torch.log_softmax(shift_logits, dim=-1)
     nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
-    denom = valid.sum().clamp(min=1)
-    return torch.where(valid, nll, 0.0).sum() / denom
+    return torch.where(valid, nll, 0.0).sum(), valid.sum()
 
 
 def compute_config(cfg: LlavaConfig, dtype: torch.dtype) -> LlavaConfig:
@@ -137,6 +155,7 @@ def make_train_step(
     *,
     attn_impl: str = "auto",
     amp: bool = False,
+    mesh=None,
 ) -> Callable:
     """Returns step(params, opt_state, batch) -> (params, opt_state, loss).
 
@@ -148,21 +167,83 @@ def make_train_step(
     framework.optims.amp_cast casts the fp32 leaves to bf16 and the model
     computes in bf16 (torch does not promote a bf16 x fp32 matmul as JAX
     does), while the optimizer updates the fp32 masters with the fp32
-    gradients that come back through the cast."""
+    gradients that come back through the cast.
+
+    mesh: a ('data', 'model') mesh, one process per rank, as the JAX
+    package's GSPMD step runs over one (trainer.py:126-140). params are then
+    this rank's shards (parallel/sharding.shard_params with
+    train_shardings(cfg, params, model size)), and batch the whole batch on
+    every rank: the step
+    takes its 'data' chunk of the rows, divides its summed nll by the whole
+    batch's target count, and sums the gradients over 'data' (the mean of
+    the whole batch, as one device computes it). Split leaves keep their
+    shard's gradient; the optimizer's global norm counts each split leaf's
+    squared norm summed over 'model' once and each replicated leaf once
+    (AdamW.norm_sync, set here on `optimizer`). The loss, gradients and
+    stepped params are the unsharded step's."""
     loss_cfg = compute_config(cfg, torch.bfloat16) if amp else cfg
     cast = amp_cast if amp else (lambda p: p)
+    data = model = 1
+    if mesh is not None:
+        from llava_align_tpu_torch.parallel import comm
+        from llava_align_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+
+        data, model = axis_size(mesh, "data"), axis_size(mesh, "model")
+        data_group = axis_group(mesh, "data") if data > 1 else None
 
     def step(params, opt_state, batch):
         leaves = trainable_leaves(params)
+        if model > 1 and optimizer.norm_sync is None:
+            optimizer.norm_sync = _norm_sync(train_shardings(cfg, params, model), mesh, leaves[0].device)
+        if data > 1:
+            B = next(iter(batch.values())).shape[0]
+            size = -(-B // data)
+            lo = min(axis_rank(mesh, "data") * size, B)
+            batch = {k: v[lo : lo + size] for k, v in batch.items()}
         with torch.enable_grad():
-            loss = multimodal_lm_loss(cast(params), loss_cfg, batch, attn_impl=attn_impl)
+            nll, count = lm_loss_parts(cast(params), loss_cfg, batch, attn_impl=attn_impl, tp_mesh=mesh)
+            if data > 1:
+                count = comm.all_reduce_(count.clone(), data_group)
+            loss = nll / count.clamp(min=1)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+        loss = loss.detach()
+        if data > 1:
+            for g in grads:
+                comm.all_reduce_(g, data_group)
+            loss = comm.all_reduce_(loss.clone(), data_group)
         optimizer.step(params, grads, opt_state)
         del grads
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return step
+
+
+def train_shardings(cfg: LlavaConfig, params: Params, model: int = 1) -> Params:
+    """The spec tree of a training tree (float LLaVA) over a 'model' axis
+    of size `model`: parallel/sharding's llava_param_shardings completed
+    over the tree."""
+    from llava_align_tpu_torch.parallel.sharding import complete_shardings, llava_param_shardings
+
+    return complete_shardings(params, llava_param_shardings(cfg, params, model))
+
+
+def _norm_sync(specs: Params, mesh, device) -> Callable:
+    """AdamW.norm_sync for a tree sharded by `specs` over 'model': the
+    split leaves' squared norms summed over the group, the replicated ones
+    (equal on every rank) kept once."""
+    from llava_align_tpu_torch.parallel import comm
+    from llava_align_tpu_torch.parallel.mesh import axis_group
+    from llava_align_tpu_torch.parallel.sharding import split_leaves
+
+    group = axis_group(mesh, "model")
+    mask = torch.tensor(split_leaves(specs), device=device)
+
+    def sync(sq: torch.Tensor) -> torch.Tensor:
+        part = comm.all_reduce_(torch.where(mask, sq, torch.zeros_like(sq)), group)
+        return torch.where(mask, part, sq)
+
+    return sync
 
 
 def build_train_batch(

@@ -153,14 +153,20 @@ def test_caption_results_equal_jax(patched, files, tmp_path, beams):
 
 
 @pytest.mark.parametrize("case", ["dist_auto", "w8a8"])
-def test_blip_pope_refusals(patched, files, tmp_path, case):
-    """--dist auto is refused; --quant w8a8, once refused, is now read by
-    nothing, as in the JAX runner: the records equal the JAX runner's with
-    the flag and the port's own without it."""
+def test_blip_pope_refusals(patched, files, tmp_path, case, monkeypatch):
+    """--dist auto, once refused, now runs over torch.distributed; without
+    a launcher environment it answers in one process into the requested
+    file, equal to a run without the flag. --quant w8a8, once refused, is
+    now read by nothing, as in the JAX runner: the records equal the JAX
+    runner's with the flag and the port's own without it."""
     answers = str(tmp_path / "a.jsonl")
     if case == "dist_auto":
-        with pytest.raises(NotImplementedError, match="--dist auto"):
-            tbp.run(_pope_args(tbp, files["pope"], answers, device="cpu", dist="auto"))
+        for name in ("RANK", "WORLD_SIZE"):
+            monkeypatch.delenv(name, raising=False)
+        plain = str(tmp_path / "plain.jsonl")
+        assert tbp.run(_pope_args(tbp, files["pope"], answers, device="cpu", dist="auto")) == answers
+        tbp.run(_pope_args(tbp, files["pope"], plain, device="cpu"))
+        assert load_jsonl(answers) == load_jsonl(plain)
         return
     paths = {}
     for name, mod, extra in (("jax", jbp, {"quant": "w8a8"}), ("port", tbp, {"device": "cpu", "quant": "w8a8"}),

@@ -231,10 +231,15 @@ def test_mmmu_parsers_identical(case):
     assert tmmmu_eval.CAT_SHORT2LONG == jmmmu_eval.CAT_SHORT2LONG
 
 
-def test_mmmu_runner_refuses_qwen(sample_file, tmp_path):
+def test_mmmu_runner_refuses_qwen(sample_file, tmp_path, monkeypatch):
     """--model-family qwen is ported (tests/test_torch_qwen_runners.py holds
-    its records against the JAX runner's); what its path still refuses is
-    --dist auto, as the LLaVA path does, before any model is loaded."""
-    with pytest.raises(NotImplementedError, match="--dist auto"):
-        tmmmu.run(_args(tmmmu, sample_file, str(tmp_path / "a.jsonl"), device="cpu", model_family="qwen",
-                        dist="auto"))
+    its records against the JAX runner's), and so is --dist auto, once
+    refused on its path: without a launcher environment the run answers in
+    one process into the requested file, equal to a run without the flag."""
+    for name in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    paths = {d: str(tmp_path / f"{d}.jsonl") for d in ("auto", "none")}
+    for d, path in paths.items():
+        assert tmmmu.run(_args(tmmmu, sample_file, path, device="cpu", model_family="qwen", dist=d,
+                               max_questions=2)) == path
+    assert load_jsonl(paths["auto"]) == load_jsonl(paths["none"]) and len(load_jsonl(paths["auto"])) == 2

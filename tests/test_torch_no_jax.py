@@ -6,7 +6,8 @@ the MME and MMMU runners and scorers, the Qwen-VL and InstructBLIP
 runners, the W8A8 and int8 KV-cache modes, the sampling sweep, the bias
 probe and the judge pipeline, LLaVA-MPT and BLIP-2 OPT generates, BLIP-2
 T5's t5_generate and a stage-1 caption, the train CLI (2 epochs and a
-resume), and every microbenchmark twin (at rehearsal size) on the CPU,
+resume), the parallel dry run on 2 spawned ranks (parallel/*), and every
+microbenchmark twin (at rehearsal size) on the CPU,
 with jax (and the JAX package) blocked — the machine with the card has no
 jax — and, for the slice's modules, with safetensors and transformers
 blocked too (the port must not need them)."""
@@ -462,12 +463,37 @@ print("OK")
 """
 
 
-def _run(code: str) -> subprocess.CompletedProcess:
+PARALLEL_CODE = r"""
+import sys
+for blocked in ("jax", "jaxlib", "llava_align_tpu", "safetensors", "transformers"):
+    sys.modules[blocked] = None
+from llava_align_tpu_torch.parallel import comm, dist, dryrun, mesh, sharding  # noqa: F401
+r = dryrun.dryrun_multichip(2, device="cpu", timeout=240)
+assert r["model"] == 2 and r["data"] == 1, r
+print("OK")
+"""
+
+
+def test_parallel_runs_with_jax_blocked(tmp_path):
+    """parallel/* imports, and the dry run (a TP train step, the sharded
+    engine token-exact against one device, int8 TP with padding, W8A8
+    under TP) runs on 2 spawned gloo ranks, with jax, the JAX package,
+    safetensors and transformers unimportable in the parent and in the
+    ranks (stub packages that raise, first on the ranks' PYTHONPATH)."""
+    for name in ("jax", "jaxlib", "llava_align_tpu", "safetensors", "transformers"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('{name} is blocked')\n")
+    proc = _run(PARALLEL_CODE, pythonpath=f"{tmp_path}{os.pathsep}{REPO}")
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
+
+
+def _run(code: str, pythonpath: str = REPO) -> subprocess.CompletedProcess:
     # one intra-op thread: beside the suite's parallel workers, a child with
     # a thread per core spins at every parallel region (the twins' host-
     # clock loops ran 9 s alone on one thread, 156 s on eight beside three
     # busy processes, past the timeout under the whole suite)
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=pythonpath, OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
         timeout=300,

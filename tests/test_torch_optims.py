@@ -311,3 +311,30 @@ def test_runner_checkpoint_holds_adamw_state(tmp_path, tiny_tree):
             assert torch.equal(a, b), k
     for a, b in zip(toptims.tree_leaves(r.params), toptims.tree_leaves(r2.params)):
         assert torch.equal(a, b)
+
+
+# bf16 leaves of three shapes (two decayed matrices, one 1-D
+# leaf that is not decayed), lr 1e-4, wd 0.05: every op of optax's chain
+# rounds to bf16 where the compiled update rounds, so after 3 steps the
+# params and both moments equal optax's bit for bit
+BF16_SHAPES = {"w1": (256, 512), "w2": (512, 128), "b": (512,)}
+
+
+@pytest.mark.parametrize("max_grad_norm", [1.0, 0.0], ids=["clip", "no_clip"])
+def test_build_optimizer_bf16_matches_optax_bitwise(max_grad_norm):
+    rng = np.random.default_rng(11)
+    bf16 = jnp.bfloat16
+    tree = {k: np.asarray(jnp.asarray(rng.normal(size=s) * 0.05, bf16)) for k, s in BF16_SHAPES.items()}
+    # gradients of scale 0.01 have a global norm ~4.4: the clip at 1.0 fires
+    grads_seq = [{k: np.asarray(jnp.asarray(rng.normal(size=s) * 0.01, bf16)) for k, s in BF16_SHAPES.items()}
+                 for _ in range(3)]
+    sched = dict(lr_sched="constant_lr", init_lr=1e-4, weight_decay=0.05, max_grad_norm=max_grad_norm)
+    want_p, want_s = _run_optax(joptims.build_optimizer(**sched), tree, grads_seq)
+    got_p, got_s = _run_port(toptims.build_optimizer(**sched), tree, grads_seq)
+    carried = from_jax_opt_state(want_s, device="cpu")
+    for what, got, want in (("params", got_p, from_jax_params(want_p, device="cpu")),
+                            ("mu", got_s["mu"], carried["mu"]), ("nu", got_s["nu"], carried["nu"])):
+        for g, w in zip(toptims.tree_leaves(got), toptims.tree_leaves(want)):
+            assert g.dtype == w.dtype == torch.bfloat16, what
+            diff = (g.float() != w.float())
+            assert not diff.any(), f"{what}: {int(diff.sum())} of {diff.numel()} elements differ"

@@ -179,7 +179,8 @@ def test_qwen_mmmu_equals_jax(models, monkeypatch, files, tmp_path, calibrate):
 
 @pytest.mark.parametrize("case", ["int4", "w8a8", "dist_auto"])
 def test_qwen_pope_refusals(models, monkeypatch, files, tmp_path, case):
-    """int4 refused with the JAX runner's reason and --dist auto refused;
+    """int4 refused with the JAX runner's reason; --dist auto, once
+    refused, runs (in one process without a launcher environment);
     --quant w8a8, once refused, now gives the JAX runner's records (int8
     decoder, W8A8 on the 6-question lockstep prefill's 384 rows; grouped,
     two image groups a call, the JAX runner's W8A8 default). The top-k
@@ -192,8 +193,14 @@ def test_qwen_pope_refusals(models, monkeypatch, files, tmp_path, case):
             jqp.run(_args(jqp, files["pope"], answers, quant="int4"))
         assert str(port_err.value) == str(jax_err.value)
     elif case == "dist_auto":
-        with pytest.raises(NotImplementedError, match="--dist auto"):
-            tqp.run(_args(tqp, files["pope"], answers, device="cpu", dist="auto"))
+        # once refused: without a launcher environment, one process
+        # answering into the requested file, as a run without the flag
+        for name in ("RANK", "WORLD_SIZE"):
+            monkeypatch.delenv(name, raising=False)
+        plain = str(tmp_path / "plain.jsonl")
+        assert tqp.run(_args(tqp, files["pope"], answers, device="cpu", dist="auto")) == answers
+        tqp.run(_args(tqp, files["pope"], plain, device="cpu"))
+        assert load_jsonl(answers) == load_jsonl(plain)
     else:
         _patch(models, monkeypatch)
         for layout in ({"group_by_image": False, "batch_size": 6}, {"group_by_image": True}):

@@ -161,12 +161,21 @@ def test_scorer_entry_prints_what_score_sh_prints(models, monkeypatch, question_
 
 @pytest.mark.parametrize("case", ["dist_auto", "w8a8"])
 def test_runner_refuses_what_is_not_ported(models, monkeypatch, question_file, tmp_path, case):
-    """--dist auto is refused; --quant w8a8, once refused, now gives the JAX
+    """--dist auto, once refused, now runs over torch.distributed
+    (tests/test_torch_parallel.py runs two ranks); without a launcher
+    environment it answers in one process into the requested file, as the
+    JAX runner does without a coordinator, and its records equal a run
+    without the flag. --quant w8a8, once refused, now gives the JAX
     runner's records (4 questions a lockstep call: 512 prefill rows, so the
     W8A8 product takes every stack of the image prefill)."""
     if case == "dist_auto":
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tpope.run(_args(tpope, question_file, str(tmp_path / "refused.jsonl"), device="cpu", dist="auto"))
+        for name in ("RANK", "WORLD_SIZE"):
+            monkeypatch.delenv(name, raising=False)
+        monkeypatch.setattr(tpope, "load_model", lambda *a, **k: models[1])
+        paths = {d: str(tmp_path / f"{d}.jsonl") for d in ("auto", "none")}
+        for d, path in paths.items():
+            assert tpope.run(_args(tpope, question_file, path, device="cpu", dist=d)) == path
+        assert load_jsonl(paths["auto"]) == load_jsonl(paths["none"]) and len(load_jsonl(paths["auto"])) == 6
         return
     from llava_align_tpu_torch.ops import quant as tquant
 
