@@ -51,7 +51,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      naive/none/unk dumps and launch K1, K2 and K3, and the port's POPE
      scorer (evals.pope) must score each answers file, calibrated report
      included; every shape K3 takes in these runs that phase 3 did not
-     check is then checked and timed as phase 3 does;
+     check is then checked and timed as phase 3 does; then
+     utils.profiling.trace around one 7B int8 `generate` (a torch.profiler
+     trace kept gzipped under build/trace_7b_decode/, which must name
+     K1's and K3's kernels; its kernel time beside the call's PhaseTimer
+     wall) and framework.data.JsonlDataset on the question file, which
+     must take the native line index;
   6b. the same runner with VCD (--use_cd, noise step 500, cd_alpha=1,
      cd_beta=0.1) in the same two layouts on the same file, each with its
      questions/s beside dual VDD's of the same run; then the MME runner
@@ -63,7 +68,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      in bf16 as the runner loads it (K3 must launch); every shape K3 takes
      in phases 6 and 6b that phase 3 did not check is then checked and
      timed as phase 3 does;
-  7. 7B reference: the same model cut to 2 decoder / 2 vision layers at full
+  7. 7B reference (timed by utils.profiling.PhaseTimer): the same model
+     cut to 2 decoder / 2 vision layers at full
      width, its prefill and decode logits on the card against the same
      params run in fp32 on the CPU (the kernels' plain versions); then a VCD
      `generate` on that cut, its first-step fused scores on the card
@@ -73,7 +79,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      under HF key names) written to a temporary dir and loaded onto the card
      by utils.hf_convert.load_llava_checkpoint (seconds and GB/s printed),
      every leaf held exactly against its source tensor; then quantized int8
-     and one dual-VDD `generate`, which must launch K1, K2 and K3;
+     and one dual-VDD `generate`, which must launch K1, K2 and K3; then
+     the port's parity CLI (python -m llava_align_tpu_torch.utils.
+     parity_check --image --tol 1e-3) on that dir (a wordpiece vocab and a
+     seeded PNG added), fp32, against transformers' LlamaForCausalLM and
+     CLIPVisionModel on the card; it must exit 0;
   8. 13B grouped path: LLaVA-v1.5-13B at full width and depth with random
      int4 (group 128) weights, the same decoding, POPE's 6 questions per
      image: one generate_batch_prefix call, one generate_batch_groups call
@@ -113,7 +123,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      none/noise settings included); then runners/caption.run at its
      defaults (5 beams, max_len 30, min_len 8) on 4 synthetic images, one
      non-empty caption per image; K3 must launch in each; questions/s,
-     captions/s and tokens per answer printed; then the split of an
+     captions/s and tokens per answer printed; every hypothesis each bf16
+     beam search ended with re-scored in fp32 on the card (one
+     teacher-forced pass of the Vicuna weights in fp32), whose order must
+     be the bf16 order but between scores within 0.05 nats a token, every
+     gap printed; then the split of an
      answer's time (EVA-ViT-g, Q-Former, encode, decode steps at 2 and 5
      rows, the beam's sort and cache reorder);
  13. InstructBLIP reference: the model cut to 2 EVA / 2 Q-Former / 2
@@ -161,8 +175,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
      full-width fp32 cut's greedy tokens under data 1 x model 2 and
      data 2 x model 1 equal to one rank's; one fp32 train step of the cut
      under both meshes within 1e-3 (loss) and 2 lr (params) of the
-     unsharded step. Then K1, K2 and K3 held against their plain versions
-     and timed at those shard shapes (each kernel's `tp2` record);
+     unsharded step. Then, one tree at a time on each rank, TP = 2 engines
+     of the four other families, each beside a one-rank engine on rank 0
+     (first-step logits within 5e-2 of its largest): Qwen-VL-7B int8 at
+     full width and depth (generate dual VDD, generate_batch of 4,
+     generate_batch_groups of 2 x 3; K1, K2 and K3 required,
+     launches_by_path tp2_qwen), InstructBLIP-Vicuna-7B bf16 at full width
+     and depth (generate_batch of 4 text prompts, a 5-beam generate_beam on
+     query features; K3 required, tp2_blip), LLaVA-MPT-7B and BLIP-2
+     OPT-2.7b bf16 at full width with 8 of their 32 decoder layers
+     (generate, generate_batch / generate_beam; tp2_mpt, tp2_opt); and
+     each family's 2-layer full-width fp32 cut, whose greedy tokens under
+     data 1 x model 2 must equal one rank's. Then K1, K2 and K3 held
+     against their plain versions and timed at the shard shapes those
+     engines sent them (each kernel's `tp2`, `tp2_qwen` and `tp2_blip`
+     records);
  14. the model paths' own shapes: the 7B path, the LLaVA runner phases,
      the Qwen ones and the InstructBLIP ones run under recorders that note
      what reaches each kernel; K1 at every row count they sent a 7B-shaped stack (Qwen-VL-7B's
@@ -231,8 +258,10 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gzip
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1132,6 +1161,55 @@ def rate_text(n_q: int, secs: float, quant_s: float) -> str:
     return text
 
 
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "trace_7b_decode"
+
+
+def phase_utilities(lm, smoke_dir: Path, smi: str) -> None:
+    """The utility modules on the card: utils.profiling.trace around one
+    7B int8 dual-VDD `generate` (a torch.profiler Chrome trace, kept
+    gzipped under build/trace_7b_decode/), which must name K1's kernel
+    (the tensor-core streaming kernel, stream_mma_kernel) and K3's; the trace's kernel time summed
+    beside the call's wall; and framework.data.JsonlDataset on the POPE
+    question file, which must take the native line index (built with g++
+    into build/native/) and read every row as json does."""
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+    from llava_align_tpu_torch.framework.data import JsonlDataset
+    from llava_align_tpu_torch.utils.profiling import TRACE_FILE, PhaseTimer, trace
+
+    engine = DecodeEngine(lm.params, lm.cfg, dual_vdd_config())
+    ids, image = pope_requests(lm.tokenizer, lm.cfg.vision.image_size)[1]
+    engine.generate(ids, image)  # warm: the trace holds one steady call
+    timer = PhaseTimer()
+    with trace(str(TRACE_DIR)), timer.phase("traced generate"):
+        out = engine.generate(ids, image)
+    check_output(out, lm.cfg.text.vocab_size, "traced generate")
+    events = json.loads((TRACE_DIR / TRACE_FILE).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = collections.Counter(e["name"] for e in kernels)
+    k1 = sum(n for name, n in names.items() if "stream_mma_kernel" in name)
+    k3 = sum(n for name, n in names.items() if "flash" in name)
+    busy_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    wall = timer.report()["traced generate"]["total_s"]
+    log(f"trace (utils.profiling.trace) of one 7B int8 dual-VDD generate on {smi}: "
+        f"{TRACE_DIR / TRACE_FILE} ({(TRACE_DIR / TRACE_FILE).stat().st_size / 1e6:.2f} MB), {len(kernels)} kernel "
+        f"events, {k1} of K1's stream_mma_kernel, {k3} of K3's; kernels {busy_ms:.3f} ms of the call's "
+        f"{wall * 1e3:.3f} ms wall (PhaseTimer, synchronized); most launched: "
+        f"{[(name[:90], n) for name, n in names.most_common(4)]}")
+    if not k1 or not k3:
+        raise AssertionError("the trace names no launch of K1's or K3's kernel")
+    with open(TRACE_DIR / TRACE_FILE, "rb") as f_in, gzip.open(TRACE_DIR / (TRACE_FILE + ".gz"), "wb") as f_out:
+        shutil.copyfileobj(f_in, f_out)  # chrome://tracing and Perfetto read it gzipped
+    (TRACE_DIR / TRACE_FILE).unlink()
+
+    qf = smoke_dir / "smoke_POPE_questions.jsonl"
+    ds = JsonlDataset(str(qf))
+    rows = [json.loads(line) for line in qf.read_text().splitlines() if line.strip()]
+    log(f"JsonlDataset on {qf.name}: native {ds.native}, {len(ds)} rows")
+    if not ds.native or [ds[i] for i in range(len(ds))] != rows:
+        raise AssertionError("JsonlDataset: not the native path, or rows differ from json's")
+    del engine
+
+
 def phase_runner(model: RunnerModel, root, smi: str, mode: str, rec: PathRecorder) -> tuple:
     """model's POPE runner (runners/pope for LLaVA, runners/qwen_pope for
     Qwen-VL, runners/blip_pope for InstructBLIP) on the card in one decoding
@@ -1496,10 +1574,45 @@ def phase_checkpoint(dev, smi: str) -> dict:
         require_launches(launches, ("int8_matmul_stacked", "int8_matmul_cuda", "flash_attention"),
                          "generate on the loaded checkpoint")
         del engine, params
+        torch.cuda.empty_cache()
+        phase_parity_check(root, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches
+
+
+PARITY_TOL = 1e-3  # parity_check's --tol: text logits absolute, vision features relative to their RMS
+PARITY_WORDS = ("is", "there", "a", "dog", "in", "the", "image", "please", "answer", "this", "question", "with",
+                "one", "word", "user", "assistant", ":", ".", "?")
+
+
+def phase_parity_check(root: Path, smi: str) -> None:
+    """The port's parity CLI (python -m llava_align_tpu_torch.utils.parity_check)
+    on the checkpoint dir phase 7b wrote (2 decoder layers at full width, the
+    whole ViT-L/336), given a wordpiece tokenizer (vocab.txt) and a seeded
+    PNG: the port's text-only last-position logits and its image features
+    (encode_images) in fp32 on the card against transformers'
+    LlamaForCausalLM and CLIPVisionModel + the projector built from the
+    checkpoint's own state dict, in fp32 on the card; it must exit 0 at
+    --tol PARITY_TOL."""
+    from PIL import Image
+
+    (root / "vocab.txt").write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *PARITY_WORDS]) + "\n")
+    (root / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": "BertTokenizer", "do_lower_case": True}))
+    rng = np.random.default_rng(12)
+    Image.fromarray(rng.integers(0, 256, (336, 336, 3), dtype=np.uint8)).save(root / "parity.png")
+    cmd = [sys.executable, "-m", "llava_align_tpu_torch.utils.parity_check", "--model-path", str(root),
+           "--prompt", "Is there a dog in the image?", "--image", str(root / "parity.png"), "--dtype", "float32",
+           "--tol", str(PARITY_TOL)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    report = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    log(f"parity_check CLI on the 2-layer full-width checkpoint on {smi} (fp32, TF32 off, against transformers "
+        f"on the card): exit {proc.returncode} in {secs:.2f} s; {report}")
+    if proc.returncode != 0:
+        raise AssertionError(f"parity_check failed (tol {PARITY_TOL}):\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
 
 
 MME_CATEGORIES = {"existence": True, "count": False}  # category -> images/ + questions_answers_YN/ layout
@@ -1887,11 +2000,91 @@ def generated_tokens():
         yield counts
 
 
-def phase_caption(model: RunnerModel, root, smi: str, rec: PathRecorder) -> dict:
+@contextlib.contextmanager
+def captured_beams():
+    """Within `with`, a list of every generate_beam call's (input_ids,
+    precomputed_feats, eos id, length_penalty, the beam fn's final
+    hypotheses: decoding/beam.make_beam_fn's fn.hypotheses)."""
+    from llava_align_tpu_torch.decoding import engine as engine_mod
+
+    calls, fns = [], []
+    make, beam = engine_mod.make_beam_fn, engine_mod.DecodeEngine.generate_beam
+
+    def kept_make(*a, **k):
+        fns.append(make(*a, **k))
+        return fns[-1]
+
+    def recorded_beam(self, input_ids, image=None, **k):
+        out = beam(self, input_ids, image, **k)
+        seqs, lens, scores = (t.cpu() for t in fns[-1].hypotheses)
+        calls.append(dict(ids=list(input_ids), feats=k.get("precomputed_feats"), eos=self.gen.eos_token_id,
+                          length_penalty=k.get("length_penalty", 1.0), seqs=seqs, lens=lens, scores=scores,
+                          best=out.token_ids))
+        return out
+
+    with patched(engine_mod, "make_beam_fn", kept_make), patched(engine_mod.DecodeEngine, "generate_beam", recorded_beam):
+        yield calls
+
+
+BEAM_TIE_TOL = 0.05  # nats a token: two hypotheses' fp32 scores this close may swap under bf16
+
+
+@torch.inference_mode()
+def phase_beam_rescore(params, cfg, calls, dev, smi: str) -> None:
+    """Queue 3 check 1: every hypothesis each bf16 beam search of the
+    caption run ended with (the finished ones and, where the search ran to
+    its length, the running ones) re-scored in fp32 on the card by one
+    teacher-forced pass of the same Vicuna weights in fp32 over the same
+    query features: its summed log-probability (the finished ones' eos
+    included), normalized as the beam normalizes it (length + 1 for a
+    finished one, length for a running one, to length_penalty). The fp32
+    order must be the bf16 order, except between two hypotheses whose fp32
+    scores lie within BEAM_TIE_TOL; every gap is printed."""
+    from llava_align_tpu_torch.decoding.adapters import InstructBlipAdapter
+    from llava_align_tpu_torch.decoding.beam import NEG
+
+    cfg32 = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, dtype=torch.float32))
+    p32 = {"llama": to_fp32(params["llama"], dev)}
+    adapter = InstructBlipAdapter(cfg32)
+    K = len(calls[0]["scores"]) // 2
+    worst = 0.0
+    for i, c in enumerate(calls):
+        feats = c["feats"][:1].to(dev, torch.float32)
+        hyps = []
+        for j in range(2 * K):
+            score = float(c["scores"][j])
+            if score <= NEG / 2:
+                continue
+            n = int(c["lens"][j])
+            toks = c["seqs"][j, :n].tolist() + ([c["eos"]] if j < K else [])
+            norm = max(len(toks), 1) ** c["length_penalty"]
+            hyps.append((score, blip_seq_logprob(adapter, p32, cfg32, c["ids"], feats, toks, dev) / norm, j))
+        hyps.sort(key=lambda h: -h[0])  # the bf16 order: the one returned first
+        fp32 = [h[1] for h in hyps]
+        gaps = [fp32[a] - fp32[a + 1] for a in range(len(fp32) - 1)]
+        swapped = [(a, b) for a in range(len(hyps)) for b in range(a + 1, len(hyps)) if fp32[b] > fp32[a]]
+        bad = [(a, b) for a, b in swapped if fp32[b] - fp32[a] > BEAM_TIE_TOL]
+        worst = max([worst] + [fp32[b] - fp32[a] for a, b in swapped])
+        log(f"bf16 beams, caption {i}: {len(hyps)} hypotheses (slots {[h[2] for h in hyps]}), bf16 scores "
+            f"{[round(h[0], 4) for h in hyps]}, fp32 {[round(x, 4) for x in fp32]}; fp32 gaps between neighbours "
+            f"in the bf16 order {[round(x, 4) for x in gaps]}; pairs the fp32 scores order the other way "
+            f"{swapped} (tie tol {BEAM_TIE_TOL})")
+        if bad:
+            raise AssertionError(f"bf16 beams, caption {i}: fp32 reorders {bad} beyond the tie tolerance")
+        if hyps and c["best"] != c["seqs"][hyps[0][2], :int(c["lens"][hyps[0][2]])].tolist():
+            raise AssertionError(f"bf16 beams, caption {i}: the returned caption is not the best-scored hypothesis")
+    log(f"bf16 beams on {smi}: {len(calls)} captions' hypotheses re-scored in fp32: the order holds, the largest "
+        f"reversal {worst:.4g} nats a token (tie tol {BEAM_TIE_TOL})")
+    del p32
+    torch.cuda.empty_cache()
+
+
+def phase_caption(model: RunnerModel, root, smi: str, rec: PathRecorder) -> tuple:
     """The caption runner (runners/caption.run: CaptionTask, 5-beam
     generate_beam) at its defaults (5 beams, max_len 30, min_len 8) on
     BLIP_CAPTION_IMAGES synthetic images; val_epoch0.json must hold one
-    non-empty caption per image, and K3 must launch."""
+    non-empty caption per image, and K3 must launch. Returns (launches,
+    each beam search's inputs and final hypotheses: captured_beams)."""
     import io
 
     from llava_align_tpu_torch.runners import caption
@@ -1902,7 +2095,7 @@ def phase_caption(model: RunnerModel, root, smi: str, rec: PathRecorder) -> dict
                           for i in range(BLIP_CAPTION_IMAGES)))
     args = caption.build_parser().parse_args([*model.args, "--question-file", str(qf), "--result-dir",
                                               str(result_dir), "--synthetic-images"])
-    with contextlib.redirect_stdout(io.StringIO()), generated_tokens() as counts:
+    with contextlib.redirect_stdout(io.StringIO()), generated_tokens() as counts, captured_beams() as beams:
         _, secs, launches, _ = timed_run(model, rec, lambda: caption.run(args))
     caps = json.loads((result_dir / "val_epoch0.json").read_text())
     n = BLIP_CAPTION_IMAGES
@@ -1914,7 +2107,7 @@ def phase_caption(model: RunnerModel, root, smi: str, rec: PathRecorder) -> dict
         raise AssertionError(f"caption runner: {caps}")
     require_launches(launches, model.kernels, "the caption runner")
     torch.cuda.empty_cache()
-    return launches
+    return launches, beams
 
 
 def phase_blip_split(params, cfg, dev, smi: str) -> None:
@@ -3423,19 +3616,38 @@ def parallel_train_samples(cfg, n: int) -> list:
 
 def parallel_rank(rank: int, world: int, device: str, smoke_dir: str) -> dict:
     """One rank of the parallel phase (parallel/dryrun.spawn: gloo, every
-    rank on cuda:0). In order: the POPE runner with --dist auto on the 7B
-    int8 tree; the TP = 2 engine on it (generate dual VDD, generate_batch,
-    generate_batch_groups) under a PathRecorder, and on rank 0 the
-    first-step logits against the one-rank engine; the 2-layer full-width
-    fp32 cut's greedy tokens under data = 1, model = 2 and data = 2,
-    model = 1 against one rank; one fp32 train step of the cut under both
-    meshes against the unsharded step. Returns what the parent checks."""
+    rank on cuda:0): LLaVA's checks (parallel_llava), then, with its trees
+    freed, the four other families' (parallel_families). Returns what the
+    parent checks."""
+    import torch.distributed as dist
+
+    from llava_align_tpu_torch.parallel.dist import rank_device
+    from llava_align_tpu_torch.parallel.mesh import make_mesh
+
+    dev = rank_device(device)
+
+    def say(msg: str) -> None:
+        log(f"[rank {rank}/{world}, {dist.get_backend()}] {msg}")
+
+    out = parallel_llava(rank, dev, Path(smoke_dir), say)
+    torch.cuda.empty_cache()
+    out.update(parallel_families(rank, dev, make_mesh(model=PARALLEL_RANKS, data=1), say))
+    return out
+
+
+def parallel_llava(rank: int, dev, smoke_dir: Path, say) -> dict:
+    """LLaVA on one rank of the parallel phase. In order: the POPE runner
+    with --dist auto on the 7B int8 tree; the TP = 2 engine on it (generate
+    dual VDD, generate_batch, generate_batch_groups) under a PathRecorder,
+    and on rank 0 the first-step logits against the one-rank engine; the
+    2-layer full-width fp32 cut's greedy tokens under data = 1, model = 2
+    and data = 2, model = 1 against one rank; one fp32 train step of the
+    cut under both meshes against the unsharded step."""
     import torch.distributed as dist
 
     from llava_align_tpu_torch.config import LlavaConfig
     from llava_align_tpu_torch.decoding.engine import DecodeEngine
     from llava_align_tpu_torch.framework.optims import tree_leaves
-    from llava_align_tpu_torch.parallel.dist import rank_device
     from llava_align_tpu_torch.parallel.mesh import make_mesh
     from llava_align_tpu_torch.parallel.sharding import shard_params, unshard_params
     from llava_align_tpu_torch.runners import pope
@@ -3443,12 +3655,7 @@ def parallel_rank(rank: int, world: int, device: str, smoke_dir: str) -> dict:
     from llava_align_tpu_torch.train import trainer
     from llava_align_tpu_torch.utils.synthetic import build_random_llava_params
 
-    dev = rank_device(device)
-    smoke_dir = Path(smoke_dir)
     out = {}
-
-    def say(msg: str) -> None:
-        log(f"[rank {rank}/{world}, {dist.get_backend()}] {msg}")
 
     # ---- the POPE runner, --dist auto: one whole 7B per rank, each its chunk
     lm = load_7b(dev)
@@ -3576,13 +3783,201 @@ def parallel_rank(rank: int, world: int, device: str, smoke_dir: str) -> dict:
 
 
 @torch.inference_mode()
-def prefill_logits(engine, ids, image) -> torch.Tensor:
+def prefill_logits(engine, ids, image=None, feats=None) -> torch.Tensor:
     """The first-step logits [rows, V] (fp32) of one request's image rows
-    (main, and cd under VCD), as `generate` prefills them."""
-    pad, *pack = engine._pack(ids, True, kinds=engine.img_kinds)
-    feats = engine._request_features(image, None)
+    (main, and cd under VCD), as `generate` prefills them: from an image,
+    or from precomputed query features [rows, N, D]."""
+    n_tok = None if feats is None else int(feats.shape[1])
+    pad, *pack = engine._pack(ids, True, kinds=engine.img_kinds, num_image_tokens=n_tok)
+    feats = engine._request_features(image, None) if feats is None else feats.to(engine.device)
     cache = engine.adapter.init_cache(len(engine.img_kinds), pad + 1, device=engine.device)
     return engine._prefill(pack, pad, feats, cache, 0, pad + 1).float()
+
+
+FAMILY_TP_LAYERS = 8  # LLaVA-MPT-7B's and OPT-2.7b's decoder depth in the TP = 2 check (of 32)
+FAMILY_TP_KINDS = {"qwen": "Qwen-VL-7B int8", "blip": "InstructBLIP-Vicuna-7B bf16",
+                   "mpt": f"LLaVA-MPT-7B bf16 ({FAMILY_TP_LAYERS} of 32 MPT layers)",
+                   "opt": f"BLIP-2 OPT-2.7b bf16 ({FAMILY_TP_LAYERS} of 32 OPT layers)"}
+FAMILY_TP_TOKENS = 8
+FAMILY_TP_BEAM_TOKENS = 12
+
+
+def family_tp_setups(dev):
+    """Per family of the TP = 2 check, a function that makes (params, cfg,
+    adapter, requests) at full width on `dev`: Qwen-VL-7B int8 at full depth (the
+    decoder int8 as the runners quantize it, ViT-bigG bf16), InstructBLIP-
+    Vicuna-7B bf16 at full depth, LLaVA-MPT-7B and BLIP-2 OPT-2.7b bf16 with
+    FAMILY_TP_LAYERS decoder layers; and of the fp32 cut of each (2 decoder
+    layers, 2 vision layers where the engine encodes, full width). Requests
+    from seeds: Qwen's image prompts ('unk' ids as the runners pass them)
+    and images (normalized, float), InstructBLIP's and OPT's query features
+    ([main, noised] rows, N(0, 1)) and prompts, LLaVA-MPT's mpt-template
+    POPE prompts; every request's ids inside the vocab."""
+    from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX as S
+    from llava_align_tpu_torch.decoding import adapters
+    from llava_align_tpu_torch.models import blip2, instructblip, llava_mpt, qwen_vl
+    from llava_align_tpu_torch.runners.common import MockTokenizer, build_prompt
+    from llava_align_tpu_torch.utils.synthetic import build_random_qwen_vl_params
+
+    def qwen(cut: bool):
+        full = qwen_vl.QwenVLConfig.qwen_vl_7b()
+        cfg = full if not cut else dataclasses.replace(
+            full, text=dataclasses.replace(full.text, num_layers=2, dtype=torch.float32),
+            vision=dataclasses.replace(full.vision, num_layers=2, dtype=torch.float32))
+        params = build_random_qwen_vl_params(cfg, quant="none" if cut else "int8", device=dev, seed=0)
+        rng = np.random.default_rng(31)
+        span, _ = qwen_vl.sentinelize_span(qwen_vl.make_image_span_ids(cfg), cfg)
+        common = [int(t) for t in rng.integers(3, 150000, 12)]
+        tails = [[int(t) for t in rng.integers(3, 150000, n)] for n in (4, 3, 5, 4, 3, 5)]
+        unk = [int(t) for t in rng.integers(3, 150000, 4)]
+        H = cfg.vision.image_size
+        images = [rng.standard_normal((3, H, H)).astype(np.float32) for _ in range(2)]
+        reqs = dict(ids=[span + common + t for t in tails], unk=[unk + common + t for t in tails],
+                    images=images, prefix=span + common, tails=tails)
+        return params, cfg, adapters.QwenVLAdapter(cfg), reqs
+
+    def query_family(kind: str, cut: bool):
+        if kind == "blip":
+            full = instructblip.InstructBlipConfig.vicuna7b()
+            cfg = blip_cut(full, torch.float32) if cut else full
+            params, cls = instructblip.init(cfg, device=dev, seed=0), adapters.InstructBlipAdapter
+        else:
+            full = blip2.Blip2OptConfig()
+            depth = 2 if cut else FAMILY_TP_LAYERS
+            cfg = dataclasses.replace(full, text=dataclasses.replace(full.text, num_layers=depth,
+                                                                     **({"dtype": torch.float32} if cut else {})))
+            params, cls = blip2.init_opt(cfg, device=dev, seed=0), adapters.Blip2OptAdapter
+        g = torch.Generator(device=dev).manual_seed(32)
+        feats = torch.randn((2, cfg.num_query_tokens, cfg.text.hidden_size), generator=g, device=dev).to(cfg.text.dtype)
+        tok = MockTokenizer()
+        text = [tok(f"Question: is there a {o} in the image? Answer:").input_ids for o in ("dog", "car", "cat", "tree")]
+        return params, cfg, cls(cfg), dict(ids=[S] + text[0][1:], feats=feats, text=text)
+
+    def mpt(cut: bool):
+        full = llava_mpt.LlavaMptConfig()
+        cfg = mpt_cut(full, torch.float32) if cut else dataclasses.replace(
+            full, text=dataclasses.replace(full.text, n_layers=FAMILY_TP_LAYERS))
+        params = llava_mpt.init(cfg, device=dev, seed=0)
+        return params, cfg, adapters.LlavaMptAdapter(cfg), dict(reqs=mpt_requests(cfg.vision.image_size))
+
+    return {"qwen": qwen, "blip": lambda cut: query_family("blip", cut), "mpt": mpt,
+            "opt": lambda cut: query_family("opt", cut)}
+
+
+def family_tp_calls(kind: str, make, reqs: dict) -> dict:
+    """Each entry point the family's adapter takes, on the engines
+    `make(flags)` builds (greedy; Qwen: generate with dual VDD, its 'unk'
+    ids given, generate_batch of 4 (main + 'none'), generate_batch_groups
+    of 2 images x 3 questions; InstructBLIP: generate_batch of 4 text-only
+    prompts, a 5-beam generate_beam on the features; LLaVA-MPT: generate
+    with dual VDD, generate_batch of 6; BLIP-2 OPT: generate with VCD on
+    the features, a 5-beam generate_beam): {entry: tokens}."""
+    def toks(outs):
+        return [o.token_ids for o in outs]
+
+    if kind == "qwen":
+        ids, unk, images = reqs["ids"], reqs["unk"], reqs["images"]
+        dual = make(dict(use_dd=True, use_dd_unk=True))
+        groups = [(reqs["prefix"], reqs["tails"][3 * g: 3 * g + 3], images[g],
+                   [{"unk": u} for u in unk[3 * g: 3 * g + 3]]) for g in range(2)]
+        return {"generate": [dual.generate(ids[i], images[i // 3], branch_ids={"unk": unk[i]}).token_ids
+                             for i in (0, 3)],
+                "generate_batch": toks(make(dict(use_dd=True)).generate_batch(
+                    [(ids[i], images[i // 3]) for i in range(4)])),
+                "generate_batch_groups": toks(dual.generate_batch_groups(groups))}
+    if kind == "mpt":
+        dual = make(dict(use_dd=True, use_dd_unk=True))
+        return {"generate": dual.generate(*reqs["reqs"][0]).token_ids,
+                "generate_batch": toks(dual.generate_batch(reqs["reqs"]))}
+    out = {"generate_beam": make({}, FAMILY_TP_BEAM_TOKENS).generate_beam(
+        reqs["ids"], precomputed_feats=reqs["feats"][:1], num_beams=FAMILY_BEAMS).token_ids}
+    if kind == "blip":
+        out["generate_batch"] = toks(make({}).generate_batch([(t, None) for t in reqs["text"]]))
+    else:
+        out["generate"] = make(dict(use_cd=True)).generate(reqs["ids"], None, precomputed_feats=reqs["feats"]).token_ids
+    return out
+
+
+def family_first_logits(kind: str, engine, reqs: dict) -> torch.Tensor:
+    """The first-step logits of the family's first image request."""
+    if kind == "qwen":
+        return prefill_logits(engine, reqs["ids"][0], image=reqs["images"][0])
+    if kind == "mpt":
+        return prefill_logits(engine, *reqs["reqs"][0])
+    return prefill_logits(engine, reqs["ids"], feats=reqs["feats"][:1])
+
+
+def parallel_families(rank: int, dev, mesh, say) -> dict:
+    """The four other families under TP = 2 (one tree at a time, freed
+    before the next): each entry point of family_tp_calls on the sharded
+    engine under a PathRecorder (launches, the shard shapes each kernel
+    took), on rank 0 the first-step logits against the one-rank engine's;
+    then the fp32 cut's greedy tokens under data 1 x model 2 against one
+    rank's."""
+    from llava_align_tpu_torch.config import GenerationConfig
+    from llava_align_tpu_torch.decoding.engine import DecodeEngine
+
+    out = {}
+    setups = family_tp_setups(dev)
+    for kind, setup in setups.items():
+        t0 = time.perf_counter()
+        params, cfg, adapter, reqs = setup(False)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+
+        def make(flags, tokens=FAMILY_TP_TOKENS, m=mesh):
+            gen = GenerationConfig(max_new_tokens=tokens, do_sample=False, eos_token_id=10**9, cd_alpha=1.0,
+                                   cd_beta=0.1, noise_step=500, **flags)
+            return DecodeEngine(params, cfg, gen, adapter=adapter, mesh=m)
+
+        rec = PathRecorder()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with rec, torch.inference_mode():
+            eng = make({} if kind in ("blip", "opt") else dict(use_dd=True))
+            first = family_first_logits(kind, eng, reqs)
+            tokens = family_tp_calls(kind, make, reqs)
+        torch.cuda.synchronize()
+        res = dict(launches=read_launches(), secs=time.perf_counter() - t0, build_s=build_s,
+                   tp_layers=bool(eng.adapter.tp_layers), int8_tp=bool(eng._int8_tp),
+                   cache_kv_heads=int(eng.adapter.cache_kv_heads),
+                   k1={f"{O}x{D}": sorted(r) for (O, D), r in rec.k1.items()},
+                   k2={f"{O}x{D}": sorted(r) for (O, D), r in rec.k2.items()},
+                   k3=sorted({tuple(q) for q, _, _ in rec.k3}),
+                   tokens={k: (v[:2] if isinstance(v[0], list) else v) for k, v in tokens.items()})
+        say(f"TP=2 {kind}: {res['secs']:.2f} s (build {build_s:.2f} s); launches {res['launches']}; layers split "
+            f"{res['tp_layers']}, int8 TP {res['int8_tp']}, cache kv heads {res['cache_kv_heads']}; K1 rows by shard "
+            f"{res['k1']}, K2 {res['k2']}, K3 q shapes {res['k3']}")
+        if rank == 0:
+            with torch.inference_mode():
+                one = DecodeEngine(params, cfg, eng.gen, adapter=adapter)
+                want = family_first_logits(kind, one, reqs)
+            res["first_rel"] = ((first - want).abs().max() / want.abs().max()).item()
+            say(f"TP=2 {kind}: first-step logits within {res['first_rel']:.3g} of the one-rank engine's largest")
+            del one
+        out[f"tp2_{kind}"] = res
+        del eng, params, first
+        torch.cuda.empty_cache()
+
+    # the fp32 cuts: greedy tokens under data 1 x model 2 against one rank's
+    for kind, setup in setups.items():
+        params, cfg, adapter, reqs = setup(True)
+
+        def make(flags, tokens=FAMILY_TP_TOKENS, m=None):
+            gen = GenerationConfig(max_new_tokens=tokens, do_sample=False, eos_token_id=10**9, cd_alpha=1.0,
+                                   cd_beta=0.1, noise_step=500, **flags)
+            return DecodeEngine(params, cfg, gen, adapter=adapter, mesh=m)
+
+        with torch.inference_mode():
+            want = family_tp_calls(kind, make, reqs)
+            got = family_tp_calls(kind, lambda f, t=FAMILY_TP_TOKENS: make(f, t, mesh), reqs)
+        out[f"fp32_{kind}"] = dict(equal=got == want, entries=sorted(got))
+        say(f"fp32 cut {kind}, data1_model2: {sorted(got)} {'equal' if got == want else 'DIFFER from'} one rank's")
+        del params
+        torch.cuda.empty_cache()
+    return out
+
 
 
 def phase_parallel(smoke_dir: Path, smi: str, one_rank_rate: float) -> tuple:
@@ -3658,19 +4053,45 @@ def phase_parallel(smoke_dir: Path, smi: str, one_rank_rate: float) -> tuple:
             for n in ("data1_model2", "data2_model1"))
         + f" (tol {TRAIN_REF_TOL}, {PARALLEL_MU_TOL:g}, {PARALLEL_PARAM_TOL:g}, {2 * TRAIN_REF_LR:g})")
 
-    # the kernels at the shard shapes the TP engine sent them
+    # the four other families under TP = 2
+    for kind in FAMILY_TP_KINDS:
+        fam = results[0][f"tp2_{kind}"]
+        paths[f"tp2_{kind}"] = summed(f"tp2_{kind}")
+        log(f"TP=2 {FAMILY_TP_KINDS[kind]} on {smi}: {fam['secs']:.4f} s (rank 0; its build {fam['build_s']:.2f} s); "
+            f"launches (both ranks) {paths[f'tp2_{kind}']}; layer stacks split {fam['tp_layers']}, int8 TP "
+            f"{fam['int8_tp']}, cache kv heads a rank {fam['cache_kv_heads']}; first-step logits within "
+            f"{fam['first_rel']:.3g} of the one-rank engine's largest (tol {REFERENCE_TOL}); tokens {fam['tokens']}")
+        if not fam["tp_layers"] or not fam["first_rel"] <= REFERENCE_TOL:
+            raise AssertionError(f"TP = 2 {kind}: layers not split, or first-step logits off the one-rank engine's")
+        for res in results:
+            if not res[f"fp32_{kind}"]["equal"]:
+                raise AssertionError(f"fp32 cut {kind}, data 1 x model 2: greedy tokens differ from one rank's")
+    require_launches(paths["tp2_qwen"], K123, "the TP = 2 Qwen-VL-7B int8 engine")
+    require_launches(paths["tp2_blip"], ("flash_attention",), "the TP = 2 InstructBLIP-Vicuna-7B engine")
+    if not results[0]["tp2_qwen"]["int8_tp"]:
+        raise AssertionError("TP = 2 Qwen-VL-7B: the int8 stacks did not split")
+    log("parallel phase: the four families' fp32 cuts give one rank's greedy tokens under data 1 x model 2 ("
+        + "; ".join(f"{k}: {results[0][f'fp32_{k}']['entries']}" for k in FAMILY_TP_KINDS) + ")")
+
+    # the kernels at the shard shapes the TP engines sent them
     g = torch.Generator(device="cuda:0").manual_seed(13)
-    log("kernels at the TP = 2 shard shapes (random weights of those shapes), against their plain versions")
-    shapes = {k: tuple(int(x) for x in k.split("x")) for k in tp["k1"]}
-    k1_rows, k1_err = k1_rows_record({k: tuple(v) for k, v in tp["k1"].items()}, g, shapes=shapes)
-    (k2_shape, k2_rows), = tp["k2"].items()
-    O, D = (int(x) for x in k2_shape.split("x"))
-    k2, k2_err = k2_path_record(O, D, k2_rows, max(r for r in k2_rows if r <= 64), g)
-    k3 = phase_kernel_flash([tuple(q) for q in tp["k3"]])
-    records = {"K1": dict(shapes={k: list(v) for k, v in shapes.items()}, max_abs_err=k1_err,
-                          by_rows={str(B): r for B, r in sorted(k1_rows.items())}),
-               "K2": dict(k2, max_abs_err=k2_err),
-               "K3": dict(by_shape=k3["by_shape"], max_abs_err=k3["max_abs_err"], max_row_err=k3["max_row_err"])}
+    records = {"K1": {}, "K2": {}, "K3": {}}
+    for tag, path in (("tp2", tp), ("tp2_qwen", results[0]["tp2_qwen"]), ("tp2_blip", results[0]["tp2_blip"])):
+        log(f"kernels at the {tag} shard shapes (random weights of those shapes), against their plain versions")
+        if path["k1"]:
+            shapes = {k: tuple(int(x) for x in k.split("x")) for k in path["k1"]}
+            k1_rows, k1_err = k1_rows_record({k: tuple(v) for k, v in path["k1"].items()}, g, shapes=shapes)
+            records["K1"][tag] = dict(shapes={k: list(v) for k, v in shapes.items()}, max_abs_err=k1_err,
+                                      by_rows={str(B): r for B, r in sorted(k1_rows.items())})
+        if path["k2"]:
+            (k2_shape, k2_rows), = path["k2"].items()
+            O, D = (int(x) for x in k2_shape.split("x"))
+            k2, k2_err = k2_path_record(O, D, k2_rows, max(r for r in k2_rows if r <= 64), g)
+            records["K2"][tag] = dict(k2, max_abs_err=k2_err)
+        if path["k3"]:
+            k3 = phase_kernel_flash([tuple(q) for q in path["k3"]])
+            records["K3"][tag] = dict(by_shape=k3["by_shape"], max_abs_err=k3["max_abs_err"],
+                                      max_row_err=k3["max_row_err"])
     return paths, records
 
 
@@ -3715,6 +4136,7 @@ def main() -> int:
                         ("--model-path", "random:7b", "--quant", "int8"), pope=pope)
     runner_launches, vdd_rates = phase_runner(llava, smoke_dir, smi, "pope", rec_llava)
     by_path.update(runner_launches)
+    phase_utilities(lm, smoke_dir, smi)
     # VCD through the same runner, layouts and question file
     vcd_launches, vcd_rates = phase_runner(llava, smoke_dir, smi, "vcd", rec_llava)
     by_path.update(vcd_launches)
@@ -3741,17 +4163,22 @@ def main() -> int:
     t0 = time.perf_counter()
     par_paths, par_records = phase_parallel(smoke_dir, smi, vdd_rates["batch"])
     by_path.update(par_paths)
-    for kid, r in par_records.items():
-        rec[kid]["tp2"] = r
-        rec[kid]["max_abs_err"] = max(rec[kid]["max_abs_err"], r["max_abs_err"])
+    for kid, by_tag in par_records.items():
+        for tag, r in by_tag.items():
+            rec[kid][tag] = r
+            rec[kid]["max_abs_err"] = max(rec[kid]["max_abs_err"], r["max_abs_err"])
     log(f"parallel phase wall {time.perf_counter() - t0:.2f} s (the ranks' start, builds and kernel checks included)")
     llava_bf16 = RunnerModel("7b", "LLaVA-v1.5-7B bf16", (mmmu, "load_model"), load_7b(dev, "none"),
                              ("--model-path", "random:7b"), kernels=("flash_attention",))
     by_path["7b_mmmu_runner"] = phase_mmmu(llava_bf16, smoke_dir, smi, rec_llava)
     del llava_bf16
     torch.cuda.empty_cache()
-    phase_reference(dev)
-    torch.cuda.synchronize()
+    from llava_align_tpu_torch.utils.profiling import PhaseTimer
+
+    timer = PhaseTimer()  # synchronizes the card on entering and leaving
+    with timer.phase("7b_reference"):
+        phase_reference(dev)
+    log(f"PhaseTimer (utils.profiling) of the 7B reference phase: {timer.report()}")
     phase_vcd_reference(dev)
     torch.cuda.synchronize()
     phase_quant_reference(dev)
@@ -3802,8 +4229,11 @@ def main() -> int:
     log(f"InstructBLIP POPE runner (VCD, --calibrate) on {smi}: {blip_rates['single']:.4f} questions/s; tokens "
         f"per answer {counts}; phase wall {time.perf_counter() - t0:.2f} s (the tree's build included)")
     t0 = time.perf_counter()
-    by_path["blip_caption_runner"] = phase_caption(blip_caption, smoke_dir, smi, rec_blip)
+    by_path["blip_caption_runner"], beams = phase_caption(blip_caption, smoke_dir, smi, rec_blip)
     log(f"caption phase wall {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_beam_rescore(blip_params, blip_cfg, beams, dev, smi)
+    log(f"bf16 beam re-score phase wall {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_blip_split(blip_params, blip_cfg, dev, smi)
     log(f"InstructBLIP split phase wall {time.perf_counter() - t0:.2f} s")
@@ -3896,7 +4326,7 @@ def main() -> int:
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("by_rows", "by_path", "prefill", "rows_by_path", "path_rows", "graph_ms", "graph_library_ms",
-             "max_row_err", "by_shape", "tp2")
+             "max_row_err", "by_shape", "tp2", "tp2_qwen", "tp2_blip")
     kernels = [
         dict(name=n, route="cuda", source=src, replaces=rep,
              launches=sum(p[n] for p in by_path.values()),

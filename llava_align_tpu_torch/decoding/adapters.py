@@ -15,6 +15,12 @@ ops/quant.int8_matmul_w8a8) and kv_quant (the int8 KV cache,
 ops/quant.kv_quantize_block). LLaVA-MPT and BLIP-2 OPT take neither, nor
 the shared-prefix forward, as in JAX: the engine warns and ignores the
 modes, and generate_batch_groups refuses them.
+
+Every adapter takes a ('data', 'model') mesh (DecodeEngine(mesh=...)):
+`param_shardings` places the tree leaf for leaf as the JAX adapter does
+(parallel/sharding), `lm_key` names the decoder subtree the engine reads,
+`tp_split_layers` says whether its layer stacks split over 'model' and
+`tp_cache_kv_heads` how many kv heads a rank's cache holds.
 """
 
 from __future__ import annotations
@@ -30,6 +36,34 @@ from llava_align_tpu_torch.models import clip_vit, llama, llava, mpt, opt, proje
 Params = Dict[str, Any]
 
 UNK_TOKEN_ID = 0  # reference vcd_sample.py:155
+
+
+def _model_group(mesh):
+    """The 'model' group the embeddings and heads are split over, or None."""
+    if mesh is None:
+        return None
+    from llava_align_tpu_torch.parallel.mesh import axis_group
+
+    return axis_group(mesh, "model")
+
+
+def _model_size(mesh) -> int:
+    from llava_align_tpu_torch.parallel.mesh import axis_size
+
+    return axis_size(mesh, "model")
+
+
+def _quant_kinds(layers):
+    """(any int8 stack, any int4 stack) among a layer tree's leaves."""
+    from llava_align_tpu_torch.ops.quant import is_quantized, is_quantized_int4
+
+    return (any(is_quantized(v) for v in layers.values()),
+            any(is_quantized_int4(v) for v in layers.values()))
+
+
+def _replicate_layers(partial, key: str):
+    """The spec tree with every layer stack of `key` replicated."""
+    return dict(partial, **{key: dict(partial[key], layers=None)})
 
 
 class LlavaAdapter:
@@ -49,9 +83,8 @@ class LlavaAdapter:
     # adapter): the ('data', 'model') DeviceMesh the tree is sharded over
     # (embed, lm_head and the vision tower always), whether the decoder's
     # layer stacks are split too (not int4 ones, nor int8 ones the engine
-    # could not align), and the kv heads of this rank's cache. Only LLaVA
-    # takes a mesh with a 'model' axis above 1 (the others: ROADMAP item 8b).
-    supports_tp = True
+    # could not align), and the kv heads of this rank's cache.
+    lm_key = "llama"
     tp_mesh = None
     tp_layers = False
     cache_kv_heads = None
@@ -95,20 +128,29 @@ class LlavaAdapter:
             return params
         return dict(params, llama=dict(llama_p, layers=new_layers))
 
-    def param_shardings(self, params, mesh):
-        """Megatron TP specs for the whole tree (parallel/sharding, leaf for
-        leaf the JAX adapter's placement). int8 stacks split column/row
-        when int8_tp_ready (the fused q|k|v and gate|up block by block);
-        otherwise, and for int4 stacks, they stay whole."""
+    def tp_split_layers(self, params, n_shards: int) -> bool:
+        """Whether the decoder's layer stacks split over 'model': float
+        stacks, or int8 ones that are TP-ready; int4 stacks stay whole."""
+        has_quant, has_quant4 = _quant_kinds(params[self.lm_key]["layers"])
+        return not has_quant4 and (not has_quant or self.int8_tp_ready(params, n_shards))
+
+    def tp_cache_kv_heads(self, n_shards: int, split: bool) -> int:
+        """The local kv heads where they split (the JAX engine's
+        _kv_shardable), else every kv head."""
+        K = self.num_kv_heads
+        return K // n_shards if split and K % n_shards == 0 else K
+
+    def _llama_specs(self, params, n: int):
+        """The LLaMA subtree's specs (sharding.llama_param_shardings): int8
+        stacks split column/row when int8_tp_ready (the fused q|k|v and
+        gate|up block by block); otherwise, and for int4 stacks, whole."""
         from llava_align_tpu_torch.ops.quant import int8_tp_mode, is_quantized, is_quantized_int4
         from llava_align_tpu_torch.parallel import sharding as shd
-        from llava_align_tpu_torch.parallel.mesh import axis_size
 
-        n = axis_size(mesh, "model")
-        partial = shd.llava_param_shardings(self.cfg, params, n)
+        specs = shd.llama_param_shardings(self.cfg.text, n)
         ready = n > 1 and self.int8_tp_ready(params, n)
         t = self.cfg.text
-        lay = dict(partial["llama"]["layers"])
+        lay = dict(specs["layers"])
         for k, v in params["llama"]["layers"].items():
             if is_quantized_int4(v) or (is_quantized(v) and not ready):
                 lay[k] = None
@@ -120,16 +162,25 @@ class LlavaAdapter:
                     lay[k] = shd.Shard(1, blocks=(half, half))
                 else:
                     lay[k] = shd.Shard(1 if int8_tp_mode(k) == "column" else 2)
-        partial["llama"] = dict(partial["llama"], layers=lay)
+        return dict(specs, layers=lay)
+
+    def param_shardings(self, params, mesh):
+        """Megatron TP specs for the whole tree (parallel/sharding, leaf for
+        leaf the JAX adapter's placement)."""
+        from llava_align_tpu_torch.parallel import sharding as shd
+
+        n = _model_size(mesh)
+        partial = shd.llava_param_shardings(self.cfg, params, n)
+        partial["llama"] = self._llama_specs(params, n)
         return shd.complete_shardings(params, partial)
 
     def _tp_group(self):
         """The 'model' group the embed and lm_head are split over, or None."""
-        if self.tp_mesh is None:
-            return None
-        from llava_align_tpu_torch.parallel.mesh import axis_group
+        return _model_group(self.tp_mesh)
 
-        return axis_group(self.tp_mesh, "model")
+    def _tp_forward_mesh(self):
+        """The mesh the forward's layer stacks are split over, or None."""
+        return self.tp_mesh if self.tp_layers else None
 
     @property
     def vision_dtype(self) -> torch.dtype:
@@ -177,7 +228,7 @@ class LlavaAdapter:
             shared_len=shared_len,
             shared_rows_per_prefix=shared_rows_per_prefix,
             shared_rows_per_prefix2=shared_rows_per_prefix2, act_quant=self.act_quant,
-            tp_mesh=self.tp_mesh if self.tp_layers else None,
+            tp_mesh=self._tp_forward_mesh(),
         )
 
     # Shared-prefix decoding (engine.generate_batch_groups) needs the model
@@ -185,18 +236,20 @@ class LlavaAdapter:
     supports_shared_prefix = True
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-        return llama.logits_from_hidden(params["llama"], hidden, self._tp_group())
+        return llama.logits_from_hidden(params["llama"], hidden, self._tp_group(), self.cfg.text.vocab_size)
 
 
 class LlavaMptAdapter(LlavaAdapter):
     """LLaVA with the MPT backbone (reference llava/model/language_model/
     llava_mpt.py): LLaVA's vision tower, projector and splice, the alibi
     MPT decoder (models/mpt). cfg: models.llava_mpt.LlavaMptConfig; params
-    {'mpt', 'vision', 'projector'}."""
-
-    supports_tp = False  # the mesh for this family: ROADMAP item 8b
+    {'mpt', 'vision', 'projector'}. Under a 'model' mesh only the MPT
+    decoder splits (the vision tower and projector stay whole, as in JAX):
+    wqkv row-parallel, so the alibi attention and the cache keep every kv
+    head on every rank."""
 
     name = "llava_mpt"
+    lm_key = "mpt"
     supports_shared_prefix = False  # mpt.forward has no shared-segment path
     supports_act_quant = False  # mpt.forward has no act_quant path
     supports_kv_quant = False  # mpt.init_cache has no int8 layout
@@ -204,6 +257,22 @@ class LlavaMptAdapter(LlavaAdapter):
     @property
     def num_kv_heads(self) -> int:
         return self.cfg.text.kv_heads
+
+    def tp_split_layers(self, params, n_shards: int) -> bool:
+        t = self.cfg.text
+        return t.d_model % n_shards == 0 and t.ffn_dim % n_shards == 0
+
+    def tp_cache_kv_heads(self, n_shards: int, split: bool) -> int:
+        return self.num_kv_heads  # the attention runs whole on every rank
+
+    def param_shardings(self, params, mesh):
+        from llava_align_tpu_torch.parallel import sharding as shd
+
+        n = _model_size(mesh)
+        partial = {"mpt": shd.mpt_param_shardings()}
+        if n > 1 and not self.tp_split_layers(params, n):
+            partial = _replicate_layers(partial, "mpt")
+        return shd.complete_shardings(params, partial)
 
     def encode_images(self, params: Params, images: torch.Tensor) -> torch.Tensor:
         feats = clip_vit.forward_features(params["vision"], self.cfg.vision, images)
@@ -213,7 +282,7 @@ class LlavaMptAdapter(LlavaAdapter):
         return llava.splice(self.embed_tokens(params, tokens), tok_g, img_g, is_img, feats)
 
     def embed_tokens(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
-        return mpt.embed_tokens(params["mpt"], ids)
+        return mpt.embed_tokens(params["mpt"], ids, self._tp_group(), self.cfg.text.vocab_size)
 
     def params_device(self, params: Params) -> torch.device:
         return params["mpt"]["wte"].device
@@ -224,19 +293,26 @@ class LlavaMptAdapter(LlavaAdapter):
     def forward(self, params, embeds, positions, cache, offsets, *, attn_impl="auto",
                 max_seq_len: int, cache_row_offset=0):
         return mpt.forward(params["mpt"], self.cfg.text, embeds, positions, cache, offsets,
-                           attn_impl=attn_impl, cache_row_offset=cache_row_offset)
+                           attn_impl=attn_impl, cache_row_offset=cache_row_offset,
+                           tp_mesh=self._tp_forward_mesh())
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-        return mpt.logits_from_hidden(params["mpt"], hidden)
+        return mpt.logits_from_hidden(params["mpt"], hidden, self._tp_group(), self.cfg.text.vocab_size)
 
 
 class QwenVLAdapter:
     """Qwen-VL: in-band image spans. Callers mark the 256-token image span
     with one IMAGE_TOKEN_INDEX sentinel (models/qwen_vl.sentinelize_span);
     the splice plan expands it to n_queries feature slots framed by the
-    real img_start/img_end tokens."""
+    real img_start/img_end tokens. Under a 'model' mesh the Qwen decoder
+    splits (qwen_param_shardings; the visual tower stays whole, as in
+    JAX); an int8 fused w1|w2 splits block by block, as LLaVA's gate|up."""
 
     name = "qwen_vl"
+    lm_key = "qwen"
+    tp_mesh = None  # see LlavaAdapter's tensor-parallel attributes
+    tp_layers = False
+    cache_kv_heads = None
     supports_shared_prefix = True
     act_quant = False  # see LlavaAdapter.act_quant
     supports_act_quant = True
@@ -262,6 +338,52 @@ class QwenVLAdapter:
     def num_kv_heads(self) -> int:
         return self.cfg.text.num_heads  # MHA: as many kv heads as heads
 
+    # --- sharding (TP over the 'model' mesh axis) ---------------------------
+    _MLP_COLUMNS = (("w12", 2), ("w1", 1), ("w2", 1))
+
+    def int8_tp_ready(self, params, n_shards: int) -> bool:
+        """LlavaAdapter.int8_tp_ready's rule on the Qwen stacks."""
+        from llava_align_tpu_torch.ops.quant import int8_tp_aligned, int8_tp_mode, is_quantized
+
+        qs = {k: v for k, v in params["qwen"]["layers"].items() if is_quantized(v)}
+        return (bool(qs) and self.cfg.text.num_heads % n_shards == 0
+                and all(int8_tp_aligned(v, int8_tp_mode(k), n_shards) for k, v in qs.items()))
+
+    def int8_tp_pad(self, params, n_shards: int):
+        """Bit-inert lane padding of the int8 MLP stacks (w12 or w1/w2
+        column, mlp_proj row), as LlavaAdapter.int8_tp_pad pads LLaMA's."""
+        from llava_align_tpu_torch.ops.quant import pad_llama_quantized_for_tp
+
+        layers, changed = pad_llama_quantized_for_tp(params["qwen"]["layers"], n_shards,
+                                                     self._MLP_COLUMNS, "mlp_proj")
+        return dict(params, qwen=dict(params["qwen"], layers=layers)) if changed else params
+
+    def tp_split_layers(self, params, n_shards: int) -> bool:
+        """Whole heads on each rank, and float stacks or TP-ready int8 ones."""
+        has_quant, has_quant4 = _quant_kinds(params["qwen"]["layers"])
+        return (self.cfg.text.num_heads % n_shards == 0 and not has_quant4
+                and (not has_quant or self.int8_tp_ready(params, n_shards)))
+
+    def tp_cache_kv_heads(self, n_shards: int, split: bool) -> int:
+        return self.num_kv_heads // n_shards if split else self.num_kv_heads
+
+    def param_shardings(self, params, mesh):
+        from llava_align_tpu_torch.ops.quant import is_quantized
+        from llava_align_tpu_torch.parallel import sharding as shd
+
+        n = _model_size(mesh)
+        partial = {"qwen": shd.qwen_param_shardings(self.cfg.text)}
+        if n > 1 and not self.tp_split_layers(params, n):
+            partial = _replicate_layers(partial, "qwen")
+        elif is_quantized(params["qwen"]["layers"].get("w12")):
+            half = int(params["qwen"]["layers"]["w12"]["q"].shape[1]) // 2
+            lay = dict(partial["qwen"]["layers"], w12=shd.Shard(1, blocks=(half, half)))
+            partial = {"qwen": dict(partial["qwen"], layers=lay)}
+        return shd.complete_shardings(params, partial)
+
+    def _tp_group(self):
+        return _model_group(self.tp_mesh)
+
     def branch_token_ids(self, input_ids: Sequence[int], kind: str) -> List[int]:
         ids = [int(t) for t in input_ids]
         if kind in ("main", "cd"):
@@ -279,16 +401,17 @@ class QwenVLAdapter:
         return qwen_vl.encode_images(params, self.cfg, images)
 
     def splice_embeds(self, params, tokens, tok_g, img_g, is_img, feats):
-        return llava.splice(qwen.embed_tokens(params["qwen"], tokens), tok_g, img_g, is_img, feats)
+        return llava.splice(self.embed_tokens(params, tokens), tok_g, img_g, is_img, feats)
 
     def embed_tokens(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
-        return qwen.embed_tokens(params["qwen"], ids)
+        return qwen.embed_tokens(params["qwen"], ids, self._tp_group())
 
     def params_device(self, params: Params) -> torch.device:
         return params["qwen"]["wte"].device
 
     def init_cache(self, batch: int, max_len: int, device=None):
-        return qwen.init_cache(self.cfg.text, batch, max_len, kv_quant=self.kv_quant, device=device)
+        return qwen.init_cache(self.cfg.text, batch, max_len, kv_quant=self.kv_quant, device=device,
+                               num_heads=self.cache_kv_heads)
 
     def forward(self, params, embeds, positions, cache, offsets, *, attn_impl="auto",
                 max_seq_len: int, cache_row_offset=0, shared_kv=None, shared_len=None,
@@ -302,10 +425,11 @@ class QwenVLAdapter:
             shared_kv=shared_kv, shared_len=shared_len,
             shared_rows_per_prefix=shared_rows_per_prefix,
             shared_rows_per_prefix2=shared_rows_per_prefix2, act_quant=self.act_quant,
+            tp_mesh=self.tp_mesh if self.tp_layers else None,
         )
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-        return qwen.logits_from_hidden(params["qwen"], hidden)
+        return qwen.logits_from_hidden(params["qwen"], hidden, self._tp_group(), self.cfg.text.vocab_size)
 
 
 class InstructBlipAdapter(LlavaAdapter):
@@ -316,9 +440,9 @@ class InstructBlipAdapter(LlavaAdapter):
     generate(..., precomputed_feats=...), as the reference computes
     inputs_llm / inputs_llm_cd once per question before llm.generate. The
     decoder side (splice, embeddings, cache, forward, logits) is LLaVA's
-    LLaMA, with LlavaAdapter's act_quant and kv_quant."""
-
-    supports_tp = False  # the mesh for this family: ROADMAP item 8b
+    LLaMA, with LlavaAdapter's act_quant and kv_quant, and its mesh: only
+    the 'llama' subtree splits (EVA-ViT and the Q-Former stay whole, as in
+    JAX)."""
 
     name = "instructblip"  # cfg: models.instructblip.InstructBlipConfig
 
@@ -335,6 +459,12 @@ class InstructBlipAdapter(LlavaAdapter):
             raise ValueError(f"instructblip does not define branch '{kind}'")
         return super().branch_token_ids(input_ids, kind)
 
+    def param_shardings(self, params, mesh):
+        from llava_align_tpu_torch.parallel import sharding as shd
+
+        partial = {"llama": self._llama_specs(params, _model_size(mesh))} if "llama" in params else {}
+        return shd.complete_shardings(params, partial)
+
     def encode_images(self, params: Params, images: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError(
             "InstructBLIP features are text-conditioned; encode with "
@@ -347,9 +477,11 @@ class Blip2OptAdapter(InstructBlipAdapter):
     Q-Former's projected queries are the prompt prefix
     (models/blip2.encode_image_queries, passed as precomputed_feats as for
     InstructBLIP); OPT decodes. cfg: models.blip2.Blip2OptConfig; params
-    {'visual', 'ln_vision', 'query_tokens', 'qformer', 'proj', 'lm'}."""
+    {'visual', 'ln_vision', 'query_tokens', 'qformer', 'proj', 'lm'}. Under
+    a 'model' mesh only OPT splits (opt_param_shardings)."""
 
     name = "blip2_opt"
+    lm_key = "lm"
     supports_shared_prefix = False
     supports_act_quant = False  # opt.forward has no act_quant path
     supports_kv_quant = False  # opt.init_cache has no int8 layout
@@ -358,22 +490,36 @@ class Blip2OptAdapter(InstructBlipAdapter):
     def num_kv_heads(self) -> int:
         return self.cfg.text.num_heads
 
+    def tp_split_layers(self, params, n_shards: int) -> bool:
+        t = self.cfg.text
+        return t.num_heads % n_shards == 0 and t.ffn_dim % n_shards == 0
+
+    def param_shardings(self, params, mesh):
+        from llava_align_tpu_torch.parallel import sharding as shd
+
+        n = _model_size(mesh)
+        partial = {"lm": shd.opt_param_shardings()} if "lm" in params else {}
+        if partial and n > 1 and not self.tp_split_layers(params, n):
+            partial = _replicate_layers(partial, "lm")
+        return shd.complete_shardings(params, partial)
+
     def splice_embeds(self, params, tokens, tok_g, img_g, is_img, feats):
         return llava.splice(self.embed_tokens(params, tokens), tok_g, img_g, is_img, feats)
 
     def embed_tokens(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
-        return opt.embed_tokens(params["lm"], ids)
+        return opt.embed_tokens(params["lm"], ids, self._tp_group(), self.cfg.text.vocab_size)
 
     def params_device(self, params: Params) -> torch.device:
         return params["lm"]["embed_tokens"].device
 
     def init_cache(self, batch: int, max_len: int, device=None):
-        return opt.init_cache(self.cfg.text, batch, max_len, device=device)
+        return opt.init_cache(self.cfg.text, batch, max_len, device=device, num_heads=self.cache_kv_heads)
 
     def forward(self, params, embeds, positions, cache, offsets, *, attn_impl="auto",
                 max_seq_len: int, cache_row_offset=0):
         return opt.forward(params["lm"], self.cfg.text, embeds, positions, cache, offsets,
-                           attn_impl=attn_impl, cache_row_offset=cache_row_offset)
+                           attn_impl=attn_impl, cache_row_offset=cache_row_offset,
+                           tp_mesh=self._tp_forward_mesh())
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-        return opt.logits_from_hidden(params["lm"], hidden)
+        return opt.logits_from_hidden(params["lm"], hidden, self._tp_group(), self.cfg.text.vocab_size)

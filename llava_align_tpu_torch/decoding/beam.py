@@ -60,7 +60,10 @@ def make_beam_fn(
     (best_seq [T], best_len, best_score). The caller prefills ONE row; the
     fn tiles it to K beam rows. min_new_tokens masks eos until that many
     tokens are generated (HF MinNewTokensLengthLogitsProcessor; LAVIS
-    captioning's min_length)."""
+    captioning's min_length). After a call, fn.hypotheses holds what the
+    best was chosen from: (seqs [2K, T], lengths [2K], normalized scores
+    [2K]; the first K the finished hypotheses, which ended in eos, the last
+    K the running beams, NEG where a slot holds none)."""
     K, T, lp = num_beams, max_new_tokens, length_penalty
 
     def beam_fn(params, cache1, first_logits, length1):
@@ -125,6 +128,8 @@ def make_beam_fn(
         all_seq = torch.cat([fin_seq, seq])
         all_len = torch.cat([fin_len, torch.full((K,), n, dtype=torch.long, device=dev)])
         best = torch.argmax(all_scores)  # the first of equal maxima, as jnp.argmax
+        beam_fn.hypotheses = (all_seq, all_len, all_scores)
         return all_seq[best], int(all_len[best]), all_scores[best]
 
+    beam_fn.hypotheses = None
     return beam_fn

@@ -36,9 +36,10 @@ path, by design.
 mesh= (a ('data', 'model') DeviceMesh, parallel/mesh; one process per
 rank, every rank calls the same entry point with the same inputs and gets
 the whole result): the params are sharded at init over 'model' by the
-adapter's Megatron specs (LLaVA only; int8 stacks lane-padded where that
-makes them TP-ready, as in the JAX engine; int4 stacks stay whole), the KV
-cache holds the local kv heads, and the forwards carry their collectives.
+adapter's Megatron specs (every adapter; int8 stacks lane-padded where
+that makes them TP-ready, as in the JAX engine; int4 stacks stay whole),
+the KV cache holds the adapter's share of the kv heads, and the forwards
+carry their collectives.
 Data parallelism over 'data' splits the lockstep work by question
 (generate_batch) or by group (generate_batch_groups), never by row: a
 question's main/unk/none/cd rows stay together, as the fusion reads them
@@ -65,7 +66,7 @@ import torch
 from llava_align_tpu_torch.config import GenerationConfig
 from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from llava_align_tpu_torch.decoding import sampler as S
-from llava_align_tpu_torch.decoding.adapters import LlavaAdapter
+from llava_align_tpu_torch.decoding.adapters import LlavaAdapter, _quant_kinds
 from llava_align_tpu_torch.decoding.beam import make_beam_fn
 from llava_align_tpu_torch.models import llava as llava_model
 from llava_align_tpu_torch.ops.image import normalize_device, normalize_host
@@ -107,6 +108,12 @@ def branch_kinds(gen: GenerationConfig) -> List[str]:
     if gen.use_dd and gen.use_dd_unk:
         kinds.append("none")
     return kinds
+
+
+def branch_token_ids(input_ids: Sequence[int], kind: str) -> List[int]:
+    """LLaVA-family branch degradation (kept for compatibility; adapters own
+    this per family)."""
+    return LlavaAdapter.branch_token_ids(None, input_ids, kind)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -209,25 +216,19 @@ class DecodeEngine:
     def _shard_over_model(self):
         """The JAX engine's readiness/padding decision (engine.py:228-294),
         then the params sharded by the adapter's specs and the adapter
-        copied with the mesh and this rank's cache kv heads."""
-        from llava_align_tpu_torch.ops.quant import is_quantized, is_quantized_int4
+        copied with the mesh, whether its layer stacks split, and this
+        rank's cache kv heads (the adapter's rule: LLaMA and Qwen K / m
+        where it divides, OPT H / m, MPT every kv head)."""
         from llava_align_tpu_torch.parallel.sharding import shard_params
 
         adapter, m, params = self.adapter, self._model_size, self.params
-        if not getattr(adapter, "supports_tp", False):
-            raise NotImplementedError(
-                f"adapter {getattr(adapter, 'name', '?')!r} takes no mesh with a 'model' axis "
-                f"above 1 (ROADMAP Queue 1 item 8b); use model=1 (data parallelism)")
-        layers = params["llama"]["layers"]
-        has_quant = any(is_quantized(v) for v in layers.values())
-        has_quant4 = any(is_quantized_int4(v) for v in layers.values())
+        has_quant, has_quant4 = _quant_kinds(params[adapter.lm_key]["layers"])
         if has_quant and not adapter.int8_tp_ready(params, m):
             padded = adapter.int8_tp_pad(params, m)
             if padded is not params and adapter.int8_tp_ready(padded, m):
                 params = padded
         self._int8_tp = has_quant and adapter.int8_tp_ready(params, m)
-        attn_split = not has_quant4 and (self._int8_tp or not has_quant)
-        K = adapter.num_kv_heads
+        split = adapter.tp_split_layers(params, m)
         if has_quant and not self._int8_tp:
             logger.warning(
                 "int8-quantized stacks are replicated across the %d-way 'model' axis (per-shard dims "
@@ -240,10 +241,8 @@ class DecodeEngine:
                                    self.device)
         self.adapter = copy.copy(adapter)
         self.adapter.tp_mesh = self.mesh
-        self.adapter.tp_layers = attn_split
-        # the cache holds the local kv heads where they split (the JAX
-        # engine's _kv_shardable), else every kv head
-        self.adapter.cache_kv_heads = K // m if attn_split and K % m == 0 else K
+        self.adapter.tp_layers = split
+        self.adapter.cache_kv_heads = adapter.tp_cache_kv_heads(m, split)
 
     # ------------------------------------------------------------------
     # host-side packing (identical to the JAX engine's _pack)

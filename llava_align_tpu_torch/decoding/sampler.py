@@ -42,6 +42,20 @@ def fuse_calibrate_logits(
     return torch.where(ids > eos_token_id, masked - cb_m_weight * logits_custom, masked)
 
 
+def combine_contrast_branches(
+    branch_logits: torch.Tensor, num_contrast: int
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """branch_logits [nb, V] with row 0 = main, rows 1..num_contrast = contrast
+    branches. Two contrast branches are averaged (the use_dd & use_dd_unk path,
+    reference vcd_sample.py:171-185). Returns (main [V], contrast [V] or None).
+    """
+    main = branch_logits[0]
+    if num_contrast == 0:
+        return main, None
+    contrast = torch.mean(branch_logits[1 : 1 + num_contrast], dim=0)
+    return main, contrast
+
+
 def _top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
     """Keep the top-k scores (ties at the k-th value kept, HF semantics)."""
     kth = torch.topk(logits, k, dim=-1).values[..., -1:]

@@ -1,12 +1,62 @@
-"""In-memory rows and a prefetching loader: copies of ListDataset and
-PrefetchLoader from llava_align_tpu/framework/data.py, the POPE runner's
-host prefetch threads (tokenize and decode images ahead of the device).
+"""Annotation rows and a prefetching loader (torch twin of
+llava_align_tpu/framework/data.py): JsonlDataset (jsonl through the port's
+native line index, framework/native), and copies of ListDataset and
+PrefetchLoader, the POPE runner's host prefetch threads (tokenize and
+decode images ahead of the device).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 from typing import Any, Callable, Iterator, List, Optional
+
+
+class JsonlDataset:
+    """Annotation dataset over a jsonl (or json-list) file.
+
+    With use_native=True (default), jsonl files are served by the C++ mmap
+    line index (framework/native.py) — O(1) random access, no Python
+    materialization; falls back to in-memory rows when the toolchain is
+    absent or the file is a json list. `native` says which path serves."""
+
+    def __init__(
+        self,
+        path: str,
+        transform: Optional[Callable[[dict], Any]] = None,
+        use_native: bool = True,
+    ):
+        path = os.path.expanduser(path)
+        self.transform = transform
+        self.rows: Optional[List[dict]] = None
+        self._native = None
+        with open(path) as f:
+            head = f.read(1)
+        if head != "[" and use_native:
+            try:
+                from llava_align_tpu_torch.framework.native import NativeJsonl
+
+                self._native = NativeJsonl(path)
+            except Exception:
+                self._native = None
+        if self._native is None:
+            with open(path) as f:
+                if head == "[":
+                    self.rows = json.load(f)
+                else:
+                    self.rows = [json.loads(line) for line in f if line.strip()]
+
+    @property
+    def native(self) -> bool:
+        return self._native is not None
+
+    def __len__(self) -> int:
+        return len(self._native) if self._native is not None else len(self.rows)
+
+    def __getitem__(self, i: int):
+        row = self._native[i] if self._native is not None else self.rows[i]
+        return self.transform(row) if self.transform else row
 
 
 class ListDataset:

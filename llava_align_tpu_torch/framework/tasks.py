@@ -1,12 +1,14 @@
-"""Task abstraction, the captioning part (copies of save_result, BaseTask,
-CaptionTask and _coerce_id from llava_align_tpu/framework/tasks.py, the
-source unchanged; tests/test_torch_copies.py holds them to it).
+"""Task abstraction, the captioning and POPE parts (copies of save_result,
+BaseTask, CaptionTask, _coerce_id and PopeTask from
+llava_align_tpu/framework/tasks.py, the source unchanged;
+tests/test_torch_copies.py holds them to it).
 
 Capability parity: reference lavis/tasks/base_task.py — setup from config
 via the registry, train_epoch delegation, the evaluation loop collecting
 per-sample results, the after_evaluation hook and save_result — and
-lavis/tasks/captioning.py (CaptionTask). The VQA, classification and POPE
-tasks of the JAX module are not ported yet.
+lavis/tasks/captioning.py (CaptionTask); PopeTask scores through
+evals/pope.score_pope. The VQA and classification tasks of the JAX module
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -165,3 +167,27 @@ def _coerce_id(i):
         return int(i)
     except (TypeError, ValueError):
         return i
+
+
+@registry.register_task("pope")
+class PopeTask(BaseTask):
+    """Eval-only task: samples are POPE jsonl rows; valid_step is supplied a
+    generate callable; after_evaluation runs the plain scorer."""
+
+    def __init__(self, generate_fn: Optional[Callable] = None, **kw):
+        super().__init__(**kw)
+        self.generate_fn = generate_fn
+
+    def valid_step(self, params, sample) -> List[dict]:
+        text = self.generate_fn(params, sample)
+        return [{"question_id": sample["question_id"], "text": text,
+                 "label": sample.get("label")}]
+
+    def after_evaluation(self, results: List[dict], **kwargs) -> Dict[str, float]:
+        from llava_align_tpu_torch.evals.pope import score_pope
+
+        gt = [{"question_id": r["question_id"], "label": r["label"]} for r in results]
+        m = score_pope(gt, results)
+        m["agg_metrics"] = m["f1"]
+        logging.info("POPE eval: %s", m)
+        return m

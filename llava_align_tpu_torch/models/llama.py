@@ -368,25 +368,43 @@ def forward(
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache
 
 
-def logits_from_hidden(params: Params, hidden: torch.Tensor, tp_group=None) -> torch.Tensor:
+def logits_from_hidden(params: Params, hidden: torch.Tensor, tp_group=None,
+                       vocab: Optional[int] = None) -> torch.Tensor:
     """lm_head → fp32 logits [..., V]. The int8 lm_head returns h's dtype
     from the kernel and is then widened, as in the JAX package.
-    tp_group: the 'model' group of a vocab-parallel lm_head ([V/n, D] rows,
-    int8 through K2 on them); the ranks' logits are gathered, so every
-    rank gets the whole vocab."""
+    tp_group: the 'model' group of a vocab-parallel lm_head (this rank's
+    comm.shard_range rows of the `vocab`, int8 through K2 on them); the
+    ranks' logits are gathered, so every rank gets the whole vocab."""
     w = params["lm_head"]
     hidden = comm.copy_to(hidden, tp_group)
     if is_quantized(w):
         out = int8_matmul(hidden, w).float()
     else:
         out = hidden.to(w.dtype).float() @ w.float().t()
-    return comm.gather_last(out, tp_group)
+    return comm.gather_last(out, tp_group, vocab)
 
 
 def last_token_logits(
-    params: Params, hidden: torch.Tensor, last_index: torch.Tensor, tp_group=None
+    params: Params, hidden: torch.Tensor, last_index: torch.Tensor, tp_group=None,
+    vocab: Optional[int] = None,
 ) -> torch.Tensor:
     """Hidden at each row's last valid position, then one [B,D]x[D,V] matmul."""
     B = hidden.shape[0]
     gathered = hidden[torch.arange(B, device=hidden.device), last_index.long()]
-    return logits_from_hidden(params, gathered, tp_group)
+    return logits_from_hidden(params, gathered, tp_group, vocab)
+
+
+def param_count(params: Params) -> int:
+    """The number of elements in the tree's tensors (an int8 leaf counts
+    its codes and its scales, as the JAX package counts its arrays)."""
+    n = 0
+    stack = [params]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif isinstance(x, torch.Tensor):
+            n += x.numel()
+    return n

@@ -9,7 +9,7 @@ one embedding gather, one feature gather and a select.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +87,13 @@ def plan_splice(
     )
 
 
+def text_only_plan(input_ids: Sequence[int], pad_to: int) -> SplicePlan:
+    """Plan with zero image slots — the VDD branches ('unk': sentinel→token 0,
+    'none': sentinel dropped) are built by the caller editing input_ids first
+    (reference vcd_sample.py:153-160)."""
+    return plan_splice([t for t in input_ids], 0, pad_to)
+
+
 def splice_embeds(
     params: Params,
     cfg: LlavaConfig,
@@ -116,3 +123,45 @@ def splice(text_emb: torch.Tensor, tok_gather: torch.Tensor, img_gather: torch.T
         image_features, 1, img_gather.long()[..., None].expand(-1, -1, D)
     ).to(gathered_text.dtype)
     return torch.where(is_image[..., None], gathered_img, gathered_text)
+
+
+def forward_multimodal(
+    params: Params,
+    cfg: LlavaConfig,
+    input_ids: Sequence[int],
+    images: Optional[torch.Tensor],
+    pad_to: int,
+    *,
+    attn_impl: str = "auto",
+) -> Tuple[torch.Tensor, int]:
+    """Convenience single-sequence forward (no cache), the JAX package's:
+    returns (logits [pad_to, V] fp32, true_length). images [n, 3, H, W]
+    (or one [3, H, W]) normalized, one per IMAGE_TOKEN_INDEX, or None."""
+    n_img = cfg.num_image_tokens if images is not None else 0
+    plan = plan_splice(input_ids, n_img, pad_to)
+    dev = params["llama"]["embed"].device
+    if images is not None:
+        if images.dim() == 3:
+            images = images[None]
+        n_sent = sum(1 for t in input_ids if t == IMAGE_TOKEN_INDEX)
+        if n_sent != images.shape[0]:
+            # the reference's llava_arch.py:142 ValueError (a gather past the
+            # features would clamp in JAX and fault here)
+            raise ValueError(
+                f"Number of images ({images.shape[0]}) does not match number of"
+                f" special image tokens ({n_sent}) in the prompt"
+            )
+        # [n, N, D] → [1, n*N, D]: each sentinel consumes its image's block
+        feats = encode_images(params, cfg, images.to(dev))
+        feats = feats.reshape(1, -1, feats.shape[-1])
+    else:
+        feats = torch.zeros((1, 1, cfg.text.hidden_size), dtype=cfg.text.dtype, device=dev)
+
+    def row(a):
+        return torch.from_numpy(a).to(dev)[None]
+
+    embeds = splice_embeds(params, cfg, row(plan.tokens), row(plan.tok_gather), row(plan.img_gather),
+                           row(plan.is_image), feats)
+    positions = torch.arange(pad_to, device=dev)[None]
+    hidden, _ = llama.forward(params["llama"], cfg.text, embeds, positions, attn_impl=attn_impl)
+    return llama.logits_from_hidden(params["llama"], hidden[0]), plan.length

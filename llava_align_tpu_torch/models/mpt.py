@@ -24,6 +24,14 @@ Param tree (linears [L, out, in], no biases):
     norm_f {scale, bias} [D]
 with KV = kv_heads * head_dim. The KV cache is a {'k', 'v'} pair of
 [L, B, Smax, kv_heads, Dh] tensors, written in place by `forward`.
+
+Under a 'model' mesh (parallel/sharding.mpt_param_shardings, the JAX
+package's MQA-safe choice) wqkv is row-parallel: each rank multiplies its
+slice of the input, one all_reduce gives every rank the whole q|k|v, and
+the alibi attention and the cache stay whole on every rank; out_proj
+(on the rank's slice of the attention output) and down_proj are
+row-parallel, up_proj column-parallel; wte and the tied head are split
+on vocab.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import torch
 from llava_align_tpu_torch.models.llama import _write_cache
 from llava_align_tpu_torch.ops.attention import NEG_INF
 from llava_align_tpu_torch.ops.layers import gelu_exact, layer_norm
+from llava_align_tpu_torch.parallel import comm
+from llava_align_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]
@@ -104,9 +114,10 @@ def init_cache(cfg: MptConfig, batch: int, max_len: int, device=None) -> KVCache
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
-def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    V = params["wte"].shape[0]
-    return params["wte"][ids.long().clamp(0, V - 1)]
+def embed_tokens(params: Params, ids: torch.Tensor, tp_group=None, vocab: Optional[int] = None) -> torch.Tensor:
+    """Ids clipped to the vocab. tp_group: the 'model' group of a wte
+    split on its `vocab` rows (comm.vocab_parallel_embed)."""
+    return comm.vocab_parallel_embed(params["wte"], ids, vocab or params["wte"].shape[0], tp_group)
 
 
 def _alibi_attention(q, k, v, slopes: torch.Tensor, key_positions: torch.Tensor, mask: torch.Tensor,
@@ -143,13 +154,15 @@ def forward(
     attn_impl: str = "auto",
     cache_row_offset: int = 0,
     prefix_mask: Optional[torch.Tensor] = None,
+    tp_mesh=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """prefix_mask [B, S] bool: prefix-LM — position i attends j if j <= i
     or prefix_mask[b, j] (reference modeling_mpt.py _apply_prefix_mask);
     None = causal. Decode steps (S == 1 with a cache) attend the cache up
     to cache_offset[b], causally in both modes. attn_impl is taken and
     ignored: the alibi attention is plain torch whatever the route.
-    Returns (hidden after norm_f, cache)."""
+    tp_mesh: the 'model' axis the layer stacks are split over (the module
+    docstring's layout). Returns (hidden after norm_f, cache)."""
     B, S, D = embeds.shape
     H, Dh, KV, eps = cfg.n_heads, cfg.head_dim, cfg.kv_heads, cfg.layer_norm_eps
     dev = embeds.device
@@ -164,6 +177,18 @@ def forward(
     def ln(h, name, li):
         return layer_norm(h, lp[name]["scale"][li], lp[name]["bias"][li], eps)
 
+    group, r, n = None, 0, 1
+    if tp_mesh is not None and axis_size(tp_mesh, "model") > 1:
+        n = axis_size(tp_mesh, "model")
+        group, r = axis_group(tp_mesh, "model"), axis_rank(tp_mesh, "model")
+
+    def row(y, name, li):
+        """y [..., in] whole on every rank x a row-parallel [L, out, in/n]
+        stack: this rank's slice of y, summed over the group."""
+        w = lp[name][li]
+        y = comm.copy_to(y, group).narrow(-1, r * w.shape[-1], w.shape[-1])
+        return comm.reduce_from(y @ w.t(), group)
+
     qp = None
     if is_decode:
         kp = torch.arange(cache["k"].shape[2], device=dev)
@@ -177,7 +202,7 @@ def forward(
 
     x = embeds
     for li in range(cfg.n_layers):
-        qkv = ln(x, "norm_1", li) @ lp["wqkv"][li].t()
+        qkv = row(ln(x, "norm_1", li), "wqkv", li)
         if cfg.clip_qkv:
             qkv = qkv.clamp(-cfg.clip_qkv, cfg.clip_qkv)
         q_flat, k_flat = qkv[..., :D], qkv[..., D : D + KV * Dh]
@@ -192,13 +217,16 @@ def forward(
         if is_decode:
             k, v = cache["k"][li, rows], cache["v"][li, rows]
         attn = _alibi_attention(q, k, v, slopes, kp, mask, qp)
-        x = x + attn.reshape(B, S, D) @ lp["out_proj"][li].t()
-        h = gelu_exact(ln(x, "norm_2", li) @ lp["up_proj"][li].t())
-        x = x + h @ lp["down_proj"][li].t()
+        x = x + row(attn.reshape(B, S, D), "out_proj", li)
+        h = gelu_exact(comm.copy_to(ln(x, "norm_2", li), group) @ lp["up_proj"][li].t())
+        x = x + comm.reduce_from(h @ lp["down_proj"][li].t(), group)
     return layer_norm(x, params["norm_f"]["scale"], params["norm_f"]["bias"], eps), cache
 
 
-def logits_from_hidden(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """Tied output head: fp32 logits = hidden @ wte^T."""
+def logits_from_hidden(params: Params, hidden: torch.Tensor, tp_group=None,
+                       vocab: Optional[int] = None) -> torch.Tensor:
+    """Tied output head: fp32 logits = hidden @ wte^T. tp_group: wte split
+    on its `vocab` rows; the ranks' logits are gathered."""
     w = params["wte"]
-    return hidden.to(w.dtype).float() @ w.float().t()
+    out = comm.copy_to(hidden, tp_group).to(w.dtype).float() @ w.float().t()
+    return comm.gather_last(out, tp_group, vocab)

@@ -19,7 +19,8 @@ Param tree — the JAX layout, linear weights [out, in] stacked over layers:
 An int8 linear is {'q', 's'} (ops/quant.quantize_qwen_params). The KV
 cache and the shared-prefix segments are those of models/llama (MHA: as
 many kv heads as heads), and `forward` updates the cache in place, as
-llama.forward does.
+llama.forward does. Under a 'model' mesh (parallel/sharding.
+qwen_param_shardings) the forward carries llama.forward's collectives.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ import torch
 
 from llava_align_tpu_torch.models import llama
 from llava_align_tpu_torch.ops.layers import apply_rope, rms_norm, rope_cos_sin, silu
+from llava_align_tpu_torch.ops.quant import int8_tp_mode
+from llava_align_tpu_torch.parallel import comm
+from llava_align_tpu_torch.parallel.mesh import axis_group, axis_size
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]
@@ -80,11 +84,13 @@ class QwenConfig:
 
 def init_cache(
     cfg: QwenConfig, batch: int, max_len: int, kv_quant: bool = False, device=None,
+    num_heads: Optional[int] = None,
 ) -> KVCache:
     """{'k', 'v'}: [L, batch, max_len, H, Dh] zeros on `device` ('meta'
     sizes a cache without allocating it); with kv_quant the int8 cache
-    (llama.quantized_cache: int8 values, fp32 'ks'/'vs' scale planes)."""
-    shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
+    (llama.quantized_cache: int8 values, fp32 'ks'/'vs' scale planes).
+    num_heads: a tensor-parallel rank's local heads (default: all)."""
+    shape = (cfg.num_layers, batch, max_len, num_heads or cfg.num_heads, cfg.head_dim)
     if kv_quant:
         return llama.quantized_cache(shape, device)
     return {
@@ -93,11 +99,12 @@ def init_cache(
     }
 
 
-def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: Params, token_ids: torch.Tensor, tp_group=None) -> torch.Tensor:
     """Ids clipped to the vocab, as JAX clamps its gathers (the image
-    sentinel's slots are overwritten by the splice)."""
+    sentinel's slots are overwritten by the splice). tp_group: the 'model'
+    group of a wte split on hidden; the shards are gathered."""
     V = params["wte"].shape[0]
-    return params["wte"][token_ids.clamp(0, V - 1)]
+    return comm.gather_last(params["wte"][token_ids.clamp(0, V - 1)], tp_group)
 
 
 def ntk_alpha_for_len(cfg: QwenConfig, kv_seq_len: int) -> float:
@@ -133,14 +140,25 @@ def forward(
     shared_rows_per_prefix: Optional[int] = None,
     shared_rows_per_prefix2: int = 0,
     act_quant: bool = False,
+    tp_mesh=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack; the arguments are llama.forward's (positions
     absolute, cache_offset local, the same shared-segment contract), plus
     ntk_alpha (ntk_alpha_for_len of the call's cache length), which scales
     the rotary base. act_quant and the int8 cache as in llama.forward.
+    tp_mesh: the 'model' axis the layer stacks are split over
+    (qwen_param_shardings; int8 stacks through ops/quant.
+    int8_matmul_stacked_tp on the local shard): c_attn and w1/w2 (or w12)
+    column-parallel, attn_proj and mlp_proj row-parallel with one
+    all_reduce each; attention on the local heads, whose cache holds
+    them. Dynamic NTK and log-n read positions, not heads.
     Returns (hidden after ln_f, cache)."""
     B, S, _ = embeds.shape
-    H, Dh = cfg.num_heads, cfg.head_dim
+    H, Dh, QD = cfg.num_heads, cfg.head_dim, cfg.q_dim
+    group = None
+    if tp_mesh is not None and axis_size(tp_mesh, "model") > 1:
+        n = axis_size(tp_mesh, "model")
+        group, H, QD = axis_group(tp_mesh, "model"), H // n, QD // n
     base = cfg.rotary_emb_base * ntk_alpha ** (Dh / (Dh - 2))
     cos, sin = rope_cos_sin(positions, Dh, base)
     if cache_offset is None:
@@ -152,13 +170,13 @@ def forward(
     layers = params["layers"]
 
     def lin(h, name, li):
-        return llama.linear(h, layers[name], li, act_quant)
+        return llama.linear(h, layers[name], li, act_quant, tp_group=group, tp_mode=int8_tp_mode(name))
 
     x = embeds
     for li in range(cfg.num_layers):
-        h = rms_norm(x, layers["ln_1"][li], cfg.layer_norm_eps)
+        h = comm.copy_to(rms_norm(x, layers["ln_1"][li], cfg.layer_norm_eps), group)
         qkv = lin(h, "c_attn_w", li) + layers["c_attn_b"][li]
-        q, k, v = qkv.split(cfg.q_dim, dim=-1)
+        q, k, v = qkv.split(QD, dim=-1)
         q = apply_rope(q.reshape(B, S, H, Dh), cos, sin)
         k = apply_rope(k.reshape(B, S, H, Dh), cos, sin)
         if logn is not None:
@@ -166,9 +184,9 @@ def forward(
         attn = llama.attend(q, k, v.reshape(B, S, H, Dh).contiguous(), li, cache, cache_offset,
                             is_decode, cache_row_offset, attn_impl, shared_kv, shared_len,
                             shared_rows_per_prefix, shared_rows_per_prefix2)
-        x = x + lin(attn.reshape(B, S, cfg.q_dim), "attn_proj", li)
+        x = x + lin(attn.reshape(B, S, QD), "attn_proj", li)
 
-        h = rms_norm(x, layers["ln_2"][li], cfg.layer_norm_eps)
+        h = comm.copy_to(rms_norm(x, layers["ln_2"][li], cfg.layer_norm_eps), group)
         if "w12" in layers:
             w12 = lin(h, "w12", li)  # one launch streams w1 | w2
             half = w12.shape[-1] // 2
@@ -180,7 +198,9 @@ def forward(
     return rms_norm(x, params["ln_f"], cfg.layer_norm_eps), cache
 
 
-def logits_from_hidden(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+def logits_from_hidden(params: Params, hidden: torch.Tensor, tp_group=None,
+                       vocab: Optional[int] = None) -> torch.Tensor:
     """lm_head → fp32 logits [..., V]; an int8 lm_head through K2's
-    dispatch (llama.logits_from_hidden: the same leaf name and math)."""
-    return llama.logits_from_hidden(params, hidden)
+    dispatch (llama.logits_from_hidden: the same leaf name and math, and
+    its vocab-parallel gather under tp_group)."""
+    return llama.logits_from_hidden(params, hidden, tp_group, vocab)

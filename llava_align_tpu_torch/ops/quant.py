@@ -344,19 +344,21 @@ def pad_quantized_stack(wq: Dict[str, torch.Tensor], mode: str, n_shards: int, h
     return {"q": torch.nn.functional.pad(q, (0, pad)), "s": s}, True
 
 
-def pad_llama_quantized_for_tp(layers: Dict[str, Any], n_shards: int):
+def pad_llama_quantized_for_tp(layers: Dict[str, Any], n_shards: int,
+                               columns=(("gateup", 2), ("gate", 1), ("up", 1)), row: str = "down"):
     """Pad the MLP int8 stacks (gateup/gate/up column, down row) to the
     same F_pad, so 7B-style intermediate sizes shard at any power-of-two TP
     degree; the head-structured attention stacks stay as they are. Returns
-    (layers, changed)."""
+    (layers, changed). `columns` ((name, halves), ...) and `row` name
+    another family's MLP stacks (Qwen: w12/w1/w2 and mlp_proj)."""
     out = dict(layers)
     changed = False
-    for name, halves in (("gateup", 2), ("gate", 1), ("up", 1)):
+    for name, halves in columns:
         if name in out and is_quantized(out[name]):
             out[name], ch = pad_quantized_stack(out[name], "column", n_shards, halves)
             changed |= ch
-    if "down" in out and is_quantized(out["down"]):
-        out["down"], ch = pad_quantized_stack(out["down"], "row", n_shards)
+    if row in out and is_quantized(out[row]):
+        out[row], ch = pad_quantized_stack(out[row], "row", n_shards)
         changed |= ch
     return out, changed
 

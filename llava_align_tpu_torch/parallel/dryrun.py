@@ -61,31 +61,53 @@ def _rank_main(rank: int, fn: Callable, world: int, port: int, device: str, out_
         json.dump(result, f)
 
 
-def spawn(fn: Callable, world: int, args: tuple = (), *, device: str = "cuda", timeout: float = 600.0) -> List[Any]:
-    """Run fn(rank, world, device, *args) in `world` spawned processes
-    joined in one process group (MASTER_ADDR 127.0.0.1, a free port) on
-    `device` ('cuda', the default, or 'cpu'); fn is
-    a module-level function returning something JSON-able. Returns each
-    rank's result, in rank order. A rank that raises, or a run past
-    `timeout` seconds, raises here, and every rank is stopped."""
-    with tempfile.TemporaryDirectory() as out_dir:
-        ctx = mp.start_processes(_rank_main, args=(fn, world, free_port(), device, out_dir, args),
-                                 nprocs=world, join=False, start_method="spawn")
-        deadline = time.monotonic() + timeout
+class Ranks:
+    """Ranks started by `start`: join() waits for them and returns each
+    rank's result, in rank order; a rank that raises, or a run past the
+    timeout, raises there, and every rank is stopped."""
+
+    def __init__(self, fn: Callable, world: int, args: tuple, device: str, timeout: float):
+        self.world = world
+        self._dir = tempfile.TemporaryDirectory()
+        self._ctx = mp.start_processes(_rank_main, args=(fn, world, free_port(), device, self._dir.name, args),
+                                       nprocs=world, join=False, start_method="spawn")
+        self._deadline = time.monotonic() + timeout
+        self._timeout = timeout
+
+    def join(self) -> List[Any]:
         try:
-            while not ctx.join(timeout=max(1.0, min(5.0, deadline - time.monotonic()))):
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"{world} ranks still running after {timeout:.0f} s")
+            while not self._ctx.join(timeout=max(1.0, min(5.0, self._deadline - time.monotonic()))):
+                if time.monotonic() > self._deadline:
+                    raise TimeoutError(f"{self.world} ranks still running after {self._timeout:.0f} s")
+            results = []
+            for r in range(self.world):
+                with open(os.path.join(self._dir.name, f"rank{r}.json")) as f:
+                    results.append(json.load(f))
+            return results
         finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        results = []
-        for r in range(world):
-            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-                results.append(json.load(f))
-        return results
+            self.stop()
+
+    def stop(self) -> None:
+        for p in self._ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        self._dir.cleanup()
+
+
+def start(fn: Callable, world: int, args: tuple = (), *, device: str = "cuda", timeout: float = 600.0) -> Ranks:
+    """Start fn(rank, world, device, *args) in `world` spawned processes
+    joined in one process group (MASTER_ADDR 127.0.0.1, a free port) on
+    `device` ('cuda', the default, or 'cpu') and return at once; fn is a
+    module-level function returning something JSON-able. The caller may
+    work meanwhile, then Ranks.join() (or stop())."""
+    return Ranks(fn, world, args, device, timeout)
+
+
+def spawn(fn: Callable, world: int, args: tuple = (), *, device: str = "cuda", timeout: float = 600.0) -> List[Any]:
+    """start(...).join(): run the ranks and return each rank's result, in
+    rank order."""
+    return start(fn, world, args, device=device, timeout=timeout).join()
 
 
 def mesh_shape(n: int):

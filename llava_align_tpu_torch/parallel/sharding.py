@@ -1,5 +1,6 @@
 """Parameter / cache sharding rules, Megatron-style tensor parallelism
-(torch twin of llava_align_tpu/parallel/sharding.py, the LLaVA part).
+(torch twin of llava_align_tpu/parallel/sharding.py: LLaVA, Qwen, MPT
+and OPT).
 
 Column-parallel (output features split) for q/k/v/gate/up/fc1,
 row-parallel (input features split) for o/down/fc2, so each transformer
@@ -10,7 +11,9 @@ replicates it (`spec_pairs` gives the (dim, axis) pairs a JAX
 PartitionSpec names). A fused stack (q|k|v, gate|up) splits each of its
 `blocks` along the dim, so that a rank's slice is [q_r | k_r | v_r] and
 the column output it computes stays in the fused layout; JAX's GSPMD
-keeps the global layout instead and moves the data itself.
+keeps the global layout instead and moves the data itself. A vocab
+split (`ragged`) may not divide the axis: it takes comm.shard_range's
+parts, as GSPMD pads an uneven split.
 
 `shard_params` narrows each leaf to this rank's slice (contiguous, on the
 rank's device); `unshard_params` gathers the slices back.
@@ -31,11 +34,16 @@ from llava_align_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """Split `dim` of a leaf over mesh `axis`; `blocks` (sizes along dim,
-    summing to it) are split one by one (a fused stack)."""
+    summing to it) are split one by one (a fused stack); `ragged`: the dim
+    need not divide (comm.shard_range's parts)."""
 
     dim: int
     axis: str = "model"
     blocks: Tuple[int, ...] = ()
+    ragged: bool = False
+
+
+VOCAB = Shard(0, ragged=True)  # [V, D] rows over 'model', any V
 
 
 Spec = Optional[Shard]
@@ -66,7 +74,7 @@ def llama_param_shardings(cfg: LlamaConfig, model: int = 1) -> Dict[str, Any]:
             "down": Shard(2),
         },
         "final_norm": None,
-        "lm_head": Shard(0),
+        "lm_head": VOCAB,
     }
 
 
@@ -107,6 +115,75 @@ def llava_param_shardings(cfg: LlavaConfig, params: Dict[str, Any], model: int =
     }
 
 
+def qwen_param_shardings(cfg) -> Dict[str, Any]:
+    """models/qwen params ([L, out, in]; cfg: QwenConfig). The packed
+    c_attn (weight and bias) is [q | k | v], split block by block so that
+    a rank holds whole heads of each; attn_proj and mlp_proj row-parallel;
+    wte split on hidden, lm_head on vocab."""
+    qkv = Shard(1, blocks=(cfg.q_dim,) * 3)
+    return {
+        "wte": Shard(1),
+        "layers": {
+            "ln_1": None,
+            "c_attn_w": qkv,
+            "c_attn_b": qkv,
+            "attn_proj": Shard(2),
+            "ln_2": None,
+            "w1": Shard(1),
+            "w2": Shard(1),
+            "mlp_proj": Shard(2),
+        },
+        "ln_f": None,
+        "lm_head": VOCAB,
+    }
+
+
+def mpt_param_shardings() -> Dict[str, Any]:
+    """models/mpt params. The packed wqkv output is [D | KV | KV]; under
+    multi-query (KV = head_dim) its kv blocks do not split, so wqkv is
+    row-parallel (its input dim) and every rank gets the whole q|k|v after
+    one all_reduce: right for MHA and MQA alike. wte (the tied head too)
+    split on vocab."""
+    return {
+        "wte": VOCAB,
+        "layers": {
+            "norm_1": None,
+            "wqkv": Shard(2),
+            "out_proj": Shard(2),
+            "norm_2": None,
+            "up_proj": Shard(1),
+            "down_proj": Shard(2),
+        },
+        "norm_f": None,
+    }
+
+
+def opt_param_shardings() -> Dict[str, Any]:
+    """models/opt params ({w [L, out, in], b [L, out]} linears): q/k/v/fc1
+    column-parallel, out/fc2 row-parallel, biases whole; embed_tokens (the
+    tied head too) split on vocab, the learned positions whole."""
+
+    def dense(col: bool):
+        return {"w": Shard(1) if col else Shard(2), "b": None}
+
+    ln = {"scale": None, "bias": None}
+    return {
+        "embed_tokens": VOCAB,
+        "embed_positions": None,
+        "layers": {
+            "attn_ln": dict(ln),
+            "q": dense(True),
+            "k": dense(True),
+            "v": dense(True),
+            "out": dense(False),
+            "ffn_ln": dict(ln),
+            "fc1": dense(True),
+            "fc2": dense(False),
+        },
+        "final_ln": dict(ln),
+    }
+
+
 def cache_shardings() -> Dict[str, Shard]:
     """KV cache [L, B, Smax, K, Dh]: kv heads over 'model' (the int8
     cache's scale planes [L, B, Smax, K, 1] too)."""
@@ -139,6 +216,8 @@ def complete_shardings(params: Dict[str, Any], partial: Any) -> Dict[str, Any]:
 def _slices(size: int, spec: Shard, n: int, r: int):
     """(start, length) of rank r's pieces along spec.dim of a leaf `size`
     long there."""
+    if spec.ragged and not spec.blocks:
+        return [comm.shard_range(size, n, r)]
     blocks = spec.blocks or (size,)
     if sum(blocks) != size:
         raise ValueError(f"blocks {blocks} do not sum to dim {spec.dim} ({size})")
@@ -185,6 +264,9 @@ def unshard_params(params: Dict[str, Any], specs: Dict[str, Any], mesh) -> Dict[
             return x
         n, group = axis_size(mesh, spec.axis), axis_group(mesh, spec.axis)
         local = x.shape[spec.dim]
+        if spec.ragged and not spec.blocks:  # the whole size: the parts summed
+            size = int(comm.all_reduce_(torch.tensor([local], device=x.device), group)[0])
+            return comm.gather_dim(x.contiguous(), group, spec.dim, size)
         blocks = [b // n for b in spec.blocks] if spec.blocks else [local]
         out, off = [], 0
         for b in blocks:

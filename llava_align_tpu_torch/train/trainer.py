@@ -118,7 +118,7 @@ def lm_loss_parts(params: Params, cfg: LlavaConfig, batch: Dict[str, torch.Tenso
     positions = torch.arange(S, device=embeds.device).expand(B, S)
     hidden, _ = llama.forward(params["llama"], cfg.text, embeds, positions, attn_impl=attn_impl,
                               tp_mesh=tp_mesh)
-    logits = llama.logits_from_hidden(params["llama"], hidden, group)  # [B, S, V] fp32
+    logits = llama.logits_from_hidden(params["llama"], hidden, group, cfg.text.vocab_size)  # [B, S, V] fp32
 
     shift_logits = logits[:, :-1]
     shift_labels = batch["labels"][:, 1:].long()

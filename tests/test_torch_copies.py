@@ -3,8 +3,10 @@ identically: conversation prompts for every template, plan_splice,
 tokenizer_image_token, get_model_name_from_path, MockTokenizer,
 build_prompt, the grouped engine's host logic (common_token_prefix,
 _txt_kind_prefix_bases), and VCD's diffusion schedule; and the verbatim
-copies (evals/mme, evals/mmmu, the schedule) must keep the originals'
-source, the package name aside. Exact equality."""
+copies (evals/mme, evals/mmmu, the schedule, utils/moderation, the state
+dict tools of utils/checkpoint_tools, PopeTask, text_only_plan,
+engine.branch_token_ids and the rest of VERBATIM_COPIES) must keep the
+originals' source, the package name aside. Exact equality."""
 
 import dataclasses
 import importlib
@@ -409,6 +411,13 @@ VERBATIM_COPIES = [
     *[("runners.common", n) for n in ("mock_tokenize", "resolve_tokenizer")],
     ("runners.train", "_batches"),
     ("train.trainer", "build_train_batch"),
+    # the utility tail
+    ("utils.moderation", "violates_moderation"),
+    *[("utils.checkpoint_tools", n) for n in ("_np", "merge_lora", "apply_projector_only", "make_delta",
+                                              "apply_delta")],
+    ("framework.tasks", "PopeTask"),
+    ("models.llava", "text_only_plan"),
+    ("decoding.engine", "branch_token_ids"),
 ]
 
 
@@ -592,8 +601,9 @@ def test_caption_task_copy_behaves_as_jax(tmp_path):
         assert tasks.BaseTask.setup_task({"task_args": {"x": 1}}).cfg == {"x": 1}
     assert texts[0] == texts[1]
     assert '"image_id": 7' in texts[1][2] and texts[1][2].count('"image_id": 7') == 1
-    assert treg.list("task") == ["base", "captioning"] and treg is not jreg
+    assert treg.list("task") == ["base", "captioning", "pope"] and treg is not jreg
     assert treg.get_task_class("captioning") is ttasks.CaptionTask
+    assert treg.get_task_class("pope") is ttasks.PopeTask
     avgs = []
     for log in (jlog, tlog):
         m = log.MetricLogger()

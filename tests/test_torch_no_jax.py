@@ -6,15 +6,19 @@ the MME and MMMU runners and scorers, the Qwen-VL and InstructBLIP
 runners, the W8A8 and int8 KV-cache modes, the sampling sweep, the bias
 probe and the judge pipeline, LLaVA-MPT and BLIP-2 OPT generates, BLIP-2
 T5's t5_generate and a stage-1 caption, the train CLI (2 epochs and a
-resume), the parallel dry run on 2 spawned ranks (parallel/*), and every
-microbenchmark twin (at rehearsal size) on the CPU,
+resume), the parallel dry run on 2 spawned ranks (parallel/*), every
+microbenchmark twin (at rehearsal size) and the utility tail (the native
+loader, PopeTask, profiling, the checkpoint tools, moderation) on the CPU,
 with jax (and the JAX package) blocked — the machine with the card has no
 jax — and, for the slice's modules, with safetensors and transformers
-blocked too (the port must not need them)."""
+blocked too (the port must not need them). The subprocesses run four at a
+time, each on one thread."""
 
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -474,80 +478,164 @@ print("OK")
 """
 
 
-def test_parallel_runs_with_jax_blocked(tmp_path):
+UTIL_CODE = r"""
+import sys
+for blocked in ("jax", "jaxlib", "llava_align_tpu", "safetensors", "transformers", "regex", "openai"):
+    sys.modules[blocked] = None
+
+import json, os, tempfile
+import torch
+from llava_align_tpu_torch.framework.data import JsonlDataset
+from llava_align_tpu_torch.framework.registry import registry
+from llava_align_tpu_torch.framework.tasks import PopeTask
+from llava_align_tpu_torch.utils import checkpoint_tools, moderation, parity_check, profiling  # noqa: F401
+
+d = tempfile.mkdtemp()
+path = os.path.join(d, "q.jsonl")
+rows = [{"question_id": i, "text": f"Is there a dog #{i}?", "label": "yes" if i % 2 else "no"} for i in range(6)]
+with open(path, "w") as f:
+    f.write("".join(json.dumps(r) + "\n" for r in rows))
+ds = JsonlDataset(path)
+assert ds.native and [ds[i] for i in range(len(ds))] == rows  # g++ builds the loader into build/native/
+assert registry.get_task_class("pope") is PopeTask
+task = PopeTask(generate_fn=lambda params, s: "Yes" if s["label"] == "yes" else "No")
+metrics = task.after_evaluation(task.evaluation(None, [ds[i] for i in range(len(ds))], log_freq=100))
+assert metrics["accuracy"] == 1.0 and metrics["agg_metrics"] == metrics["f1"] == 1.0
+timer = profiling.PhaseTimer()
+with timer.phase("x"), profiling.trace(os.path.join(d, "trace")):
+    torch.ones(3) * 2
+assert timer.report()["x"]["count"] == 1 and os.path.exists(os.path.join(d, "trace", profiling.TRACE_FILE))
+delta = checkpoint_tools.make_delta({"w": torch.ones(2)}, {"w": torch.full((2,), 3.0)})
+assert (delta["w"] == 2).all()
+assert moderation.violates_moderation("text") is False  # no openai: fails open, as in JAX
+
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "llava_align_tpu", "safetensors",
+                                                     "transformers", "regex", "openai")]
+assert not loaded, loaded
+print("OK")
+"""
+
+
+# every subprocess of this module: name -> (code, the packages blocked by
+# stub packages on PYTHONPATH, which spawned children see too)
+RUNS = {
+    "port": (CODE, ()),
+    "twins": (TWINS_CODE, ()),
+    "qwen": (QWEN_CODE, ()),
+    "blip": (BLIP_CODE, ()),
+    "quant": (QUANT_CODE, ()),
+    "train": (TRAIN_CODE, ()),
+    "parallel": (PARALLEL_CODE, ("jax", "jaxlib", "llava_align_tpu", "safetensors", "transformers")),
+    "util": (UTIL_CODE, ()),
+}
+
+
+RUNS_AT_ONCE = 4  # beside the suite's other workers: all eight at once would crowd their cores
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every subprocess of RUNS, RUNS_AT_ONCE at a time from the module's
+    first test on (each on one intra-op thread: beside the suite's parallel
+    workers, a child with a thread per core spins at every parallel
+    region; the twins' host-clock loops ran 9 s alone on one thread, 156 s
+    on eight beside three busy processes), 300 s at most each: name -> the
+    Future of its CompletedProcess."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = tmp_path_factory.mktemp("no_jax")
+
+    def run(name, code, blocked):
+        pythonpath = REPO
+        if blocked:
+            stubs = root / f"{name}_stubs"
+            for pkg in blocked:
+                (stubs / pkg).mkdir(parents=True)
+                (stubs / pkg / "__init__.py").write_text(f"raise ImportError('{pkg} is blocked')\n")
+            pythonpath = f"{stubs}{os.pathsep}{REPO}"
+        env = dict(os.environ, PYTHONPATH=pythonpath, OMP_NUM_THREADS="1")
+        return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=300)
+
+    with ThreadPoolExecutor(RUNS_AT_ONCE) as pool:
+        yield {name: pool.submit(run, name, code, blocked) for name, (code, blocked) in RUNS.items()}
+
+
+def _result(runs, name: str) -> subprocess.CompletedProcess:
+    return runs[name].result()
+
+
+def test_parallel_runs_with_jax_blocked(runs):
     """parallel/* imports, and the dry run (a TP train step, the sharded
     engine token-exact against one device, int8 TP with padding, W8A8
     under TP) runs on 2 spawned gloo ranks, with jax, the JAX package,
     safetensors and transformers unimportable in the parent and in the
     ranks (stub packages that raise, first on the ranks' PYTHONPATH)."""
-    for name in ("jax", "jaxlib", "llava_align_tpu", "safetensors", "transformers"):
-        (tmp_path / name).mkdir()
-        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('{name} is blocked')\n")
-    proc = _run(PARALLEL_CODE, pythonpath=f"{tmp_path}{os.pathsep}{REPO}")
+    proc = _result(runs, "parallel")
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
 
 
-def _run(code: str, pythonpath: str = REPO) -> subprocess.CompletedProcess:
-    # one intra-op thread: beside the suite's parallel workers, a child with
-    # a thread per core spins at every parallel region (the twins' host-
-    # clock loops ran 9 s alone on one thread, 156 s on eight beside three
-    # busy processes, past the timeout under the whole suite)
-    env = dict(os.environ, PYTHONPATH=pythonpath, OMP_NUM_THREADS="1")
-    return subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
-        timeout=300,
-    )
-
-
-def test_port_runs_with_jax_blocked():
-    proc = _run(CODE)
+def test_port_runs_with_jax_blocked(runs):
+    proc = _result(runs, "port")
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("OK"), proc.stdout
 
 
-def test_microbenchmark_twins_run_with_jax_blocked():
+def test_microbenchmark_twins_run_with_jax_blocked(runs):
     """Each twin of a TPU script imports and runs its main() at rehearsal
     size, with neither jax, the JAX package nor scripts/ importable."""
-    proc = _run(TWINS_CODE)
+    proc = _result(runs, "twins")
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1].startswith("OK"), proc.stdout[-2000:]
 
 
-def test_qwen_slice_runs_with_jax_and_regex_blocked():
+def test_qwen_slice_runs_with_jax_and_regex_blocked(runs):
     """The Qwen-VL runners on random:tiny with jax, the JAX package,
     safetensors, transformers and regex all unimportable."""
-    proc = _run(QWEN_CODE)
+    proc = _result(runs, "qwen")
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
 
 
-def test_blip_slice_runs_with_jax_and_pil_blocked():
+def test_blip_slice_runs_with_jax_and_pil_blocked(runs):
     """The InstructBLIP POPE runner (plain and VCD, --calibrate, scored) and
     the caption runner on random:tiny with jax, the JAX package,
     safetensors, transformers and PIL all unimportable (synthetic images
     need no PIL)."""
-    proc = _run(BLIP_CODE)
+    proc = _result(runs, "blip")
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
 
 
-def test_quant_modes_and_last_runners_run_with_jax_blocked():
+def test_quant_modes_and_last_runners_run_with_jax_blocked(runs):
     """--quant w8a8 through the POPE and Qwen runners, the int8 KV cache
     (with W8A8) through every engine entry point and beams, the sampling
     sweep's smoke grid, the bias probe and the judge pipeline (an injected
     judge; openai_judge needs the openai package) on random:tiny with jax,
     the JAX package, safetensors, transformers and openai unimportable."""
-    proc = _run(QUANT_CODE)
+    proc = _result(runs, "quant")
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
 
 
-def test_train_cli_runs_with_jax_blocked():
+def test_train_cli_runs_with_jax_blocked(runs):
     """runners/train.main on a captioning YAML (model arch llava, size
     tiny, synthetic images), 2 epochs then a resume from checkpoint_last,
     with jax, the JAX package, safetensors and transformers unimportable
     (the card machine has PyYAML and Pillow, which this path reads)."""
-    proc = _run(TRAIN_CODE)
+    proc = _result(runs, "train")
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
+
+
+def test_utility_tail_runs_with_jax_and_regex_blocked(runs):
+    """The native loader (JsonlDataset on its native path), PopeTask
+    through its evaluation, PhaseTimer and trace, the checkpoint tools and
+    moderation, with jax, the JAX package, safetensors, transformers, regex
+    and openai unimportable (parity_check imports without transformers:
+    only its oracle and CLI read it)."""
+    proc = _result(runs, "util")
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]

@@ -34,9 +34,26 @@ tiny LLaVA drawn from a seed (numpy), carried over by from_jax_params:
   tests/test_torch_train.py holds them), and AdamW's global norm over the
   sharded tree equal to the unsharded one.
 
+The other four adapters (Qwen-VL, fp32 and int8; LLaVA-MPT; InstructBLIP;
+BLIP-2 OPT), in the same spawn: their trees drawn from a seed by the
+port's random-tree functions, vocabularies that do not divide the 'model' axis (97;
+Qwen's 510 at model 4), greedy tokens under data 2 x model 2 and data 1 x
+model 4 exactly equal to the unsharded JAX engine's in each entry point
+the adapter takes (InstructBLIP and BLIP-2 OPT encode no image in the
+engine: their generate reads precomputed query features, their
+generate_batch is text-only and held against JAX's generate question by
+question, and neither takes generate_batch_groups, in either package);
+and their spec trees against JAX's qwen/mpt/opt_param_shardings leaf for
+leaf.
+
+The ranks run while the parent computes the JAX side (the four other
+families' references in a process of their own); the parent then holds
+the ranks' arrays against JAX's.
+
 One spawn of 2 ranks: the POPE runner with --dist auto on random:tiny,
 --device cpu, whose merged answers equal a one-rank run's (one question
-a call, so each question's numbers do not depend on the split).
+a call, so each question's numbers do not depend on the split), made
+while the ranks run.
 
 The ranks import this module without JAX (JAX is imported inside the
 fixtures and tests only).
@@ -50,7 +67,7 @@ import pytest
 import torch
 
 from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX as S
-from llava_align_tpu_torch.parallel.dryrun import spawn
+from llava_align_tpu_torch.parallel.dryrun import start
 
 RANK_TIMEOUT = 300.0
 EOS = 2
@@ -307,9 +324,124 @@ def _patch_port_noise(injected):
     return restore
 
 
-def _four_ranks(rank, world, device, inputs):
+# ---------------------------------------------------------------------------
+# the other four adapters: configs, trees, requests and entry points (the
+# same code drives the JAX engine in the parent and the port's on the ranks)
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("qwen", "qwen_int8", "mpt", "blip", "opt")
+FAMILY_MESHES = ("data2_model2", "data1_model4")
+FAMILY_VOCAB = {"qwen": 510, "mpt": 97, "blip": 97, "opt": 97}  # 510 splits 2 ways, not 4; 97 neither
+
+
+def _family_cfgs(kind: str, jax_side: bool = False):
+    """(tiny config of one package, the adapter's class name). qwen_int8: 4
+    heads of 128 and a 256-wide MLP half, so that every int8 stack is
+    lane-aligned at model 2 and w12 / mlp_proj pad at model 4."""
+    import dataclasses
+    import importlib
+
+    pkg = "llava_align_tpu" if jax_side else "llava_align_tpu_torch"
+    name = {"qwen": "qwen_vl", "mpt": "llava_mpt", "blip": "instructblip", "opt": "blip2"}[kind.split("_")[0]]
+    mod = importlib.import_module(f"{pkg}.models.{name}")
+    vocab = FAMILY_VOCAB[kind.split("_")[0]]
+    if kind.startswith("qwen"):
+        cfg = mod.QwenVLConfig.tiny(vocab_size=vocab)
+        if kind == "qwen_int8":
+            cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_heads=4, head_dim=128,
+                                                                    intermediate_size=512))
+        return cfg, "QwenVLAdapter"
+    if kind == "mpt":
+        return mod.LlavaMptConfig.tiny(vocab_size=vocab), "LlavaMptAdapter"
+    if kind == "blip":
+        return mod.InstructBlipConfig.tiny(vocab_size=vocab), "InstructBlipAdapter"
+    return mod.Blip2OptConfig.tiny(vocab_size=vocab), "Blip2OptAdapter"
+
+
+def _family_tree(kind: str, cfg, seed: int = 0):
+    """The port's random tree (numpy leaves) at the port config `cfg`."""
+    from llava_align_tpu_torch.models import blip2, instructblip
+    from llava_align_tpu_torch.utils import synthetic
+
+    if kind.startswith("qwen"):
+        quant = "int8" if kind == "qwen_int8" else "none"
+        return _numpy_tree(synthetic.build_random_qwen_vl_params(cfg, quant=quant, device="cpu", seed=seed))
+    if kind == "mpt":
+        return _numpy_tree(synthetic.build_random_llava_mpt_params(cfg, device="cpu", seed=seed))
+    if kind == "blip":
+        return _numpy_tree(instructblip.init(cfg, device="cpu", seed=seed))
+    return _numpy_tree(blip2.init_opt(cfg, device="cpu", seed=seed))
+
+
+def _family_requests(kind: str, cfg) -> dict:
+    """numpy inputs from a seed: Qwen's three image prompts sharing their
+    text but the last tokens, with 'unk' ids, and two images; MPT's LLaVA
+    prompts, two images and VCD's eps; InstructBLIP's and OPT's query
+    features ([main, noised] rows) and text-only prompts."""
+    rng = np.random.default_rng(21)
+    if kind.startswith("qwen"):
+        from llava_align_tpu_torch.models import qwen_vl
+
+        span, _ = qwen_vl.sentinelize_span(qwen_vl.make_image_span_ids(cfg), cfg)
+        common = [int(t) for t in rng.integers(3, 400, 6)]
+        tails = [[int(t) for t in rng.integers(3, 400, n)] for n in (3, 2, 3)]
+        unk = [int(t) for t in rng.integers(3, 400, 2)]
+        H = cfg.vision.image_size
+        return dict(ids=[span + common + t for t in tails], unk=[unk + common + t for t in tails],
+                    text=common + tails[2], images=[rng.normal(size=(3, H, H)).astype(np.float32) for _ in range(2)])
+    if kind == "mpt":
+        return dict(ids=list(PROMPTS[:2]), text=[1, 5, 7, 9, 11], images=_images(2), eps=_eps(seed=8))
+    H = cfg.text.hidden_size
+    return dict(ids=[S, 1, 40, 50, 60], feats=rng.normal(size=(2, cfg.num_query_tokens, H)).astype(np.float32),
+                text=[[1, 17, 23, 31], [1, 19, 29, 31, 37, 41, 43]])
+
+
+def _family_tokens(kind: str, make, req: dict, jax_side: bool = False) -> dict:
+    """Greedy tokens of each entry point the family's adapter takes, on the
+    engines `make(flags)` builds (either package's)."""
+    def toks(outs):
+        return [o.token_ids for o in outs]
+
+    out = {}
+    ids, images = req["ids"], req.get("images")
+    if kind.startswith("qwen"):
+        dual = make(DUAL)
+        out["generate"] = dual.generate(ids[0], images[0], branch_ids={"unk": req["unk"][0]}).token_ids
+        if kind == "qwen_int8":
+            return out
+        out["generate_batch"] = toks(make({"use_dd": True}).generate_batch(
+            [(ids[0], images[0]), (ids[1], images[1]), (req["text"], None)]))
+        p = min(len(a) for a in ids)
+        p = next((i for i in range(p) if len({a[i] for a in ids}) > 1), p)
+        groups = [(ids[0][:p], [a[p:] for a in ids[g:g + 2]], images[g], [{"unk": u} for u in req["unk"][g:g + 2]])
+                  for g in range(2)]
+        out["generate_batch_groups"] = toks(dual.generate_batch_groups(groups))
+        out["generate_beam"] = make({}).generate_beam(ids[0], images[0], num_beams=3).token_ids
+    elif kind == "mpt":
+        out["generate"] = make(DUAL).generate(ids[0], images[0]).token_ids
+        out["generate_vcd"] = make(VCD).generate(ids[0], images[0]).token_ids
+        out["generate_batch"] = toks(make(DUAL).generate_batch([(ids[0], images[0]), (ids[1], images[1]),
+                                                                (req["text"], None)]))
+        out["generate_beam"] = make({}).generate_beam(ids[0], images[0], num_beams=3).token_ids
+    else:  # InstructBLIP, BLIP-2 OPT: query features computed outside the engine
+        feats = req["feats"]
+        out["generate_vcd"] = make(VCD).generate(ids, None, precomputed_feats=feats).token_ids
+        eng = make({"use_dd": True})
+        if jax_side:  # the JAX lockstep batch encodes every slot, which the adapter refuses
+            dummy = np.zeros((1, 1, feats.shape[-1]), np.float32)
+            out["generate_batch"] = [eng.generate(q, None, precomputed_feats=dummy).token_ids for q in req["text"]]
+        else:
+            out["generate_batch"] = toks(eng.generate_batch([(q, None) for q in req["text"]]))
+        out["generate_beam"] = make({}).generate_beam(ids, precomputed_feats=feats[:1], num_beams=3).token_ids
+    return out
+
+
+def _four_ranks(rank, world, device, inputs, out_dir):
     """Everything the 4-rank spawn checks, on one rank; returns the tokens
-    and errors the parent holds against JAX."""
+    and errors the parent holds against JAX, and writes the arrays it holds
+    against JAX's (the TP matmul outputs; on rank 0 the stepped params) to
+    <out_dir>/rank<r>.npz. The ranks run while the parent computes the JAX
+    side, so nothing of it is theirs."""
     from llava_align_tpu_torch.config import GenerationConfig as TGen
     from llava_align_tpu_torch.decoding.engine import DecodeEngine
     from llava_align_tpu_torch.framework.optims import tree_leaves
@@ -323,19 +455,14 @@ def _four_ranks(rank, world, device, inputs):
     group, r = axis_group(mesh, "model"), axis_rank(mesh, "model")
     out = {}
 
-    # ---- int8_matmul_stacked_tp against JAX's
-    for name, h, wq, mode, aq, want in inputs["tp_matmul"]:
-        h, want = torch.from_numpy(np.asarray(h)), np.asarray(want)
+    # ---- int8_matmul_stacked_tp (held against JAX's by the parent)
+    arrays = {}
+    for name, h, wq, mode, aq in inputs["tp_matmul"]:
+        h = torch.from_numpy(np.asarray(h))
         local = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in _local_stack(wq, mode, r, 2).items()}
         if mode == "row":
             h = h[:, r * (h.shape[1] // 2) : (r + 1) * (h.shape[1] // 2)].contiguous()
-        got = quant.int8_matmul_stacked_tp(h, local, 1, group, mode, act_quant=aq).numpy()
-        if mode == "column":
-            o = want.shape[1] // 2
-            want = want[:, r * o : (r + 1) * o]
-        # fp32: relative to the output's largest element (|y| ~ 10 here)
-        out[f"tp_{name}"] = (float(np.abs(got - want).max() / np.abs(want).max()) if not aq
-                             else bool(np.array_equal(got, want)))
+        arrays[f"tp_{name}"] = quant.int8_matmul_stacked_tp(h, local, 1, group, mode, act_quant=aq).numpy()
 
     # ---- the engine's entry points, greedy tokens
     _, tcfg = inputs["cfgs"]
@@ -410,6 +537,25 @@ def _four_ranks(rank, world, device, inputs):
     out["int8_down_width"] = int(q_eng.params["llama"]["layers"]["down"]["q"].shape[2])
     out["int8_generate"] = q_eng.generate(IDS, imgs[0]).token_ids
 
+    # ---- the other four adapters under data 2 x model 2 and data 1 x model 4
+    from llava_align_tpu_torch.decoding import adapters
+
+    meshes = {"data2_model2": mesh, "data1_model4": make_mesh(model=4, data=1)}
+    for kind, fam in inputs["families"].items():
+        cls, fcfg = getattr(adapters, fam["adapter"]), fam["cfg"]
+        fparams = from_jax_params(fam["tree"], device="cpu")
+        for name, m in meshes.items():
+            def make(flags, m=m):
+                return DecodeEngine(fparams, fcfg, _gen(TGen, **flags), adapter=cls(fcfg), bucket=8, mesh=m)
+
+            restore = _patch_port_noise(fam["req"]["eps"]) if "eps" in fam["req"] else (lambda: None)
+            try:
+                out[f"{kind}:{name}"] = _family_tokens(kind, make, fam["req"])
+            finally:
+                restore()
+            eng = make({})
+            out[f"{kind}:{name}:layout"] = [eng.adapter.tp_layers, eng.adapter.cache_kv_heads, bool(eng._int8_tp)]
+
     # ---- one train step against JAX's unsharded step
     from llava_align_tpu_torch.config import LlavaConfig as TC
 
@@ -428,8 +574,8 @@ def _four_ranks(rank, world, device, inputs):
     with torch.no_grad():
         got = unshard_params(params, specs, mesh)
         out["losses"] = losses
-        out["param_diff"] = [np.abs(g.numpy() - np.asarray(w)).tolist()
-                             for g, w in zip(tree_leaves(got), inputs["want_params"])] if rank == 0 else None
+        if rank == 0:
+            arrays.update({f"param_{i}": x.numpy() for i, x in enumerate(tree_leaves(got))})
         # AdamW's global norm: the sharded tree's (norm_sync) == the whole tree's
         rng = np.random.default_rng(4)
         g_full = [torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)) for x in tree_leaves(full)]
@@ -437,6 +583,7 @@ def _four_ranks(rank, world, device, inputs):
         g_local = tree_leaves(shard_params(g_tree, specs, mesh))
         whole = trainer.make_optimizer(max_grad_norm=1.0)
         out["global_norm"] = [float(opt.global_norm(g_local)), float(whole.global_norm(g_full))]
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     return out
 
 
@@ -454,38 +601,100 @@ def _unflatten(like, leaves):
     return walk(like)
 
 
-@pytest.fixture(scope="module")
-def jax_reference():
-    """The JAX side of the 4-rank checks: the trees (numpy), the TP matmul
-    outputs on a 2-device mesh, the unsharded engine's tokens and the
-    unsharded train steps."""
+def _inputs():
+    """What the ranks take (no output of JAX's): the trees (numpy; the int8
+    one quantized by the JAX package), images, eps, the TP matmul cases, the
+    train samples and the four other families' trees and requests."""
+    import jax
+    from llava_align_tpu.ops import quant as jq
+
+    _, tcfg = _cfgs()
+    _, tcfg1 = _cfgs(kv_heads=1)
+    _, tcfg8 = _cfgs(int8_tp=True)
+    int8_tree = _tree(tcfg8, 2)
+    int8_tree = dict(int8_tree, llama=jax.device_get(jq.quantize_llama_params(int8_tree["llama"], fuse=True)))
+    H = tcfg.vision.image_size
+    rng = np.random.default_rng(0)
+    samples = [{"input_ids": [1, 5, S, 7 + i, 8, 9 + (i % 3), 11][: 5 + i % 3],
+                "images": rng.normal(size=(3, H, H)).astype(np.float32)} for i in range(4)]
+    families = {}
+    for kind in FAMILIES:
+        ft, name = _family_cfgs(kind)
+        families[kind] = dict(cfg=ft, adapter=name, tree=_family_tree(kind, ft), req=_family_requests(kind, ft))
+    return dict(tp_matmul=_tp_matmul_cases(), cfgs=(None, tcfg), tree=_tree(tcfg, 0), images=_images(),
+                eps=_eps(), batch_eps=_eps(len(PROMPTS), seed=6), families=families,
+                int8_cfgs=(None, tcfg8), int8_tree=int8_tree, kv1_cfgs=(None, tcfg1), kv1_tree=_tree(tcfg1, 3),
+                opt_kw=dict(lr=LR, warmup_steps=0, total_steps=10, weight_decay=0.05, max_grad_norm=1.0),
+                samples=samples, steps=1)
+
+
+def _jax_noise(injected):
+    """A stand-in for the JAX engine's add_diffusion_noise that adds the
+    injected eps."""
+    import jax.numpy as jnp
+    from llava_align_tpu.ops import noise as jnoise
+
+    def noise(images, rng, noise_step):
+        assert images.shape == injected.shape, (images.shape, injected.shape)
+        sqrt_ab, sqrt_1m_ab = (jnp.asarray(a) for a in jnoise.diffusion_schedule())
+        t = jnp.asarray(noise_step, jnp.int32)
+        return (sqrt_ab[t] * images.astype(jnp.float32)
+                + sqrt_1m_ab[t] * jnp.asarray(injected)).astype(images.dtype)
+
+    return noise
+
+
+def _family_references(families) -> dict:
+    """The unsharded JAX engine's tokens for each other family (run in a
+    process of its own, beside the LLaVA references and the ranks)."""
+    import jax
+    import jax.numpy as jnp
+    from llava_align_tpu.config import GenerationConfig as JGen
+    from llava_align_tpu.decoding import adapters as jadapters
+    from llava_align_tpu.decoding import engine as jengine_mod
+    from llava_align_tpu.decoding.engine import DecodeEngine as JEngine
+
+    want, saved = {}, jengine_mod.add_diffusion_noise
+    for kind, fam in families.items():
+        fj, name = _family_cfgs(kind, jax_side=True)
+        jtree = jax.tree_util.tree_map(jnp.asarray, fam["tree"])
+        cls = getattr(jadapters, name)
+
+        def make(flags, jtree=jtree, fj=fj, cls=cls):
+            return JEngine(jtree, fj, _gen(JGen, **flags), adapter=cls(fj), attn_impl="xla", bucket=8)
+
+        jengine_mod.add_diffusion_noise = _jax_noise(fam["req"]["eps"]) if "eps" in fam["req"] else saved
+        try:
+            want[kind] = _family_tokens(kind, make, fam["req"], jax_side=True)
+        finally:
+            jengine_mod.add_diffusion_noise = saved
+    return want
+
+
+def _llava_references(inputs):
+    """The JAX side of the LLaVA checks: the TP matmul outputs on a 2-device
+    mesh, the unsharded engine's tokens and the unsharded train step.
+    Returns (tokens, tp outputs, losses, nu, stepped params)."""
     import jax
     import jax.numpy as jnp
     from llava_align_tpu.config import GenerationConfig as JGen
     from llava_align_tpu.decoding import engine as jengine_mod
     from llava_align_tpu.decoding.engine import DecodeEngine as JEngine
-    from llava_align_tpu.ops import noise as jnoise
     from llava_align_tpu.ops import quant as jq
     from llava_align_tpu.parallel.mesh import make_mesh as jmesh
     from llava_align_tpu.train import trainer as jtrainer
 
-    jcfg, tcfg = _cfgs()
-    tree = _tree(tcfg, 0)
-    jcfg1, tcfg1 = _cfgs(kv_heads=1)
-    kv1_tree = _tree(tcfg1, 3)
-    jcfg8, tcfg8 = _cfgs(int8_tp=True)
-    int8_tree = _tree(tcfg8, 2)
-    int8_tree = dict(int8_tree, llama=jax.device_get(jq.quantize_llama_params(int8_tree["llama"], fuse=True)))
-    imgs = _images()
-    eps = _eps()
-    batch_eps = _eps(len(PROMPTS), seed=6)
+    jcfg, _ = _cfgs()
+    jcfg1, _ = _cfgs(kv_heads=1)
+    jcfg8, _ = _cfgs(int8_tp=True)
+    tree, kv1_tree, int8_tree = inputs["tree"], inputs["kv1_tree"], inputs["int8_tree"]
+    imgs, eps, batch_eps = inputs["images"], inputs["eps"], inputs["batch_eps"]
 
     mesh = jmesh(model=2, data=1, devices=jax.devices()[:2])
-    tp = []
-    for name, h, wq, mode, aq in _tp_matmul_cases():
-        want = jq.int8_matmul_stacked_tp(jnp.asarray(h), jax.tree_util.tree_map(jnp.asarray, wq),
-                                         jnp.asarray(1, jnp.int32), mesh, mode, act_quant=aq)
-        tp.append((name, h, wq, mode, aq, np.asarray(want)))
+    tp = {}
+    for name, h, wq, mode, aq in inputs["tp_matmul"]:
+        tp[name] = np.asarray(jq.int8_matmul_stacked_tp(jnp.asarray(h), jax.tree_util.tree_map(jnp.asarray, wq),
+                                                        jnp.asarray(1, jnp.int32), mesh, mode, act_quant=aq))
 
     def jengine(flags, params=tree, cfg=jcfg):
         return JEngine(params, cfg, _gen(JGen, **flags), attn_impl="xla", bucket=8)
@@ -506,52 +715,70 @@ def jax_reference():
             [(PREFIX, GROUP_SUFFIXES[g], imgs[g]) for g in range(2)])],
     }
     saved = jengine_mod.add_diffusion_noise
-
-    def jax_noise(injected):
-        def noise(images, rng, noise_step):
-            assert images.shape == injected.shape, (images.shape, injected.shape)
-            sqrt_ab, sqrt_1m_ab = (jnp.asarray(a) for a in jnoise.diffusion_schedule())
-            t = jnp.asarray(noise_step, jnp.int32)
-            return (sqrt_ab[t] * images.astype(jnp.float32)
-                    + sqrt_1m_ab[t] * jnp.asarray(injected)).astype(images.dtype)
-
-        return noise
-
     try:
-        jengine_mod.add_diffusion_noise = jax_noise(eps)
+        jengine_mod.add_diffusion_noise = _jax_noise(eps)
         want["generate_vcd"] = jengine(VCD).generate(IDS, imgs[0]).token_ids
-        jengine_mod.add_diffusion_noise = jax_noise(batch_eps)
+        jengine_mod.add_diffusion_noise = _jax_noise(batch_eps)
         want["vcd_batch"] = [o.token_ids for o in jengine(VCD).generate_batch(
             [(p, imgs[i]) for i, p in enumerate(PROMPTS)])]
     finally:
         jengine_mod.add_diffusion_noise = saved
 
-    H = jcfg.vision.image_size
-    rng = np.random.default_rng(0)
-    samples = [{"input_ids": [1, 5, S, 7 + i, 8, 9 + (i % 3), 11][: 5 + i % 3],
-                "images": rng.normal(size=(3, H, H)).astype(np.float32)} for i in range(4)]
-    opt_kw = dict(lr=LR, warmup_steps=0, total_steps=10, weight_decay=0.05, max_grad_norm=1.0)
-    opt = jtrainer.make_optimizer(**opt_kw)
+    opt = jtrainer.make_optimizer(**inputs["opt_kw"])
     step = jtrainer.make_train_step(jcfg, opt, attn_impl="xla", donate=False)
     p, s, losses = tree, opt.init(tree), []
-    steps = 1
-    for _ in range(steps):
-        p, s, loss = step(p, s, jtrainer.build_train_batch(jcfg, samples, pad_to=16))
+    for _ in range(inputs["steps"]):
+        p, s, loss = step(p, s, jtrainer.build_train_batch(jcfg, inputs["samples"], pad_to=16))
         losses.append(float(loss))
     adam = next(x for x in jax.tree_util.tree_leaves(s, is_leaf=lambda n: hasattr(n, "nu")) if hasattr(x, "nu"))
     nu = [np.asarray(x) for x in jax.tree_util.tree_leaves(adam.nu)]
-    inputs = dict(tp_matmul=tp, cfgs=(None, tcfg), tree=tree, images=imgs, eps=eps, batch_eps=batch_eps,
-                  int8_cfgs=(None, tcfg8),
-                  kv1_cfgs=(None, tcfg1), kv1_tree=kv1_tree,
-                  int8_tree=int8_tree, opt_kw=opt_kw, samples=samples, steps=steps,
-                  want_params=[np.asarray(x) for x in jax.tree_util.tree_leaves(jax.device_get(p))])
-    return inputs, want, losses, nu
+    return want, tp, losses, nu, [np.asarray(x) for x in jax.tree_util.tree_leaves(jax.device_get(p))]
 
 
 @pytest.fixture(scope="module")
-def four_ranks(jax_reference):
-    inputs = jax_reference[0]
-    return spawn(_four_ranks, 4, (inputs,), device="cpu", timeout=RANK_TIMEOUT)
+def parallel_run(tmp_path_factory):
+    """The 4-rank spawn and the JAX side, run side by side: the ranks start
+    first (one thread each), the other families' JAX references run in a
+    process of their own, the LLaVA references here. Then the ranks' arrays are held against
+    JAX's: each rank's TP matmul output (fp32: relative to the output's
+    largest element, |y| ~ 10 here; W8A8: bit for bit) and, on rank 0, the
+    stepped params' distance to JAX's. Returns ((inputs, tokens, losses,
+    nu), rank results)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    inputs = _inputs()
+    out_dir = tmp_path_factory.mktemp("four_ranks")
+    ranks = start(_four_ranks, 4, (inputs, str(out_dir)), device="cpu", timeout=RANK_TIMEOUT)
+    try:
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            families = pool.submit(_family_references, inputs["families"])
+            want, tp, losses, nu, params = _llava_references(inputs)
+            want["families"] = families.result()
+        results = ranks.join()
+    finally:
+        ranks.stop()
+    for rank, res in enumerate(results):
+        arrays = np.load(out_dir / f"rank{rank}.npz")
+        r = rank % 2  # the 'model' coordinate
+        for name, _, _, mode, aq in inputs["tp_matmul"]:
+            got, full = arrays[f"tp_{name}"], tp[name]
+            w = full[:, r * (full.shape[1] // 2) : (r + 1) * (full.shape[1] // 2)] if mode == "column" else full
+            res[f"tp_{name}"] = (bool(np.array_equal(got, w)) if aq
+                                 else float(np.abs(got - w).max() / np.abs(w).max()))
+        res["param_diff"] = ([np.abs(arrays[f"param_{i}"] - w) for i, w in enumerate(params)]
+                             if rank == 0 else None)
+    return (inputs, want, losses, nu), results
+
+
+@pytest.fixture(scope="module")
+def jax_reference(parallel_run):
+    return parallel_run[0]
+
+
+@pytest.fixture(scope="module")
+def four_ranks(parallel_run):
+    return parallel_run[1]
 
 
 def test_int8_matmul_stacked_tp_matches_jax(four_ranks):
@@ -579,6 +806,68 @@ def test_sharded_engine_modes_equal_unsharded_port(four_ranks):
         assert res["kv1_cache_heads"] == 1  # one kv head: the cache holds it whole on each rank
         # intermediate 160 per shard is not lane-aligned: padded to 256, then TP
         assert res["int8_tp"] and res["int8_down_width"] == 256
+
+
+@pytest.mark.parametrize("mesh_name", FAMILY_MESHES)
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_family_tp_tokens_equal_unsharded_jax(four_ranks, jax_reference, kind, mesh_name):
+    want = jax_reference[1]["families"][kind]
+    for res in four_ranks:  # every rank returns the whole result
+        assert res[f"{kind}:{mesh_name}"] == want, (kind, mesh_name, res[f"{kind}:{mesh_name}"], want)
+
+
+def test_family_tp_layouts(four_ranks):
+    """Every family's layer stacks split over 'model' (int8 Qwen through the
+    TP kernels, its MLP lane-padded at model 4); each rank's cache holds
+    the adapter's kv heads: Qwen's and OPT's H / m, MPT's all of them (the
+    attention runs whole), InstructBLIP's LLaMA K / m where K splits, else
+    all (the tiny config's 2 kv heads at model 4)."""
+    heads = {"qwen": (2, 1), "qwen_int8": (2, 1), "mpt": (4, 4), "blip": (1, 2), "opt": (2, 1)}
+    for res in four_ranks:
+        for kind in FAMILIES:
+            for name, k in zip(FAMILY_MESHES, heads[kind]):
+                assert res[f"{kind}:{name}:layout"] == [True, k, kind == "qwen_int8"], (kind, name)
+
+
+def test_family_specs_match_jax():
+    """The spec functions (qwen/mpt/opt_param_shardings, completed) and the
+    adapters' param_shardings against JAX's, leaf for leaf, on each
+    family's tree. The one departure: the int8 fused w1|w2 ('w12'), which
+    JAX's qwen_param_shardings names no spec for (GSPMD replicates it),
+    splits block by block, as LLaVA's gate|up does."""
+    import jax
+    from llava_align_tpu.decoding import adapters as jadapters
+    from llava_align_tpu.parallel import sharding as jshd
+    from llava_align_tpu.parallel.mesh import make_mesh as jmesh
+
+    from llava_align_tpu_torch.decoding import adapters as tadapters
+    from llava_align_tpu_torch.parallel import sharding as tshd
+    from llava_align_tpu_torch.utils.jax_params import from_jax_params
+
+    mesh = jmesh(model=2, data=1, devices=jax.devices()[:2])
+    stub = _StubMesh(1, 2, 0)
+    lm = {"qwen": "qwen", "mpt": "mpt", "opt": "lm"}
+    for kind in FAMILIES:
+        (jc, name), (tc, _) = _family_cfgs(kind, jax_side=True), _family_cfgs(kind)
+        tree = _family_tree(kind, tc)
+        ttree = from_jax_params(tree, device="cpu")
+        want = getattr(jadapters, name)(jc).param_shardings(tree, mesh)
+        got = getattr(tadapters, name)(tc).param_shardings(ttree, stub)
+        if kind == "qwen_int8":
+            w12 = got["qwen"]["layers"]["w12"]
+            half = tc.text.intermediate_size // 2
+            assert w12["q"] == w12["s"] == tshd.Shard(1, blocks=(half, half)), w12
+            assert jshd.qwen_param_shardings(mesh)["layers"].get("w12") is None
+            rep = {"q": None, "s": None}
+            got = dict(got, qwen=dict(got["qwen"], layers=dict(got["qwen"]["layers"], w12=rep)))
+        _assert_specs_equal(got, want, tree)
+        key = lm.get(kind.split("_")[0])
+        if key is not None and kind != "qwen_int8":  # the spec functions themselves
+            fn = {"qwen": lambda: tshd.qwen_param_shardings(tc.text), "mpt": tshd.mpt_param_shardings,
+                  "opt": tshd.opt_param_shardings}[kind]
+            jfn = getattr(jshd, f"{kind}_param_shardings")
+            _assert_specs_equal(tshd.complete_shardings(ttree, {key: fn()}),
+                                jshd.complete_shardings(tree, {key: jfn(mesh)}, mesh), tree)
 
 
 def test_sharded_train_step_matches_unsharded_jax(four_ranks, jax_reference):
@@ -632,11 +921,15 @@ def test_pope_dist_auto_merges_into_the_one_rank_answers(tmp_path, monkeypatch):
     qf.write_text("".join(json.dumps({"question_id": i, "image": f"img{i // 3}.jpg", "text": f"Is there a cat #{i}?",
                                       "label": "yes" if i % 2 else "no"}) + "\n" for i in range(6)))
     merged = str(tmp_path / "dist" / "answers.jsonl")
-    paths = spawn(_pope_rank, 2, (str(qf), merged), device="cpu", timeout=RANK_TIMEOUT)
+    ranks = start(_pope_rank, 2, (str(qf), merged), device="cpu", timeout=RANK_TIMEOUT)
+    try:  # the one-rank run while the ranks run
+        for name in ("RANK", "WORLD_SIZE"):
+            monkeypatch.delenv(name, raising=False)
+        one = pope.run(_pope_args(str(qf), str(tmp_path / "one.jsonl"), "none"))
+        paths = ranks.join()
+    finally:
+        ranks.stop()
     assert paths[0] == merged and paths[1] == str(tmp_path / "dist" / "answers.rank1-of-2.jsonl")
-    for name in ("RANK", "WORLD_SIZE"):
-        monkeypatch.delenv(name, raising=False)
-    one = pope.run(_pope_args(str(qf), str(tmp_path / "one.jsonl"), "none"))
     got, want = load_jsonl(merged), load_jsonl(one)
     assert [r["question_id"] for r in got] == list(range(6))
     assert got == want
