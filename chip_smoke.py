@@ -238,6 +238,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
      1e-3 relative, every leaf within 2 x lr x updates, the gap printed
      call by call. K1-K4 must not launch
      (launches_by_path 7b_train and train_cli).
+ 17. the LAVIS zoo (after phase 16), random weights from a seed: the train
+     CLI's four LAVIS archs through runners/train's step, main's optimizer
+     and framework.runner.Runner on the CLI's data path (synthetic images,
+     the mock tokenizer) at the JAX package's configs, fp32 -
+     albef_retrieval (ViT-B/16 at 384, BERT-base fused from layer 6, a
+     65536-entry queue; batch 16), albef_classification (batch 16),
+     blip_classification (ViT-B/16 at 224; batch 32) and clip (ViT-B/32 +
+     its 12-layer text tower; batch 64), one warm step and 3 timed each
+     (halving a batch that does not fit); BLIP-2's stage-1
+     pretrain_forward (EVA ViT-g + Q-Former, batch 8), opt_forward_loss
+     at OPT-2.7b and t5_forward_loss at FlanT5-XL (batch 4), bf16, each
+     with one backward into the Q-Former side (the ViT and LM frozen);
+     BLIP (ViT-B/16 at 224) generate_caption greedy and with 3 beams on 4
+     images and compute_sim_matrix 8 x 8 with the ITM re-rank of the top
+     4. Each prints s/step (s), samples/s and peak memory beside the card,
+     the train phases also as `lavis_train` / `blip2_losses` JSON lines.
+     Then each new family cut to 2 layers per tower at full width, fp32,
+     card against CPU: the losses (BLIP's ITM logits) within 1e-3
+     relative. K1-K4 must not launch (launches_by_path `*_train`,
+     `blip2_*_loss`, `blip_*`).
 
 Prints a JSON line with each kernel's record (launches: both main paths'
 counts, per path under launches_by_path; K1's and K4's prefill-row times
@@ -3587,6 +3607,337 @@ def phase_train_reference(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the LAVIS zoo (ALBEF, BLIP, CLIP, BLIP-2's training losses): the CLI's
+# four train archs at the JAX configs, BLIP-2's three losses with their
+# backward, BLIP captions and retrieval, each at full width and depth, then
+# 2-layer full-width fp32 cuts card against CPU. No TPU kernel lies on
+# these paths (plain torch, as XLA runs them in JAX): each path's
+# launches_by_path entry records K1-K4 at zero.
+# ---------------------------------------------------------------------------
+
+LAVIS_TIMED = 3  # timed steps after one warm step
+LAVIS_REF_TOL = 1e-3
+LAVIS_CAPTIONS = 4
+LAVIS_PROMPT = [30522, 1037, 3861, 1997]  # [DEC] a picture of
+
+
+def lavis_arch_models(dev) -> list:
+    """(arch, what, model, batch, builder) of the CLI's four LAVIS archs at
+    the JAX package's configs, random fp32 trees from a seed on `dev`."""
+    from llava_align_tpu_torch.models import albef, blip, blip_variants, clip
+
+    acfg, bcfg, ccfg = albef.AlbefConfig(num_classes=3), blip.BlipConfig(), clip.ClipConfig()
+    return [
+        ("albef_retrieval", "ALBEF retrieval (ViT-B/16 at 384, BERT-base fused from layer 6, a 65536 queue)",
+         types.SimpleNamespace(cfg=acfg, params=albef.init(acfg, "retrieval", device=dev, seed=1)), 16,
+         "retrieval"),
+        ("albef_classification", "ALBEF classification (the same towers, 3 classes)",
+         types.SimpleNamespace(cfg=acfg, params=albef.init(acfg, "classification", device=dev, seed=2)), 16,
+         "multimodal_classification"),
+        ("blip_classification", "BLIP classification (ViT-B/16 at 224, BERT-base, 3 classes)",
+         types.SimpleNamespace(cfg=bcfg, params=blip_variants.init_classification(bcfg, 3, device=dev, seed=3)), 32,
+         "multimodal_classification"),
+        ("clip", "CLIP (ViT-B/32 at 224, the 12-layer text tower)",
+         types.SimpleNamespace(cfg=ccfg, params=clip.init(ccfg, device=dev, seed=4)), 64, "retrieval"),
+    ]
+
+
+def lavis_batches(arch: str, model, builder: str, batch: int, n: int, root: Path, prep) -> list:
+    """n batches of the CLI's data path: `builder` over synthetic images
+    (build_datasets_for_model's processor at the tower's size), _batches
+    with the mock tokenizer, the arch's prep."""
+    from llava_align_tpu_torch.framework.datasets import build_datasets_for_model
+    from llava_align_tpu_torch.framework.registry import registry
+    from llava_align_tpu_torch.runners import train as train_cli
+    from llava_align_tpu_torch.runners.common import resolve_tokenizer
+
+    root.mkdir(parents=True, exist_ok=True)
+    ann = root / f"{arch}.json"
+    rows = batch * n
+    if builder == "retrieval":
+        ann.write_text(json.dumps([{"image": f"img_{i}.jpg", "caption": f"{TRAIN_CAPTION} {i}", "image_id": i}
+                                   for i in range(rows)]))
+    else:
+        ann.write_text(json.dumps([{"image": f"img_{i}.jpg", "sentence": f"{TRAIN_CAPTION} {i}", "label": i % 3}
+                                   for i in range(rows)]))
+    task = registry.get_task_class(builder)()
+    sets = build_datasets_for_model(task, model, {"tiny": {"builder": builder, "synthetic_images": True,
+                                                           "build_info": {"train": {"ann_paths": [str(ann)]}}}})
+    tokenize = resolve_tokenizer({}, model.cfg.text.vocab_size)
+    return [prep(b) for b in train_cli._batches(sets["tiny"]["train"], batch, tokenize=tokenize)]
+
+
+def phase_lavis_train(dev, smi: str) -> dict:
+    """Each of the train CLI's LAVIS archs (albef_retrieval, its momentum
+    tree and queue in the step's state; albef_classification;
+    blip_classification; clip) at the JAX package's config, fp32, random
+    from a seed: runners/train's step with main's optimizer
+    (build_optimizer's defaults) through framework.runner.Runner on the
+    CLI's data path, one warm step and LAVIS_TIMED timed. Prints s/step,
+    samples/s, peak memory and the losses (finite); a batch that does not
+    fit retries at half. K1-K4 must not launch."""
+    import shutil
+    import tempfile
+
+    from llava_align_tpu_torch.framework.optims import build_optimizer
+    from llava_align_tpu_torch.framework.runner import Runner, RunnerConfig
+    from llava_align_tpu_torch.runners import train as train_cli
+
+    root = Path(tempfile.mkdtemp(prefix="lavis_train_"))
+    by_path, rows = {}, {}
+    try:
+        for arch, what, model, batch, builder in lavis_arch_models(dev):
+            n = n_params(model.params)
+            steps = 1 + LAVIS_TIMED
+            while True:
+                tx = build_optimizer(init_lr=1e-4, max_steps=steps, steps_per_epoch=steps)
+                step, init_state, prep = train_cli._make_train_step(arch, model, tx, device=dev)
+                batches = lavis_batches(arch, model, builder, batch, steps, root, prep)
+                secs, losses = [], []
+
+                def timed_step(params, opt_state, b):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = step(params, opt_state, b)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t)
+                    losses.append(float(out[2]))
+                    return out
+
+                try:
+                    reset_launches()
+                    torch.cuda.reset_peak_memory_stats()
+                    Runner(RunnerConfig(max_epoch=1, output_dir=str(root / "out"), save_last=False, log_freq=100),
+                           timed_step, model.params, init_state(model.params), lambda e: batches).train()
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    if batch <= 2:
+                        raise
+                    log(f"{arch}: batch {batch} does not fit; taking {batch // 2}")
+                    batch //= 2
+                    torch.cuda.empty_cache()
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if len(losses) != steps or not all(np.isfinite(losses)):
+                raise AssertionError(f"{arch}: losses {losses}")
+            if any(launches.values()):
+                raise AssertionError(f"{arch}: a kernel launched under autograd: {launches}")
+            s_step = sum(secs[1:]) / LAVIS_TIMED
+            log(f"{what} on {smi}: train CLI step ({n / 1e6:.1f} M parameters, fp32, batch {batch}), steps "
+                f"{[round(s, 4) for s in secs]} s (first = warm-up); {s_step:.4f} s/step, {batch / s_step:.2f} "
+                f"samples/s, peak {peak:.2f} GiB; losses {[round(x, 4) for x in losses]}; launches {launches}")
+            rows[arch] = {"batch": batch, "params": n, "s_per_step": s_step, "samples_per_s": batch / s_step,
+                          "step_s": secs, "peak_gib": peak, "losses": losses}
+            by_path[f"{arch}_train"] = launches
+            model.params = None
+            del model, step, init_state, batches
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"lavis_train": rows}), flush=True)
+    return by_path
+
+
+def blip2_trainable(params) -> list:
+    """The leaves BLIP-2's LAVIS training updates: the Q-Former, the query
+    tokens and the heads / LM projection (the ViT and the LM frozen)."""
+    from llava_align_tpu_torch.framework.optims import tree_leaves
+
+    return [x for k, v in params.items() if k not in ("visual", "ln_vision", "lm") for x in tree_leaves(v)]
+
+
+def phase_blip2_losses(dev, smi: str) -> dict:
+    """BLIP-2's three training losses at full width and depth, bf16, random
+    from a seed, each with its backward into the trainable leaves (the
+    ViT and the LM frozen, as LAVIS trains them): stage 1's pretrain_forward
+    (EVA ViT-g + the Q-Former: ITC, ITM with sampled hard negatives, the
+    captioning LM) on 8 images x 32 tokens, opt_forward_loss at OPT-2.7b and
+    t5_forward_loss at FlanT5-XL on 4 images. One warm call, one timed."""
+    from llava_align_tpu_torch.models import blip2
+
+    rng = np.random.default_rng(11)
+    by_path, rows = {}, {}
+    cases = (("stage1", "BLIP-2 stage 1 pretrain_forward", blip2.Blip2QformerConfig(), blip2.init_stage1, 8),
+             ("opt", "BLIP-2 OPT-2.7b opt_forward_loss", blip2.Blip2OptConfig(), blip2.init_opt, 4),
+             ("t5", "BLIP-2 FlanT5-XL t5_forward_loss", blip2.Blip2T5Config(), blip2.init_t5, 4))
+    for name, what, cfg, init, B in cases:
+        params = init(cfg, device=dev, seed=5)
+        H = cfg.vision.image_size
+        images = torch.from_numpy(rng.standard_normal((B, 3, H, H)).astype(np.float32)).to(dev, cfg.vision.dtype)
+        vocab = cfg.qformer.vocab_size if name == "stage1" else cfg.text.vocab_size
+        ids = torch.from_numpy(rng.integers(3, vocab, (B, 32 if name == "stage1" else 24))).to(dev)
+        mask = torch.ones_like(ids)
+        mask[-1, -6:], ids[-1, -6:] = 0, 0
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if name == "stage1":
+            def loss_fn():
+                return blip2.pretrain_forward(params, cfg, images, ids, mask, bos_token_id=101, pad_token_id=0,
+                                              generator=gen)["loss"]
+        elif name == "opt":
+            def loss_fn():
+                return blip2.opt_forward_loss(params, cfg, images, ids, mask, pad_token_id=0)
+        else:
+            def loss_fn():
+                return blip2.t5_forward_loss(params, cfg, images, ids[:, :16], mask[:, :16], ids[:, 16:],
+                                             mask[:, 16:])
+        leaves = blip2_trainable(params)
+        for x in leaves:
+            x.requires_grad_(True)
+
+        def fwd_bwd():
+            with torch.enable_grad():
+                loss = loss_fn()
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return float(loss.detach()), sum(float(g.float().square().sum()) for g in grads if g is not None) ** 0.5
+
+        fwd_bwd()  # warm-up
+        (loss, gnorm), secs, launches = timed(fwd_bwd)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0):
+            raise AssertionError(f"{what}: loss {loss}, gradient norm {gnorm}")
+        if any(launches.values()):
+            raise AssertionError(f"{what}: a kernel launched: {launches}")
+        log(f"{what} + backward on {smi} ({n_params(params) / 1e9:.3f} G parameters bf16, "
+            f"{sum(x.numel() for x in leaves) / 1e6:.1f} M trainable, batch {B}): {secs:.4f} s/step, "
+            f"{B / secs:.2f} samples/s, peak {peak:.2f} GiB; loss {loss:.4f}, gradient norm {gnorm:.4g}; "
+            f"launches {launches}")
+        rows[name] = {"batch": B, "s_per_step": secs, "samples_per_s": B / secs, "peak_gib": peak, "loss": loss}
+        by_path[f"blip2_{name}_loss"] = launches
+        del params, leaves, images
+        torch.cuda.empty_cache()
+    print(json.dumps({"blip2_losses": rows}), flush=True)
+    return by_path
+
+
+def phase_blip(dev, smi: str) -> dict:
+    """BLIP (ViT-B/16 at 224, BERT-base with cross-attention) at full width
+    and depth, fp32, random from a seed: generate_caption greedy and with 3
+    beams (20 tokens at most) on LAVIS_CAPTIONS images, and
+    compute_sim_matrix over RETRIEVAL images x texts with the ITM re-rank of
+    the top RETRIEVAL_K."""
+    from llava_align_tpu_torch.models import blip
+
+    cfg = blip.BlipConfig()
+    params = blip.init(cfg, device=dev, seed=6)
+    H = cfg.vision.image_size
+    rng = np.random.default_rng(12)
+    images = torch.from_numpy(rng.standard_normal((RETRIEVAL, 3, H, H)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(1000, 30000, (RETRIEVAL, 16))).to(dev)
+    ids[:, 0] = 101
+    mask = torch.ones_like(ids)
+    by_path = {}
+    kw = dict(max_new_tokens=20, eos_token_id=102)
+    blip.generate_caption(params, cfg, images[:1], LAVIS_PROMPT, max_new_tokens=1)  # warm-up
+    for beams in (1, 3):
+        caps, secs, launches = timed(lambda: blip.generate_caption(params, cfg, images[:LAVIS_CAPTIONS],
+                                                                   LAVIS_PROMPT, num_beams=beams, **kw))
+        if len(caps) != LAVIS_CAPTIONS or not all(len(c) <= 20 for c in caps):
+            raise AssertionError(f"BLIP captions: {caps}")
+        family_report(f"BLIP generate_caption ({'greedy' if beams == 1 else f'{beams} beams'}, {LAVIS_CAPTIONS} "
+                      "images, 20 tokens at most)", smi, secs, [len(c) for c in caps], "captions", float("nan"),
+                      launches)
+        by_path[f"blip_caption_{beams}"] = launches
+    (i2t, t2i), secs, launches = timed(lambda: blip.compute_sim_matrix(params, cfg, images, ids, mask,
+                                                                        k_test=RETRIEVAL_K))
+    for name, m in (("i2t", i2t), ("t2i", t2i)):
+        if m.shape != (RETRIEVAL, RETRIEVAL) or not ((m != -100.0).sum(1) == RETRIEVAL_K).all():
+            raise AssertionError(f"BLIP compute_sim_matrix {name}: {m}")
+    log(f"BLIP compute_sim_matrix ({RETRIEVAL} x {RETRIEVAL}, ITM re-rank of the top {RETRIEVAL_K}) on {smi}: "
+        f"{secs:.4f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
+    by_path["blip_sim_matrix"] = launches
+    if any(v for p in by_path.values() for v in p.values()):
+        raise AssertionError(f"BLIP: a kernel launched: {by_path}")
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def lavis_cut_cases() -> list:
+    """(what, cut config, params on the CPU fp32, fn(params, device) → loss)
+    of each new family at full width with 2 layers per tower."""
+    from llava_align_tpu_torch.models import albef, blip, blip2, blip_variants, clip
+
+    g = torch.Generator().manual_seed(21)
+    B = 2
+    ids = torch.randint(1000, 20000, (B, 16), generator=g)
+    ids[:, 0] = 101
+    mask = torch.ones_like(ids)
+    mask[1, 12:] = 0
+
+    def pix(size):
+        return torch.randn((B, 3, size, size), generator=g)
+
+    def two(cfg, **parts):
+        return dataclasses.replace(cfg, **{k: dataclasses.replace(getattr(cfg, k), num_layers=2, **kw)
+                                          for k, kw in parts.items()})
+
+    def tree_to(tree, d):
+        if isinstance(tree, dict):
+            return {k: tree_to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [tree_to(v, d) for v in tree]
+        return None if tree is None else tree.to(d, copy=True)
+
+    cases = []
+    a = two(albef.AlbefConfig(num_classes=3, queue_size=256), vision={}, text={"fusion_layer": 1})
+    ap, xa = albef.init(a, "retrieval", device="cpu", seed=1), pix(a.vision.image_size)
+    queue = albef.init_queue_state(a, torch.Generator().manual_seed(2), device="cpu")
+    cases.append(("ALBEF retrieval_train_step", ap, lambda p, d: albef.retrieval_train_step(
+        p, tree_to(p, d), tree_to(queue, d), a, None, xa.to(d), ids.to(d), mask.to(d), torch.arange(B, device=d),
+        neg_idx=([1, 0], [1, 0]))[0]["loss"]))
+    ac = albef.init(a, "classification", device="cpu", seed=3)
+    cases.append(("ALBEF classification_loss", ac, lambda p, d: albef.classification_loss(
+        p, a, xa.to(d), ids.to(d), mask.to(d), torch.tensor([0, 2], device=d))[0]))
+    b = two(blip.BlipConfig(), vision={}, text={})
+    bc, xb = blip_variants.init_classification(b, 3, device="cpu", seed=4), pix(b.vision.image_size)
+    cases.append(("BLIP classification_loss", bc, lambda p, d: blip_variants.classification_loss(
+        p, b, xb.to(d), ids.to(d), mask.to(d), torch.tensor([1, 2], device=d))[0]))
+    bp = blip.init(b, device="cpu", seed=5)
+    cases.append(("BLIP itm_score", bp, lambda p, d: blip.itm_score(p, b, xb.to(d), ids.to(d), mask.to(d))))
+    c = two(clip.ClipConfig(), vision={}, text={})
+    cp, xc = clip.init(c, device="cpu", seed=6), pix(c.vision.image_size)
+    cids = torch.randint(1, c.text.vocab_size, (B, c.text.context_length), generator=g)
+    cases.append(("CLIP contrastive_loss", cp, lambda p, d: clip.contrastive_loss(p, c, xc.to(d),
+                                                                                   cids.to(d))["loss"]))
+    s = two(blip2.Blip2QformerConfig(), vision={"dtype": torch.float32}, qformer={"dtype": torch.float32})
+    sp_, xs = blip2.init_stage1(s, device="cpu", seed=7), pix(s.vision.image_size)
+    cases.append(("BLIP-2 stage-1 pretrain_forward", sp_, lambda p, d: blip2.pretrain_forward(
+        p, s, xs.to(d), ids.to(d) % s.qformer.vocab_size, mask.to(d), bos_token_id=101, pad_token_id=0,
+        neg_idx=([1, 0], [1, 0]))["loss"]))
+    o = blip_cut(blip2.Blip2OptConfig(), torch.float32)
+    op = blip2.init_opt(o, device="cpu", seed=8)
+    cases.append(("BLIP-2 OPT opt_forward_loss", op, lambda p, d: blip2.opt_forward_loss(
+        p, o, xs.to(d), ids.to(d) % o.text.vocab_size, mask.to(d), pad_token_id=0)))
+    t = t5_cut(blip2.Blip2T5Config(), torch.float32)
+    tp = blip2.init_t5(t, device="cpu", seed=9)
+    cases.append(("BLIP-2 T5 t5_forward_loss", tp, lambda p, d: blip2.t5_forward_loss(
+        p, t, xs.to(d), ids.to(d) % t.text.vocab_size, mask.to(d), ids.to(d).flip(1) % t.text.vocab_size,
+        mask.to(d))))
+    return [(what, p, fn, tree_to) for what, p, fn in cases]
+
+
+def phase_lavis_reference(dev) -> None:
+    """Each new family cut to 2 layers per tower at full width, fp32 (TF32
+    off), the same params and inputs on the card and on the CPU: the losses
+    (ITM logits for BLIP) within LAVIS_REF_TOL relative."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for what, params, fn, tree_to in lavis_cut_cases():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = fn(params, torch.device("cpu"))
+            got = fn(tree_to(params, dev), dev).cpu()
+        err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+        ok = bool(torch.isfinite(got).all()) and err <= LAVIS_REF_TOL
+        log(f"LAVIS reference, {what} (2 layers per tower, full width, fp32): card {got.flatten()[:4].tolist()} "
+            f"cpu {want.flatten()[:4].tolist()}, max rel {err:.3g} (tol {LAVIS_REF_TOL}), "
+            f"{time.perf_counter() - t0:.2f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"LAVIS reference {what}: card and CPU disagree")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # the parallel phase: ranks spawned on the one card (gloo, both on cuda:0)
 # ---------------------------------------------------------------------------
 
@@ -4269,6 +4620,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_train_reference(dev)
     log(f"train reference phase wall {time.perf_counter() - t0:.2f} s")
+
+    # the LAVIS zoo: the CLI's four archs, BLIP-2's losses, BLIP serving
+    # (autograd or plain torch: K1-K4 at zero in their launches_by_path)
+    for what, phase in (("LAVIS train CLI archs", phase_lavis_train), ("BLIP-2 losses", phase_blip2_losses),
+                        ("BLIP", phase_blip)):
+        t0 = time.perf_counter()
+        by_path.update(phase(dev, smi))
+        log(f"{what} phase wall {time.perf_counter() - t0:.2f} s (the trees' builds included)")
+    t0 = time.perf_counter()
+    phase_lavis_reference(dev)
+    log(f"LAVIS reference phase wall {time.perf_counter() - t0:.2f} s")
 
     # K1 at every row count the model paths (LLaVA and Qwen) sent it that
     # phase 3 did not check: the Qwen prefills' tiled-regime rows

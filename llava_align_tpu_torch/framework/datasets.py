@@ -6,11 +6,13 @@ source and the rest to its behavior).
 
 Ported: _load_annotations, _load_image (with the crc32 synthetic image for
 a missing file), BaseAnnotationDataset, CaptionDataset,
-CaptionEvalDataset, BaseDatasetBuilder (without its download methods),
-the "caption" builder and the named "coco_caption" one, and
-build_datasets_for_model without its video branch. The VQA, retrieval,
-pair, classification, NLVR, video, dialogue, ImageNet and BLIP-Diffusion
-datasets and builders are not ported yet.
+CaptionEvalDataset, ImageTextPairDataset, RetrievalDataset,
+RetrievalEvalDataset, MultimodalClassificationDataset, BaseDatasetBuilder
+(without its download methods), the "caption", "image_text_pair",
+"retrieval" and "multimodal_classification" builders with their named
+ones, and build_datasets_for_model without its video branch. The VQA,
+NLVR, video, dialogue, ImageNet and BLIP-Diffusion datasets and builders
+are not ported yet.
 
 Capability parity: the reference's vendored LAVIS dataset subsystem
 (lavis/datasets/datasets/caption_datasets.py and lavis/datasets/builders):
@@ -135,6 +137,76 @@ class CaptionEvalDataset(BaseAnnotationDataset):
         }
 
 
+class ImageTextPairDataset(BaseAnnotationDataset):
+    """image_text_pair_datasets.py (pretraining pairs)."""
+
+    def __getitem__(self, index: int) -> dict:
+        ann = self.annotation[index]
+        return {
+            "image": self._image(ann["image"]),
+            "text_input": self.text_processor(ann["caption"]),
+        }
+
+
+class RetrievalDataset(CaptionDataset):
+    """retrieval_datasets.py train split — caption rows + instance ids."""
+
+    def __getitem__(self, index: int) -> dict:
+        sample = super().__getitem__(index)
+        sample["instance_id"] = self.annotation[index]["instance_id"]
+        return sample
+
+
+class RetrievalEvalDataset(BaseAnnotationDataset):
+    """retrieval_datasets.py:79-112: flattened multi-caption ground truth."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.text: List[str] = []
+        self.image: List[str] = []
+        self.txt2img: Dict[int, int] = {}
+        self.img2txt: Dict[int, List[int]] = {}
+        txt_id = 0
+        for img_id, ann in enumerate(self.annotation):
+            self.image.append(ann.get("image", ann.get("video")))
+            self.img2txt[img_id] = []
+            captions = ann["caption"]
+            if isinstance(captions, str):
+                captions = [captions]
+            for caption in captions:
+                self.text.append(self.text_processor(caption))
+                self.img2txt[img_id].append(txt_id)
+                self.txt2img[txt_id] = img_id
+                txt_id += 1
+
+    def __getitem__(self, index: int) -> dict:
+        return {
+            "image": self._image(self.annotation[index]["image"]),
+            "index": index,
+        }
+
+
+class MultimodalClassificationDataset(BaseAnnotationDataset):
+    """multimodal_classification_datasets.py: (image, sentence, label)."""
+
+    def __init__(self, *args, classnames: Sequence[str] = (), **kw):
+        super().__init__(*args, **kw)
+        self.classnames = list(classnames)
+
+    def __getitem__(self, index: int) -> dict:
+        ann = self.annotation[index]
+        label = ann["label"]
+        if self.classnames and isinstance(label, str):
+            label = self.classnames.index(label)
+        return {
+            "image": self._image(ann["image"]),
+            "text_input": self.text_processor(ann.get("sentence", ann.get("text_input", ""))),
+            "label": label,
+            "instance_id": ann["instance_id"],
+        }
+
+
+
 class BaseDatasetBuilder:
     """lavis BaseDatasetBuilder capability: build every configured split with
     the right (train/eval) dataset class and processors. `build_info` maps
@@ -184,6 +256,25 @@ class CaptionBuilder(BaseDatasetBuilder):
     eval_cls = CaptionEvalDataset
 
 
+@registry.register_builder("retrieval")
+class RetrievalBuilder(BaseDatasetBuilder):
+    train_cls = RetrievalDataset
+    eval_cls = RetrievalEvalDataset
+
+
+@registry.register_builder("image_text_pair")
+class ImageTextPairBuilder(BaseDatasetBuilder):
+    train_cls = ImageTextPairDataset
+    eval_cls = ImageTextPairDataset
+
+
+@registry.register_builder("multimodal_classification")
+class MultimodalClassificationBuilder(BaseDatasetBuilder):
+    train_cls = MultimodalClassificationDataset
+    eval_cls = MultimodalClassificationDataset
+
+
+
 def _named_builder(name: str, base: type, dataset_key: Optional[str]):
     @registry.register_builder(name)
     class NamedBuilder(base):
@@ -199,8 +290,24 @@ def _named_builder(name: str, base: type, dataset_key: Optional[str]):
     return NamedBuilder
 
 
-# caption_builder.py: the named builder of the caption training path
-_named_builder("coco_caption", CaptionBuilder, "coco")
+# the named builders of the ported bases (the JAX package's list, in its order)
+for _name, _base, _ds in (
+    # caption_builder.py
+    ("coco_caption", CaptionBuilder, "coco"),
+    ("nocaps", CaptionBuilder, "nocaps"),            # eval-only in the reference
+    # image_text_pair_builder.py
+    ("conceptual_caption_3m", ImageTextPairBuilder, "conceptual_captions"),
+    ("conceptual_caption_12m", ImageTextPairBuilder, "conceptual_captions"),
+    ("sbu_caption", ImageTextPairBuilder, "sbu"),
+    ("vg_caption", ImageTextPairBuilder, "vg"),
+    ("laion2B_multi", ImageTextPairBuilder, None),   # webdataset shards
+    # retrieval_builder.py
+    ("coco_retrieval", RetrievalBuilder, "coco"),
+    ("flickr30k", RetrievalBuilder, "flickr30k"),
+    # classification_builder.py
+    ("snli_ve", MultimodalClassificationBuilder, None),
+):
+    _named_builder(_name, _base, _ds)
 
 
 def build_datasets_for_model(task, model, datasets_cfg):

@@ -1,13 +1,16 @@
-"""Task abstraction, the captioning and POPE parts (copies of save_result,
-BaseTask, CaptionTask, _coerce_id and PopeTask from
-llava_align_tpu/framework/tasks.py, the source unchanged;
-tests/test_torch_copies.py holds them to it).
+"""Task abstraction, the captioning, POPE, classification, pretraining and
+retrieval parts (copies of save_result, BaseTask, CaptionTask, _coerce_id,
+PopeTask, MultimodalClassificationTask, ImageTextPretrainTask and
+RetrievalTask from llava_align_tpu/framework/tasks.py, the source
+unchanged; tests/test_torch_copies.py holds them to it).
 
 Capability parity: reference lavis/tasks/base_task.py — setup from config
 via the registry, train_epoch delegation, the evaluation loop collecting
 per-sample results, the after_evaluation hook and save_result — and
-lavis/tasks/captioning.py (CaptionTask); PopeTask scores through
-evals/pope.score_pope. The VQA and classification tasks of the JAX module
+lavis/tasks/captioning.py (CaptionTask), multimodal_classification.py,
+image_text_pretrain.py and retrieval.py (recall@{1,5,10} both ways);
+PopeTask scores through evals/pope.score_pope. The VQA, GQA, AOK-VQA,
+reading-comprehension, dialogue and text-to-image tasks of the JAX module
 are not ported yet.
 """
 
@@ -191,3 +194,98 @@ class PopeTask(BaseTask):
         m["agg_metrics"] = m["f1"]
         logging.info("POPE eval: %s", m)
         return m
+
+
+@registry.register_task("multimodal_classification")
+class MultimodalClassificationTask(BaseTask):
+    """Prediction-vs-label accuracy (reference
+    lavis/tasks/multimodal_classification.py): valid_step emits
+    {prediction, target}; after_evaluation reports accuracy."""
+
+    def __init__(self, predict_fn: Optional[Callable] = None, result_dir: str = "results", **kw):
+        super().__init__(**kw)
+        self.predict_fn = predict_fn
+        self.result_dir = result_dir
+
+    def valid_step(self, params, sample) -> List[dict]:
+        pred = self.predict_fn(params, sample)
+        return [{
+            "question_id": sample.get("question_id"),
+            "prediction": pred,
+            "target": sample.get("label"),
+        }]
+
+    def after_evaluation(self, results, split_name="val", **kwargs):
+        save_result(results, self.result_dir, f"{split_name}_cls_result")
+        n = len(results)
+        correct = sum(1 for r in results if r["prediction"] == r["target"])
+        acc = 100.0 * correct / max(n, 1)
+        return {"agg_metrics": acc, "accuracy": acc, "n": n}
+
+
+@registry.register_task("image_text_pretrain")
+class ImageTextPretrainTask(BaseTask):
+    """Pretraining task (reference lavis/tasks/image_text_pretrain.py:12-19):
+    training-only — evaluation is a no-op returning no results."""
+
+    def evaluation(self, params, loader, **kw):
+        return []
+
+    def after_evaluation(self, results, **kwargs):
+        return {"agg_metrics": 0.0, "n": 0}
+
+
+@registry.register_task("retrieval")
+class RetrievalTask(BaseTask):
+    """Image-text retrieval recall@{1,5,10} (reference lavis/tasks/
+    retrieval.py:33-100): the model supplies similarity matrices
+    (`sim_fn(params, loader) -> (scores_i2t, scores_t2i)`; BLIP's ITC
+    features + optional ITM re-ranking), the task computes both directions'
+    recalls with multi-caption ground truth (img2txt lists)."""
+
+    def __init__(self, sim_fn: Optional[Callable] = None, result_dir: str = "results", **kw):
+        super().__init__(**kw)
+        self.sim_fn = sim_fn
+        self.result_dir = result_dir
+
+    def evaluation(self, params, loader, **kw):
+        scores_i2t, scores_t2i = self.sim_fn(params, loader)
+        return {"scores_i2t": scores_i2t, "scores_t2i": scores_t2i}
+
+    @staticmethod
+    def report_metrics(scores_i2t, scores_t2i, txt2img, img2txt) -> Dict[str, float]:
+        import numpy as np
+
+        scores_i2t = np.asarray(scores_i2t)
+        scores_t2i = np.asarray(scores_t2i)
+        # images → text: best rank over the image's caption set
+        ranks = np.zeros(scores_i2t.shape[0])
+        for index, score in enumerate(scores_i2t):
+            inds = np.argsort(score)[::-1]
+            ranks[index] = min(np.where(inds == i)[0][0] for i in img2txt[index])
+        tr1, tr5, tr10 = (
+            100.0 * float(np.mean(ranks < k)) for k in (1, 5, 10)
+        )
+        # text → images
+        ranks = np.zeros(scores_t2i.shape[0])
+        for index, score in enumerate(scores_t2i):
+            inds = np.argsort(score)[::-1]
+            ranks[index] = np.where(inds == txt2img[index])[0][0]
+        ir1, ir5, ir10 = (
+            100.0 * float(np.mean(ranks < k)) for k in (1, 5, 10)
+        )
+        tr_mean = (tr1 + tr5 + tr10) / 3
+        ir_mean = (ir1 + ir5 + ir10) / 3
+        return {
+            "txt_r1": tr1, "txt_r5": tr5, "txt_r10": tr10, "txt_r_mean": tr_mean,
+            "img_r1": ir1, "img_r5": ir5, "img_r10": ir10, "img_r_mean": ir_mean,
+            "r_mean": (tr_mean + ir_mean) / 2, "agg_metrics": tr_mean,
+        }
+
+    def after_evaluation(self, results, *, txt2img, img2txt, **kw) -> Dict[str, float]:
+        m = self.report_metrics(
+            results["scores_i2t"], results["scores_t2i"], txt2img, img2txt
+        )
+        logging.info("retrieval: %s", m)
+        return m
+

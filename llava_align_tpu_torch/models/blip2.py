@@ -13,8 +13,10 @@ per-candidate loss ranking).
 
 The rankings (compute_sim_matrix's shortlists) are numpy argsorts of host
 copies, as in the JAX version. The caption loop (greedy_lm_decode) and
-t5's generate are host loops, one read a step. Not ported yet (they wait
-for the trainer): pretrain_forward, opt_forward_loss, t5_forward_loss.
+t5's generate are host loops, one read a step. The training losses:
+pretrain_forward (stage 1: ITC + ITM with hard negatives + the captioning
+LM), opt_forward_loss and t5_forward_loss; hard negatives are drawn from a
+torch.Generator unless `neg_idx` hands the draw in.
 
 Param trees: visual (models/eva_vit), ln_vision {scale, bias},
 query_tokens [Q, Dq], qformer (models/qformer), then
@@ -36,7 +38,7 @@ from llava_align_tpu_torch.models.eva_vit import EvaVitConfig
 from llava_align_tpu_torch.models.opt import OptConfig
 from llava_align_tpu_torch.models.qformer import QFormerConfig
 from llava_align_tpu_torch.models.t5 import T5Config
-from llava_align_tpu_torch.ops.layers import layer_norm
+from llava_align_tpu_torch.ops.layers import layer_norm, sample_hard_negative_indices
 from llava_align_tpu_torch.utils.synthetic import (
     build_random_opt_params,
     build_random_t5_params,
@@ -248,6 +250,75 @@ def match(params: Params, cfg: Blip2QformerConfig, images, text_ids, text_mask,
     raise ValueError(f"unknown match_head {match_head!r}")
 
 
+def _ce_label_smooth(logits: torch.Tensor, targets: torch.Tensor, eps: float = 0.1) -> torch.Tensor:
+    """torch CrossEntropyLoss(label_smoothing=eps) over hard targets, in fp32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[:, None])[:, 0]
+    return ((1.0 - eps) * nll + eps * -logp.mean(-1)).mean()
+
+
+def pretrain_forward(params: Params, cfg: Blip2QformerConfig, images: Optional[torch.Tensor],
+                     text_ids: torch.Tensor, text_mask: torch.Tensor, *, bos_token_id: int, pad_token_id: int,
+                     generator: Optional[torch.Generator] = None, image_ids: Optional[torch.Tensor] = None,
+                     neg_idx=None, image_embeds: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Stage-1 pretraining losses (blip2_qformer.forward): query-max ITC with
+    label smoothing 0.1, ITM with ITC-weighted hard negatives, the
+    captioning LM over the cached query K/V; one process (the reference's
+    concat_all_gather is the identity at world size 1). `image_ids` gives
+    the coco-retrieval targets; `image_embeds` bypasses the vision tower;
+    `neg_idx` = (image negatives, text negatives) hands the draw in."""
+    if image_embeds is None:
+        image_embeds = vision_embeds(params, cfg, images)
+    B = image_embeds.shape[0]
+    q_hidden, q_kv = qformer.forward_queries(params["qformer"], cfg.qformer, _queries(params, cfg, B),
+                                             image_embeds.to(cfg.qformer.dtype))
+    image_feats = _l2norm(_lin(q_hidden, params["vision_proj"])).float()        # [B, Q, E]
+    text_feat = _text_feat(params, cfg, text_ids, text_mask).float()           # [B, E]
+    temp = params["temp"]
+    sim_i2t = torch.einsum("bqe,ne->bnq", image_feats, text_feat).amax(-1) / temp
+    sim_t2i = torch.einsum("be,nqe->bnq", text_feat, image_feats).amax(-1) / temp
+
+    if image_ids is not None:
+        iid = image_ids.reshape(-1, 1)
+        mask_same = iid == iid.t()
+        pos_idx = mask_same.float()
+        sim_targets = pos_idx / pos_idx.sum(1, keepdim=True)
+        sim_targets = 0.9 * sim_targets + 0.1 * torch.ones_like(sim_targets) / sim_targets.shape[1]
+        loss_t2i = -(torch.log_softmax(sim_t2i, dim=1) * sim_targets).sum(1).mean()
+        loss_i2t = -(torch.log_softmax(sim_i2t, dim=1) * sim_targets).sum(1).mean()
+        loss_itc = (loss_t2i + loss_i2t) / 2
+    else:
+        mask_same = torch.eye(B, dtype=torch.bool, device=image_embeds.device)
+        targets = torch.arange(B, device=image_embeds.device)
+        loss_itc = (_ce_label_smooth(sim_i2t, targets) + _ce_label_smooth(sim_t2i, targets)) / 2
+
+    # ITM with hard negatives
+    with torch.no_grad():
+        w_t2i = torch.softmax(sim_t2i.masked_fill(mask_same, -10000.0), dim=1)
+        w_i2t = torch.softmax(sim_i2t.masked_fill(mask_same, -10000.0), dim=1)
+    if neg_idx is not None:
+        img_neg, txt_neg = (torch.as_tensor(n, device=image_embeds.device).long() for n in neg_idx)
+    else:
+        img_neg = sample_hard_negative_indices(generator, w_t2i)
+        txt_neg = sample_hard_negative_indices(generator, w_i2t)
+    text_ids_all = torch.cat([text_ids, text_ids, text_ids[txt_neg]], dim=0)
+    text_mask_all = torch.cat([text_mask, text_mask, text_mask[txt_neg]], dim=0)
+    image_embeds_all = torch.cat([image_embeds, image_embeds[img_neg], image_embeds], dim=0)
+    itm_logits = _lin(_itm_hidden(params, cfg, image_embeds_all, text_ids_all, text_mask_all),
+                      params["itm_head"]).mean(1)
+    itm_labels = torch.cat([torch.ones(B, dtype=torch.long, device=itm_logits.device),
+                            torch.zeros(2 * B, dtype=torch.long, device=itm_logits.device)])
+    loss_itm = torch.nn.functional.cross_entropy(itm_logits.float(), itm_labels)
+
+    # the captioning LM over the cached query K/V
+    dec_ids = text_ids.clone()
+    dec_ids[:, 0] = bos_token_id
+    labels = torch.where(dec_ids == pad_token_id, -100, dec_ids)
+    lm_hidden = qformer.forward_lm(params["qformer"], cfg.qformer, dec_ids, text_mask, q_kv)
+    loss_lm = qformer.lm_loss_mean(qformer.lm_logits(params["qformer"]["head"], lm_hidden), labels)
+    return {"loss": loss_itc + loss_itm + loss_lm, "loss_itc": loss_itc, "loss_itm": loss_itm, "loss_lm": loss_lm}
+
+
 def _categorical(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
     """One draw per row from softmax(logits) [B, V] → [B] ids."""
     return torch.multinomial(torch.softmax(logits.float(), dim=-1), 1, generator=generator)[:, 0]
@@ -440,3 +511,66 @@ def t5_generate(params: Params, cfg: Blip2T5Config, images: torch.Tensor, prompt
     enc_hidden = t5.encode(params["lm"], cfg.text, enc_in, mask_t)
     return t5.generate_greedy(params["lm"], cfg.text, enc_hidden, mask_t, max_new_tokens=max_new_tokens,
                               decoder_start_token_id=decoder_start_token_id, eos_token_id=eos_token_id)
+
+
+# ---------------------------------------------------------------------------
+# the LM backends' training losses
+# ---------------------------------------------------------------------------
+
+
+def _ce_mean_ignore(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """CE mean over the labels != -100 (HF's default reduction), in fp32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = labels != -100
+    nll = -torch.gather(logp, -1, torch.where(valid, labels, 0).long()[..., None])[..., 0]
+    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+
+
+def opt_forward_loss(params: Params, cfg: Blip2OptConfig, images: Optional[torch.Tensor], text_ids: torch.Tensor,
+                     text_mask: torch.Tensor, *, pad_token_id: int, prompt_length: int = 0,
+                     q_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Blip2OPT.forward (blip2_opt.py): [query prefix; token embeds] through
+    the OPT, -100 targets on the prefix (and on the prompt's first
+    prompt_length columns), the shifted CE mean. Positions derive from the
+    mask (cumsum - 1, clamped at 0), as HF OPT's do."""
+    if q_emb is None:
+        q_emb = encode_image_queries(params, cfg, images)
+    B, Q, _ = q_emb.shape
+    T = text_ids.shape[1]
+    tok = opt.embed_tokens(params["lm"], text_ids)
+    embeds = torch.cat([q_emb.to(tok.dtype), tok], dim=1)
+    mask = torch.cat([torch.ones((B, Q), dtype=text_mask.dtype, device=text_mask.device), text_mask], dim=1)
+    positions = (mask.long().cumsum(1) - 1).clamp(min=0)
+    hidden, _ = opt.forward(params["lm"], cfg.text, embeds, positions)
+    logits = opt.logits_from_hidden(params["lm"], hidden)
+    targets = torch.where(text_ids == pad_token_id, -100, text_ids).long()
+    if prompt_length:
+        col = torch.arange(T, device=targets.device)
+        targets = torch.where(col[None, :] < prompt_length, -100, targets)
+    targets = torch.cat([torch.full((B, Q), -100, dtype=targets.dtype, device=targets.device), targets], dim=1)
+    return _ce_mean_ignore(logits[:, :-1], targets[:, 1:])
+
+
+def t5_forward_loss(params: Params, cfg: Blip2T5Config, images: Optional[torch.Tensor], input_ids: torch.Tensor,
+                    input_mask: torch.Tensor, output_ids: torch.Tensor, output_mask: torch.Tensor, *,
+                    pad_token_id: int = 0, decoder_start_token_id: int = 0, q_emb: Optional[torch.Tensor] = None,
+                    qformer_text_ids: Optional[torch.Tensor] = None,
+                    qformer_text_mask: Optional[torch.Tensor] = None,
+                    few_shot_embeds: Optional[torch.Tensor] = None,
+                    few_shot_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Blip2T5.forward / Blip2T5Instruct.forward: [query prefix; input
+    tokens] through the T5 encoder, targets = the output ids with pads
+    ignored, CE mean. With qformer_text_ids the queries are
+    text-conditioned (instruct); few-shot context embeds are prepended to
+    the encoder stream (their sampling is the caller's)."""
+    if q_emb is None:
+        if qformer_text_ids is not None:
+            q_emb = encode_image_queries_instruct(params, cfg, images, qformer_text_ids, qformer_text_mask)
+        else:
+            q_emb = encode_image_queries(params, cfg, images)
+    enc_hidden, enc_mask = t5_encode_with_prefix(params, cfg, q_emb, input_ids, input_mask,
+                                                 few_shot_embeds=few_shot_embeds, few_shot_mask=few_shot_mask)
+    targets = torch.where(output_ids == pad_token_id, -100, output_ids)
+    dec_ids = _t5_shift_right(targets, pad_token_id, decoder_start_token_id)
+    logits = t5.decode(params["lm"], cfg.text, dec_ids, enc_hidden, enc_mask)
+    return _ce_mean_ignore(logits, targets)

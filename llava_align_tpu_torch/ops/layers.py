@@ -7,7 +7,7 @@ input's dtype.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,3 +61,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     half = x.shape[-1] // 2
     rotated = torch.cat([-x32[..., half:], x32[..., :half]], dim=-1)
     return (x32 * cos[..., None, :] + rotated * sin[..., None, :]).to(x.dtype)
+
+
+def linear_bias(x: torch.Tensor, p) -> torch.Tensor:
+    """x @ W.T + b for torch-layout params {"w": [out, in], "b": [out]}, the
+    Linear the LAVIS zoo modules share."""
+    return x @ p["w"].t() + p["b"]
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+
+
+def sample_hard_negative_indices(generator: Optional[torch.Generator], weights: torch.Tensor) -> torch.Tensor:
+    """One draw per row of [B, N] mining weights (positives already zeroed),
+    the in-batch hard-negative selection of the ALBEF and BLIP retrieval
+    steps. The JAX package draws categorical(log(w + 1e-20)); this draws
+    from the same distribution, w + 1e-20 normalized, with torch.multinomial
+    on `generator` (its bits are torch's, not JAX's)."""
+    w = weights.detach().float() + 1e-20
+    return torch.multinomial(w, 1, generator=generator)[:, 0]

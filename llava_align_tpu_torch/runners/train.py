@@ -11,11 +11,16 @@ the task/model/datasets from the config, constructs the family's train
 step, and hands it to framework.runner.Runner (epoch loop, best-checkpoint
 save, resume).
 
-Ported arch: llava — multimodal next-token LM over spliced image+caption
-sequences (train/trainer.py multimodal_lm_loss). The JAX package's
-albef_retrieval, albef_classification, blip_classification and clip archs
-need the LAVIS zoo models, which are not ported yet (ROADMAP Queue 1 item
-9): they are refused.
+Arches (the families with functional training losses, as in the JAX CLI):
+  * albef_retrieval: ITC (momentum queues + distillation) + ITM with hard
+    negatives; the momentum tree, the queue state and the negatives'
+    generator state ride in the runner's opt_state slot ({"opt",
+    "m_params", "queue", "rng"}), keeping Runner's (params, opt_state,
+    batch) contract and its checkpoints;
+  * albef_classification / blip_classification: fused-cls cross-entropy;
+  * clip: the symmetric InfoNCE;
+  * llava: the multimodal next-token LM over spliced image + caption
+    sequences (train/trainer.py multimodal_lm_loss).
 
 The device is run.device (the GPU when unset). Text tokenization: pass
 `run.tokenizer_path` (a local BERT vocab file, needs transformers) for
@@ -28,16 +33,17 @@ run-config key).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import sys
 from typing import Dict, Iterable
 
 import numpy as np
+import torch
 
 from llava_align_tpu_torch.runners.common import resolve_tokenizer
 
-UNPORTED_ARCHS = ("albef_retrieval", "albef_classification", "blip_classification", "clip")
 
 
 def _batches(dataset, batch_size: int, *, tokenize, epoch: int = 0,
@@ -61,13 +67,41 @@ def _batches(dataset, batch_size: int, *, tokenize, epoch: int = 0,
         yield batch
 
 
-def refuse_unported(arch: str) -> None:
-    """The JAX CLI's LAVIS archs need zoo models the port lacks: refuse them
-    (never substitute another arch)."""
-    if arch in UNPORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch!r} needs the LAVIS zoo models, which are not ported yet "
-            "(ROADMAP Queue 1 item 9)")
+def _with_dtype(cfg, dtype):
+    """cfg with every nested config's `dtype` field set to dtype (the
+    compute config of an amp step)."""
+    changes = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name == "dtype":
+            changes["dtype"] = dtype
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = _with_dtype(v, dtype)
+    return dataclasses.replace(cfg, **changes)
+
+
+def _grad_step(loss_of, tx):
+    """step(params, opt_state, batch): autograd of loss_of(params, batch),
+    then the optimizer in place (leaves the loss does not reach get zero
+    gradients, as under jax.grad) → (params, opt_state, detached loss)."""
+    from llava_align_tpu_torch.train import trainer
+
+    def step(params, opt_state, batch):
+        leaves = trainer.trainable_leaves(params)
+        with torch.enable_grad():
+            loss = loss_of(params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+        tx.step(params, grads, opt_state)
+        return params, opt_state, loss.detach()
+
+    return step
+
+
+def _tensors(batch, device, keys):
+    """The collated batch's `keys` as tensors on `device` (ids and labels
+    as numpy arrays first, as the JAX prep's jnp.asarray reads them)."""
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in keys}
 
 
 def _make_train_step(arch: str, model, tx, amp: bool = False, device=None):
@@ -77,7 +111,82 @@ def _make_train_step(arch: str, model, tx, amp: bool = False, device=None):
     step's tensors on `device`. amp=True runs forward/backward in bfloat16
     with fp32 master weights (framework.optims.amp_cast, the reference's
     `amp: True` run knob)."""
-    refuse_unported(arch)
+    from llava_align_tpu_torch.framework.optims import amp_cast
+
+    cast = amp_cast if amp else (lambda p: p)
+    cfg = getattr(model, "cfg", None)
+    compute_cfg = _with_dtype(cfg, torch.bfloat16) if amp and dataclasses.is_dataclass(cfg) else cfg
+
+    if arch == "albef_retrieval":
+        from llava_align_tpu_torch.framework.optims import tree_leaves, tree_map
+        from llava_align_tpu_torch.models import albef
+
+        momentum = 0.995
+
+        def init_state(params):
+            dev = tree_leaves(params)[0].device
+            queue = albef.init_queue_state(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+            return {"opt": tx.init(params), "m_params": tree_map(lambda _, x: x.detach().clone(), params),
+                    "queue": queue, "rng": torch.Generator(device=dev).manual_seed(2).get_state()}
+
+        def albef_step(params, ext, batch):
+            from llava_align_tpu_torch.train import trainer
+
+            gen = torch.Generator(device=batch["image"].device)
+            gen.set_state(ext["rng"])
+            m_params = ext["m_params"]
+            # Under amp the EMA runs on the fp32 masters here (torch AMP:
+            # autocast covers compute, not the parameter EMA) and the loss
+            # takes its bf16 cast with an inner momentum of 1.0, so that the
+            # loss sees the updated tree unchanged; without amp the update is
+            # the step's own (the same math either way).
+            if amp:
+                albef.momentum_update(params, m_params, momentum)
+            leaves = trainer.trainable_leaves(params)
+            with torch.enable_grad():
+                losses, _, queue = albef.retrieval_train_step(
+                    cast(params), cast(m_params) if amp else m_params, ext["queue"], compute_cfg, gen,
+                    batch["image"].to(compute_cfg.vision.dtype), batch["text_ids"], batch["text_mask"],
+                    batch["image_id"], momentum=1.0 if amp else momentum)
+                grads = torch.autograd.grad(losses["loss"], leaves, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+            tx.step(params, grads, ext["opt"])
+            ext = dict(ext, queue=queue, rng=gen.get_state())
+            return params, ext, losses["loss"].detach()
+
+        def prep(batch):
+            return _tensors(batch, device, ("image", "text_ids", "text_mask", "image_id"))
+
+        return albef_step, init_state, prep
+
+    if arch in ("albef_classification", "blip_classification"):
+        if arch == "albef_classification":
+            from llava_align_tpu_torch.models.albef import classification_loss as loss_mod
+        else:
+            from llava_align_tpu_torch.models.blip_variants import classification_loss as loss_mod
+
+        def loss_of(params, batch):
+            pixels = batch["image"].to(compute_cfg.vision.dtype)
+            return loss_mod(cast(params), compute_cfg, pixels, batch["text_ids"], batch["text_mask"],
+                            batch["label"])[0]
+
+        def prep(batch):
+            return _tensors(batch, device, ("image", "text_ids", "text_mask", "label"))
+
+        return _grad_step(loss_of, tx), tx.init, prep
+
+    if arch == "clip":
+        from llava_align_tpu_torch.models import clip as clip_mod
+
+        def loss_of(params, batch):
+            pixels = batch["image"].to(compute_cfg.vision.dtype)
+            return clip_mod.contrastive_loss(cast(params), compute_cfg, pixels, batch["text_ids"])["loss"]
+
+        def prep(batch):
+            return _tensors(batch, device, ("image", "text_ids"))
+
+        return _grad_step(loss_of, tx), tx.init, prep
+
     if arch == "llava":
         from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
         from llava_align_tpu_torch.train import trainer
@@ -109,7 +218,9 @@ def _make_train_step(arch: str, model, tx, amp: bool = False, device=None):
         return step, init_state, prep
 
     raise ValueError(
-        f"no config-driven train step for arch {arch!r}; supported: llava"
+        f"no config-driven train step for arch {arch!r}; supported: "
+        "albef_retrieval, albef_classification, blip_classification, clip, "
+        "llava"
     )
 
 
@@ -128,7 +239,6 @@ def main(argv=None) -> Dict[str, float]:
     cfg = Config(args.cfg_path, options=args.options)
     run_cfg = cfg.run_cfg
     arch = cfg.model_cfg.get("arch")
-    refuse_unported(arch)  # before anything is built
     device = resolve_device(run_cfg.get("device"))
     task_cls = registry.get_task_class(run_cfg.get("task", "base"))
     task = task_cls.setup_task(run_cfg)

@@ -5,7 +5,11 @@ convert_clip, convert_projector, load_state_dict, config_from_hf,
 load_llava_checkpoint; convert_qwen, convert_qwen_visual,
 load_qwen_vl_checkpoint; convert_eva_vit, convert_qformer,
 convert_instructblip; convert_t5, convert_opt, convert_mpt,
-convert_blip2_stage1, convert_blip2_opt, convert_blip2_t5).
+convert_blip2_stage1, convert_blip2_opt, convert_blip2_t5; the LAVIS zoo's
+convert_blip_vit, convert_med, convert_blip, convert_albef,
+convert_blip_nlvr, convert_blip_variant, convert_clip_full,
+convert_clip_openai, blip_config_from_json, t5_config_from_json and
+load_blip_t5_composite).
 
 The tree is the JAX package's, so that loading a checkpoint here and
 `utils.jax_params.from_jax_params` of the JAX loader's tree give the same
@@ -674,3 +678,486 @@ def convert_blip2_t5(sd: StateDict, cfg, device=None) -> Dict[str, Any]:
     (t5_proj + t5_model; the instruct variant keeps the Q-Former's text
     branches)."""
     return _blip2_lm(sd, cfg, "t5_proj", convert_t5, "t5_model.", device)
+
+
+# ---------------------------------------------------------------------------
+# the LAVIS zoo: BLIP, ALBEF and CLIP checkpoints, and the BLIP + T5
+# composite (visual_encoder.* a timm ViT with a fused qkv; text_encoder /
+# text_decoder.* a MED BERT; vision_proj / text_proj / itm_head; cls_head)
+# ---------------------------------------------------------------------------
+
+
+def blip_config_from_json(d: dict):
+    """BlipConfig from a component config.json ({vision: {...}, text: {...},
+    embed_dim}); missing keys take BLIP-base's values."""
+    from llava_align_tpu_torch.models.blip import BlipConfig, BlipVitConfig, MedConfig
+
+    text_kw = dict(d.get("text", {}))
+    text_kw.setdefault("use_type_embeddings", False)  # the BLIP family
+    return BlipConfig(vision=BlipVitConfig(**d.get("vision", {})), text=MedConfig(**text_kw),
+                      embed_dim=d.get("embed_dim", 256))
+
+
+def t5_config_from_json(d: dict):
+    """T5Config from an HF T5 config.json (the format UnifiedQAv2 ships)."""
+    from llava_align_tpu_torch.models.t5 import T5Config
+
+    proj = d.get("feed_forward_proj", "relu")
+    return T5Config(
+        vocab_size=d.get("vocab_size", 32128),
+        d_model=d.get("d_model", 2048),
+        d_kv=d.get("d_kv", 64),
+        num_heads=d.get("num_heads", 32),
+        d_ff=d.get("d_ff", 5120),
+        num_layers=d.get("num_layers", 24),
+        num_decoder_layers=d.get("num_decoder_layers", d.get("num_layers", 24)),
+        relative_attention_num_buckets=d.get("relative_attention_num_buckets", 32),
+        relative_attention_max_distance=d.get("relative_attention_max_distance", 128),
+        gated_act=d.get("is_gated_act", proj.startswith("gated")),
+        tie_word_embeddings=d.get("tie_word_embeddings", True),
+    )
+
+
+def _load_component_sd(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """(state dict, config.json dict) of one composite component: a dir of
+    safetensors / .bin shards + config.json, one .safetensors file, or a
+    LAVIS .pth (its 'model' envelope unwrapped)."""
+    if os.path.isdir(path):
+        cfg_path = os.path.join(path, "config.json")
+        cfg = {}
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                cfg = json.load(f)
+        return load_state_dict(path), cfg
+    if path.endswith(".safetensors"):
+        return read_safetensors(path), {}
+    obj = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    if isinstance(obj, dict) and isinstance(obj.get("model"), dict):
+        obj = obj["model"]
+    return dict(obj), {}
+
+
+def load_blip_t5_composite(model_path: str, *, qa_key: str = "qa", paths: Optional[Dict[str, str]] = None,
+                           device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The PnP-VQA / Img2Prompt composite (BLIP-ITM + BLIP-caption + a T5):
+    `model_path` holds itm/, cap/ and <qa_key>/ components (each a
+    checkpoint dir or file, as _load_component_sd reads), or explicit
+    per-component `paths` → (params, cfgs) keyed {itm, cap, <qa_key>}."""
+    comp_paths = dict(paths or {})
+    for name in ("itm", "cap", qa_key):
+        if name not in comp_paths:
+            cand = os.path.join(model_path, name)
+            if not os.path.exists(cand):
+                raise FileNotFoundError(f"composite checkpoint missing component {name!r} (expected {cand} or an "
+                                        "explicit path)")
+            comp_paths[name] = cand
+    params: Dict[str, Any] = {}
+    cfgs: Dict[str, Any] = {}
+    for name in ("itm", "cap"):
+        sd, cfg_json = _load_component_sd(comp_paths[name])
+        cfgs[name] = blip_config_from_json(cfg_json)
+        params[name] = convert_blip(sd, cfgs[name], device=device)
+    sd, cfg_json = _load_component_sd(comp_paths[qa_key])
+    cfgs[qa_key] = t5_config_from_json(cfg_json)
+    params[qa_key] = convert_t5(sd, cfgs[qa_key], device=device)
+    return params, cfgs
+
+
+def _leaf(sd: StateDict, device, dt):
+    """get(name) → sd[name] on `device` in `dt`."""
+    return lambda name: sd[name].to(device, dt)
+
+
+def _linear_or_zeros(sd: StateDict, name: str, o: int, i: int, dt, device) -> Dict[str, torch.Tensor]:
+    """{w, b} of a Linear the checkpoint has, else zeros (a head it lacks)."""
+    if name + ".weight" in sd:
+        return {"w": sd[name + ".weight"].to(device, dt), "b": sd[name + ".bias"].to(device, dt)}
+    return {"w": torch.zeros((o, i), dtype=dt, device=device), "b": torch.zeros((o,), dtype=dt, device=device)}
+
+
+def _temp(sd: StateDict, device) -> torch.Tensor:
+    if "temp" in sd:
+        return sd["temp"].reshape(()).to(device, torch.float32)
+    return torch.tensor(0.07, dtype=torch.float32, device=device)
+
+
+def convert_blip_vit(sd: StateDict, cfg, prefix: str = "visual_encoder.", device=None) -> Dict[str, Any]:
+    """A LAVIS timm ViT (blocks.{i}.attn.qkv fused) → the models/blip visual
+    tree; a qkv without bias gets zeros."""
+    device = resolve_device(device)
+    dt, L, D = cfg.dtype, cfg.num_layers, cfg.hidden_size
+    get = _leaf(sd, device, dt)
+
+    def st(template, transform=lambda w: w):
+        return _stack(sd, prefix + template, L, dt, device, transform)
+
+    has_qkv_b = prefix + "blocks.0.attn.qkv.bias" in sd
+
+    def qkv(part):
+        rows = slice(part * D, (part + 1) * D)
+        w = st("blocks.{i}.attn.qkv.weight", lambda x: x[rows])
+        b = st("blocks.{i}.attn.qkv.bias", lambda x: x[rows]) if has_qkv_b else torch.zeros((L, D), dtype=dt,
+                                                                                           device=device)
+        return {"w": w, "b": b}
+
+    def lin(name):
+        return {"w": st(f"blocks.{{i}}.{name}.weight"), "b": st(f"blocks.{{i}}.{name}.bias")}
+
+    def lnorm(name):
+        return {"scale": st(f"blocks.{{i}}.{name}.weight"), "bias": st(f"blocks.{{i}}.{name}.bias")}
+
+    return {
+        "cls": get(prefix + "cls_token"),
+        "pos": get(prefix + "pos_embed"),
+        "patch": {"w": get(prefix + "patch_embed.proj.weight"), "b": get(prefix + "patch_embed.proj.bias")},
+        "layers": {"ln1": lnorm("norm1"), "q": qkv(0), "k": qkv(1), "v": qkv(2), "o": lin("attn.proj"),
+                   "ln2": lnorm("norm2"), "fc1": lin("mlp.fc1"), "fc2": lin("mlp.fc2")},
+        "final_ln": {"scale": get(prefix + "norm.weight"), "bias": get(prefix + "norm.bias")},
+    }
+
+
+def convert_med(sd: StateDict, cfg, prefix: str = "text_decoder.bert.", head_prefix: str = "text_decoder.cls.",
+                device=None) -> Dict[str, Any]:
+    """An HF-Bert-style MED state dict (also HF BertLMHeadModel with
+    prefix='bert.', head_prefix='cls.') → the models/blip MED tree. Without
+    cross-attention keys the cross stacks are zeros (unit norms); without a
+    head, an identity transform and a zero decoder; without token-type
+    embeddings, zeros."""
+    device = resolve_device(device)
+    dt, L, D, V = cfg.dtype, cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    get = _leaf(sd, device, dt)
+
+    def st(template):
+        return _stack(sd, prefix + template, L, dt, device)
+
+    def lin(base):
+        return {"w": st(base + ".weight"), "b": st(base + ".bias")}
+
+    def lnorm(base):
+        return {"scale": st(base + ".weight"), "bias": st(base + ".bias")}
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    layers = {
+        "sq": lin("encoder.layer.{i}.attention.self.query"),
+        "sk": lin("encoder.layer.{i}.attention.self.key"),
+        "sv": lin("encoder.layer.{i}.attention.self.value"),
+        "so": lin("encoder.layer.{i}.attention.output.dense"),
+        "s_ln": lnorm("encoder.layer.{i}.attention.output.LayerNorm"),
+        "fc1": lin("encoder.layer.{i}.intermediate.dense"),
+        "fc2": lin("encoder.layer.{i}.output.dense"),
+        "f_ln": lnorm("encoder.layer.{i}.output.LayerNorm"),
+    }
+    if prefix + "encoder.layer.0.crossattention.self.query.weight" in sd:
+        layers.update(cq=lin("encoder.layer.{i}.crossattention.self.query"),
+                      ck=lin("encoder.layer.{i}.crossattention.self.key"),
+                      cv=lin("encoder.layer.{i}.crossattention.self.value"),
+                      co=lin("encoder.layer.{i}.crossattention.output.dense"),
+                      c_ln=lnorm("encoder.layer.{i}.crossattention.output.LayerNorm"))
+    else:
+        for k in ("cq", "ck", "cv", "co"):
+            layers[k] = {"w": zeros(L, D, D), "b": zeros(L, D)}
+        layers["c_ln"] = {"scale": torch.ones((L, D), dtype=dt, device=device), "bias": zeros(L, D)}
+
+    hp = head_prefix + "predictions."
+    if hp + "transform.dense.weight" in sd:
+        head = {"transform": {"w": get(hp + "transform.dense.weight"), "b": get(hp + "transform.dense.bias")},
+                "ln": {"scale": get(hp + "transform.LayerNorm.weight"), "bias": get(hp + "transform.LayerNorm.bias")},
+                "decoder": get(hp + "decoder.weight"), "bias": get(hp + "bias")}
+    else:
+        head = {"transform": {"w": torch.eye(D, dtype=dt, device=device), "b": zeros(D)},
+                "ln": {"scale": torch.ones((D,), dtype=dt, device=device), "bias": zeros(D)},
+                "decoder": zeros(V, D), "bias": zeros(V)}
+    type_key = prefix + "embeddings.token_type_embeddings.weight"
+    return {
+        "embeddings": {
+            "word": get(prefix + "embeddings.word_embeddings.weight"),
+            "pos": get(prefix + "embeddings.position_embeddings.weight"),
+            # ALBEF's med config has no type embeddings: zeros (inert)
+            "type": get(type_key) if type_key in sd else zeros(2, D),
+            "ln": {"scale": get(prefix + "embeddings.LayerNorm.weight"),
+                   "bias": get(prefix + "embeddings.LayerNorm.bias")},
+        },
+        "layers": layers,
+        "head": head,
+    }
+
+
+def convert_blip(sd: StateDict, cfg, device=None) -> Dict[str, Any]:
+    """A LAVIS BLIP checkpoint (blip_caption / blip_itm / the feature
+    extractor) → the models/blip tree: text_decoder.* for captioning,
+    text_encoder.* and the projections for ITM / retrieval; heads the
+    checkpoint lacks are zeros."""
+    device = resolve_device(device)
+    if "text_decoder.bert.embeddings.word_embeddings.weight" in sd:
+        text_prefix = "text_decoder.bert."
+    elif "text_encoder.bert.embeddings.word_embeddings.weight" in sd:
+        text_prefix = "text_encoder.bert."
+    else:
+        text_prefix = "text_encoder."
+    head_prefix = "text_decoder.cls." if text_prefix.startswith("text_decoder") else "__none__."
+    dt, E, D = cfg.text.dtype, cfg.embed_dim, cfg.text.hidden_size
+    return {
+        "visual": convert_blip_vit(sd, cfg.vision, device=device),
+        "text": convert_med(sd, cfg.text, prefix=text_prefix, head_prefix=head_prefix, device=device),
+        "vision_proj": _proj_or_zeros(sd, "vision_proj", E, cfg.vision.hidden_size, dt, device),
+        "text_proj": _proj_or_zeros(sd, "text_proj", E, D, dt, device),
+        "itm_head": _linear_or_zeros(sd, "itm_head", 2, D, dt, device),
+    }
+
+
+def _proj_or_zeros(sd: StateDict, name: str, o: int, i: int, dt, device) -> Dict[str, torch.Tensor]:
+    """A projection whose bias may be absent (zeros then), or zeros whole."""
+    if name + ".weight" not in sd:
+        return _linear_or_zeros(sd, name, o, i, dt, device)
+    b = sd[name + ".bias"].to(device, dt) if name + ".bias" in sd else torch.zeros((o,), dtype=dt, device=device)
+    return {"w": sd[name + ".weight"].to(device, dt), "b": b}
+
+
+def _pick_bert_prefix(sd: StateDict, base: str) -> Optional[str]:
+    for p in (base + ".bert.", base + "."):
+        if p + "embeddings.word_embeddings.weight" in sd:
+            return p
+    return None
+
+
+def _zero_fill_cross(sd: StateDict, prefix: str, med_cfg) -> Dict[str, torch.Tensor]:
+    """The state dict with zero crossattention.* keys (unit LayerNorm) for
+    the layers that lack them (ALBEF's pre-fusion layers), so that
+    convert_med's stacked layout converts; the zeros are inert under the
+    mode gating."""
+    D = med_cfg.hidden_size
+    out = dict(sd)
+    tmpl = prefix + "encoder.layer.{i}.crossattention."
+    for i in range(med_cfg.num_layers):
+        base = tmpl.format(i=i)
+        if base + "self.query.weight" not in out:
+            for name in ("self.query", "self.key", "self.value", "output.dense"):
+                out[base + name + ".weight"] = torch.zeros((D, D))
+                out[base + name + ".bias"] = torch.zeros((D,))
+            out[base + "output.LayerNorm.weight"] = torch.ones((D,))
+            out[base + "output.LayerNorm.bias"] = torch.zeros((D,))
+    return out
+
+
+def convert_albef(sd: StateDict, cfg, variant: str = "retrieval", device=None) -> Dict[str, Any]:
+    """A LAVIS ALBEF checkpoint → the models/albef tree: visual_encoder.*,
+    text_encoder[.bert].* (the pre-fusion layers' cross stacks zero-filled),
+    text_decoder[.bert].* for vqa, the projections, itm_head, cls_head.{0,2}
+    and temp. The momentum copies (*_m) are dropped: the train step carries
+    its own."""
+    device = resolve_device(device)
+    dt = cfg.text.dtype
+    text_prefix = _pick_bert_prefix(sd, "text_encoder")
+    if text_prefix is None:
+        raise KeyError("no text_encoder.* keys in ALBEF state dict")
+    # pretrain checkpoints are BertForMaskedLM: the MLM head is text_encoder.cls.*
+    head_prefix = "text_encoder.cls." if variant == "pretrain" else "__none__."
+    params: Dict[str, Any] = {
+        "visual": convert_blip_vit(sd, cfg.vision, prefix="visual_encoder.", device=device),
+        "text": convert_med(_zero_fill_cross(sd, text_prefix, cfg.text), cfg.text, prefix=text_prefix,
+                            head_prefix=head_prefix, device=device),
+    }
+    E, D = cfg.embed_dim, cfg.text.hidden_size
+    if variant in ("retrieval", "feature", "pretrain"):
+        params["vision_proj"] = _linear_or_zeros(sd, "vision_proj", E, cfg.vision.hidden_size, dt, device)
+        params["text_proj"] = _linear_or_zeros(sd, "text_proj", E, D, dt, device)
+    if variant in ("retrieval", "pretrain"):
+        params["itm_head"] = _linear_or_zeros(sd, "itm_head", 2, D, dt, device)
+        params["temp"] = _temp(sd, device)
+    if variant == "vqa":
+        dec_prefix = _pick_bert_prefix(sd, "text_decoder")
+        if dec_prefix is None:
+            raise KeyError("vqa variant needs text_decoder.* keys")
+        params["decoder"] = convert_med(_zero_fill_cross(sd, dec_prefix, cfg.decoder), cfg.decoder,
+                                        prefix=dec_prefix, head_prefix="text_decoder.cls.", device=device)
+    if variant in ("classification", "nlvr"):
+        params["cls_head"] = {"fc1": _linear_or_zeros(sd, "cls_head.0", D, D, dt, device),
+                              "fc2": _linear_or_zeros(sd, "cls_head.2", cfg.num_classes, D, dt, device)}
+    return params
+
+
+def convert_clip_full(sd: StateDict, cfg, device=None) -> Dict[str, Any]:
+    """An HF CLIPModel state dict → the models/clip tree (the vision tower
+    through convert_clip; q/k/v fused to one [L, 3D, D] text qkv)."""
+    device = resolve_device(device)
+    dt, L, p = cfg.text.dtype, cfg.text.num_layers, "text_model."
+    get = _leaf(sd, device, dt)
+
+    def st(template):
+        return _stack(sd, p + "encoder.layers.{i}." + template, L, dt, device)
+
+    def cat3(kind):
+        return torch.cat([st(f"self_attn.{n}_proj.{kind}") for n in "qkv"], dim=1)
+
+    def lin(name):
+        return {"w": st(name + ".weight"), "b": st(name + ".bias")}
+
+    def lnorm(name):
+        return {"scale": st(name + ".weight"), "bias": st(name + ".bias")}
+
+    return {
+        "visual": convert_clip(sd, cfg.vision, prefix="vision_model.", device=device),
+        "visual_proj": sd["visual_projection.weight"].t().to(device, dt).contiguous(),
+        "token_embedding": get(p + "embeddings.token_embedding.weight"),
+        "positional_embedding": get(p + "embeddings.position_embedding.weight"),
+        "text_layers": {"ln1": lnorm("layer_norm1"), "qkv": {"w": cat3("weight"), "b": cat3("bias")},
+                        "o": lin("self_attn.out_proj"), "ln2": lnorm("layer_norm2"), "fc1": lin("mlp.fc1"),
+                        "fc2": lin("mlp.fc2")},
+        "ln_final": {"scale": get(p + "final_layer_norm.weight"), "bias": get(p + "final_layer_norm.bias")},
+        "text_proj": sd["text_projection.weight"].t().to(device, dt).contiguous(),
+        "logit_scale": sd["logit_scale"].reshape(()).to(device, torch.float32),
+    }
+
+
+def convert_clip_openai(sd: StateDict, cfg, device=None) -> Dict[str, Any]:
+    """An open_clip / LAVIS CLIP checkpoint (visual.*, transformer.resblocks.*)
+    → the models/clip tree: the vision in_proj split into q/k/v kernels
+    [L, in, out], the text's kept fused [L, 3D, D]."""
+    device = resolve_device(device)
+    dt = vdt = cfg.text.dtype  # the JAX converter casts every leaf to the text dtype
+    Lv, Dv, Lt = cfg.vision.num_layers, cfg.vision.hidden_size, cfg.text.num_layers
+    get = _leaf(sd, device, dt)
+
+    def vst(template, transform=lambda w: w):
+        return _stack(sd, "visual.transformer.resblocks." + template, Lv, vdt, device, transform)
+
+    def tst(template):
+        return _stack(sd, "transformer.resblocks." + template, Lt, dt, device)
+
+    def kernel(template, rows=slice(None)):
+        return vst(template, lambda w: w[rows].t())
+
+    def v_attn(part):
+        rows = slice(part * Dv, (part + 1) * Dv)
+        return {"kernel": kernel("{i}.attn.in_proj_weight", rows),
+                "bias": vst("{i}.attn.in_proj_bias", lambda b: b[rows])}
+
+    def vln(name):
+        return {"scale": vst(f"{{i}}.{name}.weight"), "bias": vst(f"{{i}}.{name}.bias")}
+
+    conv = sd["visual.conv1.weight"]
+    visual = {
+        "cls": sd["visual.class_embedding"].reshape(-1).to(device, vdt),
+        "patch_embed": conv.reshape(conv.shape[0], -1).t().to(device, vdt).contiguous(),
+        "pos_embed": sd["visual.positional_embedding"].to(device, vdt),
+        "pre_ln": {"scale": sd["visual.ln_pre.weight"].to(device, vdt),
+                   "bias": sd["visual.ln_pre.bias"].to(device, vdt)},
+        "layers": {
+            "ln1": vln("ln_1"), "q": v_attn(0), "k": v_attn(1), "v": v_attn(2),
+            "o": {"kernel": kernel("{i}.attn.out_proj.weight"), "bias": vst("{i}.attn.out_proj.bias")},
+            "ln2": vln("ln_2"),
+            "fc1": {"kernel": kernel("{i}.mlp.c_fc.weight"), "bias": vst("{i}.mlp.c_fc.bias")},
+            "fc2": {"kernel": kernel("{i}.mlp.c_proj.weight"), "bias": vst("{i}.mlp.c_proj.bias")},
+        },
+        "post_ln": {"scale": sd["visual.ln_post.weight"].to(device, vdt),
+                    "bias": sd["visual.ln_post.bias"].to(device, vdt)},
+    }
+
+    def tlin(name):
+        return {"w": tst(f"{{i}}.{name}.weight"), "b": tst(f"{{i}}.{name}.bias")}
+
+    def tln(name):
+        return {"scale": tst(f"{{i}}.{name}.weight"), "bias": tst(f"{{i}}.{name}.bias")}
+
+    return {
+        "visual": visual,
+        "visual_proj": get("visual.proj"),  # already [D, E]
+        "token_embedding": get("token_embedding.weight"),
+        "positional_embedding": get("positional_embedding"),
+        "text_layers": {"ln1": tln("ln_1"),
+                        "qkv": {"w": tst("{i}.attn.in_proj_weight"), "b": tst("{i}.attn.in_proj_bias")},
+                        "o": tlin("attn.out_proj"), "ln2": tln("ln_2"), "fc1": tlin("mlp.c_fc"),
+                        "fc2": tlin("mlp.c_proj")},
+        "ln_final": {"scale": get("ln_final.weight"), "bias": get("ln_final.bias")},
+        "text_proj": get("text_projection"),  # already [D, E]
+        "logit_scale": sd["logit_scale"].reshape(()).to(device, torch.float32),
+    }
+
+
+def convert_blip_nlvr(sd: StateDict, cfg, device=None) -> Dict[str, Any]:
+    """A LAVIS BLIP-NLVR checkpoint (nlvr_encoder.py's twin cross-attention:
+    crossattention.self0/self1, output.dense0/dense1, output.merge_layer
+    from layer merge_from on) → the models/blip_variants NLVR tree; `cfg`
+    is an NlvrConfig. merge_layer is zeros where a layer has none."""
+    device = resolve_device(device)
+    tc = cfg.base.text
+    dt, L, D = tc.dtype, tc.num_layers, tc.hidden_size
+    prefix = _pick_bert_prefix(sd, "text_encoder")
+    if prefix is None:
+        raise KeyError("no text_encoder.* keys in NLVR state dict")
+    base = convert_med(sd, tc, prefix=prefix, head_prefix="__none__.", device=device)
+
+    def st(template):
+        return _stack(sd, prefix + template, L, dt, device)
+
+    def lin(name):
+        return {"w": st(name + ".weight"), "b": st(name + ".bias")}
+
+    layers = dict(base["layers"])
+    x = "encoder.layer.{i}.crossattention."
+    for tw in ("0", "1"):
+        layers[f"c{tw}q"] = lin(f"{x}self{tw}.query")
+        layers[f"c{tw}k"] = lin(f"{x}self{tw}.key")
+        layers[f"c{tw}v"] = lin(f"{x}self{tw}.value")
+        layers[f"d{tw}"] = lin(f"{x}output.dense{tw}")
+    layers["c_ln"] = {"scale": st(x + "output.LayerNorm.weight"), "bias": st(x + "output.LayerNorm.bias")}
+    mw = torch.zeros((L, D, 2 * D), dtype=dt, device=device)
+    mb = torch.zeros((L, D), dtype=dt, device=device)
+    for i in range(L):
+        key = prefix + x.format(i=i) + "output.merge_layer.weight"
+        if key in sd:
+            mw[i].copy_(sd[key])
+            mb[i].copy_(sd[key.replace("weight", "bias")])
+    layers["merge"] = {"w": mw, "b": mb}
+    for k in ("cq", "ck", "cv", "co"):
+        layers.pop(k, None)
+    base["layers"] = layers
+    return {
+        "visual": convert_blip_vit(sd, cfg.base.vision, prefix="visual_encoder.", device=device),
+        "text": base,
+        "cls_head": {"fc1": _linear_or_zeros(sd, "cls_head.0", D, D, dt, device),
+                     "fc2": _linear_or_zeros(sd, "cls_head.2", cfg.num_classes, D, dt, device)},
+    }
+
+
+def convert_blip_variant(sd: StateDict, cfg, variant: str, num_classes: int = 2, device=None) -> Dict[str, Any]:
+    """A LAVIS BLIP variant checkpoint → the models/blip_variants tree. The
+    text tree always comes from text_encoder.*; vqa adds text_decoder.* (+
+    its cls head) as "decoder", classification cls_head.{0,2}, retrieval the
+    projections, itm_head and temp, pretrain retrieval + the decoder."""
+    device = resolve_device(device)
+    tc = cfg.text
+    dt, D = tc.dtype, tc.hidden_size
+    enc_prefix = _pick_bert_prefix(sd, "text_encoder")
+    if enc_prefix is None:
+        raise KeyError(f"{variant} checkpoint lacks text_encoder.* keys")
+    params: Dict[str, Any] = {
+        "visual": convert_blip_vit(sd, cfg.vision, prefix="visual_encoder.", device=device),
+        "text": convert_med(sd, tc, prefix=enc_prefix, head_prefix="__none__.", device=device),
+    }
+
+    def decoder(what):
+        dec_prefix = _pick_bert_prefix(sd, "text_decoder")
+        if dec_prefix is None:
+            raise KeyError(f"{what} checkpoint lacks text_decoder.* keys")
+        return convert_med(sd, tc, prefix=dec_prefix, head_prefix="text_decoder.cls.", device=device)
+
+    if variant in ("retrieval", "pretrain"):
+        E = cfg.embed_dim
+        params["vision_proj"] = _linear_or_zeros(sd, "vision_proj", E, cfg.vision.hidden_size, dt, device)
+        params["text_proj"] = _linear_or_zeros(sd, "text_proj", E, D, dt, device)
+        params["itm_head"] = _linear_or_zeros(sd, "itm_head", 2, D, dt, device)
+        params["temp"] = _temp(sd, device)
+        if variant == "pretrain":
+            params["decoder"] = decoder("pretrain")
+        return params
+    if variant == "vqa":
+        params["decoder"] = decoder("vqa")
+    elif variant == "classification":
+        params["cls_head"] = {"fc1": _linear_or_zeros(sd, "cls_head.0", D, D, dt, device),
+                              "fc2": _linear_or_zeros(sd, "cls_head.2", num_classes, D, dt, device)}
+    else:
+        raise ValueError(f"unknown blip variant {variant!r}")
+    return params

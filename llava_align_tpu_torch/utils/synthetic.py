@@ -117,9 +117,9 @@ def build_random_llava_params(cfg, quant: str = "none", device=None, seed: int =
     return {"llama": llama, "vision": vision, "projector": proj}
 
 
-def _random_clip_projector(cfg, D: int, dt, device, w) -> tuple:
-    """The CLIP tower (cfg.vision) and the cfg.mm_projector_type projector
-    into width D, as llava.init draws them."""
+def random_clip_vision(vc, device, w) -> Dict[str, Any]:
+    """The models/clip_vit tree of ClipVisionConfig `vc`, as clip_vit.init
+    draws it: N(0, 1/fan_in) kernels from `w`, zero biases, unit norms."""
 
     def ones(shape, dtype):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -127,7 +127,6 @@ def _random_clip_projector(cfg, D: int, dt, device, w) -> tuple:
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    vc = cfg.vision
     vD, vF, vL, P, vdt = vc.hidden_size, vc.intermediate_size, vc.num_layers, vc.patch_size, vc.dtype
 
     def ln(shape):
@@ -136,7 +135,7 @@ def _random_clip_projector(cfg, D: int, dt, device, w) -> tuple:
     def vlin(fan_in, out):
         return {"kernel": w((vL, fan_in, out), fan_in, vdt), "bias": zeros((vL, out), vdt)}
 
-    vision = {
+    return {
         "cls": w((vD,), vD, vdt),
         "patch_embed": w((P * P * 3, vD), P * P * 3, vdt),
         "pos_embed": w((1 + vc.num_patches, vD), vD, vdt),
@@ -147,10 +146,17 @@ def _random_clip_projector(cfg, D: int, dt, device, w) -> tuple:
         },
         "post_ln": ln((vD,)),
     }
+
+
+def _random_clip_projector(cfg, D: int, dt, device, w) -> tuple:
+    """The CLIP tower (cfg.vision) and the cfg.mm_projector_type projector
+    into width D, as llava.init draws them."""
+    vision = random_clip_vision(cfg.vision, device, w)
+    vD = cfg.vision.hidden_size
     proj_layers = []
     for i in range(projector.num_layers(cfg.mm_projector_type)):
         fan_in = vD if i == 0 else D
-        proj_layers.append({"kernel": w((fan_in, D), fan_in, dt), "bias": zeros((D,), dt)})
+        proj_layers.append({"kernel": w((fan_in, D), fan_in, dt), "bias": torch.zeros((D,), dtype=dt, device=device)})
     return vision, {"layers": proj_layers}
 
 

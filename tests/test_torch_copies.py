@@ -5,8 +5,9 @@ build_prompt, the grouped engine's host logic (common_token_prefix,
 _txt_kind_prefix_bases), and VCD's diffusion schedule; and the verbatim
 copies (evals/mme, evals/mmmu, the schedule, utils/moderation, the state
 dict tools of utils/checkpoint_tools, PopeTask, text_only_plan,
-engine.branch_token_ids and the rest of VERBATIM_COPIES) must keep the
-originals' source, the package name aside. Exact equality."""
+engine.branch_token_ids, the LAVIS zoo's datasets, processors, tasks,
+randaugment and the CLIP tokenizer, and the rest of VERBATIM_COPIES) must
+keep the originals' source, the package name aside. Exact equality."""
 
 import dataclasses
 import importlib
@@ -418,6 +419,20 @@ VERBATIM_COPIES = [
     ("framework.tasks", "PopeTask"),
     ("models.llava", "text_only_plan"),
     ("decoding.engine", "branch_token_ids"),
+    # the LAVIS zoo's data path, processors, tasks and tokenizer
+    *[("framework.datasets", n) for n in (
+        "ImageTextPairDataset", "RetrievalDataset", "RetrievalEvalDataset", "MultimodalClassificationDataset",
+        "RetrievalBuilder", "ImageTextPairBuilder", "MultimodalClassificationBuilder")],
+    *[("framework.processors", n) for n in (
+        "BlipImageTrainProcessor", "_resize_short_edge", "_center_crop", "Blip2ImageTrainProcessor",
+        "ClipImageTrainProcessor", "ClipImageEvalProcessor", "BlipCaptionProcessor", "BlipQuestionProcessor")],
+    *[("framework.tasks", n) for n in ("MultimodalClassificationTask", "ImageTextPretrainTask", "RetrievalTask")],
+    *[("framework.randaugment", n) for n in (
+        "identity", "autocontrast", "equalize", "solarize", "posterize", "color", "contrast", "brightness",
+        "_smooth3x3", "sharpness", "_warp_affine", "rotate", "shear_x", "shear_y", "translate_x", "translate_y",
+        "cutout", "_enhance_args", "_shear_args", "_translate_args", "_rotate_args", "_solarize_args",
+        "_posterize_args", "_none_args", "RandomAugment", "VideoRandomAugment")],
+    *[("models.clip_tokenizer", n) for n in ("bytes_to_unicode", "_clean", "ClipTokenizer")],
 ]
 
 
@@ -601,7 +616,9 @@ def test_caption_task_copy_behaves_as_jax(tmp_path):
         assert tasks.BaseTask.setup_task({"task_args": {"x": 1}}).cfg == {"x": 1}
     assert texts[0] == texts[1]
     assert '"image_id": 7' in texts[1][2] and texts[1][2].count('"image_id": 7') == 1
-    assert treg.list("task") == ["base", "captioning", "pope"] and treg is not jreg
+    assert treg.list("task") == ["base", "captioning", "image_text_pretrain", "multimodal_classification", "pope",
+                                 "retrieval"] and treg is not jreg
+    assert set(treg.list("task")) <= set(jreg.list("task"))
     assert treg.get_task_class("captioning") is ttasks.CaptionTask
     assert treg.get_task_class("pope") is ttasks.PopeTask
     avgs = []
