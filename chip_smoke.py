@@ -245,8 +245,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      albef_retrieval (ViT-B/16 at 384, BERT-base fused from layer 6, a
      65536-entry queue; batch 16), albef_classification (batch 16),
      blip_classification (ViT-B/16 at 224; batch 32) and clip (ViT-B/32 +
-     its 12-layer text tower; batch 64), one warm step and 3 timed each
-     (halving a batch that does not fit); BLIP-2's stage-1
+     its 12-layer text tower; batch 64), one warm step and 3 timed each;
+     BLIP-2's stage-1
      pretrain_forward (EVA ViT-g + Q-Former, batch 8), opt_forward_loss
      at OPT-2.7b and t5_forward_loss at FlanT5-XL (batch 4), bf16, each
      with one backward into the Q-Former side (the ViT and LM frozen);
@@ -3674,8 +3674,8 @@ def phase_lavis_train(dev, smi: str) -> dict:
     from a seed: runners/train's step with main's optimizer
     (build_optimizer's defaults) through framework.runner.Runner on the
     CLI's data path, one warm step and LAVIS_TIMED timed. Prints s/step,
-    samples/s, peak memory and the losses (finite); a batch that does not
-    fit retries at half. K1-K4 must not launch."""
+    samples/s, peak memory and the losses (finite). K1-K4 must not
+    launch."""
     import shutil
     import tempfile
 
@@ -3689,33 +3689,24 @@ def phase_lavis_train(dev, smi: str) -> dict:
         for arch, what, model, batch, builder in lavis_arch_models(dev):
             n = n_params(model.params)
             steps = 1 + LAVIS_TIMED
-            while True:
-                tx = build_optimizer(init_lr=1e-4, max_steps=steps, steps_per_epoch=steps)
-                step, init_state, prep = train_cli._make_train_step(arch, model, tx, device=dev)
-                batches = lavis_batches(arch, model, builder, batch, steps, root, prep)
-                secs, losses = [], []
+            tx = build_optimizer(init_lr=1e-4, max_steps=steps, steps_per_epoch=steps)
+            step, init_state, prep = train_cli._make_train_step(arch, model, tx, device=dev)
+            batches = lavis_batches(arch, model, builder, batch, steps, root, prep)
+            secs, losses = [], []
 
-                def timed_step(params, opt_state, b):
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    out = step(params, opt_state, b)
-                    torch.cuda.synchronize()
-                    secs.append(time.perf_counter() - t)
-                    losses.append(float(out[2]))
-                    return out
+            def timed_step(params, opt_state, b):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = step(params, opt_state, b)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                losses.append(float(out[2]))
+                return out
 
-                try:
-                    reset_launches()
-                    torch.cuda.reset_peak_memory_stats()
-                    Runner(RunnerConfig(max_epoch=1, output_dir=str(root / "out"), save_last=False, log_freq=100),
-                           timed_step, model.params, init_state(model.params), lambda e: batches).train()
-                    break
-                except torch.cuda.OutOfMemoryError:
-                    if batch <= 2:
-                        raise
-                    log(f"{arch}: batch {batch} does not fit; taking {batch // 2}")
-                    batch //= 2
-                    torch.cuda.empty_cache()
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            Runner(RunnerConfig(max_epoch=1, output_dir=str(root / "out"), save_last=False, log_freq=100),
+                   timed_step, model.params, init_state(model.params), lambda e: batches).train()
             launches = read_launches()
             peak = torch.cuda.max_memory_allocated() / 2**30
             if len(losses) != steps or not all(np.isfinite(losses)):
@@ -3852,77 +3843,15 @@ def phase_blip(dev, smi: str) -> dict:
     return by_path
 
 
-def lavis_cut_cases() -> list:
-    """(what, cut config, params on the CPU fp32, fn(params, device) → loss)
-    of each new family at full width with 2 layers per tower."""
-    from llava_align_tpu_torch.models import albef, blip, blip2, blip_variants, clip
-
-    g = torch.Generator().manual_seed(21)
-    B = 2
-    ids = torch.randint(1000, 20000, (B, 16), generator=g)
-    ids[:, 0] = 101
-    mask = torch.ones_like(ids)
-    mask[1, 12:] = 0
-
-    def pix(size):
-        return torch.randn((B, 3, size, size), generator=g)
-
-    def two(cfg, **parts):
-        return dataclasses.replace(cfg, **{k: dataclasses.replace(getattr(cfg, k), num_layers=2, **kw)
-                                          for k, kw in parts.items()})
-
-    def tree_to(tree, d):
-        if isinstance(tree, dict):
-            return {k: tree_to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [tree_to(v, d) for v in tree]
-        return None if tree is None else tree.to(d, copy=True)
-
-    cases = []
-    a = two(albef.AlbefConfig(num_classes=3, queue_size=256), vision={}, text={"fusion_layer": 1})
-    ap, xa = albef.init(a, "retrieval", device="cpu", seed=1), pix(a.vision.image_size)
-    queue = albef.init_queue_state(a, torch.Generator().manual_seed(2), device="cpu")
-    cases.append(("ALBEF retrieval_train_step", ap, lambda p, d: albef.retrieval_train_step(
-        p, tree_to(p, d), tree_to(queue, d), a, None, xa.to(d), ids.to(d), mask.to(d), torch.arange(B, device=d),
-        neg_idx=([1, 0], [1, 0]))[0]["loss"]))
-    ac = albef.init(a, "classification", device="cpu", seed=3)
-    cases.append(("ALBEF classification_loss", ac, lambda p, d: albef.classification_loss(
-        p, a, xa.to(d), ids.to(d), mask.to(d), torch.tensor([0, 2], device=d))[0]))
-    b = two(blip.BlipConfig(), vision={}, text={})
-    bc, xb = blip_variants.init_classification(b, 3, device="cpu", seed=4), pix(b.vision.image_size)
-    cases.append(("BLIP classification_loss", bc, lambda p, d: blip_variants.classification_loss(
-        p, b, xb.to(d), ids.to(d), mask.to(d), torch.tensor([1, 2], device=d))[0]))
-    bp = blip.init(b, device="cpu", seed=5)
-    cases.append(("BLIP itm_score", bp, lambda p, d: blip.itm_score(p, b, xb.to(d), ids.to(d), mask.to(d))))
-    c = two(clip.ClipConfig(), vision={}, text={})
-    cp, xc = clip.init(c, device="cpu", seed=6), pix(c.vision.image_size)
-    cids = torch.randint(1, c.text.vocab_size, (B, c.text.context_length), generator=g)
-    cases.append(("CLIP contrastive_loss", cp, lambda p, d: clip.contrastive_loss(p, c, xc.to(d),
-                                                                                   cids.to(d))["loss"]))
-    s = two(blip2.Blip2QformerConfig(), vision={"dtype": torch.float32}, qformer={"dtype": torch.float32})
-    sp_, xs = blip2.init_stage1(s, device="cpu", seed=7), pix(s.vision.image_size)
-    cases.append(("BLIP-2 stage-1 pretrain_forward", sp_, lambda p, d: blip2.pretrain_forward(
-        p, s, xs.to(d), ids.to(d) % s.qformer.vocab_size, mask.to(d), bos_token_id=101, pad_token_id=0,
-        neg_idx=([1, 0], [1, 0]))["loss"]))
-    o = blip_cut(blip2.Blip2OptConfig(), torch.float32)
-    op = blip2.init_opt(o, device="cpu", seed=8)
-    cases.append(("BLIP-2 OPT opt_forward_loss", op, lambda p, d: blip2.opt_forward_loss(
-        p, o, xs.to(d), ids.to(d) % o.text.vocab_size, mask.to(d), pad_token_id=0)))
-    t = t5_cut(blip2.Blip2T5Config(), torch.float32)
-    tp = blip2.init_t5(t, device="cpu", seed=9)
-    cases.append(("BLIP-2 T5 t5_forward_loss", tp, lambda p, d: blip2.t5_forward_loss(
-        p, t, xs.to(d), ids.to(d) % t.text.vocab_size, mask.to(d), ids.to(d).flip(1) % t.text.vocab_size,
-        mask.to(d))))
-    return [(what, p, fn, tree_to) for what, p, fn in cases]
-
-
 def phase_lavis_reference(dev) -> None:
     """Each new family cut to 2 layers per tower at full width, fp32 (TF32
     off), the same params and inputs on the card and on the CPU: the losses
     (ITM logits for BLIP) within LAVIS_REF_TOL relative."""
+    from llava_align_tpu_torch.utils.lavis_cuts import cut_cases, tree_to
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for what, params, fn, tree_to in lavis_cut_cases():
+    for what, params, fn in cut_cases().values():
         t0 = time.perf_counter()
         with torch.no_grad():
             want = fn(params, torch.device("cpu"))

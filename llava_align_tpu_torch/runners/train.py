@@ -33,7 +33,6 @@ run-config key).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import logging
 import sys
@@ -67,37 +66,6 @@ def _batches(dataset, batch_size: int, *, tokenize, epoch: int = 0,
         yield batch
 
 
-def _with_dtype(cfg, dtype):
-    """cfg with every nested config's `dtype` field set to dtype (the
-    compute config of an amp step)."""
-    changes = {}
-    for f in dataclasses.fields(cfg):
-        v = getattr(cfg, f.name)
-        if f.name == "dtype":
-            changes["dtype"] = dtype
-        elif dataclasses.is_dataclass(v):
-            changes[f.name] = _with_dtype(v, dtype)
-    return dataclasses.replace(cfg, **changes)
-
-
-def _grad_step(loss_of, tx):
-    """step(params, opt_state, batch): autograd of loss_of(params, batch),
-    then the optimizer in place (leaves the loss does not reach get zero
-    gradients, as under jax.grad) → (params, opt_state, detached loss)."""
-    from llava_align_tpu_torch.train import trainer
-
-    def step(params, opt_state, batch):
-        leaves = trainer.trainable_leaves(params)
-        with torch.enable_grad():
-            loss = loss_of(params, batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-        tx.step(params, grads, opt_state)
-        return params, opt_state, loss.detach()
-
-    return step
-
-
 def _tensors(batch, device, keys):
     """The collated batch's `keys` as tensors on `device` (ids and labels
     as numpy arrays first, as the JAX prep's jnp.asarray reads them)."""
@@ -112,10 +80,13 @@ def _make_train_step(arch: str, model, tx, amp: bool = False, device=None):
     with fp32 master weights (framework.optims.amp_cast, the reference's
     `amp: True` run knob)."""
     from llava_align_tpu_torch.framework.optims import amp_cast
+    from llava_align_tpu_torch.train.trainer import compute_config, grad_step
 
     cast = amp_cast if amp else (lambda p: p)
-    cfg = getattr(model, "cfg", None)
-    compute_cfg = _with_dtype(cfg, torch.bfloat16) if amp and dataclasses.is_dataclass(cfg) else cfg
+    cfg = model.cfg
+    # the LAVIS archs compute in bf16 under amp, pixels included (torch does
+    # not promote a bf16 x fp32 product as JAX does)
+    compute_cfg = compute_config(cfg, torch.bfloat16) if amp else cfg
 
     if arch == "albef_retrieval":
         from llava_align_tpu_torch.framework.optims import tree_leaves, tree_map
@@ -130,11 +101,9 @@ def _make_train_step(arch: str, model, tx, amp: bool = False, device=None):
                     "queue": queue, "rng": torch.Generator(device=dev).manual_seed(2).get_state()}
 
         def albef_step(params, ext, batch):
-            from llava_align_tpu_torch.train import trainer
-
             gen = torch.Generator(device=batch["image"].device)
             gen.set_state(ext["rng"])
-            m_params = ext["m_params"]
+            m_params, out = ext["m_params"], {}
             # Under amp the EMA runs on the fp32 masters here (torch AMP:
             # autocast covers compute, not the parameter EMA) and the loss
             # takes its bf16 cast with an inner momentum of 1.0, so that the
@@ -142,17 +111,16 @@ def _make_train_step(arch: str, model, tx, amp: bool = False, device=None):
             # the step's own (the same math either way).
             if amp:
                 albef.momentum_update(params, m_params, momentum)
-            leaves = trainer.trainable_leaves(params)
-            with torch.enable_grad():
-                losses, _, queue = albef.retrieval_train_step(
-                    cast(params), cast(m_params) if amp else m_params, ext["queue"], compute_cfg, gen,
-                    batch["image"].to(compute_cfg.vision.dtype), batch["text_ids"], batch["text_mask"],
-                    batch["image_id"], momentum=1.0 if amp else momentum)
-                grads = torch.autograd.grad(losses["loss"], leaves, allow_unused=True)
-            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-            tx.step(params, grads, ext["opt"])
-            ext = dict(ext, queue=queue, rng=gen.get_state())
-            return params, ext, losses["loss"].detach()
+
+            def loss_of(p, b):
+                losses, _, out["queue"] = albef.retrieval_train_step(
+                    cast(p), cast(m_params) if amp else m_params, ext["queue"], compute_cfg, gen,
+                    b["image"].to(compute_cfg.vision.dtype), b["text_ids"], b["text_mask"], b["image_id"],
+                    momentum=1.0 if amp else momentum)
+                return losses["loss"]
+
+            params, _, loss = grad_step(loss_of, tx)(params, ext["opt"], batch)
+            return params, dict(ext, queue=out["queue"], rng=gen.get_state()), loss
 
         def prep(batch):
             return _tensors(batch, device, ("image", "text_ids", "text_mask", "image_id"))
@@ -173,7 +141,7 @@ def _make_train_step(arch: str, model, tx, amp: bool = False, device=None):
         def prep(batch):
             return _tensors(batch, device, ("image", "text_ids", "text_mask", "label"))
 
-        return _grad_step(loss_of, tx), tx.init, prep
+        return grad_step(loss_of, tx), tx.init, prep
 
     if arch == "clip":
         from llava_align_tpu_torch.models import clip as clip_mod
@@ -185,13 +153,12 @@ def _make_train_step(arch: str, model, tx, amp: bool = False, device=None):
         def prep(batch):
             return _tensors(batch, device, ("image", "text_ids"))
 
-        return _grad_step(loss_of, tx), tx.init, prep
+        return grad_step(loss_of, tx), tx.init, prep
 
     if arch == "llava":
         from llava_align_tpu_torch.constants import IMAGE_TOKEN_INDEX
         from llava_align_tpu_torch.train import trainer
 
-        cfg = model.cfg
         step = trainer.make_train_step(cfg, tx, amp=amp)
 
         def init_state(params):

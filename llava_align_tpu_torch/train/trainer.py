@@ -3,8 +3,9 @@ capability mirror of the vendored LAVIS trainer: RunnerBase.train
 runner_base.py:348-411, BaseTask._train_inner_loop base_task.py:158-251).
 
 Functional core: `multimodal_lm_loss` (next-token CE with IGNORE_INDEX over
-spliced multimodal sequences) + `make_train_step` (autograd, then the
-optimizer of framework/optims.AdamW in place on the param tree).
+spliced multimodal sequences), `grad_step` (autograd of a loss, then the
+optimizer of framework/optims.AdamW in place on the param tree: every train
+step of the port is one) and `make_train_step` (LLaVA's, on grad_step).
 `build_train_batch` is a copy of the JAX package's (numpy, on the host).
 
 Under autograd no CUDA kernel of the port is reached: the causal prefill
@@ -129,12 +130,18 @@ def lm_loss_parts(params: Params, cfg: LlavaConfig, batch: Dict[str, torch.Tenso
     return torch.where(valid, nll, 0.0).sum(), valid.sum()
 
 
-def compute_config(cfg: LlavaConfig, dtype: torch.dtype) -> LlavaConfig:
-    """cfg with its text and vision towers computing in `dtype`."""
-    return dataclasses.replace(
-        cfg, text=dataclasses.replace(cfg.text, dtype=dtype),
-        vision=dataclasses.replace(cfg.vision, dtype=dtype),
-    )
+def compute_config(cfg, dtype: torch.dtype):
+    """cfg with every nested config's `dtype` field set to `dtype` (the
+    compute config of an amp step: LLaVA's text and vision towers, every
+    tower of a LAVIS model's config)."""
+    changes = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name == "dtype":
+            changes["dtype"] = dtype
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = compute_config(v, dtype)
+    return dataclasses.replace(cfg, **changes)
 
 
 def trainable_leaves(params: Params) -> list:
@@ -149,6 +156,30 @@ def trainable_leaves(params: Params) -> list:
     return leaves
 
 
+def grad_step(loss_of: Callable, optimizer: AdamW, sync: Optional[Callable] = None) -> Callable:
+    """step(params, opt_state, batch) -> (params, opt_state, loss): autograd
+    of loss_of(params, batch) over the tree's leaves (leaves the loss does
+    not reach get zero gradients, as under jax.grad), then optimizer.step
+    updates the leaves and opt_state IN PLACE (the same objects come back)
+    and the gradients are freed; loss is detached. sync(grads, loss) -> loss,
+    where given, runs between the two (a data-parallel step's sums)."""
+
+    def step(params, opt_state, batch):
+        leaves = trainable_leaves(params)
+        with torch.enable_grad():
+            loss = loss_of(params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+        loss = loss.detach()
+        if sync is not None:
+            loss = sync(grads, loss)
+        optimizer.step(params, grads, opt_state)
+        del grads
+        return params, opt_state, loss
+
+    return step
+
+
 def make_train_step(
     cfg: LlavaConfig,
     optimizer: AdamW,
@@ -159,15 +190,13 @@ def make_train_step(
 ) -> Callable:
     """Returns step(params, opt_state, batch) -> (params, opt_state, loss).
 
-    The step differentiates multimodal_lm_loss with torch.autograd.grad,
-    then optimizer.step updates the param leaves and opt_state IN PLACE
-    (the same objects come back) and the gradients are freed; loss is a
-    detached 0-d tensor. Leaves the loss does not reach get zero gradients,
-    as under jax.grad. amp=True is the JAX package's amp: inside the loss,
-    framework.optims.amp_cast casts the fp32 leaves to bf16 and the model
-    computes in bf16 (torch does not promote a bf16 x fp32 matmul as JAX
-    does), while the optimizer updates the fp32 masters with the fp32
-    gradients that come back through the cast.
+    The step is grad_step over multimodal_lm_loss: autograd, then
+    optimizer.step on the param leaves and opt_state IN PLACE. amp=True is
+    the JAX package's amp: inside the loss, framework.optims.amp_cast casts
+    the fp32 leaves to bf16 and the model computes in bf16 (torch does not
+    promote a bf16 x fp32 matmul as JAX does), while the optimizer updates
+    the fp32 masters with the fp32 gradients that come back through the
+    cast.
 
     mesh: a ('data', 'model') mesh, one process per rank, as the JAX
     package's GSPMD step runs over one (trainer.py:126-140). params are then
@@ -191,30 +220,31 @@ def make_train_step(
         data, model = axis_size(mesh, "data"), axis_size(mesh, "model")
         data_group = axis_group(mesh, "data") if data > 1 else None
 
+    def loss_of(params, batch):
+        nll, count = lm_loss_parts(cast(params), loss_cfg, batch, attn_impl=attn_impl, tp_mesh=mesh)
+        if data > 1:
+            count = comm.all_reduce_(count.clone(), data_group)
+        return nll / count.clamp(min=1)
+
+    def sum_over_data(grads, loss):
+        for g in grads:
+            comm.all_reduce_(g, data_group)
+        return comm.all_reduce_(loss.clone(), data_group)
+
+    inner = grad_step(loss_of, optimizer, sum_over_data if data > 1 else None)
+    if mesh is None:
+        return inner
+
     def step(params, opt_state, batch):
-        leaves = trainable_leaves(params)
         if model > 1 and optimizer.norm_sync is None:
-            optimizer.norm_sync = _norm_sync(train_shardings(cfg, params, model), mesh, leaves[0].device)
+            device = tree_leaves(params)[0].device
+            optimizer.norm_sync = _norm_sync(train_shardings(cfg, params, model), mesh, device)
         if data > 1:
             B = next(iter(batch.values())).shape[0]
             size = -(-B // data)
             lo = min(axis_rank(mesh, "data") * size, B)
             batch = {k: v[lo : lo + size] for k, v in batch.items()}
-        with torch.enable_grad():
-            nll, count = lm_loss_parts(cast(params), loss_cfg, batch, attn_impl=attn_impl, tp_mesh=mesh)
-            if data > 1:
-                count = comm.all_reduce_(count.clone(), data_group)
-            loss = nll / count.clamp(min=1)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-        loss = loss.detach()
-        if data > 1:
-            for g in grads:
-                comm.all_reduce_(g, data_group)
-            loss = comm.all_reduce_(loss.clone(), data_group)
-        optimizer.step(params, grads, opt_state)
-        del grads
-        return params, opt_state, loss
+        return inner(params, opt_state, batch)
 
     return step
 

@@ -6,8 +6,14 @@ A reference program is compiled with XLA's backend optimizations off
 (optimization level 0, LLVM's expensive passes skipped): the same fp32
 numbers, a compile a fraction shorter. The options go to that one
 compile, so no other program of the test process is touched. Several
-small programs compile faster than one program that holds them all.
+small programs compile faster than one program that holds them all, and a
+module's programs are traced one after another and compiled side by side
+(run_all: XLA's compile does not hold the GIL).
 """
+
+import contextlib
+import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -16,10 +22,59 @@ import torch
 FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
+def run_all(programs: dict) -> dict:
+    """{name: fn(*args)} for programs {name: (fn, *args)}: each one jitted
+    JAX program compiled with FAST_COMPILE (traced in turn, compiled in
+    threads side by side), its outputs as numpy."""
+    lowered = {k: (jax.jit(fn).lower(*args), args) for k, (fn, *args) in programs.items()}
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        compiled = dict(zip(lowered, pool.map(lambda la: la[0].compile(FAST_COMPILE), lowered.values())))
+    return {k: jax.device_get(compiled[k](*args)) for k, (_, args) in lowered.items()}
+
+
+@contextlib.contextmanager
+def fast_jit():
+    """Inside, every jax.jit made compiles with FAST_COMPILE (for the JAX
+    package's own loops and CLI, which jit their steps themselves)."""
+    jit = jax.jit
+
+    def fast(fun=None, **kw):
+        kw.setdefault("compiler_options", FAST_COMPILE)
+        return jit(fun, **kw) if fun is not None else functools.partial(fast, **kw)
+
+    jax.jit = fast
+    try:
+        yield
+    finally:
+        jax.jit = jit
+
+
 def run(fn, *args):
     """fn(*args) as one jitted JAX program compiled with FAST_COMPILE, its
     outputs as numpy."""
-    return jax.device_get(jax.jit(fn).lower(*args).compile(FAST_COMPILE)(*args))
+    return run_all({0: (fn, *args)})[0]
+
+
+def recording_draws(module, fn):
+    """fn as a program that also returns the hard-negative draws of
+    module.sample_hard_negative_indices, recorded while it traces (in the
+    order drawn), for the port's `neg_idx` seam or its sampler."""
+    def traced(*args):
+        draws = []
+        orig = module.sample_hard_negative_indices
+
+        def recording(key, w):
+            d = orig(key, w)
+            draws.append(d)
+            return d
+
+        module.sample_hard_negative_indices = recording
+        try:
+            return fn(*args), draws
+        finally:
+            module.sample_hard_negative_indices = orig
+
+    return traced
 
 
 def np_tree(tree):

@@ -3,7 +3,7 @@ opt_forward_loss, t5_forward_loss, _ce_label_smooth, _ce_mean_ignore)
 against the JAX package's, on the CPU: each loss and its gradient over
 every leaf, from the same numpy tree (the port's own init, carried into
 both) and the same seeded inputs. The JAX side is one compiled program per loss
-(tests/lavis_ref.run), built once for the module.
+(tests/lavis_ref.run_all), built once for the module.
 
 The towers the losses start from are held elsewhere (eva_vit, qformer,
 encode_image_queries: tests/test_torch_blip2.py), so the JAX programs take
@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from lavis_ref import grads_close, np_tree, port_grads, run
+from lavis_ref import grads_close, np_tree, port_grads, run_all
 from llava_align_tpu.models import blip2 as jb2
 from llava_align_tpu_torch.models import blip2 as tb2
 from llava_align_tpu_torch.utils.jax_params import from_jax_params
@@ -74,15 +74,15 @@ def cases():
 
     q, ids, mask = J["opt"]
     qt, i_ids, i_mask, o_ids, o_mask, fs = J["t5"]
-    want = {
-        "stage1": run(jax.value_and_grad(lambda p: stage1(p)["loss"]), trees["stage1"]),
-        "stage1_ids": run(lambda p: stage1(p, image_ids=jnp.asarray(IMAGE_IDS)), trees["stage1"]),
-        "opt": run(jax.value_and_grad(lambda p: jb2.opt_forward_loss(
+    want = run_all({
+        "stage1": (jax.value_and_grad(lambda p: stage1(p)["loss"]), trees["stage1"]),
+        "stage1_ids": (lambda p: stage1(p, image_ids=jnp.asarray(IMAGE_IDS)), trees["stage1"]),
+        "opt": (jax.value_and_grad(lambda p: jb2.opt_forward_loss(
             p, o_cfg, None, ids, mask, pad_token_id=0, prompt_length=2, q_emb=q)), trees["opt"]),
-        "t5": run(jax.value_and_grad(lambda p: jb2.t5_forward_loss(
+        "t5": (jax.value_and_grad(lambda p: jb2.t5_forward_loss(
             p, t_cfg, None, i_ids, i_mask, o_ids, o_mask, pad_token_id=0, decoder_start_token_id=0, q_emb=qt,
             few_shot_embeds=fs)), trees["t5"]),
-    }
+    })
     return want, trees, data
 
 

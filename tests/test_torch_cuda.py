@@ -43,11 +43,14 @@ group-128 int4 streaming kernel rounds each scaled weight to bf16 exactly
 as its plain version does, so only the order of the fp32 sums differs there.
 """
 
+import functools
+
 import pytest
 import torch
 
 from llava_align_tpu_torch.ops import attention, quant
 from llava_align_tpu_torch.ops import stream_probes as sp
+from llava_align_tpu_torch.utils import lavis_cuts
 
 TOL = 2.0**-6
 
@@ -992,83 +995,20 @@ def test_kernels_refuse_grad_and_auto_attention_differentiates(dev):
 # ---------------------------------------------------------------------------
 
 
-def _lavis_case(family: str):
-    """(params on the CPU, fn(params, device) → a loss or logits) for a
-    2-layer cut of the family's full-width config, fp32."""
-    import dataclasses
-
-    from llava_align_tpu_torch.models import albef, blip, blip2, blip_variants, clip
-
-    g = torch.Generator().manual_seed(0)
-    B = 2
-
-    def pix(size):
-        return torch.randn((B, 3, size, size), generator=g)
-
-    ids = torch.randint(3, 1000, (B, 12), generator=g)
-    mask = torch.ones_like(ids)
-    mask[1, 8:] = 0
-    if family == "blip":
-        cfg = blip.BlipConfig()
-        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, num_layers=2),
-                                  text=dataclasses.replace(cfg.text, num_layers=2))
-        p = blip.init(cfg, device="cpu")
-        x = pix(cfg.vision.image_size)
-        return p, lambda q, d: blip.itm_score(q, cfg, x.to(d), ids.to(d), mask.to(d))
-    if family == "albef":
-        cfg = albef.AlbefConfig(queue_size=64)
-        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, num_layers=2),
-                                  text=dataclasses.replace(cfg.text, num_layers=2, fusion_layer=1))
-        p = albef.init(cfg, "retrieval", device="cpu")
-        q0 = albef.init_queue_state(cfg, torch.Generator().manual_seed(1), device="cpu")
-        x = pix(cfg.vision.image_size)
-
-        def fn(q, d):
-            m = _to(q, d, copy=True)  # the momentum tree and the queue are updated in place
-            state = _to(q0, d, copy=True)
-            return albef.retrieval_train_step(q, m, state, cfg, None, x.to(d), ids.to(d), mask.to(d),
-                                              torch.arange(B, device=d), neg_idx=([1, 0], [1, 0]))[0]["loss"]
-
-        return p, fn
-    if family == "blip_classification":
-        cfg = blip.BlipConfig()
-        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, num_layers=2),
-                                  text=dataclasses.replace(cfg.text, num_layers=2))
-        p = blip_variants.init_classification(cfg, 3, device="cpu")
-        x = pix(cfg.vision.image_size)
-        return p, lambda q, d: blip_variants.classification_loss(q, cfg, x.to(d), ids.to(d), mask.to(d),
-                                                                torch.tensor([0, 2], device=d))[0]
-    if family == "clip":
-        cfg = clip.ClipConfig()
-        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, num_layers=2),
-                                  text=dataclasses.replace(cfg.text, num_layers=2))
-        p = clip.init(cfg, device="cpu")
-        x = pix(cfg.vision.image_size)
-        cids = torch.randint(1, 1000, (B, cfg.text.context_length), generator=g)
-        return p, lambda q, d: clip.contrastive_loss(q, cfg, x.to(d), cids.to(d))["loss"]
-    cfg = blip2.Blip2QformerConfig()
-    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, num_layers=2, dtype=torch.float32),
-                              qformer=dataclasses.replace(cfg.qformer, num_layers=2, dtype=torch.float32))
-    p = blip2.init_stage1(cfg, device="cpu")
-    x = pix(cfg.vision.image_size)
-    return p, lambda q, d: blip2.pretrain_forward(q, cfg, x.to(d), ids.to(d), mask.to(d), bos_token_id=1,
-                                                  pad_token_id=0, neg_idx=([1, 0], [1, 0]))["loss"]
+@functools.lru_cache(maxsize=1)
+def _lavis_cases():
+    return lavis_cuts.cut_cases()
 
 
-def _to(tree, device, copy: bool = False):
-    if isinstance(tree, dict):
-        return {k: _to(v, device, copy) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device, copy) for v in tree]
-    return None if tree is None else tree.to(device, copy=copy)
-
-
-@pytest.mark.parametrize("family", ["blip", "albef", "blip_classification", "clip", "blip2_stage1"])
+@pytest.mark.parametrize("family", lavis_cuts.NAMES)
 def test_lavis_family_on_card_matches_cpu_fp32(dev, family):
-    params, fn = _lavis_case(family)
+    """The family's 2-layer full-width fp32 cut (utils/lavis_cuts, the cases
+    of chip_smoke.py's LAVIS reference phase), card against CPU; the cases
+    are built once, on the first call that has a card."""
+    _, params, fn = _lavis_cases()[family]
     with torch.no_grad():
         want = fn(params, torch.device("cpu"))
-        got = fn(_to(params, dev), dev)
+        got = fn(lavis_cuts.tree_to(params, dev), dev)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -3,7 +3,7 @@ models/clip_tokenizer.py) and the three ops/layers helpers, against the JAX
 package's on the CPU, at the tiny configs, from the same numpy trees (the
 port's own inits, carried into both) and seeded inputs.
 
-JAX references, each one compiled program (tests/lavis_ref.run):
+JAX references, a few compiled programs (tests/lavis_ref.run_all):
 - ALBEF's forwards: fused_encode, itc_features, itm_logits_from_ids,
   extract_features (multimodal), nlvr_forward on the 6-layer NLVR config
   and nlvr_loss, mlm_loss and vqa_train_loss with momentum distillation
@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from lavis_ref import close, leaves, np_tree, run
+from lavis_ref import close, leaves, np_tree, run, run_all
 from llava_align_tpu.models import albef as ja
 from llava_align_tpu.models import clip as jc
 from llava_align_tpu_torch.models import albef as ta
@@ -81,9 +81,17 @@ def setup():
 def ref():
     (cfg, ncfg), trees, data, J, n_answers = setup()
 
-    def albef_forwards(t):
-        r, v, n = t["retrieval"], t["vqa"], t["nlvr"]
+    def albef_retrieval(r):
         feats = ja.itc_features(r, cfg, J["pix"], J["ids"], J["mask"])
+        return {
+            "feats": feats,
+            "itm": ja.itm_logits_from_ids(r, cfg, feats["image_embeds"], J["ids"], J["mask"]),
+            "extract": ja.extract_features(r, cfg, J["pix"], J["ids"], J["mask"]),
+            "mlm": ja.mlm_loss(r, cfg, J["mlm_in"], J["mask"], feats["image_embeds"], J["mlm_labels"], m_params=r,
+                               image_embeds_m=feats["image_embeds"] * 0.5, alpha=0.4),
+        }
+
+    def albef_vqa_nlvr(v, n):
         fused = ja.fused_encode(v, cfg, J["pix"], J["ids"], J["mask"])
         start = jnp.full((B, 1), J["ans"][0, 0], jnp.int32)
         h0 = ja.med_forward(v["decoder"], cfg.decoder, start, encoder_states=fused, encoder_mask=J["mask"],
@@ -94,32 +102,28 @@ def ref():
                            causal=True)
         ans_loss = ja._lm_loss_per_sample(ja.med_logits(v["decoder"], h), jnp.tile(tgt, (B, 1)), cfg.label_smoothing)
         return {
-            "feats": feats, "fused": fused,
-            "itm": ja.itm_logits_from_ids(r, cfg, feats["image_embeds"], J["ids"], J["mask"]),
-            "extract": ja.extract_features(r, cfg, J["pix"], J["ids"], J["mask"]),
+            "fused": fused,
             "nlvr": ja.nlvr_loss(n, ncfg, J["pix"], J["pix1"], J["ids"], J["mask"], J["labels"] % 2),
-            "mlm": ja.mlm_loss(r, cfg, J["mlm_in"], J["mask"], feats["image_embeds"], J["mlm_labels"], m_params=r,
-                               image_embeds_m=feats["image_embeds"] * 0.5, alpha=0.4),
             "vqa_loss": ja.vqa_train_loss(v, cfg, J["pix"], J["ids"], J["mask"], J["ans"], J["ans_mask"], n_answers,
                                           J["weights"], m_params=v, alpha=0.4),
             "prob_first": jax.nn.softmax(ja.med_logits(v["decoder"], h0)[:, 0], axis=-1)[:, J["ans"][:, 1]],
             "ans_loss": ans_loss.reshape(B, NA),
         }
 
-    def clip_forwards(p):
-        ccfg = jc.ClipConfig.tiny()
-        return {"image": jc.encode_image(p, ccfg, J["pix"]), "text": jc.encode_text(p, ccfg, J["clip_ids"]),
-                "feats": jc.extract_features(p, ccfg, J["pix"], J["clip_ids"])}
-
-    want = run(albef_forwards, {k: trees[k] for k in ("retrieval", "vqa", "nlvr")})
-    want["clip"] = run(clip_forwards, trees["clip"])
     classnames = ["dog", "cat"]
     tokenize = lambda texts: data["clip_ids"][: len(texts)] + len(texts[0]) % 3  # noqa: E731
-    classifier = jc.zero_shot_classifier(trees["clip"], jc.ClipConfig.tiny(), classnames,
-                                         jc.DEFAULT_PROMPT_TEMPLATES[:2], tokenize)
-    want["zero_shot"] = (np.asarray(classifier), run(lambda p, c: jc.zero_shot_predict(p, jc.ClipConfig.tiny(),
-                                                                                       J["pix"], c),
-                                                     trees["clip"], classifier))
+
+    def clip_forwards(p):
+        ccfg = jc.ClipConfig.tiny()
+        classifier = jc.zero_shot_classifier(p, ccfg, classnames, jc.DEFAULT_PROMPT_TEMPLATES[:2], tokenize)
+        return {"image": jc.encode_image(p, ccfg, J["pix"]), "text": jc.encode_text(p, ccfg, J["clip_ids"]),
+                "feats": jc.extract_features(p, ccfg, J["pix"], J["clip_ids"]),
+                "zero_shot": (classifier, jc.zero_shot_predict(p, ccfg, J["pix"], classifier))}
+
+    out = run_all({"retrieval": (albef_retrieval, trees["retrieval"]),
+                   "vqa_nlvr": (albef_vqa_nlvr, trees["vqa"], trees["nlvr"]),
+                   "clip": (clip_forwards, trees["clip"])})
+    want = {**out["retrieval"], **out["vqa_nlvr"], "clip": out["clip"], "zero_shot": out["clip"]["zero_shot"]}
     return want, trees, data, (classnames, tokenize, n_answers)
 
 

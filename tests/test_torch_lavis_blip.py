@@ -2,13 +2,14 @@
 against the JAX package's, on the CPU, at the tiny configs, from the same
 numpy trees (the port's own inits, carried into both) and seeded inputs.
 
-The JAX side is a few compiled programs (tests/lavis_ref.run) built once
-for the module: the ViT and MED states, itm_score, extract_features,
+The JAX side is a few compiled programs (tests/lavis_ref.run_all) built
+once for the module: the ViT and MED states, itm_score, extract_features,
 compute_gradcam, one decode_step on a fresh cache with and without an
 encoder mask, the ITM logits of every image-text pair (compute_sim_matrix's
 re-rank reads them) and nlvr_forward (retrieval_train_step and
 pretrain_step: tests/test_torch_lavis_blip_train.py). The JAX caption loop runs as it
-is: greedy captions token for token, and a 2-beam search. The sampled
+is (its own jitted steps compiled with FAST_COMPILE): greedy captions token
+for token, and a 2-beam search. The sampled
 caption loop at top_k = 1 gives the greedy tokens; its repetition penalty
 and min_new_tokens (which the JAX loop cannot take: it writes into a
 read-only array) and vqa_generate are held to HF's rules replayed on the
@@ -24,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from lavis_ref import close, np_tree, run
+from lavis_ref import close, fast_jit, np_tree, run_all
 from llava_align_tpu.models import blip as jb
 from llava_align_tpu.models import blip_variants as jv
 from llava_align_tpu_torch.models import blip as tb
@@ -85,9 +86,10 @@ def ref():
             "nlvr": jv.nlvr_forward(nlvr, ncfg, J["pix"], J["pix1"], J["ids"], J["mask"]),
         }
 
-    want = run(forwards, trees["base"], trees["nlvr"])
-    want["cam"] = run(lambda p: jb.compute_gradcam(p, cfg, J["pix"], J["ids"], J["mask"], block_num=1), trees["base"])
-    return want, trees, queue, data
+    out = run_all({"forwards": (forwards, trees["base"], trees["nlvr"]),
+                   "cam": (lambda p: jb.compute_gradcam(p, cfg, J["pix"], J["ids"], J["mask"], block_num=1),
+                           trees["base"])})
+    return {**out["forwards"], "cam": out["cam"]}, trees, queue, data
 
 
 def _queue_cfg():
@@ -154,7 +156,8 @@ def test_captions_match_jax_token_for_token(ref):
     p = from_jax_params(trees["base"], device="cpu")
     pix = torch.from_numpy(data["pix"])
     for beams in (1, 2):
-        want = jb.generate_caption(trees["base"], cfg, data["pix"], [1, 5], max_new_tokens=5, num_beams=beams)
+        with fast_jit():
+            want = jb.generate_caption(trees["base"], cfg, data["pix"], [1, 5], max_new_tokens=5, num_beams=beams)
         got = tb.generate_caption(p, tb.BlipConfig.tiny(), pix, [1, 5], max_new_tokens=5, num_beams=beams)
         assert got == want, beams
         if beams == 1:

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lavis_ref import close, grads_close, leaves, port_grads, run
+from lavis_ref import close, grads_close, leaves, port_grads, recording_draws, run_all
 from llava_align_tpu.models import blip as jb
 from llava_align_tpu.models import blip_variants as jv
 from llava_align_tpu_torch.models import blip as tb
@@ -36,25 +36,6 @@ def ref():
         per = jv._lm_loss_per_sample(jb.med_logits(r["decoder"], h), targets, 0.1)
         return per.sum() / jnp.maximum((targets[:, 1:] != -100).sum(), 1)
 
-    def recorded(fn):
-        """fn(draws) with blip_variants' sampler recording its draws into
-        `draws` while the program traces."""
-        def traced(*args):
-            draws = []
-            orig = jv.sample_hard_negative_indices
-
-            def recording(key, w):
-                d = orig(key, w)
-                draws.append(d)
-                return d
-
-            jv.sample_hard_negative_indices = recording
-            try:
-                return fn(*args), draws
-            finally:
-                jv.sample_hard_negative_indices = orig
-        return traced
-
     def ret_step(r, queue):
         def loss(params):
             losses, m2, s2 = jv.retrieval_train_step(params, r, queue, cfg, jax.random.PRNGKey(7), J["pix"], J["ids"],
@@ -63,10 +44,10 @@ def ref():
 
         return jax.value_and_grad(loss, has_aux=True)(r)
 
-    want = {}
-    ((_, (losses, m2, s2)), grads), draws = run(recorded(ret_step), trees["ret"], queue)
-    want["ret"] = (losses, m2, s2, grads, draws)
-    want["loss_lm"] = run(pretrain_lm, trees["ret"])
+    out = run_all({"ret": (recording_draws(jv, ret_step), trees["ret"], queue),
+                   "loss_lm": (pretrain_lm, trees["ret"])})
+    ((_, (losses, m2, s2)), grads), draws = out["ret"]
+    want = {"ret": (losses, m2, s2, grads, draws), "loss_lm": out["loss_lm"]}
     return want, trees, queue, data
 
 

@@ -17,29 +17,31 @@ the JAX step; the port's AdamW.step wrapped).
 
 Held: the per-epoch losses within 1e-4, and the first step's gradient of
 each loss (ALBEF's retrieval_train_step, the two classification_loss's,
-CLIP's contrastive_loss) leaf by leaf within 1e-5 of the largest; and
-clip under `run.amp=True` (bf16 compute on fp32 masters), its losses
-within 2e-2. (The JAX CLI cannot run the ViT archs under amp: its
-vit_forward casts the pixels to the config's fp32 and the patch conv then
-meets bf16 weights.) The JAX
-runner's orbax checkpoint is skipped (the port's is checked to exist), and
-the JAX CLI's jitted step compiles with tests/lavis_ref.FAST_COMPILE (the
-same numbers, a shorter compile). This file holds albef_retrieval;
+CLIP's contrastive_loss) leaf by leaf within 1e-5 of the largest. Under
+`run.amp=True` (bf16 compute on fp32 masters) the port's losses are held
+within 2e-2 of the same JAX fp32 run, which runs once per arch (the JAX
+CLI cannot run the ViT archs under amp: its vit_forward casts the pixels
+to the config's fp32 and the patch conv then meets bf16 weights; the amp
+step itself is held to JAX's retrieval_train_step in
+tests/test_torch_lavis_albef_pretrain.py). The JAX runner's orbax
+checkpoint is skipped (the port's is checked to exist), and the JAX CLI's
+jitted step compiles with tests/lavis_ref.FAST_COMPILE (the same numbers,
+a shorter compile). This file holds albef_retrieval;
 tests/test_torch_lavis_train_cli_rest.py the two classification archs and
-clip (fp32 and amp) on the same helpers.
+clip, each in fp32 and under amp, on the same helpers.
 """
 
-import functools
 import json
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
-import pytest
 import torch
 import yaml
 
-from lavis_ref import FAST_COMPILE
+from lavis_ref import fast_jit
 from llava_align_tpu.framework import optims as joptims
 from llava_align_tpu.framework.runner import Runner as JRunner
 from llava_align_tpu.runners import train as jtrain
@@ -143,74 +145,90 @@ def _jax_albef_draws(monkeypatch) -> None:
     monkeypatch.setattr(talbef, "sample_hard_negative_indices", sample)
 
 
-def _record_grads(monkeypatch) -> tuple:
-    """(JAX grads, port grads): each a list, per optimizer call, of the
-    gradient leaves in tree_leaves order (sorted keys on both sides)."""
-    j_grads, t_grads = [], []
-    j_build, t_build = joptims.build_optimizer, toptims.build_optimizer
+def _record_port_grads(monkeypatch) -> list:
+    """Per port optimizer call, the gradient leaves in tree_leaves order."""
+    grads, build = [], toptims.build_optimizer
 
-    def j_recording(*a, **kw):
-        tx = j_build(*a, **kw)
-
-        def update(grads, state, params=None):
-            jax.debug.callback(lambda g: j_grads.append([np.asarray(x) for x in jax.tree_util.tree_leaves(g)]),
-                               grads)
-            return tx.update(grads, state, params)
-
-        return tx._replace(update=update)
-
-    def t_recording(*a, **kw):
-        tx = t_build(*a, **kw)
+    def recording(*a, **kw):
+        tx = build(*a, **kw)
         step = tx.step
 
-        def recording_step(params, grads, state):
-            t_grads.append([g.detach().clone().numpy() for g in grads])
-            return step(params, grads, state)
+        def recording_step(params, g, state):
+            grads.append([x.detach().clone().numpy() for x in g])
+            return step(params, g, state)
 
         tx.step = recording_step
         return tx
 
-    monkeypatch.setattr(joptims, "build_optimizer", j_recording)
-    monkeypatch.setattr(toptims, "build_optimizer", t_recording)
-    return j_grads, t_grads
+    monkeypatch.setattr(toptims, "build_optimizer", recording)
+    return grads
 
 
-def run_jax_cli(monkeypatch, cfg_path: str, *options) -> None:
-    """The JAX CLI, each jax.jit it makes compiling with FAST_COMPILE."""
-    jit = jax.jit
+def jax_cli_runs(archs, root, monkeypatch) -> dict:
+    """arch → the JAX CLI's fp32 run on the port's params: (its epoch
+    losses, the first step's gradient leaves in tree_leaves order, sorted
+    keys as the port's). The archs run in threads side by side (XLA
+    compiles without the GIL), each jax.jit compiling with FAST_COMPILE;
+    the JAX runner's checkpoint is skipped."""
+    local = threading.local()  # the running arch's records
+    build, train_epoch = joptims.build_optimizer, JRunner.train_epoch
 
-    def fast_jit(fun=None, **kw):
-        kw.setdefault("compiler_options", FAST_COMPILE)
-        return jit(fun, **kw) if fun is not None else functools.partial(fast_jit, **kw)
+    def recording_build(*a, **kw):
+        tx, grads = build(*a, **kw), local.grads
 
+        def update(g, state, params=None):
+            jax.debug.callback(lambda g: grads.append([np.asarray(x) for x in jax.tree_util.tree_leaves(g)]), g)
+            return tx.update(g, state, params)
+
+        return tx._replace(update=update)
+
+    def recording_epoch(self, epoch):
+        stats = train_epoch(self, epoch)
+        local.losses.append(stats["loss"])
+        return stats
+
+    def run(arch):
+        local.grads, local.losses = [], []
+        d = os.path.join(str(root), arch)
+        os.makedirs(d)
+        jtrain.main(["--cfg-path", _write_cfg(d, arch), "--options"])
+        assert len(local.losses) == len(local.grads) == 2, arch
+        return local.losses, local.grads[0]
+
+    for arch in archs:
+        _port_params_for_jax(monkeypatch, arch)
     with monkeypatch.context() as m:
-        m.setattr(jax, "jit", fast_jit)
-        jtrain.main(["--cfg-path", cfg_path, "--options", *options])
+        m.setattr(joptims, "build_optimizer", recording_build)
+        m.setattr(JRunner, "train_epoch", recording_epoch)
+        m.setattr(JRunner, "save_checkpoint", lambda self, name, epoch: None)
+        with fast_jit(), ThreadPoolExecutor(len(archs)) as pool:
+            return dict(zip(archs, pool.map(run, archs)))
 
 
-def check_arch_matches_jax_cli(arch, tmp_path, monkeypatch, amp: bool = False):
+def check_arch_matches_jax_cli(arch, tmp_path, monkeypatch, j_run, amp: bool = False):
+    """The port CLI's run of `arch` (under amp where asked) against j_run,
+    the JAX CLI's fp32 run (jax_cli_runs)."""
+    j_losses, j_grad = j_run
     cfg_path = _write_cfg(str(tmp_path), arch)
-    _port_params_for_jax(monkeypatch, arch)
-    j_grads, t_grads = _record_grads(monkeypatch)
-    monkeypatch.setattr(JRunner, "save_checkpoint", lambda self, name, epoch: None)
-    j_losses = _epoch_losses(monkeypatch, JRunner)
-    options = ["run.amp=True"] if amp else []
-    run_jax_cli(monkeypatch, cfg_path, *options)
     if arch == "albef_retrieval":
         _jax_albef_draws(monkeypatch)
+    t_grads = _record_port_grads(monkeypatch)
     t_losses = _epoch_losses(monkeypatch, TRunner)
+    options = ["run.amp=True"] if amp else []
     stats = ttrain.main(["--cfg-path", cfg_path, "--options", "run.device=cpu", *options,
                          "run.output_dir=" + str(tmp_path / "out_port")])
-    assert len(j_losses) == len(t_losses) == 2 and np.isfinite(stats["loss"])
+    assert len(t_losses) == 2 and np.isfinite(stats["loss"])
     np.testing.assert_allclose(t_losses, j_losses, rtol=2e-2 if amp else 1e-4)
-    if amp:  # bf16: the port computes in bf16 where JAX promotes bf16 x fp32 to fp32
+    assert len(t_grads) == 2 and len(t_grads[0]) == len(j_grad)
+    if amp:  # bf16 compute on fp32 masters: the gradients reach the optimizer in fp32
+        assert all(g.dtype == np.float32 for g in t_grads[0])
         return
-    assert len(j_grads) == len(t_grads) == 2 and len(j_grads[0]) == len(t_grads[0])
-    scale = max(float(np.abs(g).max()) for g in j_grads[0])
-    for i, (want, got) in enumerate(zip(j_grads[0], t_grads[0])):
+    scale = max(float(np.abs(g).max()) for g in j_grad)
+    for i, (want, got) in enumerate(zip(j_grad, t_grads[0])):
         np.testing.assert_allclose(got, want, atol=1e-5 * scale, rtol=0, err_msg=f"{arch} grad leaf {i}")
     assert (tmp_path / "out_port" / "checkpoint_last" / "state.pt").is_file()
 
 
 def test_lavis_arch_matches_jax_cli(tmp_path, monkeypatch):
-    check_arch_matches_jax_cli("albef_retrieval", tmp_path, monkeypatch)
+    j_run = jax_cli_runs(["albef_retrieval"], tmp_path / "jax", monkeypatch)["albef_retrieval"]
+    check_arch_matches_jax_cli("albef_retrieval", tmp_path, monkeypatch, j_run)

@@ -6,8 +6,8 @@ the MME and MMMU runners and scorers, the Qwen-VL and InstructBLIP
 runners, the W8A8 and int8 KV-cache modes, the sampling sweep, the bias
 probe and the judge pipeline, LLaVA-MPT and BLIP-2 OPT generates, BLIP-2
 T5's t5_generate and a stage-1 caption, the train CLI (2 epochs and a
-resume, then the four LAVIS archs) and the LAVIS zoo, the parallel dry run on 2 spawned ranks (parallel/*), every
-microbenchmark twin (at rehearsal size) and the utility tail (the native
+resume; the four LAVIS archs' train steps built) and the LAVIS zoo, the
+parallel dry run on 2 spawned ranks (parallel/*), every microbenchmark twin (at rehearsal size) and the utility tail (the native
 loader, PopeTask, profiling, the checkpoint tools, moderation) on the CPU,
 with jax (and the JAX package) blocked — the machine with the card has no
 jax — and, for the slice's modules, with safetensors and transformers
@@ -459,24 +459,15 @@ stats = train.main(["--cfg-path", path, "--options", "run.device=cpu", "run.max_
 state = torch.load(os.path.join(d, "out", "checkpoint_last", "state.pt"), weights_only=True)
 assert state["epoch"] == 2 and state["opt_state"]["count"] == 6
 
-# the LAVIS archs: one epoch each on a retrieval / classification YAML
-rows = [("a dog on a couch", 0), ("a red bicycle", 1), ("dog again here", 0), ("bike once more", 1)]
-with open(os.path.join(d, "ret.json"), "w") as f:
-    json.dump([{"image": f"{i}.jpg", "caption": s, "image_id": i} for i, (s, _) in enumerate(rows)], f)
-with open(os.path.join(d, "cls.json"), "w") as f:
-    json.dump([{"image": f"{i}.jpg", "sentence": s, "label": l} for i, (s, l) in enumerate(rows)], f)
+# the LAVIS archs' train steps build on their zoo entries (their epochs are
+# held to the JAX CLI's in tests/test_torch_lavis_train_cli*.py)
+from llava_align_tpu_torch.framework.model_zoo import load_model
+from llava_align_tpu_torch.framework.optims import build_optimizer
 for arch in ("albef_retrieval", "albef_classification", "blip_classification", "clip"):
-    kind = "retrieval" if arch in ("albef_retrieval", "clip") else "multimodal_classification"
-    ann = os.path.join(d, "ret.json" if kind == "retrieval" else "cls.json")
-    cfg = {"model": {"arch": arch, "num_classes": 2},
-           "datasets": {"tiny": {"builder": kind, "synthetic_images": True, "build_info": {"train": {"ann_paths": [ann]}}}},
-           "run": {"task": kind, "batch_size_train": 4, "max_epoch": 1, "init_lr": 1e-3,
-                   "output_dir": os.path.join(d, "out_" + arch), "log_freq": 100}}
-    path = os.path.join(d, arch + ".yaml")
-    with open(path, "w") as f:
-        yaml.safe_dump(cfg, f)
-    stats = train.main(["--cfg-path", path, "--options", "run.device=cpu"])
-    assert stats["loss"] == stats["loss"] and stats["loss"] > 0, (arch, stats)
+    model = load_model(arch, device="cpu", num_classes=2)
+    tx = build_optimizer(init_lr=1e-3, max_steps=1, steps_per_epoch=1)
+    step, init_state, prep = train._make_train_step(arch, model, tx, device="cpu")
+    assert init_state(model.params) is not None, arch
 
 # every LAVIS arch of the zoo builds (tiny, random) with its processors
 from llava_align_tpu_torch.framework.model_zoo import load_model_and_preprocess
@@ -649,9 +640,9 @@ def test_quant_modes_and_last_runners_run_with_jax_blocked(runs):
 def test_train_cli_runs_with_jax_blocked(runs):
     """runners/train.main on a captioning YAML (model arch llava, size
     tiny, synthetic images), 2 epochs then a resume from checkpoint_last;
-    then one epoch of each LAVIS arch (albef_retrieval, albef_classification,
-    blip_classification, clip) and the LAVIS zoo's entries built with their
-    processors, with jax, the JAX package, safetensors and transformers
+    then the train step of each LAVIS arch (albef_retrieval,
+    albef_classification, blip_classification, clip) built on its zoo
+    entry, and the LAVIS zoo's entries built with their processors, with jax, the JAX package, safetensors and transformers
     unimportable (the card machine has PyYAML and Pillow, which this path
     reads)."""
     proc = _result(runs, "train")
