@@ -254,10 +254,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
      images and compute_sim_matrix 8 x 8 with the ITM re-rank of the top
      4. Each prints s/step (s), samples/s and peak memory beside the card,
      the train phases also as `lavis_train` / `blip2_losses` JSON lines.
-     Then each new family cut to 2 layers per tower at full width, fp32,
+     K1-K4 must not launch (launches_by_path `*_train`, `blip2_*_loss`,
+     `blip_*`). The 2-layer cuts of these families run after phase 18.
+ 18. the evaluation CLI, ALPRO + TimeSformer and GPT-2 dialogue (after
+     phase 17), random weights from a seed, fp32: runners/evaluate.main
+     on tiny YAMLs (the zoo's tiny trees, on the card) for `retrieval`
+     (albef_retrieval and clip over synthetic images, alpro_retrieval over
+     synthetic videos), `multimodal_classification` (albef_classification)
+     and `vqa` (albef_vqa); then at the JAX package's full configs the
+     CLI's VQA loop (_eval_vqa) with albef_vqa and blip_vqa (16 questions,
+     a 128-answer list, 128 candidates), its retrieval loop
+     (_eval_retrieval) with alpro_retrieval (TimeSformer-B/16 at 224, 8
+     frames, BERT-base; 16 videos x 32 captions, the re-rank of the top
+     16), alpro_qa's qa_logits on 16 videos at 1500 classes, one ALPRO
+     retrieval_train_step at batch 8 with its backward, and GPT-2 small
+     dialogue (len_video_ft 4224): dialogue_forward's loss on 8 dialogues
+     of 40 feature rows + 200 tokens, dialogue_generate of 20 tokens for 4.
+     Each prints s per call, questions/s, videos/s or samples/s and peak
+     memory beside the card, and the `eval_full` JSON line. Then every
+     LAVIS family cut to 2 layers per tower at full width, fp32 (phase
+     17's, ALPRO's retrieval step and GPT-2's dialogue loss; TF32 off),
      card against CPU: the losses (BLIP's ITM logits) within 1e-3
-     relative. K1-K4 must not launch (launches_by_path `*_train`,
-     `blip2_*_loss`, `blip_*`).
+     relative. K1-K4 must not launch (launches_by_path `eval_cli_*`,
+     `eval_*`, `alpro_*`, `gpt_*`).
 
 Prints a JSON line with each kernel's record (launches: both main paths'
 counts, per path under launches_by_path; K1's and K4's prefill-row times
@@ -278,6 +297,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gzip
 import json
 import re
@@ -3867,6 +3887,275 @@ def phase_lavis_reference(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the evaluation CLI, ALPRO + TimeSformer and GPT-2 dialogue (phase 18):
+# evaluate.main on tiny YAMLs, the CLI's VQA and retrieval loops at the JAX
+# configs, ALPRO QA and its train step, GPT-2 dialogue. Plain torch, no TPU
+# kernel on these paths: each launches_by_path entry holds K1-K4 at zero.
+# ---------------------------------------------------------------------------
+
+EVAL_CAPTIONS = ["a dog on a couch", "a red bicycle", "two cats asleep", "a man with a kite", "dog again here",
+                 "bike once more", "cats in the sun", "kite over a beach"]
+EVAL_VQA = (16, 128)          # questions, answer list (= candidates)
+ALPRO_RET = (16, 32, 16)      # videos, captions, k_test
+ALPRO_QA_CLASSES = 1500       # LAVIS's MSRVTT-QA answer classes
+ALPRO_TRAIN_BATCH = 8
+GPT_DIALOGUE = (8, 40, 200)   # dialogues, feature rows, tokens
+GPT_GENERATE = (4, 20)        # dialogues, new tokens
+
+
+def eval_cli_yaml(root: Path, case: str, arch: str, task: str) -> Path:
+    """A tiny evaluation YAML for `arch` (its zoo entry's random tiny tree)
+    over synthetic images (videos for alpro_retrieval)."""
+    import yaml
+
+    root.mkdir(parents=True, exist_ok=True)
+    ann, run, model, info = root / f"{case}.json", {"task": task, "split": "test"}, {"arch": arch}, {}
+    builder = task
+    if task == "retrieval":
+        key = "video" if arch.startswith("alpro") else "image"
+        builder = "video_retrieval" if key == "video" else "retrieval"
+        rows = [{key: f"{key}{i}.jpg", "caption": EVAL_CAPTIONS[2 * i: 2 * i + 2], "image_id": i} for i in range(4)]
+        run["k_test"] = 2
+    elif task == "multimodal_classification":
+        rows = [{"image": f"{i}.jpg", "sentence": c, "label": i % 2} for i, c in enumerate(EVAL_CAPTIONS[:4])]
+        model["num_classes"] = 2
+    else:
+        answers = ["dog", "cat", "two", "red", "kite"]
+        rows = [{"image": f"q{i}.jpg", "question": f"what is in picture {i}?", "question_id": i,
+                 "answer": [answers[i % 5]] * 3 + [answers[(i + 1) % 5]] * 7} for i in range(4)]
+        (root / "answers.json").write_text(json.dumps(answers))
+        info["answer_list_path"] = str(root / "answers.json")
+        run.update(num_ans_candidates=3, task_args={"result_dir": str(root / "results")})
+    ann.write_text(json.dumps(rows))
+    cfg = {"run": run, "model": model,
+           "datasets": {"tiny": {"builder": builder, "synthetic_images": True,
+                                 "build_info": {"test": {"ann_paths": [str(ann)], **info}}}}}
+    path = root / f"{case}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def phase_eval_cli(smi: str) -> dict:
+    """runners/evaluate.main, as a user runs it on the card (no
+    run.device), on each tiny YAML: its metrics line must carry the task's
+    keys in range. K1-K4 must not launch."""
+    import shutil
+    import tempfile
+
+    from llava_align_tpu_torch.runners import evaluate
+
+    root = Path(tempfile.mkdtemp(prefix="eval_cli_"))
+    by_path = {}
+    try:
+        for arch, task in (("albef_retrieval", "retrieval"), ("clip", "retrieval"), ("alpro_retrieval", "retrieval"),
+                           ("albef_classification", "multimodal_classification"), ("albef_vqa", "vqa")):
+            path = eval_cli_yaml(root / arch, arch, arch, task)
+            metrics, secs, launches = timed(lambda: evaluate.main(["--cfg-path", str(path)]))
+            keys = {"retrieval": ("txt_r1", "img_r10", "r_mean"), "multimodal_classification": ("acc", "n"),
+                    "vqa": ("accuracy", "n")}[task]
+            if not all(k in metrics for k in keys) or not 0 <= metrics["agg_metrics"] <= 100:
+                raise AssertionError(f"evaluate.main {arch}: {metrics}")
+            if any(launches.values()):
+                raise AssertionError(f"evaluate.main {arch}: a kernel launched: {launches}")
+            log(f"evaluate.main {task} / {arch} (the zoo's tiny tree, fp32) on {smi}: {secs:.4f} s; "
+                f"agg_metrics {metrics['agg_metrics']:.4f}; launches {launches}")
+            by_path[f"eval_cli_{arch}"] = launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return by_path
+
+
+def eval_full_models(dev) -> dict:
+    """The JAX package's full configs, random fp32 trees from a seed on
+    `dev`: name → (what, model namespace)."""
+    from llava_align_tpu_torch.models import albef, alpro, blip, blip_variants, gpt2
+
+    acfg, bcfg = albef.AlbefConfig(), blip.BlipConfig()
+    ap, bp = albef.init(acfg, "vqa", device=dev, seed=21), blip_variants.init_vqa(bcfg, device=dev, seed=22)
+    vcfg, qcfg = alpro.AlproConfig(), alpro.AlproConfig(num_classes=ALPRO_QA_CLASSES)
+    return {
+        "albef_vqa": ("ALBEF VQA (ViT-B/16 at 384, BERT-base fused from layer 6, a 6-layer answer decoder)",
+                      types.SimpleNamespace(cfg=acfg, params=ap, predict_answers=functools.partial(
+                          albef.rank_answers, ap, acfg))),
+        "blip_vqa": ("BLIP VQA (ViT-B/16 at 224, BERT-base encoder and decoder)",
+                     types.SimpleNamespace(cfg=bcfg, params=bp, predict_answers=functools.partial(
+                         blip_variants.vqa_rank_answers, bp, bcfg))),
+        "alpro_retrieval": ("ALPRO retrieval (TimeSformer-B/16 at 224, 8 frames; BERT-base fused from layer 6)",
+                            types.SimpleNamespace(cfg=vcfg, params=alpro.init(vcfg, "retrieval", device=dev,
+                                                                              seed=23))),
+        "alpro_qa": (f"ALPRO QA ({ALPRO_QA_CLASSES} classes)",
+                     types.SimpleNamespace(cfg=qcfg, params=alpro.init(qcfg, "qa", device=dev, seed=24))),
+        "gpt_dialogue": ("GPT-2 small dialogue (len_video_ft 4224)",
+                         types.SimpleNamespace(cfg=gpt2.GptDialogueConfig(), params=gpt2.dialogue_init(
+                             gpt2.GptDialogueConfig(), device=dev, seed=25))),
+    }
+
+
+def eval_dataset(task, model, builder: str, rows: list, root: Path, **info):
+    """The split "test" of `builder` over `rows` (synthetic images or
+    videos), through build_datasets_for_model (the processor at the tower's
+    size)."""
+    from llava_align_tpu_torch.framework.datasets import build_datasets_for_model
+
+    root.mkdir(parents=True, exist_ok=True)
+    ann = root / f"{builder}.json"
+    ann.write_text(json.dumps(rows))
+    sets = build_datasets_for_model(task, model, {"d": {"builder": builder, "synthetic_images": True,
+                                                        "build_info": {"test": {"ann_paths": [str(ann)], **info}}}})
+    return sets["d"]["test"]
+
+
+def phase_eval_full(dev, smi: str) -> dict:
+    """At the JAX package's full configs: the CLI's VQA loop with albef_vqa
+    and blip_vqa, its retrieval loop with alpro_retrieval, alpro_qa's
+    qa_logits, one ALPRO retrieval_train_step with its backward, GPT-2
+    dialogue's loss and greedy generate. One warm call (a smaller one for
+    the CLI loops), one timed."""
+    import shutil
+    import tempfile
+
+    from llava_align_tpu_torch.framework.optims import tree_leaves
+    from llava_align_tpu_torch.framework.registry import registry
+    from llava_align_tpu_torch.models import alpro, gpt2
+    from llava_align_tpu_torch.runners import evaluate
+    from llava_align_tpu_torch.runners.common import resolve_tokenizer
+
+    root = Path(tempfile.mkdtemp(prefix="eval_full_"))
+    models, by_path, rows = eval_full_models(dev), {}, {}
+    try:
+        nq, na = EVAL_VQA
+        answers = [f"answer {i}" for i in range(na)]
+        (root / "answers.json").write_text(json.dumps(answers))
+        qrows = [{"image": f"q{i}.jpg", "question": f"what is shown in picture number {i}?", "question_id": i,
+                  "answer": [answers[i % na]] * 3 + [answers[(i + 7) % na]] * 7} for i in range(nq)]
+        for name in ("albef_vqa", "blip_vqa"):
+            what, model = models.pop(name)
+            task = registry.get_task_class("vqa")(result_dir=str(root / "results"))
+            tokenize = resolve_tokenizer({}, model.cfg.text.vocab_size)
+            run = {"num_ans_candidates": na, "split": "test"}
+            warm = eval_dataset(task, model, "vqa", qrows[:1], root / f"{name}_warm",
+                                answer_list_path=str(root / "answers.json"))
+            evaluate._eval_vqa(task, model, warm, run, tokenize, dev)
+            data = eval_dataset(task, model, "vqa", qrows, root / name, answer_list_path=str(root / "answers.json"))
+            metrics, secs, launches = timed(lambda: evaluate._eval_vqa(task, model, data, run, tokenize, dev))
+            if metrics["n"] != nq or not 0 <= metrics["accuracy"] <= 100:
+                raise AssertionError(f"{name} _eval_vqa: {metrics}")
+            log(f"{what} on {smi}: the CLI's VQA loop, {nq} questions x {na} answers ({na} candidates): "
+                f"{secs:.4f} s, {nq / secs:.2f} questions/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"accuracy {metrics['accuracy']:.2f}; launches {launches}")
+            rows[name] = {"s": secs, "questions_per_s": nq / secs, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            by_path[f"eval_{name}"] = launches
+            del model
+            torch.cuda.empty_cache()
+
+        nv, nt, k = ALPRO_RET
+        what, model = models.pop("alpro_retrieval")
+        task = registry.get_task_class("retrieval")()
+        tokenize = resolve_tokenizer({}, model.cfg.text.vocab_size)
+        vrows = [{"video": f"v{i}.mp4", "caption": [f"{TRAIN_CAPTION} {2 * i}", f"a clip of scene {2 * i + 1}"],
+                  "image_id": i} for i in range(nv)]
+        model.compute_sim_matrix = functools.partial(alpro.compute_sim_matrix, model.params, model.cfg)
+        warm = eval_dataset(task, model, "video_retrieval", vrows[:2], root / "alpro_warm")
+        evaluate._eval_retrieval(task, model, warm, {"k_test": 1}, tokenize, dev)
+        data = eval_dataset(task, model, "video_retrieval", vrows, root / "alpro")
+        metrics, secs, launches = timed(lambda: evaluate._eval_retrieval(task, model, data, {"k_test": k}, tokenize,
+                                                                         dev))
+        if len(data.text) != nt or not all(0 <= metrics[m] <= 100 for m in ("txt_r1", "img_r1", "r_mean")):
+            raise AssertionError(f"alpro_retrieval _eval_retrieval: {metrics}")
+        log(f"{what} on {smi}: the CLI's retrieval loop, {nv} videos x {nt} captions, the VTM re-rank of the top "
+            f"{k}: {secs:.4f} s, {nv / secs:.2f} videos/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"r_mean {metrics['r_mean']:.2f}; launches {launches}")
+        rows["alpro_retrieval"] = {"s": secs, "videos_per_s": nv / secs,
+                                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        by_path["eval_alpro_retrieval"] = launches
+        video = torch.from_numpy(np.stack([data[i]["video"] for i in range(nv)])).to(dev)
+        ids, mask = (torch.from_numpy(x).to(dev) for x in tokenize([f"{TRAIN_CAPTION} {i}" for i in range(nv)]))
+
+        # ALPRO's train step at batch 8, its backward into every leaf
+        params, cfg, b = model.params, model.cfg, ALPRO_TRAIN_BATCH
+        leaves = [x for x in tree_leaves(params) if x.is_floating_point()]
+        for x in leaves:
+            x.requires_grad_(True)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def train_step():
+            with torch.enable_grad():
+                out = alpro.retrieval_train_step(params, cfg, gen, video[:b], ids[:b], mask[:b])
+                grads = torch.autograd.grad(out["loss"], leaves, allow_unused=True)
+            return float(out["loss"].detach()), sum(float(g.square().sum()) for g in grads if g is not None) ** 0.5
+
+        train_step()  # warm-up
+        (loss, gnorm), secs, launches = timed(train_step)
+        if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0):
+            raise AssertionError(f"ALPRO retrieval_train_step: loss {loss}, gradient norm {gnorm}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"ALPRO retrieval_train_step + backward on {smi} ({n_params(params) / 1e6:.1f} M parameters fp32, batch "
+            f"{b}): {secs:.4f} s/step, {b / secs:.2f} samples/s, peak {peak:.2f} GiB; loss {loss:.4f}, gradient "
+            f"norm {gnorm:.4g}; launches {launches}")
+        rows["alpro_train"] = {"s_per_step": secs, "samples_per_s": b / secs, "peak_gib": peak, "loss": loss}
+        by_path["alpro_train"] = launches
+        del model, params, leaves
+        torch.cuda.empty_cache()
+
+        what, model = models.pop("alpro_qa")
+        with torch.inference_mode():
+            alpro.qa_logits(model.params, model.cfg, video[:1], ids[:1], mask[:1])  # warm-up
+            logits, secs, launches = timed(lambda: alpro.qa_logits(model.params, model.cfg, video, ids, mask))
+        if logits.shape != (nv, ALPRO_QA_CLASSES) or not torch.isfinite(logits).all():
+            raise AssertionError(f"alpro_qa qa_logits: {tuple(logits.shape)}")
+        log(f"{what} qa_logits on {smi}: {nv} videos, {secs:.4f} s, {nv / secs:.2f} videos/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
+        rows["alpro_qa"] = {"s": secs, "videos_per_s": nv / secs, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        by_path["alpro_qa"] = launches
+        del model, video
+        torch.cuda.empty_cache()
+
+        what, model = models.pop("gpt_dialogue")
+        p, cfg = model.params, model.cfg
+        nd, sv, st = GPT_DIALOGUE
+        g = torch.Generator(device=dev).manual_seed(3)
+        fts = torch.randn((nd, sv, cfg.len_video_ft), generator=g, device=dev)
+        tok = torch.randint(7, cfg.gpt.vocab_size, (nd, st), generator=g, device=dev)
+        amask = torch.ones((nd, sv + st), dtype=torch.long, device=dev)
+        amask[-1, -20:] = 0
+        labels = torch.full((nd, sv + st), -1, dtype=torch.long, device=dev)
+        labels[:, -(st // 6):] = tok[:, -(st // 6):]  # the answer tokens
+        types_ = torch.randint(0, 7, (nd, sv + st), generator=g, device=dev)
+        with torch.inference_mode():
+            gpt2.dialogue_forward(p, cfg, tok[:1], fts[:1])  # warm-up
+            out, secs, launches = timed(lambda: gpt2.dialogue_forward(p, cfg, tok, fts, amask, types_, labels))
+        loss = float(out["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"GPT dialogue_forward: loss {loss}")
+        log(f"{what} dialogue_forward on {smi}: {nd} dialogues x ({sv} feature rows + {st} tokens), {secs:.4f} s, "
+            f"{nd / secs:.2f} samples/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss {loss:.4f}; "
+            f"launches {launches}")
+        rows["gpt_dialogue_forward"] = {"s": secs, "samples_per_s": nd / secs, "loss": loss,
+                                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        by_path["gpt_dialogue_forward"] = launches
+        ng, new = GPT_GENERATE
+        gpt2.dialogue_generate(p, cfg, tok[:1].cpu().numpy(), fts[:1].cpu().numpy(), max_new_tokens=2)  # warm-up
+        toks, secs, launches = timed(lambda: gpt2.dialogue_generate(p, cfg, tok[:ng].cpu().numpy(),
+                                                                   fts[:ng].cpu().numpy(), max_new_tokens=new))
+        if toks.shape != (ng, new) or not ((toks >= 0) & (toks < cfg.gpt.vocab_size)).all():
+            raise AssertionError(f"GPT dialogue_generate: {toks}")
+        log(f"{what} dialogue_generate on {smi}: {ng} dialogues, {new} greedy tokens, {secs:.4f} s, "
+            f"{ng * new / secs:.2f} tokens/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"launches {launches}")
+        rows["gpt_dialogue_generate"] = {"s": secs, "tokens_per_s": ng * new / secs,
+                                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        by_path["gpt_dialogue_generate"] = launches
+        del model, p
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if any(v for path in by_path.values() for v in path.values()):
+        raise AssertionError(f"phase 18: a kernel launched: {by_path}")
+    print(json.dumps({"eval_full": rows}), flush=True)
+    return by_path
+
+
+# ---------------------------------------------------------------------------
 # the parallel phase: ranks spawned on the one card (gloo, both on cuda:0)
 # ---------------------------------------------------------------------------
 
@@ -4554,6 +4843,13 @@ def main() -> int:
     # (autograd or plain torch: K1-K4 at zero in their launches_by_path)
     for what, phase in (("LAVIS train CLI archs", phase_lavis_train), ("BLIP-2 losses", phase_blip2_losses),
                         ("BLIP", phase_blip)):
+        t0 = time.perf_counter()
+        by_path.update(phase(dev, smi))
+        log(f"{what} phase wall {time.perf_counter() - t0:.2f} s (the trees' builds included)")
+    # the evaluation CLI, ALPRO and GPT-2 dialogue (plain torch: K1-K4 at
+    # zero in their launches_by_path), then every LAVIS family's 2-layer cut
+    for what, phase in (("evaluation CLI", lambda d, s: phase_eval_cli(s)), ("evaluation at full size",
+                                                                            phase_eval_full)):
         t0 = time.perf_counter()
         by_path.update(phase(dev, smi))
         log(f"{what} phase wall {time.perf_counter() - t0:.2f} s (the trees' builds included)")

@@ -1,24 +1,23 @@
-"""Dataset classes + registry-assembled builders: the part the caption
-training path reaches (torch twin of llava_align_tpu/framework/datasets.py;
-numpy only: the classes, builders and build_datasets_for_model are copies,
-tests/test_torch_copies.py holds _load_annotations to the original's
-source and the rest to its behavior).
+"""Dataset classes + registry-assembled builders (torch twin of
+llava_align_tpu/framework/datasets.py; numpy only: the classes, builders
+and build_datasets_for_model are copies, tests/test_torch_copies.py holds
+them to the original's source and tests/test_torch_lavis_eval_data.py to
+its behavior).
 
 Ported: _load_annotations, _load_image (with the crc32 synthetic image for
-a missing file), BaseAnnotationDataset, CaptionDataset,
-CaptionEvalDataset, ImageTextPairDataset, RetrievalDataset,
-RetrievalEvalDataset, MultimodalClassificationDataset, BaseDatasetBuilder
-(without its download methods), the "caption", "image_text_pair",
-"retrieval" and "multimodal_classification" builders with their named
-ones, and build_datasets_for_model without its video branch. The VQA,
-NLVR, video, dialogue, ImageNet and BLIP-Diffusion datasets and builders
-are not ported yet.
+a missing file), BaseAnnotationDataset, the caption, VQA, pair, retrieval,
+classification, NLVR, video QA / retrieval / caption, AVSD dialogue and
+ImageFolder datasets, BaseDatasetBuilder (without its download methods),
+their builders with every named one, and build_datasets_for_model (its
+video branch gives ALPRO's TimeSformer the video processor). The
+BLIP-Diffusion dataset and builder are not ported yet.
 
 Capability parity: the reference's vendored LAVIS dataset subsystem
-(lavis/datasets/datasets/caption_datasets.py and lavis/datasets/builders):
+(lavis/datasets/datasets/*.py and lavis/datasets/builders):
 CaptionDataset remaps image_id → dense ids (caption_datasets.py:42-48).
-Offline behavior: `synthetic_images=True` substitutes missing image files
-with the same deterministic per-path noise the runners use.
+Offline behavior: `synthetic_images=True` substitutes missing image
+(and video) files with the same deterministic per-path noise the runners
+use.
 """
 
 from __future__ import annotations
@@ -137,6 +136,39 @@ class CaptionEvalDataset(BaseAnnotationDataset):
         }
 
 
+class VQADataset(BaseAnnotationDataset):
+    """coco_vqa_datasets.py: per-question (answers, frequency weights)."""
+
+    def __getitem__(self, index: int) -> dict:
+        ann = self.annotation[index]
+        answer_weight: Dict[str, float] = {}
+        for answer in ann["answer"]:
+            answer_weight[answer] = answer_weight.get(answer, 0.0) + 1 / len(ann["answer"])
+        return {
+            "image": self._image(ann["image"]),
+            "text_input": self.text_processor(ann["question"]),
+            "answers": list(answer_weight.keys()),
+            "weights": list(answer_weight.values()),
+        }
+
+
+class VQAEvalDataset(BaseAnnotationDataset):
+    def __init__(self, *args, answer_list_path: Optional[str] = None, **kw):
+        super().__init__(*args, **kw)
+        self.answer_list = None
+        if answer_list_path and os.path.exists(answer_list_path):
+            self.answer_list = json.load(open(answer_list_path))
+
+    def __getitem__(self, index: int) -> dict:
+        ann = self.annotation[index]
+        return {
+            "image": self._image(ann["image"]),
+            "text_input": self.text_processor(ann["question"]),
+            "question_id": ann["question_id"],
+            "instance_id": ann["instance_id"],
+        }
+
+
 class ImageTextPairDataset(BaseAnnotationDataset):
     """image_text_pair_datasets.py (pretraining pairs)."""
 
@@ -206,6 +238,26 @@ class MultimodalClassificationDataset(BaseAnnotationDataset):
         }
 
 
+class NLVRDataset(BaseAnnotationDataset):
+    """nlvr_datasets.py: two images + sentence + True/False label."""
+
+    LABELS = {"True": 1, "False": 0, True: 1, False: 0, 1: 1, 0: 0}
+
+    def __getitem__(self, index: int) -> dict:
+        ann = self.annotation[index]
+        images = ann["images"]
+        return {
+            "image0": self._image(images[0]),
+            "image1": self._image(images[1]),
+            "text_input": self.text_processor(ann["sentence"]),
+            "label": self.LABELS[ann["label"]],
+        }
+
+
+# ---------------------------------------------------------------------------
+# builders (lavis/datasets/builders pattern: config → {split: dataset})
+# ---------------------------------------------------------------------------
+
 
 class BaseDatasetBuilder:
     """lavis BaseDatasetBuilder capability: build every configured split with
@@ -256,6 +308,12 @@ class CaptionBuilder(BaseDatasetBuilder):
     eval_cls = CaptionEvalDataset
 
 
+@registry.register_builder("vqa")
+class VQABuilder(BaseDatasetBuilder):
+    train_cls = VQADataset
+    eval_cls = VQAEvalDataset
+
+
 @registry.register_builder("retrieval")
 class RetrievalBuilder(BaseDatasetBuilder):
     train_cls = RetrievalDataset
@@ -274,6 +332,122 @@ class MultimodalClassificationBuilder(BaseDatasetBuilder):
     eval_cls = MultimodalClassificationDataset
 
 
+@registry.register_builder("nlvr")
+class NLVRBuilder(BaseDatasetBuilder):
+    train_cls = NLVRDataset
+    eval_cls = NLVRDataset
+
+
+class VideoQADataset(BaseAnnotationDataset):
+    """video_vqa_datasets.py capability: (video, question, answer-class).
+    `video` in annotations points at a frame directory or a pre-extracted
+    [T, H, W, 3] .npy (the reference decodes raw videos with decord, which
+    is not installed in this environment)."""
+
+    def __init__(self, *args, answer_list: Sequence[str] = (), **kw):
+        super().__init__(*args, **kw)
+        self.answer_list = list(answer_list)
+
+    def _video(self, video_ref: str):
+        path = os.path.join(self.vis_root, video_ref) if self.vis_root else video_ref
+        if path.endswith(".npy") and os.path.exists(path):
+            return self.vis_processor(np.load(path))
+        if os.path.isdir(path) or os.path.exists(path):
+            return self.vis_processor(path)
+        if not self.synthetic_images:
+            raise FileNotFoundError(path)
+        rng = np.random.default_rng(zlib.crc32(video_ref.encode()))
+        return self.vis_processor(
+            rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+        )
+
+    def __getitem__(self, index: int) -> dict:
+        ann = self.annotation[index]
+        answer = ann["answer"]
+        if self.answer_list and isinstance(answer, str):
+            answer = self.answer_list.index(answer)
+        return {
+            "video": self._video(ann["video"]),
+            "text_input": self.text_processor(ann["question"]),
+            "answers": answer,
+            "question_id": ann.get("question_id", ann["instance_id"]),
+        }
+
+
+class VideoRetrievalDataset(RetrievalEvalDataset):
+    """retrieval over videos: same flattened .text/.txt2img ground truth,
+    frames loaded like VideoQADataset."""
+
+    def __getitem__(self, index: int) -> dict:
+        ann = self.annotation[index]
+        video_ref = ann.get("video", ann.get("image"))
+        path = os.path.join(self.vis_root, video_ref) if self.vis_root else video_ref
+        if os.path.exists(path):
+            src = path if not path.endswith(".npy") else np.load(path)
+        elif self.synthetic_images:
+            rng = np.random.default_rng(zlib.crc32(video_ref.encode()))
+            src = rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+        else:
+            raise FileNotFoundError(path)
+        return {"video": self.vis_processor(src), "index": index}
+
+
+class VideoCaptionDataset(VideoQADataset):
+    """video_caption_datasets.py VideoCaptionDataset: (video, caption) with
+    dense image ids for ITC targets."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.img_ids: Dict[Any, int] = {}
+        for ann in self.annotation:
+            self.img_ids.setdefault(ann["image_id"], len(self.img_ids))
+
+    def __getitem__(self, index: int) -> dict:
+        ann = self.annotation[index]
+        return {
+            "video": self._video(ann["video"]),
+            "text_input": self.text_processor(ann["caption"]),
+            "image_id": self.img_ids[ann["image_id"]],
+        }
+
+
+class VideoCaptionEvalDataset(VideoQADataset):
+    """video_caption_datasets.py VideoCaptionEvalDataset."""
+
+    def __getitem__(self, index: int) -> dict:
+        ann = self.annotation[index]
+        return {
+            "video": self._video(ann["video"]),
+            "image_id": ann["image_id"],
+            "instance_id": ann["instance_id"],
+        }
+
+
+@registry.register_builder("video_qa")
+class VideoQABuilder(BaseDatasetBuilder):
+    train_cls = VideoQADataset
+    eval_cls = VideoQADataset
+
+
+@registry.register_builder("video_retrieval")
+class VideoRetrievalBuilder(BaseDatasetBuilder):
+    train_cls = VideoRetrievalDataset
+    eval_cls = VideoRetrievalDataset
+
+
+@registry.register_builder("video_caption")
+class VideoCaptionBuilder(BaseDatasetBuilder):
+    train_cls = VideoCaptionDataset
+    eval_cls = VideoCaptionEvalDataset
+
+
+# ---------------------------------------------------------------------------
+# named dataset builders (one per reference registration,
+# lavis/datasets/builders/*.py): each binds a generic builder to its dataset's
+# download-manifest key, so `registry.get_builder_class("coco_caption")`
+# resolves exactly as in the reference.
+# ---------------------------------------------------------------------------
+
 
 def _named_builder(name: str, base: type, dataset_key: Optional[str]):
     @registry.register_builder(name)
@@ -290,40 +464,257 @@ def _named_builder(name: str, base: type, dataset_key: Optional[str]):
     return NamedBuilder
 
 
-# the named builders of the ported bases (the JAX package's list, in its order)
 for _name, _base, _ds in (
     # caption_builder.py
     ("coco_caption", CaptionBuilder, "coco"),
-    ("nocaps", CaptionBuilder, "nocaps"),            # eval-only in the reference
+    ("nocaps", CaptionBuilder, "nocaps"),            # eval-only in reference
+    ("msrvtt_caption", VideoCaptionBuilder, "msrvtt"),
+    ("msvd_caption", VideoCaptionBuilder, "msvd"),
+    ("vatex_caption", VideoCaptionBuilder, None),
     # image_text_pair_builder.py
     ("conceptual_caption_3m", ImageTextPairBuilder, "conceptual_captions"),
     ("conceptual_caption_12m", ImageTextPairBuilder, "conceptual_captions"),
     ("sbu_caption", ImageTextPairBuilder, "sbu"),
     ("vg_caption", ImageTextPairBuilder, "vg"),
     ("laion2B_multi", ImageTextPairBuilder, None),   # webdataset shards
+    # vqa_builder.py
+    ("coco_vqa", VQABuilder, "coco"),
+    ("ok_vqa", VQABuilder, "coco"),
+    ("aok_vqa", VQABuilder, "coco"),
+    ("vg_vqa", VQABuilder, "vg"),
+    ("gqa", VQABuilder, "gqa"),
     # retrieval_builder.py
     ("coco_retrieval", RetrievalBuilder, "coco"),
     ("flickr30k", RetrievalBuilder, "flickr30k"),
-    # classification_builder.py
+    ("msrvtt_retrieval", VideoRetrievalBuilder, "msrvtt"),
+    ("didemo_retrieval", VideoRetrievalBuilder, "didemo"),
+    # video_qa_builder.py
+    ("msrvtt_qa", VideoQABuilder, "msrvtt"),
+    ("msvd_qa", VideoQABuilder, "msvd"),
+    # classification_builder.py ("nlvr" itself is registered above)
     ("snli_ve", MultimodalClassificationBuilder, None),
 ):
     _named_builder(_name, _base, _ds)
 
 
+# ---------------------------------------------------------------------------
+# dialogue (AVSD), imagefolder
+# ---------------------------------------------------------------------------
+
+
+def _expand_dialog_turns(ann_paths: Sequence[str], *, eval_mode: bool) -> List[dict]:
+    """AVSD annotation expansion (reference dialogue_datasets.py:32-57 train,
+    :88-113 eval): files carry {"dialogs": [...]}; train expands every turn
+    into one sample whose `dialog` is the preceding context; eval keeps one
+    sample per dialog with the LAST turn as the question/answer."""
+    import copy
+
+    annotation: List[dict] = []
+    for ann_path in ann_paths:
+        with open(ann_path) as f:
+            dialogs = json.load(f)["dialogs"]
+        for dialog in dialogs:
+            all_turns = dialog["dialog"]
+            if eval_mode:
+                last = all_turns[-1]
+                row = dict(dialog)
+                row["dialog"] = all_turns[:-1]
+                row["question"] = last["question"]
+                row["answer"] = last["answer"]
+                annotation.append(row)
+            else:
+                context: List[dict] = []
+                for turn in all_turns:
+                    row = copy.deepcopy(dialog)
+                    row["dialog"] = copy.deepcopy(context)
+                    row["question"] = turn["question"]
+                    row["answer"] = turn["answer"]
+                    annotation.append(row)
+                    context.append(turn)
+    return annotation
+
+
+class AVSDDialDataset(BaseAnnotationDataset):
+    """AVSD video-grounded dialogue (reference avsd_dialogue_datasets.py:16-89
+    AVSDDialDataset): vis_processor is the gpt_video_ft processor called as
+    (vis_root, vname); text_processor is gpt_dialogue. The collater pads the
+    token streams, prepends the video segment to token_type_ids/labels
+    (video labels = -1 = ignored), and concatenates the video and text
+    attention masks — numpy throughout instead of torch.cat."""
+
+    EVAL_MODE = False
+
+    def __init__(self, vis_processor=None, text_processor=None, vis_root="",
+                 ann_paths=(), **kw):
+        # annotation format differs from the flat list loader
+        self.vis_processor = vis_processor
+        self.text_processor = text_processor
+        self.vis_root = vis_root
+        self.synthetic_images = kw.pop("synthetic_images", False)
+        self.annotation = _expand_dialog_turns(ann_paths, eval_mode=self.EVAL_MODE)
+        for i, ann in enumerate(self.annotation):
+            ann.setdefault("instance_id", i)
+
+    def __getitem__(self, index: int) -> dict:
+        ann = self.annotation[index]
+        vname = ann["image_id"]
+        video = self.vis_processor(self.vis_root, vname)
+        dialogue = self.text_processor(ann)
+        return {
+            "video_fts": video["video_fts"],
+            "video_token_type_ids": video["token_type_ids"],
+            "input_ids": dialogue["input_ids"],
+            "token_type_ids": dialogue["token_type_ids"],
+            "labels": dialogue["labels"],
+            "image_id": ann["image_id"],
+            "instance_id": ann["instance_id"],
+        }
+
+    def collater(self, samples: List[dict]) -> Dict[str, Any]:
+        input_ids = self.text_processor.padding([s["input_ids"] for s in samples])
+        labels = self.text_processor.padding([s["labels"] for s in samples], -1)
+        video_fts = self.vis_processor.padding([s["video_fts"] for s in samples])
+        token_type_ids = self.text_processor.padding(
+            [s["token_type_ids"] for s in samples]
+        )
+        video_token_type_ids = self.text_processor.padding(
+            [s["video_token_type_ids"] for s in samples]
+        )
+        token_type_ids = np.concatenate([video_token_type_ids, token_type_ids], axis=1)
+        attn_mask = np.concatenate(
+            [
+                self.vis_processor.get_attention_mask(video_fts),
+                self.text_processor.get_attention_mask(input_ids),
+            ],
+            axis=1,
+        )
+        video_labels = np.full(video_fts.shape[:2], -1, labels.dtype)
+        labels = np.concatenate([video_labels, labels], axis=1)
+        return {
+            "input_ids": input_ids,
+            "token_type_ids": token_type_ids,
+            "labels": labels,
+            "video_fts": video_fts,
+            "attn_mask": attn_mask,
+        }
+
+
+class AVSDDialEvalDataset(AVSDDialDataset):
+    """Eval split: one sample per dialog, last turn held out
+    (avsd_dialogue_datasets.py:92-166)."""
+
+    EVAL_MODE = True
+
+
+@registry.register_builder("avsd_dialogue")
+class AVSDDialBuilder(BaseDatasetBuilder):
+    """reference dialogue_builder.py:17-22."""
+
+    train_cls = AVSDDialDataset
+    eval_cls = AVSDDialEvalDataset
+
+
+class ImageFolderDataset(BaseAnnotationDataset):
+    """Class-per-subdirectory image dataset (reference
+    imagefolder_dataset.py:16-59, torchvision ImageFolder semantics: classes
+    are the sorted subdirectory names, labels their indices). `classnames`
+    optionally maps label indices to display names (the reference hardcodes
+    the ImageNet-1k list in imagefolder_builder.py; pass it from config)."""
+
+    IMG_EXTS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".pgm", ".tif",
+                ".tiff", ".webp")
+
+    def __init__(self, vis_processor=None, vis_root="", classnames=(), **kw):
+        self.vis_processor = vis_processor or (lambda x: np.asarray(x, np.float32))
+        self.vis_root = vis_root
+        self.synthetic_images = kw.pop("synthetic_images", False)
+        self.classes = sorted(
+            d for d in os.listdir(vis_root)
+            if os.path.isdir(os.path.join(vis_root, d))
+        )
+        self.annotation = []
+        for label, cls in enumerate(self.classes):
+            cdir = os.path.join(vis_root, cls)
+            for fname in sorted(os.listdir(cdir)):
+                if fname.lower().endswith(self.IMG_EXTS):
+                    path = os.path.join(cdir, fname)
+                    self.annotation.append(
+                        {"image": path, "label": label, "image_id": path}
+                    )
+        self.classnames = list(classnames)
+        for i, ann in enumerate(self.annotation):
+            ann.setdefault("instance_id", i)
+
+    def __getitem__(self, index: int) -> dict:
+        from PIL import Image
+
+        ann = self.annotation[index]
+        image = Image.open(ann["image"]).convert("RGB")
+        return {
+            "image": self.vis_processor(image),
+            "label": ann["label"],
+            "image_id": ann["image_id"],
+            "instance_id": ann["instance_id"],
+        }
+
+    def displ_item(self, index: int) -> dict:
+        sample, ann = self[index], self.annotation[index]
+        name = (self.classnames[ann["label"]] if self.classnames
+                else self.classes[ann["label"]])
+        return {"file": ann["image"], "label": name, "image": sample["image"]}
+
+
+@registry.register_builder("imagenet")
+class ImageNetBuilder(BaseDatasetBuilder):
+    """reference imagefolder_builder.py:15-60: per-split ImageFolder under
+    vis_root/<split>; only train/val are valid split names."""
+
+    train_cls = ImageFolderDataset
+    eval_cls = ImageFolderDataset
+
+    def build(self) -> Dict[str, Any]:
+        datasets = {}
+        for split, info in self.build_info.items():
+            assert split in ("train", "val"), (
+                f"Invalid split name {split}, must be one of 'train' and 'val'."
+            )
+            is_train = split == "train"
+            info = dict(info)
+            vis_root = info.pop("vis_root")
+            if os.path.isdir(os.path.join(vis_root, split)):
+                vis_root = os.path.join(vis_root, split)
+            cls = self.train_cls if is_train else self.eval_cls
+            datasets[split] = cls(
+                self.vis_processors.get("train" if is_train else "eval"),
+                vis_root=vis_root,
+                **{**self.extra, **info},
+            )
+        return datasets
+
+
 def build_datasets_for_model(task, model, datasets_cfg):
     """Builds every configured dataset, resolving processor NAMES through
-    the registry (LAVIS behavior) and defaulting to an image processor
-    sized to the model's tower (the JAX package's video branch, for
-    ALPRO's TimeSformer, is not ported)."""
-    from llava_align_tpu_torch.framework.processors import BlipImageEvalProcessor
+    the registry (LAVIS behavior) and defaulting to an image/video
+    processor sized to the model's tower."""
+    from llava_align_tpu_torch.framework.processors import (
+        AlproVideoEvalProcessor,
+        BlipImageEvalProcessor,
+    )
+    from llava_align_tpu_torch.framework.registry import registry as _registry
 
     mcfg = model.cfg
     vision = getattr(mcfg, "vision", None) or getattr(
         getattr(mcfg, "base", None), "vision", None
     )
-    default_proc = BlipImageEvalProcessor(
-        image_size=getattr(vision, "image_size", 224)
-    )
+    video_cfg = getattr(mcfg, "video", None)
+    if video_cfg is not None:  # ALPRO family: TimeSformer tower
+        default_proc = AlproVideoEvalProcessor(
+            image_size=video_cfg.image_size, n_frms=video_cfg.num_frames
+        )
+    else:
+        default_proc = BlipImageEvalProcessor(
+            image_size=getattr(vision, "image_size", 224)
+        )
 
     def resolve(proc):
         if isinstance(proc, str):
@@ -347,3 +738,4 @@ def build_datasets_for_model(task, model, datasets_cfg):
             }
         out_cfg[name] = dcfg
     return task.build_datasets(out_cfg)
+

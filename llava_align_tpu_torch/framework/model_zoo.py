@@ -16,10 +16,11 @@ blip_classification, blip_nlvr, blip_pretrain), ALBEF (albef_retrieval,
 albef_pretrain, albef_vqa, albef_classification, albef_nlvr,
 albef_feature_extractor), CLIP (clip, clip_feature_extractor) and BLIP-2's
 LAVIS entries (blip2, blip2_feature_extractor, blip2_image_text_matching,
-blip2_opt, blip2_t5, blip2_t5_instruct); a random LAVIS entry is the tiny
-config, as in the JAX zoo. And the front door: load_model,
-load_preprocess, load_model_and_preprocess, ModelZoo. ALPRO, GPT dialogue,
-PNP-VQA, Img2Prompt and BLIP-Diffusion are not ported yet.
+blip2_opt, blip2_t5, blip2_t5_instruct), ALPRO (alpro_retrieval,
+alpro_qa) and gpt_dialogue; a random LAVIS entry is the tiny config, as in
+the JAX zoo. And the front door: load_model, load_preprocess,
+load_model_and_preprocess, ModelZoo. PNP-VQA, Img2Prompt and
+BLIP-Diffusion are not ported yet.
 """
 
 from __future__ import annotations
@@ -521,14 +522,83 @@ for _arch in ("blip2_opt", "blip2_t5", "blip2_t5_instruct"):
     _blip2_lm_factory(_arch)
 
 
+@registry.register_model("gpt_dialogue")
+class GptDialogueModel(_ZooModel):
+    """GPT dialogue (reference lavis/models/gpt_models/gpt_dialogue.py)."""
+
+    arch = "gpt_dialogue"
+
+    def __init__(self, model_path: Optional[str] = None, device=None, **kw):
+        from llava_align_tpu_torch.models import gpt2 as gpt2_mod
+
+        if not _random(model_path):
+            from llava_align_tpu_torch.utils.hf_convert import convert_gpt_dialogue, load_state_dict
+
+            cfg = gpt2_mod.GptDialogueConfig()
+            params = convert_gpt_dialogue(load_state_dict(model_path), cfg, device=device)
+        else:
+            cfg = gpt2_mod.GptDialogueConfig.tiny()
+            params = gpt2_mod.dialogue_init(cfg, device=device)
+        super().__init__(params, cfg)
+
+    def forward(self, **samples):
+        from llava_align_tpu_torch.models import gpt2 as gpt2_mod
+
+        return gpt2_mod.dialogue_forward(self.params, self.cfg, **samples)
+
+    def generate(self, input_ids, video_fts, **kw):
+        from llava_align_tpu_torch.models import gpt2 as gpt2_mod
+
+        return gpt2_mod.dialogue_generate(self.params, self.cfg, input_ids, video_fts, **kw)
+
+
+def _alpro_factory(arch_name: str, variant: str):
+    @registry.register_model(arch_name)
+    class AlproModel(_ZooModel):
+        """ALPRO zoo entry (reference lavis/models/alpro_models/*)."""
+
+        arch = arch_name
+
+        def __init__(self, model_path: Optional[str] = None, num_classes: int = 0, device=None, **kw):
+            from llava_align_tpu_torch.models import alpro as alpro_mod
+
+            if not _random(model_path):
+                from llava_align_tpu_torch.utils.hf_convert import convert_alpro, load_state_dict
+
+                cfg = alpro_mod.AlproConfig(num_classes=num_classes)
+                params = convert_alpro(load_state_dict(model_path), cfg, variant=variant, device=device)
+            else:
+                cfg = alpro_mod.AlproConfig.tiny(num_classes=num_classes or (2 if variant == "qa" else 0))
+                params = alpro_mod.init(cfg, variant=variant, device=device)
+            self.variant = variant
+            super().__init__(params, cfg)
+
+        def predict(self, video, ids, mask):
+            from llava_align_tpu_torch.models import alpro as alpro_mod
+
+            return alpro_mod.qa_logits(self.params, self.cfg, video, ids, mask)
+
+        def compute_sim_matrix(self, videos, text_ids, text_mask, **kw):
+            from llava_align_tpu_torch.models import alpro as alpro_mod
+
+            return alpro_mod.compute_sim_matrix(self.params, self.cfg, videos, text_ids, text_mask, **kw)
+
+    AlproModel.__name__ = f"AlproModel_{arch_name}"
+    return AlproModel
+
+
+for _arch, _variant in (("alpro_retrieval", "retrieval"), ("alpro_qa", "qa")):
+    _alpro_factory(_arch, _variant)
+
+
 # ---------------------------------------------------------------------------
 # the front door (reference lavis/models/__init__.py: load_model,
 # load_preprocess, load_model_and_preprocess and the model_zoo listing)
 # ---------------------------------------------------------------------------
 
 # the default preprocess of each ported arch family (the reference's yaml
-# `preprocess:` blocks), as the JAX zoo lists them; ALPRO's, GPT's,
-# BLIP-Diffusion's, PNP-VQA's and Img2Prompt's come with their models
+# `preprocess:` blocks), as the JAX zoo lists them; BLIP-Diffusion's,
+# PNP-VQA's and Img2Prompt's come with their models
 _DEFAULT_PREPROCESS: Dict[str, Dict[str, Dict[str, Optional[str]]]] = {
     "blip": {"vis": {"train": "blip_image_train", "eval": "blip_image_eval"},
              "text": {"train": "blip_caption", "eval": "blip_caption"}},
@@ -536,13 +606,19 @@ _DEFAULT_PREPROCESS: Dict[str, Dict[str, Dict[str, Optional[str]]]] = {
               "text": {"train": "blip_caption", "eval": "blip_caption"}},
     "albef": {"vis": {"train": "blip_image_train", "eval": "blip_image_eval"},
               "text": {"train": "blip_caption", "eval": "blip_caption"}},
+    "alpro": {"vis": {"train": "alpro_video_train", "eval": "alpro_video_eval"},
+              "text": {"train": "blip_caption", "eval": "blip_caption"}},
     "clip": {"vis": {"train": "clip_image_train", "eval": "clip_image_eval"},
              "text": {"train": None, "eval": None}},
+    # the GPT processors need a tokenizer (the port fetches none): without
+    # one, building them raises and says what to pass
+    "gpt": {"vis": {"train": "gpt_video_ft", "eval": "gpt_video_ft"},
+            "text": {"train": "gpt_dialogue", "eval": "gpt_dialogue"}},
 }
 
 
 def _preprocess_family(name: str) -> Optional[Dict[str, Dict[str, Optional[str]]]]:
-    for prefix in ("blip2", "blip", "albef", "clip"):
+    for prefix in ("blip2", "blip", "albef", "alpro", "clip", "gpt"):
         if name.startswith(prefix):
             return _DEFAULT_PREPROCESS[prefix]
     return None

@@ -9,7 +9,9 @@ convert_blip2_stage1, convert_blip2_opt, convert_blip2_t5; the LAVIS zoo's
 convert_blip_vit, convert_med, convert_blip, convert_albef,
 convert_blip_nlvr, convert_blip_variant, convert_clip_full,
 convert_clip_openai, blip_config_from_json, t5_config_from_json and
-load_blip_t5_composite).
+load_blip_t5_composite; the video and dialogue families'
+convert_timesformer, convert_alpro, convert_gpt2 and
+convert_gpt_dialogue).
 
 The tree is the JAX package's, so that loading a checkpoint here and
 `utils.jax_params.from_jax_params` of the JAX loader's tree give the same
@@ -1161,3 +1163,99 @@ def convert_blip_variant(sd: StateDict, cfg, variant: str, num_classes: int = 2,
     else:
         raise ValueError(f"unknown blip variant {variant!r}")
     return params
+
+
+# ---------------------------------------------------------------------------
+# the video and dialogue families: TimeSformer, ALPRO, GPT-2, GPT dialogue
+# ---------------------------------------------------------------------------
+
+
+def convert_timesformer(sd: StateDict, cfg, prefix: str = "visual_encoder.model.", device=None) -> Dict[str, Any]:
+    """A LAVIS TimeSformer state dict (timesformer/vit.py VisionTransformer)
+    → the models/timesformer tree (qkv stays fused, [L, 3D, D])."""
+    device = resolve_device(device)
+    dt, L = cfg.dtype, cfg.num_layers
+    get = _leaf(sd, device, dt)
+
+    def lin(name):
+        return {"w": _stack(sd, prefix + f"blocks.{{i}}.{name}.weight", L, dt, device),
+                "b": _stack(sd, prefix + f"blocks.{{i}}.{name}.bias", L, dt, device)}
+
+    def lnorm(name):
+        return {"scale": _stack(sd, prefix + f"blocks.{{i}}.{name}.weight", L, dt, device),
+                "bias": _stack(sd, prefix + f"blocks.{{i}}.{name}.bias", L, dt, device)}
+
+    return {
+        "cls": get(prefix + "cls_token"),
+        "pos": get(prefix + "pos_embed"),
+        "time": get(prefix + "time_embed"),
+        "patch": {"w": get(prefix + "patch_embed.proj.weight"), "b": get(prefix + "patch_embed.proj.bias")},
+        "layers": {"t_ln": lnorm("temporal_norm1"), "t_qkv": lin("temporal_attn.qkv"),
+                   "t_proj": lin("temporal_attn.proj"), "t_fc": lin("temporal_fc"),
+                   "ln1": lnorm("norm1"), "qkv": lin("attn.qkv"), "proj": lin("attn.proj"),
+                   "ln2": lnorm("norm2"), "fc1": lin("mlp.fc1"), "fc2": lin("mlp.fc2")},
+        "final_ln": {"scale": get(prefix + "norm.weight"), "bias": get(prefix + "norm.bias")},
+    }
+
+
+def convert_alpro(sd: StateDict, cfg, variant: str = "retrieval", device=None) -> Dict[str, Any]:
+    """A LAVIS ALPRO checkpoint → the models/alpro tree. The ALPRO BERT has
+    no cross-attention (bert_config_alpro.json add_cross_attention=false):
+    its cross stacks are zero-filled and never run (fusion is
+    self-attention over the concatenated sequence). Heads the checkpoint
+    lacks are zeros; temp defaults to 0.07."""
+    device = resolve_device(device)
+    text_prefix = _pick_bert_prefix(sd, "text_encoder")
+    if text_prefix is None:
+        raise KeyError("no text_encoder.* keys in ALPRO state dict")
+    dt, D, E = cfg.text.dtype, cfg.text.hidden_size, cfg.embed_dim
+    params: Dict[str, Any] = {
+        "visual": convert_timesformer(sd, cfg.video, device=device),
+        "text": convert_med(_zero_fill_cross(sd, text_prefix, cfg.text), cfg.text, prefix=text_prefix,
+                            head_prefix="__none__.", device=device),
+    }
+    if variant == "retrieval":
+        params["vision_proj"] = _linear_or_zeros(sd, "vision_proj", E, cfg.video.hidden_size, dt, device)
+        params["text_proj"] = _linear_or_zeros(sd, "text_proj", E, D, dt, device)
+        params["itm_head"] = _linear_or_zeros(sd, "itm_head", 2, D, dt, device)
+        params["temp"] = _temp(sd, device)
+    if variant == "qa":
+        params["classifier"] = {"fc1": _linear_or_zeros(sd, "classifier.0", 2 * D, D, dt, device),
+                                "fc2": _linear_or_zeros(sd, "classifier.2", cfg.num_classes, 2 * D, dt, device)}
+    return params
+
+
+def convert_gpt2(sd: StateDict, cfg, prefix: str = "transformer.", device=None) -> Dict[str, Any]:
+    """An HF GPT2LMHeadModel state dict → the models/gpt2 tree. HF GPT-2's
+    Conv1D weights are [in, out]: transposed here to [out, in]."""
+    device = resolve_device(device)
+    dt, L = cfg.dtype, cfg.num_layers
+    get = _leaf(sd, device, dt)
+
+    def conv1d(name):
+        return {"w": _stack(sd, prefix + f"h.{{i}}.{name}.weight", L, dt, device, lambda w: w.t()),
+                "b": _stack(sd, prefix + f"h.{{i}}.{name}.bias", L, dt, device)}
+
+    def lnorm(name):
+        return {"scale": _stack(sd, prefix + f"h.{{i}}.{name}.weight", L, dt, device),
+                "bias": _stack(sd, prefix + f"h.{{i}}.{name}.bias", L, dt, device)}
+
+    return {
+        "wte": get(prefix + "wte.weight"),
+        "wpe": get(prefix + "wpe.weight"),
+        "layers": {"ln1": lnorm("ln_1"), "qkv": conv1d("attn.c_attn"), "o": conv1d("attn.c_proj"),
+                   "ln2": lnorm("ln_2"), "fc1": conv1d("mlp.c_fc"), "fc2": conv1d("mlp.c_proj")},
+        "ln_f": {"scale": get(prefix + "ln_f.weight"), "bias": get(prefix + "ln_f.bias")},
+    }
+
+
+def convert_gpt_dialogue(sd: StateDict, cfg, device=None) -> Dict[str, Any]:
+    """A LAVIS GPTDialogue checkpoint (gpt_dialogue.py: GPT2LMHeadModel +
+    the video_ff / video_ff_out Linears) → the models/gpt2 dialogue tree."""
+    device = resolve_device(device)
+    get = _leaf(sd, device, cfg.gpt.dtype)
+    return {
+        "gpt": convert_gpt2(sd, cfg.gpt, device=device),
+        "video_ff": {"w": get("video_ff.weight"), "b": get("video_ff.bias")},
+        "video_ff_out": {"w": get("video_ff_out.weight"), "b": get("video_ff_out.bias")},
+    }

@@ -1,7 +1,7 @@
 """Carry a JAX param tree (as numpy) over to the port's tensors.
 
-Both packages keep the same tree: LLaMA, Qwen, OPT, MPT, T5 and BLIP
-linears are [out, in] in both (the Qwen ViT's nested {w, b} dicts too;
+Both packages keep the same tree: LLaMA, Qwen, OPT, MPT, T5, BLIP,
+TimeSformer / ALPRO and GPT-2 linears are [out, in] in both (the Qwen ViT's nested {w, b} dicts too;
 T5's layer lists and relative-bias tables [NB, H] as they are), and CLIP/projector kernels
 stay [in, out] (used as y @ kernel) — nothing is transposed. int8 dicts {'q', 's'} become int8 and fp32 tensors, int4 dicts
 {'q4', 'gs'} packed int8 and fp32 tensors (the same layout in both

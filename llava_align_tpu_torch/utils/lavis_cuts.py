@@ -1,4 +1,5 @@
-"""The LAVIS zoo's families cut to 2 layers per tower at full width, fp32,
+"""The LAVIS zoo's families (ALPRO's TimeSformer and GPT-2 dialogue too)
+cut to 2 layers per tower at full width, fp32,
 random from a seed: the same params and inputs go through each family on
 the card and on the CPU (chip_smoke.py's LAVIS reference phase and
 tests/test_torch_cuda.py take their cases from here).
@@ -16,7 +17,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 NAMES = ("albef", "albef_classification", "blip_classification", "blip", "clip", "blip2_stage1", "blip2_opt",
-         "blip2_t5")
+         "blip2_t5", "alpro", "gpt_dialogue")
 
 
 def tree_to(tree, device):
@@ -37,7 +38,7 @@ def two_layers(cfg, **parts):
 def cut_cases() -> Dict[str, Tuple[str, dict, Callable]]:
     """name → (what, params on the CPU, fn(params, device) → a loss, or
     logits for BLIP's itm_score) for each of NAMES, batch 2."""
-    from llava_align_tpu_torch.models import albef, blip, blip2, blip_variants, clip
+    from llava_align_tpu_torch.models import albef, alpro, blip, blip2, blip_variants, clip, gpt2
 
     g = torch.Generator().manual_seed(21)
     B, f32 = 2, {"dtype": torch.float32}
@@ -85,5 +86,17 @@ def cut_cases() -> Dict[str, Tuple[str, dict, Callable]]:
     cases["blip2_t5"] = ("BLIP-2 T5 t5_forward_loss", tp, lambda p, d: blip2.t5_forward_loss(
         p, t, xs.to(d), ids.to(d) % t.text.vocab_size, mask.to(d), ids.to(d).flip(1) % t.text.vocab_size,
         mask.to(d)))
+    v = two_layers(alpro.AlproConfig(), video={}, text={"fusion_layer": 1})
+    vp = alpro.init(v, "retrieval", device="cpu", seed=10)
+    video = torch.randn((B, 3, v.video.num_frames, v.video.image_size, v.video.image_size), generator=g)
+    cases["alpro"] = ("ALPRO (TimeSformer) retrieval_train_step", vp, lambda p, d: alpro.retrieval_train_step(
+        p, v, None, video.to(d), ids.to(d), mask.to(d), neg_idx=([1, 0], [1, 0]))["loss"])
+    gc = dataclasses.replace(gpt2.GptDialogueConfig(), gpt=dataclasses.replace(gpt2.Gpt2Config(), num_layers=2))
+    gp = gpt2.dialogue_init(gc, device="cpu", seed=11)
+    fts = torch.randn((B, 8, gc.len_video_ft), generator=g)
+    labels = torch.cat([torch.full((B, 8), -1), ids], dim=1)
+    cases["gpt_dialogue"] = ("GPT-2 dialogue_forward", gp, lambda p, d: gpt2.dialogue_forward(
+        p, gc, ids.to(d), fts.to(d), torch.cat([torch.ones((B, 8), dtype=mask.dtype), mask], 1).to(d),
+        labels=labels.to(d))["loss"])
     assert tuple(cases) == NAMES
     return cases

@@ -13,6 +13,7 @@ module's programs are traced one after another and compiled side by side
 
 import contextlib
 import functools
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -122,3 +123,23 @@ def port_grads(loss_fn, tree):
     loss = out[0] if isinstance(out, tuple) else out
     loss = loss["loss"] if isinstance(loss, dict) else loss
     return out, torch.autograd.grad(loss, xs, allow_unused=True)
+
+
+class GptMockTokenizer:
+    """What the GPT processors need of a tokenizer, offline: the special
+    tokens (framework/processors.GPT_SPECIAL_TOKENS) are ids 0-6, "<pad>"
+    the last; a word is a crc32 id in [7, vocab)."""
+
+    SPECIAL = ["<bos>", "<eos>", "<speaker1>", "<speaker2>", "<cap>", "<video>", "<pad>"]
+    pad_token_id = 6
+
+    def __init__(self, vocab: int = 64):
+        self.vocab = vocab
+
+    def encode(self, text: str) -> list:
+        return [zlib.crc32(w.encode()) % (self.vocab - 7) + 7 for w in text.split()]
+
+    def convert_tokens_to_ids(self, tokens):
+        if isinstance(tokens, str):
+            return self.SPECIAL.index(tokens)
+        return [self.SPECIAL.index(t) for t in tokens]

@@ -6,7 +6,8 @@ _txt_kind_prefix_bases), and VCD's diffusion schedule; and the verbatim
 copies (evals/mme, evals/mmmu, the schedule, utils/moderation, the state
 dict tools of utils/checkpoint_tools, PopeTask, text_only_plan,
 engine.branch_token_ids, the LAVIS zoo's datasets, processors, tasks,
-randaugment and the CLIP tokenizer, and the rest of VERBATIM_COPIES) must
+randaugment and the CLIP tokenizer, the evaluation tasks, the video and
+dialogue data and processors, and the rest of VERBATIM_COPIES) must
 keep the originals' source, the package name aside. Exact equality."""
 
 import dataclasses
@@ -433,6 +434,19 @@ VERBATIM_COPIES = [
         "cutout", "_enhance_args", "_shear_args", "_translate_args", "_rotate_args", "_solarize_args",
         "_posterize_args", "_none_args", "RandomAugment", "VideoRandomAugment")],
     *[("models.clip_tokenizer", n) for n in ("bytes_to_unicode", "_clean", "ClipTokenizer")],
+    # the evaluation tasks, the VQA / NLVR / video / dialogue / ImageNet data and the video and GPT processors
+    *[("framework.tasks", n) for n in (
+        "_vqa_process_punct", "vqa_normalize", "VQATask", "GQATask", "AOKVQATask", "VQARCTask", "GQARCTask",
+        "DialogueTask")],
+    *[("framework.datasets", n) for n in (
+        "VQADataset", "VQAEvalDataset", "NLVRDataset", "VQABuilder", "NLVRBuilder", "VideoQADataset",
+        "VideoRetrievalDataset", "VideoCaptionDataset", "VideoCaptionEvalDataset", "VideoQABuilder",
+        "VideoRetrievalBuilder", "VideoCaptionBuilder", "_expand_dialog_turns", "AVSDDialDataset",
+        "AVSDDialEvalDataset", "AVSDDialBuilder", "ImageFolderDataset", "ImageNetBuilder",
+        "build_datasets_for_model")],
+    *[("framework.processors", n) for n in (
+        "AlproVideoEvalProcessor", "AlproVideoTrainProcessor", "pad_sequences", "GPTDialogueProcessor",
+        "GPTVideoFeatureProcessor")],
 ]
 
 
@@ -616,8 +630,9 @@ def test_caption_task_copy_behaves_as_jax(tmp_path):
         assert tasks.BaseTask.setup_task({"task_args": {"x": 1}}).cfg == {"x": 1}
     assert texts[0] == texts[1]
     assert '"image_id": 7' in texts[1][2] and texts[1][2].count('"image_id": 7') == 1
-    assert treg.list("task") == ["base", "captioning", "image_text_pretrain", "multimodal_classification", "pope",
-                                 "retrieval"] and treg is not jreg
+    assert treg.list("task") == ["aok_vqa", "base", "captioning", "dialogue", "gqa", "gqa_reading_comprehension",
+                                 "image_text_pretrain", "multimodal_classification", "pope", "retrieval", "vqa",
+                                 "vqa_reading_comprehension"] and treg is not jreg
     assert set(treg.list("task")) <= set(jreg.list("task"))
     assert treg.get_task_class("captioning") is ttasks.CaptionTask
     assert treg.get_task_class("pope") is ttasks.PopeTask

@@ -6,7 +6,8 @@ the MME and MMMU runners and scorers, the Qwen-VL and InstructBLIP
 runners, the W8A8 and int8 KV-cache modes, the sampling sweep, the bias
 probe and the judge pipeline, LLaVA-MPT and BLIP-2 OPT generates, BLIP-2
 T5's t5_generate and a stage-1 caption, the train CLI (2 epochs and a
-resume; the four LAVIS archs' train steps built) and the LAVIS zoo, the
+resume; the four LAVIS archs' train steps built), the LAVIS zoo (ALPRO
+and GPT dialogue too) and the evaluation CLI once (video retrieval), the
 parallel dry run on 2 spawned ranks (parallel/*), every microbenchmark twin (at rehearsal size) and the utility tail (the native
 loader, PopeTask, profiling, the checkpoint tools, moderation) on the CPU,
 with jax (and the JAX package) blocked — the machine with the card has no
@@ -476,6 +477,21 @@ for arch in ("blip_caption", "blip_retrieval", "blip_nlvr", "albef_vqa", "albef_
     model, vis, txt = load_model_and_preprocess(arch, device="cpu")
     assert model.arch == arch and set(vis) == {"train", "eval"}, arch
 
+# the video and dialogue entries, and the evaluation CLI once (video
+# retrieval on alpro_retrieval, synthetic videos)
+for arch in ("alpro_retrieval", "alpro_qa", "gpt_dialogue"):
+    assert load_model(arch, device="cpu").arch == arch
+from llava_align_tpu_torch.runners import evaluate
+ann = os.path.join(d, "videos.json")
+with open(ann, "w") as f:
+    json.dump([{"video": f"v{i}.mp4", "caption": [f"clip {i}", f"video {i}"], "image_id": i} for i in range(3)], f)
+cfg = {"run": {"task": "retrieval", "k_test": 2}, "model": {"arch": "alpro_retrieval"},
+       "datasets": {"msrvtt_retrieval": {"synthetic_images": True, "build_info": {"test": {"ann_paths": [ann]}}}}}
+with open(path, "w") as f:
+    yaml.safe_dump(cfg, f)
+metrics = evaluate.main(["--cfg-path", path, "--options", "run.device=cpu"])
+assert 0 <= metrics["txt_r1"] <= 100 and set(metrics) >= {"img_r1", "r_mean"}, metrics
+
 loaded = [m for m, mod in sys.modules.items()
           if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "llava_align_tpu", "safetensors",
                                                      "transformers")]
@@ -642,9 +658,11 @@ def test_train_cli_runs_with_jax_blocked(runs):
     tiny, synthetic images), 2 epochs then a resume from checkpoint_last;
     then the train step of each LAVIS arch (albef_retrieval,
     albef_classification, blip_classification, clip) built on its zoo
-    entry, and the LAVIS zoo's entries built with their processors, with jax, the JAX package, safetensors and transformers
-    unimportable (the card machine has PyYAML and Pillow, which this path
-    reads)."""
+    entry, and the LAVIS zoo's entries built with their processors
+    (alpro_retrieval, alpro_qa and gpt_dialogue among them), then
+    runners/evaluate.main once (video retrieval on alpro_retrieval), with
+    jax, the JAX package, safetensors and transformers unimportable (the
+    card machine has PyYAML and Pillow, which this path reads)."""
     proc = _result(runs, "train")
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "OK", proc.stdout[-2000:]
