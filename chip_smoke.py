@@ -277,6 +277,32 @@ Phases, each fatal on failure (exit code != 0, no result line):
      card against CPU: the losses (BLIP's ITM logits) within 1e-3
      relative. K1-K4 must not launch (launches_by_path `eval_cli_*`,
      `eval_*`, `alpro_*`, `gpt_*`).
+ 19. the rest of the LAVIS zoo (after phase 18, before the 2-layer cuts),
+     random weights from a seed at the JAX package's default configs,
+     test tokenizers: PnP-VQA's predict_answers (BLIP ViT-B/16 at 224 with
+     BERT-base for ITM and captions, fp32; FlanT5-XL's widths, bf16) on 4
+     images x 1 question with its defaults (50 captions, 20 patches, one
+     caption a FiD context, 20 answer tokens, 10 rounds at most);
+     Img2Prompt (the same towers) on the same images: forward_itm,
+     forward_cap with the ITM filter (100 captions; the threshold at the
+     median match probability of a calibration round, as a random ITM
+     head shifts them all by a seed's offset), answer_extraction,
+     forward_qa_generation over each image's <= 31 contexts in 10-row
+     chunks and prompts_construction; BLIP-Diffusion (CLIP ViT-L/14 at
+     224, a Q-Former of 16 queries over 1024-wide features, the CLIP text
+     tower 768 x 12, fp32): ctx_embeddings for 4 subjects, train_loss at
+     batch 4 on [4, 4, 64, 64] latents with its backward, generate with
+     50 DDIM steps and classifier-free guidance on [1, 4, 64, 64], and a
+     5-step generate with a prompt-to-prompt AttentionStore at the UNet's
+     attention site. The UNet is a small torch stand-in (pooled latents,
+     one cross-attention site over the prompt embedding): the times are
+     BLIP-Diffusion's own path, not Stable Diffusion's. Each prints s per
+     call, questions/s, s/step or images/s and peak memory beside the
+     card. K1-K4 must not launch (launches_by_path `pnp_*`,
+     `img2prompt_*`, `blip_diffusion_*`). The 2-layer cuts of PnP-VQA (the
+     GradCAM row, the FiD logits) and BLIP-Diffusion (ctx_embeddings,
+     encode_prompt_ctx, train_loss at fixed draws) run with the LAVIS
+     reference phase, card against CPU within 1e-3.
 
 Prints a JSON line with each kernel's record (launches: both main paths'
 counts, per path under launches_by_path; K1's and K4's prefill-row times
@@ -4156,6 +4182,298 @@ def phase_eval_full(dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the rest of the LAVIS zoo (phase 19): PnP-VQA, Img2Prompt, BLIP-Diffusion
+# and the prompt-to-prompt controllers, at the JAX package's default
+# configs. Plain torch, no TPU kernel on these paths: each launches_by_path
+# entry holds K1-K4 at zero.
+# ---------------------------------------------------------------------------
+
+ZOO_IMAGES = 4
+ZOO_QUESTIONS = ("what is the man holding?", "what color is the car?", "how many people are there?",
+                 "where is the dog sitting?")
+BERT_CLS, BERT_SEP = 101, 102
+CLIP_BOS, CLIP_EOS = 49406, 49407
+T5_MAX_LEN = 512  # the reference tokenizes QG and FiD contexts with truncation at 512
+DIFFUSION_STEPS = 50
+PTP_STEPS = 5
+
+
+def crc_ids(text: str, lo: int, hi: int) -> list:
+    """A test tokenizer: each word a crc32 id in [lo, hi)."""
+    import zlib
+
+    return [zlib.crc32(w.encode()) % (hi - lo) + lo for w in text.split()]
+
+
+def pad_rows(rows: list, width: int = 0) -> tuple:
+    """(ids, mask) int64 numpy arrays of the rows, right-padded with 0."""
+    width = max(width, max(map(len, rows)))
+    ids, mask = np.zeros((len(rows), width), np.int64), np.zeros((len(rows), width), np.int64)
+    for i, r in enumerate(rows):
+        ids[i, : len(r)], mask[i, : len(r)] = r, 1
+    return ids, mask
+
+
+def bert_tokenize(texts) -> tuple:
+    return pad_rows([[BERT_CLS] + crc_ids(t, 1000, 30000) + [BERT_SEP] for t in texts])
+
+
+def t5_tokenize(texts) -> tuple:
+    return pad_rows([crc_ids(t, 100, 32000)[: T5_MAX_LEN - 1] + [1] for t in texts])
+
+
+def clip_tokenize(texts, length: int) -> torch.Tensor:
+    """CLIP ids [n, length]: BOS, the words, EOS, cut to `length` and
+    padded with EOS (as the reference's tokenizer pads)."""
+    rows = [([CLIP_BOS] + crc_ids(t, 1000, 49000))[: length - 1] + [CLIP_EOS] for t in texts]
+    return torch.tensor([r + [CLIP_EOS] * (length - len(r)) for r in rows])
+
+
+def decode_words(row) -> str:
+    return " ".join(f"w{t}" for t in row)
+
+
+class StandInUnet:
+    """A small stand-in for BLIP-Diffusion's UNet (the reference takes
+    diffusers' UNet2DConditionModel; as in the JAX package, the UNet is the
+    caller's): the latents 4x4 average-pooled into tokens, a sinusoidal
+    timestep embedding added, ONE cross-attention site over the prompt
+    embedding (where a prompt-to-prompt hook sees the probabilities as
+    numpy [B * heads, tokens, words]), projected back to 4 channels and
+    upsampled, plus 0.1 x the latents."""
+
+    def __init__(self, dev, text_width: int, width: int = 320, heads: int = 8, seed: int = 0):
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def w(i, o):
+            return torch.randn((i, o), generator=g, device=dev) / i**0.5
+
+        self.w_in, self.wq, self.wk = w(4, width), w(width, width), w(text_width, width)
+        self.wv, self.wo, self.w_out = w(text_width, width), w(width, width), w(width, 4)
+        self.width, self.heads = width, heads
+
+    def __call__(self, x, t, cond, hook=None):
+        import math
+
+        B, C, H, W = x.shape
+        tok = F.avg_pool2d(x, 4).flatten(2).transpose(1, 2)  # [B, n, 4]
+        n, half, Dh = tok.shape[1], self.width // 2, self.width // self.heads
+        ang = t.float()[:, None] * torch.exp(-math.log(10000.0) * torch.arange(half, device=x.device) / half)
+        tok = tok @ self.w_in + torch.cat([ang.sin(), ang.cos()], -1)[:, None]
+        q = (tok @ self.wq).reshape(B, n, self.heads, Dh).transpose(1, 2)
+        k = (cond @ self.wk).reshape(B, -1, self.heads, Dh).transpose(1, 2)
+        v = (cond @ self.wv).reshape(B, -1, self.heads, Dh).transpose(1, 2)
+        probs = torch.softmax(q @ k.transpose(-1, -2) / Dh**0.5, dim=-1)  # [B, heads, n, S]
+        if hook is not None:
+            host = hook(probs.reshape(B * self.heads, n, -1).float().cpu().numpy(), True)
+            probs = torch.as_tensor(np.ascontiguousarray(host), device=x.device).reshape(probs.shape)
+        a = (probs @ v).transpose(1, 2).reshape(B, n, self.width) @ self.wo
+        out = ((tok + a) @ self.w_out).transpose(1, 2).reshape(B, C, H // 4, W // 4)
+        return F.interpolate(out, scale_factor=4, mode="nearest") + 0.1 * x
+
+
+def zoo_report(what: str, smi: str, secs: float, rate: str, launches: dict) -> None:
+    log(f"{what} on {smi}: {secs:.4f} s, {rate}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {launches}")
+
+
+def phase_pnp_vqa(dev, smi: str, images: torch.Tensor) -> dict:
+    """PnP-VQA's predict_answers at PnpVqaConfig() on ZOO_IMAGES images x 1
+    question, its defaults (50 captions of top-k 50 sampling over 20
+    gradcam-drawn patches, one caption a FiD context, 20 answer tokens).
+    One warm call at 1 image and 2 captions, one timed."""
+    from llava_align_tpu_torch.models import pnp_vqa
+
+    cfg = pnp_vqa.PnpVqaConfig()
+    params = pnp_vqa.init(cfg, device=dev, seed=19)
+    g = torch.Generator(device=dev).manual_seed(19)
+    kw = dict(tokenize_q=bert_tokenize, tokenize_ctx=t5_tokenize, decode_cap=decode_words, decode_ans=decode_words,
+              prompt_ids=LAVIS_PROMPT, generator=g)
+    pnp_vqa.predict_answers(params, cfg, images[:1], list(ZOO_QUESTIONS[:1]), num_captions=2, max_len=2, **kw)
+    (answers, captions, cams), secs, launches = timed(
+        lambda: pnp_vqa.predict_answers(params, cfg, images, list(ZOO_QUESTIONS), **kw))
+    n_caps = [len(c) for c in captions]
+    if len(answers) != ZOO_IMAGES or cams.shape != (ZOO_IMAGES, cfg.itm.vision.num_patches) or \
+            not np.isfinite(cams).all() or not all(0 < n <= 50 for n in n_caps):
+        raise AssertionError(f"PnP-VQA: answers {answers}, captions {n_caps}, gradcams {cams.shape}")
+    zoo_report(f"PnP-VQA predict_answers ({ZOO_IMAGES} images x 1 question, captions kept {n_caps}, answer "
+               f"tokens {[len(a.split()) for a in answers]})", smi, secs,
+               f"{ZOO_IMAGES / secs:.4f} questions/s", launches)
+    del params
+    torch.cuda.empty_cache()
+    return {"pnp_vqa_predict_answers": launches}
+
+
+def phase_img2prompt(dev, smi: str, images: torch.Tensor) -> dict:
+    """Img2Prompt at Img2PromptConfig() on the same images: forward_itm,
+    forward_cap with the ITM filter (100 captions an image), then per image
+    answer_extraction, forward_qa_generation over its <= 31 contexts in
+    10-row chunks (30 tokens) and prompts_construction. A calibration
+    round (which warms the caption path) and a warm question generation
+    first, then each stage timed."""
+    from llava_align_tpu_torch.models import blip, img2prompt, pnp_vqa
+
+    cfg = img2prompt.Img2PromptConfig()
+    params = img2prompt.init(cfg, device=dev, seed=20)
+    g = torch.Generator(device=dev).manual_seed(20)
+    q = [ZOO_QUESTIONS[0]] * ZOO_IMAGES
+    q_ids, q_mask = (torch.from_numpy(a).to(dev) for a in bert_tokenize(q))
+
+    def qg(captions):
+        prompts, n_questions = [], []
+        for rows in captions:
+            texts = [decode_words(r) for r in rows]
+            contexts, answers, ans_to_cap = img2prompt.answer_extraction(texts)
+            ids, mask = (torch.from_numpy(a).to(dev) for a in t5_tokenize(contexts))
+            questions = [decode_words(r) for r in img2prompt.forward_qa_generation(params["qg"], cfg.qg, ids, mask)]
+            n_questions.append(len(questions))
+            prompts.append(img2prompt.prompts_construction(q[0], texts, questions, answers, ans_to_cap))
+        return prompts, n_questions
+
+    # a random ITM head shifts every match probability by an offset that
+    # depends on the seed: the filter keeps the pairs above the median match
+    # probability of one calibration round (forward_cap's draws and ITM
+    # inputs), so about half pass, as with a trained head at 0.5
+    cams = img2prompt.forward_itm(params, cfg, images, q_ids, q_mask)
+    with torch.no_grad():
+        enc = blip.vit_forward(params["cap"]["visual"], cfg.cap.vision, images)
+        flat, rows = pnp_vqa.sampled_patch_captions(params["cap"], cfg.cap, enc, cams, LAVIS_PROMPT, g, None,
+                                                    num_captions=100, num_patches=20, max_new_tokens=20)
+        cap_ids, cap_mask = (torch.from_numpy(a).to(dev) for a in pad_rows([[BERT_CLS] + r + [BERT_SEP]
+                                                                              for r in rows]))
+        threshold = float(img2prompt.itm_rank(params["itm"], cfg.itm, flat, cap_ids, cap_mask).median())
+    kw = dict(decode=decode_words, itm_threshold=threshold)
+    qg([[[1037, 3899, 2006, 1037, 2795], [1037, 2417, 2482]]])
+    by_path = {}
+    cams, secs, by_path["img2prompt_forward_itm"] = timed(
+        lambda: img2prompt.forward_itm(params, cfg, images, q_ids, q_mask))
+    zoo_report(f"Img2Prompt forward_itm ({ZOO_IMAGES} images)", smi, secs, f"{ZOO_IMAGES / secs:.4f} images/s",
+               by_path["img2prompt_forward_itm"])
+    captions, secs, by_path["img2prompt_forward_cap"] = timed(
+        lambda: img2prompt.forward_cap(params, cfg, images, cams, LAVIS_PROMPT, g, **kw))
+    n_caps = [len(c) for c in captions]
+    if not all(n > 0 for n in n_caps):
+        raise AssertionError(f"Img2Prompt forward_cap kept {n_caps} captions (threshold {threshold})")
+    zoo_report(f"Img2Prompt forward_cap with the ITM filter (100 captions an image, threshold {threshold:.4f}; "
+               f"kept {n_caps})", smi, secs,
+               f"{sum(n_caps) / secs:.4f} captions/s", by_path["img2prompt_forward_cap"])
+    (prompts, n_questions), secs, by_path["img2prompt_questions"] = timed(lambda: qg(captions))
+    if not all(0 < n <= 31 for n in n_questions) or not all(p.endswith("\nAnswer:") for p in prompts):
+        raise AssertionError(f"Img2Prompt: questions {n_questions}, prompts {[p[-40:] for p in prompts]}")
+    zoo_report(f"Img2Prompt answer_extraction + forward_qa_generation + prompts_construction ({n_questions} "
+               f"questions, prompts of {[len(p) for p in prompts]} characters)", smi, secs,
+               f"{sum(n_questions) / secs:.4f} questions generated/s", by_path["img2prompt_questions"])
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_blip_diffusion(dev, smi: str) -> dict:
+    """BLIP-Diffusion at BlipDiffusionConfig() (fp32) with StandInUnet:
+    ctx_embeddings for 4 subjects, train_loss at batch 4 on [4, 4, 64, 64]
+    latents with its backward into the Q-Former, its query tokens, ProjLayer
+    and the CLIP text tower (one warm step, LAVIS_TIMED timed), generate
+    with DIFFUSION_STEPS DDIM steps and guidance 7.5 on [1, 4, 64, 64], and
+    a PTP_STEPS-step generate with a prompt-to-prompt AttentionStore at the
+    UNet's attention site."""
+    from llava_align_tpu_torch.framework.optims import tree_leaves
+    from llava_align_tpu_torch.models import blip_diffusion as bd
+    from llava_align_tpu_torch.models import ptp
+
+    cfg = bd.BlipDiffusionConfig()
+    params = bd.init(cfg, device=dev, seed=21)
+    unet = StandInUnet(dev, cfg.text.text.width, seed=22)
+    g = torch.Generator(device=dev).manual_seed(21)
+    rng = np.random.default_rng(21)
+    H, Q, ctx_len = cfg.vision.image_size, cfg.qformer.query_length, cfg.text.text.context_length
+    pix = torch.from_numpy(rng.standard_normal((4, 3, H, H)).astype(np.float32)).to(dev)
+    subj_ids, subj_mask = (torch.from_numpy(a).to(dev) for a in bert_tokenize(["dog", "red backpack", "cat",
+                                                                              "teapot"]))
+    prompts = bd.build_prompt(["swimming in the sea", "on a mountain", "in the snow", "on a table"],
+                              ["dog", "backpack", "cat", "teapot"])
+    prompt_ids = clip_tokenize(prompts, ctx_len - Q).to(dev)  # the prompt plus its queries fit 77 positions
+    neg_ids = clip_tokenize([""], ctx_len).to(dev)
+    by_path = {}
+    with torch.no_grad():
+        bd.ctx_embeddings(params, cfg, pix, subj_ids, subj_mask)
+        ctx, secs, by_path["blip_diffusion_ctx_embeddings"] = timed(
+            lambda: bd.ctx_embeddings(params, cfg, pix, subj_ids, subj_mask))
+    if ctx.shape != (4, Q, cfg.text.text.width) or not torch.isfinite(ctx).all():
+        raise AssertionError(f"BLIP-Diffusion ctx_embeddings: {ctx.shape}")
+    zoo_report("BLIP-Diffusion ctx_embeddings (4 subjects: CLIP ViT-L/14 at 224, the Q-Former, ProjLayer)", smi, secs,
+               f"{4 / secs:.4f} subjects/s", by_path["blip_diffusion_ctx_embeddings"])
+
+    trained = {k: params[k] for k in ("qformer", "query_tokens", "proj")}
+    trained["text_layers"] = params["text"]["text_layers"]
+    leaves = tree_leaves(trained)
+    for x in leaves:
+        x.requires_grad_(True)
+    latents = torch.randn((4, 4, 64, 64), generator=g, device=dev)
+
+    def step():
+        loss = bd.train_loss(params, cfg, g, latents, prompt_ids, pix, subj_ids, subj_mask, unet)
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), max(float(x.abs().max()) for x in grads)
+
+    step()
+    runs = [timed(step) for _ in range(LAVIS_TIMED)]
+    secs = float(np.mean([r[1] for r in runs]))
+    losses = [r[0][0] for r in runs]
+    if not all(np.isfinite(losses)) or not all(np.isfinite(r[0][1]) for r in runs):
+        raise AssertionError(f"BLIP-Diffusion train_loss: {[r[0] for r in runs]}")
+    by_path["blip_diffusion_train_loss"] = runs[-1][2]
+    zoo_report(f"BLIP-Diffusion train_loss + backward (batch 4, [4, 4, 64, 64] latents, {n_params(trained)} "
+               f"trained parameters; losses {losses})", smi, secs,
+               f"{secs:.4f} s/step, {4 / secs:.4f} samples/s (steps {[round(r[1], 4) for r in runs]})",
+               by_path["blip_diffusion_train_loss"])
+    for x in leaves:
+        x.requires_grad_(False)
+
+    gen = dict(latent_shape=(1, 4, 64, 64), guidance_scale=7.5)
+    args = (prompt_ids[:1], neg_ids, pix[:1], subj_ids[:1], subj_mask[:1])
+    bd.generate(params, cfg, g, *args, unet, num_inference_steps=2, **gen)
+    out, secs, by_path["blip_diffusion_generate"] = timed(
+        lambda: bd.generate(params, cfg, g, *args, unet, num_inference_steps=DIFFUSION_STEPS, **gen))
+    if out.shape != (1, 4, 64, 64) or not torch.isfinite(out).all():
+        raise AssertionError(f"BLIP-Diffusion generate: {out.shape}")
+    zoo_report(f"BLIP-Diffusion generate ({DIFFUSION_STEPS} DDIM steps, CFG 7.5, [1, 4, 64, 64], the stand-in UNet)",
+               smi, secs, f"{1 / secs:.4f} images/s, {secs / DIFFUSION_STEPS:.4f} s/step",
+               by_path["blip_diffusion_generate"])
+
+    store = ptp.register_attention_control(ptp.AttentionStore(), 2)  # 2 UNet calls a step (CFG), one site each
+    hook = ptp.make_attn_hook(store, "mid")
+    out, secs, by_path["blip_diffusion_ptp"] = timed(lambda: bd.generate(
+        params, cfg, g, *args, functools.partial(unet, hook=hook), num_inference_steps=PTP_STEPS, **gen))
+    maps = {k: [m.shape for m in v] for k, v in store.attention_store.items() if v}
+    # one site, two calls a step: two maps, each summed over the steps
+    if store.cur_step != PTP_STEPS or sum(map(len, maps.values())) != 2 or not torch.isfinite(out).all():
+        raise AssertionError(f"prompt-to-prompt AttentionStore: step {store.cur_step}, maps {maps}")
+    zoo_report(f"BLIP-Diffusion generate with a prompt-to-prompt AttentionStore ({PTP_STEPS} steps; the controller "
+               f"stored {sum(map(len, maps.values()))} map(s) {maps} over {store.cur_step} steps)", smi, secs,
+               f"{secs / PTP_STEPS:.4f} s/step", by_path["blip_diffusion_ptp"])
+    del params, unet
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_zoo_tail(dev, smi: str) -> dict:
+    """Phase 19: PnP-VQA, Img2Prompt, BLIP-Diffusion (with its
+    prompt-to-prompt run). K1-K4 must not launch."""
+    rng = np.random.default_rng(19)
+    images = torch.from_numpy(rng.standard_normal((ZOO_IMAGES, 3, 224, 224)).astype(np.float32)).to(dev)
+    by_path = {}
+    for what, phase in (("PnP-VQA", lambda: phase_pnp_vqa(dev, smi, images)),
+                        ("Img2Prompt", lambda: phase_img2prompt(dev, smi, images)),
+                        ("BLIP-Diffusion", lambda: phase_blip_diffusion(dev, smi))):
+        t0 = time.perf_counter()
+        by_path.update(phase())
+        log(f"{what} phase wall {time.perf_counter() - t0:.2f} s (the trees' builds included)")
+    if any(v for p in by_path.values() for v in p.values()):
+        raise AssertionError(f"phase 19: a kernel launched: {by_path}")
+    return by_path
+
+
+# ---------------------------------------------------------------------------
 # the parallel phase: ranks spawned on the one card (gloo, both on cuda:0)
 # ---------------------------------------------------------------------------
 
@@ -4853,6 +5171,12 @@ def main() -> int:
         t0 = time.perf_counter()
         by_path.update(phase(dev, smi))
         log(f"{what} phase wall {time.perf_counter() - t0:.2f} s (the trees' builds included)")
+    # PnP-VQA, Img2Prompt, BLIP-Diffusion and prompt-to-prompt (plain torch:
+    # K1-K4 at zero in their launches_by_path), then every LAVIS family's
+    # 2-layer cut, theirs included
+    t0 = time.perf_counter()
+    by_path.update(phase_zoo_tail(dev, smi))
+    log(f"phase 19 wall {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_lavis_reference(dev)
     log(f"LAVIS reference phase wall {time.perf_counter() - t0:.2f} s")

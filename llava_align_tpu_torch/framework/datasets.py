@@ -7,10 +7,11 @@ its behavior).
 Ported: _load_annotations, _load_image (with the crc32 synthetic image for
 a missing file), BaseAnnotationDataset, the caption, VQA, pair, retrieval,
 classification, NLVR, video QA / retrieval / caption, AVSD dialogue and
-ImageFolder datasets, BaseDatasetBuilder (without its download methods),
-their builders with every named one, and build_datasets_for_model (its
-video branch gives ALPRO's TimeSformer the video processor). The
-BLIP-Diffusion dataset and builder are not ported yet.
+ImageFolder datasets, BaseDatasetBuilder (its download methods through
+framework/download), their builders with every named one, BLIP-Diffusion's
+SubjectDrivenTextToImageDataset and its blip_diffusion_finetune builder,
+and build_datasets_for_model (its video branch gives ALPRO's TimeSformer
+the video processor).
 
 Capability parity: the reference's vendored LAVIS dataset subsystem
 (lavis/datasets/datasets/*.py and lavis/datasets/builders):
@@ -277,11 +278,29 @@ class BaseDatasetBuilder:
         self.build_info = build_info
         self.vis_processors = vis_processors or {}
         self.text_processors = text_processors or {}
-        # `dataset` names the raw-data manifest key (the JAX package's
-        # framework/download.py; not ported); it is builder metadata, not a dataset-class kwarg. Named builders
+        # `dataset` names the raw-data manifest key (framework/download.py);
+        # it is builder metadata, not a dataset-class kwarg. Named builders
         # (coco_caption, flickr30k, ...) carry a class-level default.
         self.dataset_name = kw.pop("dataset", None) or getattr(self, "DATASET", None)
         self.extra = kw
+
+    def download_entries(self):
+        """Manifest entries for fetching this builder's raw data
+        (framework/download.py — the counterpart of the reference's
+        lavis/datasets/download_scripts). The dataset key comes from the
+        builder config's `dataset` field (e.g. dataset='coco')."""
+        from llava_align_tpu_torch.framework import download
+
+        return download.entries_for(self.dataset_name) if self.dataset_name else []
+
+    def download(self, root: str, **kw):
+        """Offline-safe fetch of this builder's dataset (skips cleanly when
+        the network is unavailable; manual-flow sources are reported)."""
+        from llava_align_tpu_torch.framework import download
+
+        if not self.dataset_name:
+            raise ValueError("builder config has no `dataset` key to download")
+        return download.download_dataset(self.dataset_name, root, **kw)
 
     def build(self) -> Dict[str, Any]:
         datasets = {}
@@ -690,6 +709,79 @@ class ImageNetBuilder(BaseDatasetBuilder):
                 **{**self.extra, **info},
             )
         return datasets
+
+
+class SubjectDrivenTextToImageDataset:
+    """BLIP-diffusion fine-tune dataset (reference
+    subject_driven_t2i_dataset.py:15-72): every image in image_dir paired
+    with the caption "a <subject>", processed through separate input/target
+    image transforms; the dataset length is multiplied by `repetition` so an
+    epoch loop yields enough steps."""
+
+    def __init__(self, image_dir, subject_text, inp_image_processor,
+                 tgt_image_processor, txt_processor, repetition=100000):
+        self.subject = txt_processor(subject_text.lower())
+        self.image_dir = image_dir
+        self.inp_image_transform = inp_image_processor
+        self.tgt_image_transform = tgt_image_processor
+        self.text_processor = txt_processor
+        exts = {"jpg", "png", "webp", "jpeg"}
+        self.image_paths = [
+            os.path.abspath(os.path.join(image_dir, p))
+            for p in os.listdir(image_dir)
+            if os.path.splitext(p)[1][1:].lower() in exts
+        ]
+        self.repetition = repetition
+
+    def __len__(self) -> int:
+        return len(self.image_paths) * self.repetition
+
+    @property
+    def len_without_repeat(self) -> int:
+        return len(self.image_paths)
+
+    @staticmethod
+    def collater(samples: List[dict]) -> Dict[str, Any]:
+        return BaseAnnotationDataset.collater(samples)
+
+    def __getitem__(self, index: int) -> dict:
+        from PIL import Image
+
+        image_path = self.image_paths[index % len(self.image_paths)]
+        image = Image.open(image_path).convert("RGB")
+        caption = self.text_processor(f"a {self.subject}")
+        return {
+            "inp_image": self.inp_image_transform(image),
+            "tgt_image": self.tgt_image_transform(image),
+            "caption": caption,
+            "subject_text": self.subject,
+        }
+
+
+@registry.register_builder("blip_diffusion_finetune")
+class BlipDiffusionFinetuneBuilder(BaseDatasetBuilder):
+    """reference text_to_image_generation_builder.py:16-41: train-only
+    dataset assembled from build_info {images.storage, subject_text} with
+    separate inp/tgt image processors (kw_processors in the reference)."""
+
+    train_cls = SubjectDrivenTextToImageDataset
+
+    def build(self) -> Dict[str, Any]:
+        images = self.build_info["images"]
+        image_dir = images["storage"] if isinstance(images, dict) else images
+        dataset = self.train_cls(
+            image_dir=image_dir,
+            subject_text=self.build_info["subject_text"],
+            inp_image_processor=self.vis_processors.get(
+                "inp", self.vis_processors.get("train")
+            ),
+            tgt_image_processor=self.vis_processors.get(
+                "tgt", self.vis_processors.get("eval")
+            ),
+            txt_processor=self.text_processors.get("eval", lambda s: s),
+            **self.extra,
+        )
+        return {"train": dataset}
 
 
 def build_datasets_for_model(task, model, datasets_cfg):

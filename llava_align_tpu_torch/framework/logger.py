@@ -1,16 +1,19 @@
-"""Metric logging (copies of SmoothedValue and MetricLogger from
-llava_align_tpu/framework/logger.py, the source unchanged;
-tests/test_torch_copies.py holds them to it).
+"""Metric logging and the rotating file logger (copies of SmoothedValue,
+MetricLogger and build_logger from llava_align_tpu/framework/logger.py,
+the source unchanged; tests/test_torch_copies.py holds them to it).
 
 Capability parity: reference lavis/common/logger.py — windowed median/avg
-meters, the global average, the log_every iterator. The rotating file
-logger (build_logger) is not ported yet.
+meters, the global average, the log_every iterator — and
+llava/utils.py:17-60's build_logger (a daily rotating file handler, one
+per file, shared by the loggers that write there).
 """
 
 from __future__ import annotations
 
 import datetime
 import logging
+import logging.handlers
+import os
 import time
 from collections import defaultdict, deque
 from typing import Dict, Iterable, Iterator
@@ -102,3 +105,30 @@ class MetricLogger:
                     logging.info(f"{header} [{i}] {self} time: {iter_time}")
         total = time.time() - start
         logging.info(f"{header} Total time: {datetime.timedelta(seconds=int(total))}")
+
+
+_handlers: Dict[str, logging.Handler] = {}
+
+
+def build_logger(
+    logger_name: str, logger_filename: str, log_dir: str = "."
+) -> logging.Logger:
+    """Rotating file logger (reference llava/utils.py:17-60 capability)."""
+    formatter = logging.Formatter(
+        fmt="%(asctime)s | %(levelname)s | %(name)s | %(message)s",
+        datefmt="%Y-%m-%d %H:%M:%S",
+    )
+    logger = logging.getLogger(logger_name)
+    logger.setLevel(logging.INFO)
+
+    os.makedirs(log_dir, exist_ok=True)
+    filename = os.path.join(log_dir, logger_filename)
+    if filename not in _handlers:
+        handler = logging.handlers.TimedRotatingFileHandler(
+            filename, when="D", utc=True
+        )
+        handler.setFormatter(formatter)
+        _handlers[filename] = handler
+    if _handlers[filename] not in logger.handlers:
+        logger.addHandler(_handlers[filename])
+    return logger

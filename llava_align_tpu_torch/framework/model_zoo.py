@@ -17,10 +17,12 @@ albef_pretrain, albef_vqa, albef_classification, albef_nlvr,
 albef_feature_extractor), CLIP (clip, clip_feature_extractor) and BLIP-2's
 LAVIS entries (blip2, blip2_feature_extractor, blip2_image_text_matching,
 blip2_opt, blip2_t5, blip2_t5_instruct), ALPRO (alpro_retrieval,
-alpro_qa) and gpt_dialogue; a random LAVIS entry is the tiny config, as in
-the JAX zoo. And the front door: load_model, load_preprocess,
-load_model_and_preprocess, ModelZoo. PNP-VQA, Img2Prompt and
-BLIP-Diffusion are not ported yet.
+alpro_qa), gpt_dialogue, the composites pnp_vqa and img2prompt_vqa (BLIP-ITM
++ BLIP-caption + a T5), the FiD reader pnp_unifiedqav2_fid and
+blip_diffusion; a random LAVIS entry is the tiny config, as in the JAX
+zoo. And the front door: load_model, load_preprocess,
+load_model_and_preprocess, ModelZoo. The registry equals the JAX zoo's
+(tests/test_torch_lavis_convert.py).
 """
 
 from __future__ import annotations
@@ -591,14 +593,137 @@ for _arch, _variant in (("alpro_retrieval", "retrieval"), ("alpro_qa", "qa")):
     _alpro_factory(_arch, _variant)
 
 
+def _composite(model_path: Optional[str], qa_key: str, itm_path, cap_path, qa_path, device):
+    """(params, cfgs) of a BLIP-ITM + BLIP-caption + T5 composite from its
+    checkpoints (the reference's from_config through
+    load_model_and_preprocess), or None for a random one."""
+    explicit = {k: v for k, v in (("itm", itm_path), ("cap", cap_path), (qa_key, qa_path)) if v}
+    if _random(model_path) and len(explicit) < 3:
+        return None
+    from llava_align_tpu_torch.utils.hf_convert import load_blip_t5_composite
+
+    return load_blip_t5_composite(model_path or "", qa_key=qa_key, paths=explicit or None, device=device)
+
+
+@registry.register_model("pnp_vqa")
+class PnpVqaModel(_ZooModel):
+    """PnP-VQA composite (reference lavis/models/pnp_vqa_models/): BLIP-ITM +
+    BLIP-caption + a UnifiedQAv2 T5 (pnp_vqa.py from_config :321-338)."""
+
+    arch = "pnp_vqa"
+
+    def __init__(self, model_path: Optional[str] = None, *, itm_path: Optional[str] = None,
+                 cap_path: Optional[str] = None, qa_path: Optional[str] = None, block_num: int = 7, device=None,
+                 **kw):
+        from llava_align_tpu_torch.models import pnp_vqa as pnp_mod
+
+        loaded = _composite(model_path, "qa", itm_path, cap_path, qa_path, device)
+        if loaded is not None:
+            params, cfgs = loaded
+            cfg = pnp_mod.PnpVqaConfig(itm=cfgs["itm"], cap=cfgs["cap"], qa=cfgs["qa"], block_num=block_num)
+        else:
+            cfg = pnp_mod.PnpVqaConfig.tiny()
+            params = pnp_mod.init(cfg, device=device)
+        super().__init__(params, cfg)
+
+    def predict_answers(self, *args, **kw):
+        from llava_align_tpu_torch.models import pnp_vqa as pnp_mod
+
+        return pnp_mod.predict_answers(self.params, self.cfg, *args, **kw)
+
+
+@registry.register_model("img2prompt_vqa")
+class Img2PromptModel(_ZooModel):
+    """Img2Prompt composite (reference lavis/models/img2prompt_models/):
+    BLIP-ITM + BLIP-caption + a T5 question generator."""
+
+    arch = "img2prompt_vqa"
+
+    def __init__(self, model_path: Optional[str] = None, *, itm_path: Optional[str] = None,
+                 cap_path: Optional[str] = None, qg_path: Optional[str] = None, block_num: int = 7, device=None,
+                 **kw):
+        from llava_align_tpu_torch.models import img2prompt as i2p_mod
+
+        loaded = _composite(model_path, "qg", itm_path, cap_path, qg_path, device)
+        if loaded is not None:
+            params, cfgs = loaded
+            cfg = i2p_mod.Img2PromptConfig(itm=cfgs["itm"], cap=cfgs["cap"], qg=cfgs["qg"], block_num=block_num)
+        else:
+            cfg = i2p_mod.Img2PromptConfig.tiny()
+            params = i2p_mod.init(cfg, device=device)
+        super().__init__(params, cfg)
+
+    def prompts_construction(self, *args, **kw):
+        from llava_align_tpu_torch.models import img2prompt as i2p_mod
+
+        return i2p_mod.prompts_construction(*args, **kw)
+
+
+@registry.register_model("pnp_unifiedqav2_fid")
+class PnpUnifiedQAv2FiDModel(_ZooModel):
+    """The Fusion-in-Decoder QA reader alone (reference
+    pnp_vqa_models/pnp_unifiedqav2_fid.py: a T5ForConditionalGeneration
+    whose encoder encodes each context apart and fuses the states along
+    the sequence)."""
+
+    arch = "pnp_unifiedqav2_fid"
+
+    def __init__(self, model_path: Optional[str] = None, device=None, **kw):
+        from llava_align_tpu_torch.models.t5 import T5Config
+
+        if not _random(model_path):
+            from llava_align_tpu_torch.utils.hf_convert import _load_component_sd, convert_t5, t5_config_from_json
+
+            sd, cfg_json = _load_component_sd(model_path)
+            cfg = t5_config_from_json(cfg_json)
+            params = convert_t5(sd, cfg, device=device)
+        else:
+            from llava_align_tpu_torch.utils.synthetic import build_random_t5_params
+
+            cfg = T5Config.tiny()
+            params = build_random_t5_params(cfg, device=device)
+        super().__init__(params, cfg)
+
+    def generate(self, context_ids, context_mask, **kw):
+        from llava_align_tpu_torch.models import pnp_vqa as pnp_mod
+
+        return pnp_mod.fid_generate(self.params, self.cfg, context_ids, context_mask, **kw)
+
+
+@registry.register_model("blip_diffusion")
+class BlipDiffusionModel(_ZooModel):
+    """BLIP-Diffusion (reference lavis/models/blip_diffusion_models/): the
+    reference's own layers (ctx-CLIP, the Q-Former subject embedding, the
+    DDPM loss, the DDIM + CFG loop) at the tiny config; the UNet and the
+    VAE are the caller's torch callables (the reference takes them from
+    diffusers)."""
+
+    arch = "blip_diffusion"
+
+    def __init__(self, model_path: Optional[str] = None, device=None, **kw):
+        from llava_align_tpu_torch.models import blip_diffusion as bd_mod
+
+        cfg = bd_mod.BlipDiffusionConfig.tiny()
+        super().__init__(bd_mod.init(cfg, device=device), cfg)
+
+    def generate(self, *args, **kw):
+        from llava_align_tpu_torch.models import blip_diffusion as bd_mod
+
+        return bd_mod.generate(self.params, self.cfg, *args, **kw)
+
+    def train_loss(self, *args, **kw):
+        from llava_align_tpu_torch.models import blip_diffusion as bd_mod
+
+        return bd_mod.train_loss(self.params, self.cfg, *args, **kw)
+
+
 # ---------------------------------------------------------------------------
 # the front door (reference lavis/models/__init__.py: load_model,
 # load_preprocess, load_model_and_preprocess and the model_zoo listing)
 # ---------------------------------------------------------------------------
 
-# the default preprocess of each ported arch family (the reference's yaml
-# `preprocess:` blocks), as the JAX zoo lists them; BLIP-Diffusion's,
-# PNP-VQA's and Img2Prompt's come with their models
+# the default preprocess of each arch family (the reference's yaml
+# `preprocess:` blocks), as the JAX zoo lists them
 _DEFAULT_PREPROCESS: Dict[str, Dict[str, Dict[str, Optional[str]]]] = {
     "blip": {"vis": {"train": "blip_image_train", "eval": "blip_image_eval"},
              "text": {"train": "blip_caption", "eval": "blip_caption"}},
@@ -614,11 +739,18 @@ _DEFAULT_PREPROCESS: Dict[str, Dict[str, Dict[str, Optional[str]]]] = {
     # one, building them raises and says what to pass
     "gpt": {"vis": {"train": "gpt_video_ft", "eval": "gpt_video_ft"},
             "text": {"train": "gpt_dialogue", "eval": "gpt_dialogue"}},
+    "blip_diffusion": {"vis": {"train": "blip_diffusion_inp_image_train", "eval": "blip_diffusion_inp_image_eval"},
+                       "text": {"train": "blip_caption", "eval": "blip_caption"}},
+    "pnp": {"vis": {"train": None, "eval": "blip_image_eval"},
+            "text": {"train": None, "eval": "blip_caption"}},
+    "img2prompt": {"vis": {"train": None, "eval": "blip_image_eval"},
+                   "text": {"train": None, "eval": "blip_caption"}},
 }
 
 
 def _preprocess_family(name: str) -> Optional[Dict[str, Dict[str, Optional[str]]]]:
-    for prefix in ("blip2", "blip", "albef", "alpro", "clip", "gpt"):
+    # the longer prefixes first: blip_diffusion and blip2 before blip
+    for prefix in ("blip_diffusion", "blip2", "img2prompt", "pnp", "blip", "albef", "alpro", "clip", "gpt"):
         if name.startswith(prefix):
             return _DEFAULT_PREPROCESS[prefix]
     return None

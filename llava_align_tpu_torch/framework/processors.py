@@ -10,13 +10,15 @@ clip_processors.py, alpro_processors.py and gpt_processors.py:
 blip_image_eval (resize + normalize), blip_image_train (random resized
 crop + flip + 2-op RandAugment at magnitude 5), blip2_image_train (364
 px, no RandAugment), clip_image_train (crop scale 0.9-1.0, no flip),
-clip_image_eval (short-edge resize + center crop), alpro_video_eval /
+clip_image_eval (short-edge resize + center crop), the BLIP-Diffusion
+subject input (blip_diffusion_inp_image_train / _eval: short-edge resize,
+center crop, CLIP normalize) and target (blip_diffusion_tgt_image_train:
+512 px, normalized to [-1, 1]) transforms, alpro_video_eval /
 alpro_video_train (uniform / headtail frame sampling to [3, T, H, W]),
 gpt_dialogue / gpt_video_ft (AVSD token streams and feature prefixes),
 and the blip_caption / blip_question text processors. One departure:
 without `tokenizer=` the GPT processors raise (the JAX package fetches
-GPT-2's tokenizer by name, which needs the network). The BLIP-Diffusion
-processors are not ported yet.
+GPT-2's tokenizer by name, which needs the network).
 """
 
 from __future__ import annotations
@@ -206,6 +208,39 @@ class ClipImageEvalProcessor:
         img = _resize_short_edge(pil_img.convert("RGB"), self.image_size)
         img = _center_crop(img, self.image_size)
         return _normalize(np.asarray(img), self.mean, self.std)
+
+
+@registry.register_processor("blip_diffusion_inp_image_train")
+@registry.register_processor("blip_diffusion_inp_image_eval")
+class BlipDiffusionInputImageProcessor:
+    """BLIP-diffusion subject-input transform (reference
+    blip_diffusion_processors.py:17-50, registered under both the train and
+    eval names): resize short edge + center crop + CLIP normalize."""
+
+    def __init__(self, image_size: int = 224, mean=OPENAI_CLIP_MEAN,
+                 std=OPENAI_CLIP_STD):
+        self.image_size = image_size
+        self.mean, self.std = mean, std
+
+    def __call__(self, pil_img) -> np.ndarray:
+        img = _resize_short_edge(pil_img.convert("RGB"), self.image_size)
+        img = _center_crop(img, self.image_size)
+        return _normalize(np.asarray(img), self.mean, self.std)
+
+
+@registry.register_processor("blip_diffusion_tgt_image_train")
+class BlipDiffusionTargetImageProcessor:
+    """BLIP-diffusion target transform (reference
+    blip_diffusion_processors.py:53-81): resize short edge to 512 + center
+    crop + Normalize([0.5],[0.5]) → pixel range [-1, 1] for the VAE."""
+
+    def __init__(self, image_size: int = 512):
+        self.image_size = image_size
+
+    def __call__(self, pil_img) -> np.ndarray:
+        img = _resize_short_edge(pil_img.convert("RGB"), self.image_size)
+        img = _center_crop(img, self.image_size)
+        return _normalize(np.asarray(img), [0.5, 0.5, 0.5], [0.5, 0.5, 0.5])
 
 
 @registry.register_processor("blip_caption")

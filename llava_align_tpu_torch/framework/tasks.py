@@ -1,8 +1,8 @@
 """Task abstraction and the evaluation tasks (copies of save_result,
 BaseTask, CaptionTask, _coerce_id, PopeTask, MultimodalClassificationTask,
-ImageTextPretrainTask, RetrievalTask, the VQAv2 tables with
-_vqa_process_punct and vqa_normalize, VQATask, GQATask, AOKVQATask,
-VQARCTask, GQARCTask and DialogueTask from
+ImageTextPretrainTask, TextToImageGenerationTask, RetrievalTask, the VQAv2
+tables with _vqa_process_punct and vqa_normalize, VQATask, GQATask,
+AOKVQATask, VQARCTask, GQARCTask and DialogueTask from
 llava_align_tpu/framework/tasks.py, the source unchanged;
 tests/test_torch_copies.py holds them to it).
 
@@ -12,9 +12,9 @@ per-sample results, the after_evaluation hook and save_result — and
 lavis/tasks/captioning.py (CaptionTask), multimodal_classification.py,
 image_text_pretrain.py, retrieval.py (recall@{1,5,10} both ways), vqa.py
 (VQAv2 leave-one-out soft accuracy, GQA exact match, A-OKVQA direct
-answers), vqa_reading_comprehension.py and dialogue.py; PopeTask scores
-through evals/pope.score_pope. The text-to-image task of the JAX module is
-not ported yet.
+answers), vqa_reading_comprehension.py, dialogue.py and
+text_to_image_generation.py (a config-holding task for BLIP-Diffusion);
+PopeTask scores through evals/pope.score_pope.
 """
 
 from __future__ import annotations
@@ -237,6 +237,19 @@ class ImageTextPretrainTask(BaseTask):
 
     def after_evaluation(self, results, **kwargs):
         return {"agg_metrics": 0.0, "n": 0}
+
+
+@registry.register_task("text-to-image-generation")
+class TextToImageGenerationTask(BaseTask):
+    """Text-to-image generation (reference
+    lavis/tasks/text_to_image_generation.py:11-22): a config-holding task —
+    the reference defines no valid_step/metrics; training goes through the
+    base train loop. Kept as the registered assembly point for the
+    blip-diffusion trainer."""
+
+    @classmethod
+    def setup_task(cls, run_cfg: Dict[str, Any]) -> "TextToImageGenerationTask":
+        return cls(**run_cfg.get("task_args", {}), run_cfg=run_cfg)
 
 
 @registry.register_task("retrieval")

@@ -3,7 +3,10 @@
 Both packages keep the same tree: LLaMA, Qwen, OPT, MPT, T5, BLIP,
 TimeSformer / ALPRO and GPT-2 linears are [out, in] in both (the Qwen ViT's nested {w, b} dicts too;
 T5's layer lists and relative-bias tables [NB, H] as they are), and CLIP/projector kernels
-stay [in, out] (used as y @ kernel) — nothing is transposed. int8 dicts {'q', 's'} become int8 and fp32 tensors, int4 dicts
+stay [in, out] (used as y @ kernel) — nothing is transposed. The LAVIS
+composites nest these: PnP-VQA and Img2Prompt {itm, cap: BLIP; qa / qg: T5},
+BLIP-Diffusion {visual: the CLIP ViT, qformer, query_tokens, text: CLIP,
+proj: ProjLayer's {w, b} linears}. int8 dicts {'q', 's'} become int8 and fp32 tensors, int4 dicts
 {'q4', 'gs'} packed int8 and fp32 tensors (the same layout in both
 packages, so the carry-over is a copy). Takes numpy
 leaves (jax.device_get of a param tree), so this module imports no jax.

@@ -1,5 +1,5 @@
-"""The LAVIS zoo's families (ALPRO's TimeSformer and GPT-2 dialogue too)
-cut to 2 layers per tower at full width, fp32,
+"""The LAVIS zoo's families (ALPRO's TimeSformer, GPT-2 dialogue, PnP-VQA
+and BLIP-Diffusion too) cut to 2 layers per tower at full width, fp32,
 random from a seed: the same params and inputs go through each family on
 the card and on the CPU (chip_smoke.py's LAVIS reference phase and
 tests/test_torch_cuda.py take their cases from here).
@@ -17,7 +17,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 NAMES = ("albef", "albef_classification", "blip_classification", "blip", "clip", "blip2_stage1", "blip2_opt",
-         "blip2_t5", "alpro", "gpt_dialogue")
+         "blip2_t5", "alpro", "gpt_dialogue", "pnp_vqa", "blip_diffusion")
 
 
 def tree_to(tree, device):
@@ -35,10 +35,32 @@ def two_layers(cfg, **parts):
                                        for k, kw in parts.items()})
 
 
+def linear_unet(width: int, seed: int = 0) -> Callable:
+    """A linear stand-in for BLIP-Diffusion's UNet (the reference takes
+    diffusers'): unet(latents [B, 4, h, w], t [B], cond [B, S, width]) =
+    0.2 latents + the mean of cond through a fixed [width, 4] matrix + 1e-3 t."""
+    W = torch.randn((width, 4), generator=torch.Generator().manual_seed(seed)) / width**0.5
+
+    def unet(x, t, cond):
+        ctx = torch.einsum("bsd,dc->bc", cond, W.to(cond.device)) / cond.shape[1]
+        return 0.2 * x + ctx[:, :, None, None] + 1e-3 * t.float()[:, None, None, None]
+
+    return unet
+
+
+def _unit(*parts: torch.Tensor) -> torch.Tensor:
+    """The parts flattened, each divided by its largest magnitude, and
+    concatenated: one vector whose error reads relative to each part."""
+    return torch.cat([x.flatten() / x.abs().max() for x in parts])
+
+
 def cut_cases() -> Dict[str, Tuple[str, dict, Callable]]:
     """name → (what, params on the CPU, fn(params, device) → a loss, or
-    logits for BLIP's itm_score) for each of NAMES, batch 2."""
-    from llava_align_tpu_torch.models import albef, alpro, blip, blip2, blip_variants, clip, gpt2
+    logits for BLIP's itm_score, or a vector of parts each scaled to its
+    largest for PnP-VQA and BLIP-Diffusion) for each of NAMES, batch 2."""
+    from llava_align_tpu_torch.models import (albef, alpro, blip, blip2, blip_diffusion, blip_variants, clip, gpt2,
+                                              pnp_vqa, t5)
+    from llava_align_tpu_torch.utils.synthetic import build_random_t5_params
 
     g = torch.Generator().manual_seed(21)
     B, f32 = 2, {"dtype": torch.float32}
@@ -98,5 +120,44 @@ def cut_cases() -> Dict[str, Tuple[str, dict, Callable]]:
     cases["gpt_dialogue"] = ("GPT-2 dialogue_forward", gp, lambda p, d: gpt2.dialogue_forward(
         p, gc, ids.to(d), fts.to(d), torch.cat([torch.ones((B, 8), dtype=mask.dtype), mask], 1).to(d),
         labels=labels.to(d))["loss"])
+    # PnP-VQA: the GradCAM row of its ITM model (at block 0: at the last of
+    # 2 only the cls row, which GradCAM skips, has a gradient), then the FiD
+    # reader's logits (3 contexts encoded apart, fused, one teacher-forced decode)
+    pc = pnp_vqa.PnpVqaConfig(itm=b, cap=b, qa=dataclasses.replace(t5.T5Config(), num_layers=2, num_decoder_layers=2,
+                                                                   **f32), block_num=0)
+    pp = {"itm": blip.init(b, device="cpu", seed=12), "qa": build_random_t5_params(pc.qa, device="cpu", seed=13)}
+    ctx_ids = torch.randint(0, pc.qa.vocab_size, (3, 16), generator=g)
+    ctx_mask = torch.ones_like(ctx_ids)
+    ctx_mask[2, 10:] = 0
+    dec_ids = torch.randint(0, pc.qa.vocab_size, (1, 4), generator=g)
+    dec_ids[0, 0] = 0
+
+    def fid_logits(q, d):
+        enc = t5.encode(q, pc.qa, t5.embed_tokens(q, ctx_ids.to(d)), ctx_mask.to(d))
+        return t5.decode(q, pc.qa, dec_ids.to(d), enc.reshape(1, -1, enc.shape[-1]), ctx_mask.to(d).reshape(1, -1))
+
+    cases["pnp_vqa"] = ("PnP-VQA forward_itm GradCAM + FiD logits", pp, lambda p, d: _unit(
+        pnp_vqa.forward_itm(p, pc, xb.to(d), ids.to(d), mask.to(d)), fid_logits(p["qa"], d)))
+    # BLIP-Diffusion: the subject embedding, the ctx-spliced prompt
+    # embedding, and the training loss at fixed noise and timesteps
+    full = blip_diffusion.BlipDiffusionConfig()
+    dc = dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_layers=2),
+                             qformer=dataclasses.replace(full.qformer, num_layers=2),
+                             text=two_layers(full.text, vision={}, text={}))
+    dp = blip_diffusion.init(dc, device="cpu", seed=14)
+    xd = pix(dc.vision.image_size)
+    prompt = torch.randint(1, dc.text.text.vocab_size, (B, 16), generator=g)
+    latents, noise = torch.randn((B, 4, 16, 16), generator=g), torch.randn((B, 4, 16, 16), generator=g)
+    unet, steps = linear_unet(dc.text.text.width, seed=15), torch.tensor([10, 900])
+
+    def diffusion(p, d):
+        subject = (xd.to(d), ids.to(d), mask.to(d))
+        ctx = blip_diffusion.ctx_embeddings(p, dc, *subject)
+        cond = blip_diffusion.encode_prompt_ctx(p, dc, prompt.to(d), ctx)
+        loss = blip_diffusion.train_loss(p, dc, None, latents.to(d), prompt.to(d), *subject, unet,
+                                         noise=noise.to(d), timesteps=steps.to(d))
+        return torch.cat([_unit(ctx, cond), loss.reshape(1)])
+
+    cases["blip_diffusion"] = ("BLIP-Diffusion ctx_embeddings + encode_prompt_ctx + train_loss", dp, diffusion)
     assert tuple(cases) == NAMES
     return cases

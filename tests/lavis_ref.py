@@ -18,9 +18,23 @@ from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for the module (import it into a test
+    module and request it, or use it autouse there): the tiny port
+    programs gain nothing from threads, and beside the suite's other
+    workers a thread per core spins at each small op (the port's PnP-VQA
+    pipeline took 3-5 s on eight threads of a busy host, 0.03 s on one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def run_all(programs: dict) -> dict:
@@ -36,18 +50,47 @@ def run_all(programs: dict) -> dict:
 @contextlib.contextmanager
 def fast_jit():
     """Inside, every jax.jit made compiles with FAST_COMPILE (for the JAX
-    package's own loops and CLI, which jit their steps themselves)."""
+    package's own loops and CLI, which jit their steps themselves), and a
+    function made again from the same code over equal closure values (the
+    JAX loops jit a fresh lambda each call, e.g. t5.generate_greedy's step)
+    reuses the first one's jitted function, so equal shapes compile once
+    (the same code, closure values and defaults: the same function)."""
     jit = jax.jit
+    made = {}
 
     def fast(fun=None, **kw):
         kw.setdefault("compiler_options", FAST_COMPILE)
-        return jit(fun, **kw) if fun is not None else functools.partial(fast, **kw)
+        if fun is None:
+            return functools.partial(fast, **kw)
+        try:
+            key = (fun.__code__, tuple(c.cell_contents for c in fun.__closure__ or ()), fun.__defaults__,
+                   tuple(sorted((fun.__kwdefaults__ or {}).items())), repr(sorted(kw.items())))
+            hash(key)
+        except (AttributeError, TypeError, ValueError):  # no code object, or an unhashable closure value
+            return jit(fun, **kw)
+        if key not in made:
+            made[key] = jit(fun, **kw)
+        return made[key]
 
     jax.jit = fast
     try:
         yield
     finally:
         jax.jit = jit
+
+
+def jit_eager(fn, *static_names, static_argnums=(1,)):
+    """fn jitted with FAST_COMPILE (its config argument static), for a JAX
+    function that the JAX package's host loops call eagerly, op by op: one
+    compile a shape in place of one a primitive. Inside another jit it is
+    traced as it is."""
+    jitted = jax.jit(fn, static_argnums=static_argnums, static_argnames=static_names, compiler_options=FAST_COMPILE)
+
+    def call(*args, **kw):
+        traced = any(isinstance(x, jax.core.Tracer) for x in jax.tree_util.tree_leaves((args, kw)))
+        return (fn if traced else jitted)(*args, **kw)
+
+    return call
 
 
 def run(fn, *args):

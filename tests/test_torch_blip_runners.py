@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from lavis_ref import one_torch_thread  # noqa: F401 (a fixture)
 from llava_align_tpu.models import instructblip as jblip
 from llava_align_tpu.ops import noise as jnoise
 from llava_align_tpu.runners import blip_pope as jbp
@@ -35,6 +36,10 @@ from llava_align_tpu_torch.runners import blip_pope as tbp
 from llava_align_tpu_torch.runners import caption as tcap
 from llava_align_tpu_torch.runners.common import MockTokenizer as TMock
 from llava_align_tpu_torch.utils.jax_params import from_jax_params
+
+# torch on one thread: the tiny models gain nothing from more, and a thread
+# per core spins at every small op (tests/lavis_ref.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

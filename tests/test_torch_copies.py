@@ -7,8 +7,10 @@ copies (evals/mme, evals/mmmu, the schedule, utils/moderation, the state
 dict tools of utils/checkpoint_tools, PopeTask, text_only_plan,
 engine.branch_token_ids, the LAVIS zoo's datasets, processors, tasks,
 randaugment and the CLIP tokenizer, the evaluation tasks, the video and
-dialogue data and processors, and the rest of VERBATIM_COPIES) must
-keep the originals' source, the package name aside. Exact equality."""
+dialogue data and processors, PnP-VQA's, Img2Prompt's and BLIP-Diffusion's
+pure parts, data path and task, the prompt-to-prompt controllers, the
+download layer, the rotating logger, and the rest of VERBATIM_COPIES)
+must keep the originals' source, the package name aside. Exact equality."""
 
 import dataclasses
 import importlib
@@ -447,6 +449,21 @@ VERBATIM_COPIES = [
     *[("framework.processors", n) for n in (
         "AlproVideoEvalProcessor", "AlproVideoTrainProcessor", "pad_sequences", "GPTDialogueProcessor",
         "GPTVideoFeatureProcessor")],
+    # PnP-VQA, Img2Prompt and BLIP-Diffusion: their pure parts, data path and task; the rotating logger
+    ("models.pnp_vqa", "prepare_qa_input"),
+    *[("models.img2prompt", n) for n in (
+        "HeuristicExtractor", "answer_extraction", "create_context_prompt", "create_task_prompt",
+        "prompts_construction")],
+    *[("models.blip_diffusion", n) for n in ("SchedulerConfig", "ddim_timesteps", "build_prompt")],
+    *[("framework.processors", n) for n in ("BlipDiffusionInputImageProcessor", "BlipDiffusionTargetImageProcessor")],
+    *[("framework.datasets", n) for n in (
+        "BaseDatasetBuilder", "SubjectDrivenTextToImageDataset", "BlipDiffusionFinetuneBuilder")],
+    ("framework.tasks", "TextToImageGenerationTask"),
+    ("framework.logger", "build_logger"),
+    # whole-module copies: every function and class the original defines
+    *[(m, n) for m in ("models.ptp", "framework.download")
+      for n, obj in vars(importlib.import_module("llava_align_tpu." + m)).items()
+      if (inspect.isfunction(obj) or inspect.isclass(obj)) and obj.__module__ == "llava_align_tpu." + m],
 ]
 
 
@@ -475,6 +492,15 @@ def test_copied_constants_identical():
     assert "\n_rng = random.Random(42)\n" in inspect.getsource(jmmmu)
     for got, want in zip(tnoise.diffusion_schedule(), jnoise.diffusion_schedule()):
         assert got.dtype == want.dtype and np.array_equal(got, want)
+    from llava_align_tpu.framework import download as jdl
+    from llava_align_tpu.models import img2prompt as ji
+    from llava_align_tpu.models import ptp as jptp
+    from llava_align_tpu_torch.framework import download as tdl
+    from llava_align_tpu_torch.models import img2prompt as ti
+    from llava_align_tpu_torch.models import ptp as tptp
+
+    assert ti.OPEN_POS == ji.OPEN_POS and ti._STOPWORDS == ji._STOPWORDS and tptp.MAX_NUM_WORDS == jptp.MAX_NUM_WORDS
+    assert [vars(e) for e in tdl.MANIFEST] == [vars(e) for e in jdl.MANIFEST] and len(tdl.MANIFEST) == 16
 
 
 @pytest.mark.parametrize("path", ["liuhaotian/llava-v1.5-7b", "/ckpt/llava-v1.5-13b/", "llava-v1.5-7b",
@@ -631,9 +657,9 @@ def test_caption_task_copy_behaves_as_jax(tmp_path):
     assert texts[0] == texts[1]
     assert '"image_id": 7' in texts[1][2] and texts[1][2].count('"image_id": 7') == 1
     assert treg.list("task") == ["aok_vqa", "base", "captioning", "dialogue", "gqa", "gqa_reading_comprehension",
-                                 "image_text_pretrain", "multimodal_classification", "pope", "retrieval", "vqa",
-                                 "vqa_reading_comprehension"] and treg is not jreg
-    assert set(treg.list("task")) <= set(jreg.list("task"))
+                                 "image_text_pretrain", "multimodal_classification", "pope", "retrieval",
+                                 "text-to-image-generation", "vqa", "vqa_reading_comprehension"] and treg is not jreg
+    assert set(treg.list("task")) == set(jreg.list("task"))
     assert treg.get_task_class("captioning") is ttasks.CaptionTask
     assert treg.get_task_class("pope") is ttasks.PopeTask
     avgs = []

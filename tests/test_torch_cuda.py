@@ -26,7 +26,8 @@ against the CPU, and the kernels' refusal of an input that requires grad
 (causal_attention's 'auto' takes mha under grad); a 2-layer full-width
 fp32 forward of each LAVIS family (BLIP ITM, ALBEF's retrieval step, BLIP
 classification, CLIP's contrastive loss, BLIP-2 stage 1's pretraining
-losses) on the card against the CPU. This file imports no jax, so on the machine with the card it runs without
+losses, PnP-VQA's GradCAM and FiD logits, BLIP-Diffusion's embeddings and
+loss; the cases of utils/lavis_cuts) on the card against the CPU. This file imports no jax, so on the machine with the card it runs without
 the repository's conftest (which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py

@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import pytest
 
+from lavis_ref import one_torch_thread  # noqa: F401 (a fixture)
 from llava_align_tpu.config import GenerationConfig as JGen
 from llava_align_tpu.config import LlavaConfig as JCfg
 from llava_align_tpu.constants import IMAGE_TOKEN_INDEX
@@ -25,6 +26,10 @@ from llava_align_tpu_torch.config import GenerationConfig as TGen
 from llava_align_tpu_torch.config import LlavaConfig as TCfg
 from llava_align_tpu_torch.decoding.engine import DecodeEngine as TEngine
 from llava_align_tpu_torch.utils.jax_params import from_jax_params
+
+# torch on one thread: the tiny models gain nothing from more, and a thread
+# per core spins at every small op (tests/lavis_ref.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 EOS = 2
 JCFG, TCFG = JCfg.tiny(vocab_size=211), TCfg.tiny(vocab_size=211)

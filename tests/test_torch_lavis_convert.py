@@ -298,7 +298,8 @@ def test_load_blip_t5_composite_leaf_exact(tmp_path):
     """itm/ and cap/ (dirs: model.safetensors + config.json) and the T5 at
     an explicit path (a dir: pytorch_model.bin + config.json); then
     _load_component_sd on one .safetensors file and on a .pth with a
-    'model' envelope."""
+    'model' envelope; then the zoo's pnp_vqa, img2prompt_vqa and
+    pnp_unifiedqav2_fid on these checkpoints."""
     from safetensors.torch import save_file
 
     blip_json = {"vision": {"image_size": 32, "patch_size": 16, "hidden_size": 32, "num_layers": 2, "num_heads": 4},
@@ -332,6 +333,22 @@ def test_load_blip_t5_composite_leaf_exact(tmp_path):
         assert all(torch.equal(sd[k], want[k]) and np.array_equal(np.asarray(j_sd[k]), want[k].numpy()) for k in sd)
     with pytest.raises(FileNotFoundError, match="missing component"):
         thf.load_blip_t5_composite(str(tmp_path / "none"), device="cpu")
+    # the zoo's composites (explicit component paths) and the FiD reader
+    # load these checkpoints as the JAX zoo's do
+    from llava_align_tpu.framework import model_zoo as jzoo
+    from llava_align_tpu_torch.framework import model_zoo as tzoo
+
+    kw = dict(itm_path=str(tmp_path / "itm"), cap_path=str(tmp_path / "cap"), block_num=3)
+    for arch, key in (("pnp_vqa", "qa"), ("img2prompt_vqa", "qg")):
+        got = tzoo.load_model(arch, device="cpu", **kw, **{f"{key}_path": str(qa)})
+        want = jzoo.load_model(arch, **kw, **{f"{key}_path": str(qa)})
+        assert got.cfg.block_num == want.cfg.block_num == 3 and got.cfg.itm.text.num_layers == 2
+        for name in ("itm", "cap", key):
+            same(got.params[name], want.params[name])
+    got, want = tzoo.load_model("pnp_unifiedqav2_fid", str(qa), device="cpu"), jzoo.load_model("pnp_unifiedqav2_fid",
+                                                                                                str(qa))
+    same(got.params, want.params)
+    assert got.cfg.d_ff == want.cfg.d_ff == 48
 
 
 # every arch the JAX zoo registers for BLIP, its variants, ALBEF, CLIP and
@@ -344,14 +361,22 @@ LAVIS_ARCHS = ["blip_caption", "blip_image_text_matching", "blip_feature_extract
 
 
 def test_zoo_registers_every_lavis_arch_of_the_jax_zoo():
-    from llava_align_tpu.framework import model_zoo as jzoo
+    """The port's model, processor, builder and task registries equal the
+    JAX package's (so no module of the zoo is missing), and every arch
+    takes the JAX zoo's default preprocess family."""
+    from llava_align_tpu.framework import datasets, model_zoo as jzoo, processors, tasks  # noqa: F401 (registrations)
+    from llava_align_tpu.framework.registry import registry as jreg
+    from llava_align_tpu_torch.framework import datasets as tds, processors as tpr, tasks as tt  # noqa: F401
     from llava_align_tpu_torch.framework import model_zoo as tzoo
+    from llava_align_tpu_torch.framework.registry import registry as treg
 
     j_names = {n for n, _ in jzoo.ModelZoo()}
     t_names = {n for n, _ in tzoo.ModelZoo()}
-    assert set(LAVIS_ARCHS) <= j_names and set(LAVIS_ARCHS) <= t_names
+    assert set(LAVIS_ARCHS) <= j_names and t_names == j_names
     assert "clip" in str(tzoo.model_zoo) and len(tzoo.ModelZoo()) == len(t_names)
-    for name in LAVIS_ARCHS:
+    for group in ("model", "processor", "builder", "task"):
+        assert treg.list(group) == jreg.list(group), group
+    for name in sorted(j_names):
         assert tzoo._preprocess_family(name) == jzoo._preprocess_family(name), name
 
 

@@ -36,7 +36,7 @@ import pytest
 import torch
 import yaml
 
-from lavis_ref import FAST_COMPILE, GptMockTokenizer, fast_jit, np_tree
+from lavis_ref import GptMockTokenizer, fast_jit, jit_eager, np_tree
 from llava_align_tpu.framework import datasets as jd
 from llava_align_tpu.framework import processors as jp
 from llava_align_tpu.framework import tasks as jt
@@ -136,15 +136,7 @@ def _jit_towers(monkeypatch) -> None:
     from llava_align_tpu.models import blip_variants as jbv
     from llava_align_tpu.models import clip as jc
 
-    def jit(fn, *static, static_argnums=(1,)):
-        jitted = jax.jit(fn, static_argnums=static_argnums, static_argnames=static, compiler_options=FAST_COMPILE)
-
-        def call(*args, **kw):
-            traced = any(isinstance(x, jax.core.Tracer) for x in jax.tree_util.tree_leaves((args, kw)))
-            return (fn if traced else jitted)(*args, **kw)
-
-        return call
-
+    jit = jit_eager
     for mod in (ja, jbv, jal):
         monkeypatch.setattr(mod, "med_forward", jit(mod.med_forward, "causal", "mode"))
     for mod in (ja, jbv):

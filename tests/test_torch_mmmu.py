@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from lavis_ref import one_torch_thread  # noqa: F401 (a fixture)
 from llava_align_tpu.config import LlavaConfig as JCfg
 from llava_align_tpu.evals import mmmu as jmmmu_eval
 from llava_align_tpu.models import llava as jllava
@@ -38,6 +39,10 @@ from llava_align_tpu_torch.evals.pope import load_jsonl
 from llava_align_tpu_torch.runners import common as tcommon
 from llava_align_tpu_torch.runners import mmmu as tmmmu
 from llava_align_tpu_torch.utils.jax_params import from_jax_params
+
+# torch on one thread: the tiny models gain nothing from more, and a thread
+# per core spins at every small op (tests/lavis_ref.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-5
 SAMPLES = [

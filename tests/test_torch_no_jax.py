@@ -6,8 +6,10 @@ the MME and MMMU runners and scorers, the Qwen-VL and InstructBLIP
 runners, the W8A8 and int8 KV-cache modes, the sampling sweep, the bias
 probe and the judge pipeline, LLaVA-MPT and BLIP-2 OPT generates, BLIP-2
 T5's t5_generate and a stage-1 caption, the train CLI (2 epochs and a
-resume; the four LAVIS archs' train steps built), the LAVIS zoo (ALPRO
-and GPT dialogue too) and the evaluation CLI once (video retrieval), the
+resume; the four LAVIS archs' train steps built), the LAVIS zoo (ALPRO,
+GPT dialogue, PnP-VQA with its FiD reader, Img2Prompt and BLIP-Diffusion
+too, with the download layer and the prompt-to-prompt controllers) and
+the evaluation CLI once (video retrieval), the
 parallel dry run on 2 spawned ranks (parallel/*), every microbenchmark twin (at rehearsal size) and the utility tail (the native
 loader, PopeTask, profiling, the checkpoint tools, moderation) on the CPU,
 with jax (and the JAX package) blocked — the machine with the card has no
@@ -477,10 +479,19 @@ for arch in ("blip_caption", "blip_retrieval", "blip_nlvr", "albef_vqa", "albef_
     model, vis, txt = load_model_and_preprocess(arch, device="cpu")
     assert model.arch == arch and set(vis) == {"train", "eval"}, arch
 
-# the video and dialogue entries, and the evaluation CLI once (video
+# the video and dialogue entries, PnP-VQA, its FiD reader, Img2Prompt and
+# BLIP-Diffusion (with their processors), the download layer and the
+# prompt-to-prompt controllers; then the evaluation CLI once (video
 # retrieval on alpro_retrieval, synthetic videos)
 for arch in ("alpro_retrieval", "alpro_qa", "gpt_dialogue"):
     assert load_model(arch, device="cpu").arch == arch
+from llava_align_tpu_torch.framework import download
+from llava_align_tpu_torch.models import ptp
+for arch in ("pnp_vqa", "img2prompt_vqa", "pnp_unifiedqav2_fid", "blip_diffusion"):
+    model, vis, txt = load_model_and_preprocess(arch, device="cpu")
+    assert model.arch == arch and set(vis) == {"train", "eval"}, arch
+assert download.entries_for("coco") and download.download_dataset("coco", d, dry_run=True)["val2014"] is None
+assert ptp.register_attention_control(ptp.AttentionStore(), 2).num_att_layers == 2
 from llava_align_tpu_torch.runners import evaluate
 ann = os.path.join(d, "videos.json")
 with open(ann, "w") as f:
@@ -659,7 +670,9 @@ def test_train_cli_runs_with_jax_blocked(runs):
     then the train step of each LAVIS arch (albef_retrieval,
     albef_classification, blip_classification, clip) built on its zoo
     entry, and the LAVIS zoo's entries built with their processors
-    (alpro_retrieval, alpro_qa and gpt_dialogue among them), then
+    (alpro_retrieval, alpro_qa, gpt_dialogue, pnp_vqa, img2prompt_vqa,
+    pnp_unifiedqav2_fid and blip_diffusion among them; the download layer
+    on a dry run, a prompt-to-prompt controller registered), then
     runners/evaluate.main once (video retrieval on alpro_retrieval), with
     jax, the JAX package, safetensors and transformers unimportable (the
     card machine has PyYAML and Pillow, which this path reads)."""

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from lavis_ref import one_torch_thread  # noqa: F401 (a fixture)
 from llava_align_tpu.config import GenerationConfig as JGen
 from llava_align_tpu.decoding.adapters import QwenVLAdapter as JAdapter
 from llava_align_tpu.decoding.engine import DecodeEngine as JEngine
@@ -30,6 +31,10 @@ from llava_align_tpu_torch.decoding.adapters import QwenVLAdapter as TAdapter
 from llava_align_tpu_torch.decoding.engine import DecodeEngine as TEngine
 from llava_align_tpu_torch.models import qwen_vl as tqvl
 from llava_align_tpu_torch.utils.jax_params import from_jax_params
+
+# torch on one thread: the tiny models gain nothing from more, and a thread
+# per core spins at every small op (tests/lavis_ref.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

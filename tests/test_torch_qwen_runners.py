@@ -27,6 +27,7 @@ import os
 import jax
 import pytest
 
+from lavis_ref import one_torch_thread  # noqa: F401 (a fixture)
 from llava_align_tpu.models import qwen_vl as jqvl
 from llava_align_tpu.runners import mme as jmme
 from llava_align_tpu.runners import mmmu as jmmmu
@@ -37,6 +38,10 @@ from llava_align_tpu_torch.runners import mme as tmme
 from llava_align_tpu_torch.runners import mmmu as tmmmu
 from llava_align_tpu_torch.runners import qwen_pope as tqp
 from llava_align_tpu_torch.utils.jax_params import from_jax_params
+
+# torch on one thread: the tiny models gain nothing from more, and a thread
+# per core spins at every small op (tests/lavis_ref.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-5
 W8A8_TOL = 2e-3  # the top-k probabilities under --quant w8a8 (int8 code flips)

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from lavis_ref import one_torch_thread  # noqa: F401 (a fixture)
 from llava_align_tpu.config import LlavaConfig as JCfg
 from llava_align_tpu.decoding import engine as jengine_mod
 from llava_align_tpu.models import llava as jllava
@@ -41,6 +42,10 @@ from llava_align_tpu_torch.evals.pope import load_jsonl
 from llava_align_tpu_torch.runners import common as tcommon
 from llava_align_tpu_torch.runners import pope as tpope
 from llava_align_tpu_torch.utils.jax_params import from_jax_params
+
+# torch on one thread: the tiny models gain nothing from more, and a thread
+# per core spins at every small op (tests/lavis_ref.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5

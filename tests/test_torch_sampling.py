@@ -34,6 +34,7 @@ import pytest
 import torch
 from jax.experimental import io_callback
 
+from lavis_ref import one_torch_thread  # noqa: F401 (a fixture)
 from llava_align_tpu.config import LlavaConfig as JCfg
 from llava_align_tpu.decoding import sampler as jsampler
 from llava_align_tpu.models import instructblip as jblip
@@ -57,6 +58,10 @@ from llava_align_tpu_torch.runners import pope as tpope
 from llava_align_tpu_torch.runners import qwen_pope as tqp
 from llava_align_tpu_torch.runners import sampling as tsampling
 from llava_align_tpu_torch.utils.jax_params import from_jax_params
+
+# torch on one thread: the tiny models gain nothing from more, and a thread
+# per core spins at every small op (tests/lavis_ref.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-5
 BOUNDARY = 1e-5  # a draw this close to a CDF boundary is reported

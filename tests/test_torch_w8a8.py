@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from lavis_ref import one_torch_thread  # noqa: F401 (a fixture)
 from llava_align_tpu.config import GenerationConfig as JGen
 from llava_align_tpu.config import LlavaConfig as JCfg
 from llava_align_tpu.constants import IMAGE_TOKEN_INDEX
@@ -56,6 +57,10 @@ from llava_align_tpu_torch.models import qwen as tqwen
 from llava_align_tpu_torch.models import qwen_vl as tqvl
 from llava_align_tpu_torch.ops import quant as tquant
 from llava_align_tpu_torch.utils.jax_params import from_jax_params
+
+# torch on one thread: the tiny models gain nothing from more, and a thread
+# per core spins at every small op (tests/lavis_ref.one_torch_thread)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
